@@ -5,17 +5,25 @@
 
 Phases, in order:
   env      the card's name and power limit, torch and nvcc versions;
-  build    compiles the CUDA kernels from the checkout's sources (nvcc);
-  kernels  holds each kernel against its plain PyTorch version on the card
-           (bf16 and fp32, head dims 128 and 64) and times kernel, plain
-           version and torch's scaled_dot_product_attention beside the
-           kernel's bound;
+  build    compiles the CUDA kernels from the checkout's sources (nvcc,
+           one process per source, all at once);
+  kernels  holds each attention kernel against its plain PyTorch version
+           on the card (bf16 and fp32, head dims 128 and 64) and times
+           kernel, plain version and torch's scaled_dot_product_attention
+           beside the kernel's bound;
+  int4     the same for the int4 dequant-matmul kernels (K4, K5b, K6, K7)
+           at the int4 path's shapes, with torch._weight_int4pack_mm as
+           the library yardstick where it computes the same function;
   model    full-width Mistral-7B shape (32 layers, bf16, random weights):
            prefill of 4 left-padded prompts, then two greedy decode chunks
-           of 32 steps, through the kernels and through plain attention,
-           compared; the launch counts show each kernel's use;
+           of 32 steps, through the kernels and through the plain
+           versions, compared; the launch counts show each kernel's use;
+  model4   the same shape quantized to int4 (group 64) on the card: first
+           4 layers in fp32, then all 32 in bf16, kernel route against
+           plain route, exact launch counts per prefill and decode step;
   engine   writes a 2-layer Mistral-width model dir with a generated
-           Metaspace-BPE tokenizer and runs GPTEngine.generate_sync on it.
+           Metaspace-BPE tokenizer and runs GPTEngine.generate_sync on it,
+           in bf16 and with quantization="int4", awq=False.
 
 Every phase must pass; the script exits non-zero at the first failure.
 Its last two lines are the kernel table as JSON and the result line
@@ -67,16 +75,31 @@ PROMPT_LENS = (512, 400, 300, 128)   # left-padded to one bucket of 512
 # amplifies one-ulp differences layer after layer (0.27 at the prefill's
 # last position on an H100), so only a coarse bound holds.
 MODEL_LOGIT_TOL = {"float32": 1e-3, "bfloat16": 0.6}
+# int4 kernels against their plain versions, max abs error relative to the
+# largest output: both dequantize the same bytes exactly in fp32 and sum in
+# fp32 in another order (the tensor-core path splits fp32 activations into
+# two bf16 parts, exact to about 2^-17), then round once: 1e-4 in fp32, one
+# bf16 ulp (2^-7 of the magnitude, at most) in bf16
+INT4_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+INT4_GROUP = 64  # the JAX engine's int4 default for dense models
 DECODE_CHUNK = 32
 N_CHUNKS = 2
 PROFILE_STEPS = 8  # decode steps traced by torch.profiler (model phase)
 REPLACES = {
     "flash_prefill": "tinygpt_tpu/ops/attention_kernels.py:179",
     "flash_decode_frozen": "tinygpt_tpu/ops/attention_kernels.py:431",
+    "matmul_dequant_int4": "tinygpt_tpu/ops/quant_kernels.py:327",
+    "matmul_dequant_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:636",
+    "matmul_dequant_int4_stacked_fused": "tinygpt_tpu/ops/quant_kernels.py:984",
+    "mlp_fused_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:1304",
 }
 SOURCES = {
     "flash_prefill": "tinygpt_tpu_torch/csrc/flash_prefill.cu",
     "flash_decode_frozen": "tinygpt_tpu_torch/csrc/flash_decode_frozen.cu",
+    "matmul_dequant_int4": "tinygpt_tpu_torch/csrc/int4_matmul.cu",
+    "matmul_dequant_int4_stacked": "tinygpt_tpu_torch/csrc/int4_matmul.cu",
+    "matmul_dequant_int4_stacked_fused": "tinygpt_tpu_torch/csrc/int4_fused.cu",
+    "mlp_fused_int4_stacked": "tinygpt_tpu_torch/csrc/int4_mlp.cu",
 }
 
 
@@ -92,12 +115,30 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA
-    events), after `warmup` calls."""
+    """Mean device time of one fn() call: the device time of every kernel,
+    copy and fill that `iters` back-to-back calls ran, from torch.profiler,
+    over `iters` (after `warmup` calls). Gaps between launches do not
+    count: the host's launch overhead of a small kernel exceeds its device
+    time, so CUDA events around a loop of calls would time the host. A
+    profiler session that comes back without device events (it happens,
+    rarely) is repeated; after three such, CUDA events time the loop."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us:
+            return us / iters / 1e3
+    log("[time] torch.profiler saw no device time three times: CUDA events instead")
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -381,6 +422,225 @@ def phase_kernels(main_path: dict) -> dict:
     return table
 
 
+# -- int4 kernels --------------------------------------------------------------
+
+
+def _int4_stack(g, L, IN, OUT, group, dev=None):
+    """Random packed int4 bytes [L, IN/2, OUT] and fp32 scales
+    [L, IN/group, OUT] on the card (every byte is a valid nibble pair)."""
+    import torch
+
+    dev = dev or DEVICE
+    data = torch.randint(-128, 128, (L, IN // 2, OUT), generator=g, device=dev,
+                         dtype=torch.int8)
+    scales = torch.rand((L, IN // group, OUT), generator=g, device=dev) * 0.01 + 1e-3
+    return data, scales
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _int4pack_library(x, data, scales, group):
+    """torch._weight_int4pack_mm on the same function (timing yardstick):
+    the half-split biased nibbles repacked to its [OUT, IN/2] k-pairs and
+    the scales to bf16 [IN/group, OUT, 2] with zero points 0, outside the
+    timed call. Returns (the call, None) or (None, the reason)."""
+    import torch
+
+    if x.dtype != torch.bfloat16:
+        return None, "takes bf16 activations only"
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None, "this torch has no _weight_int4pack_mm"
+    u = data.view(torch.uint8)
+    full = torch.cat([u & 0x0F, u >> 4], dim=0).t().contiguous()   # [OUT, IN] u
+    w = ((full[:, 0::2] << 4) | full[:, 1::2]).contiguous()
+    try:
+        packed = torch._convert_weight_to_int4pack(w, 8)
+        sz = torch.stack([scales, torch.zeros_like(scales)], dim=-1).to(torch.bfloat16)
+        call = (lambda: torch._weight_int4pack_mm(x, packed, group, sz))
+        call()
+    except RuntimeError as e:  # the yardstick only: the port never calls it
+        return None, f"torch._weight_int4pack_mm refused: {str(e).splitlines()[0][:120]}"
+    return call, None
+
+
+def _time_layers(fn, L, iters):
+    """Mean device ms of fn(l) over calls that walk the L layers (each
+    call reads a cold layer when a layer exceeds the 50 MB L2 cache, and
+    the stacks together do)."""
+    layers = iter(range(10 ** 9))
+    return cuda_time_ms(lambda: fn(next(layers) % L), iters=iters)
+
+
+def phase_int4_kernels(table: dict) -> None:
+    """K4, K5b, K6 and K7 against their plain versions on the card, at the
+    int4 main path's shapes (Mistral-7B widths, group 64): bf16 and fp32,
+    every K6 variant the path uses (and the silu + res one of the two-call
+    MLP). Times the bf16 calls beside their bound, the plain version, the
+    library call where one exists, and x @ w on the dequantized bf16
+    weight (which moves about 3.6x the bytes). A table row's numbers are
+    means per launch over the path's mix of shapes (K5b: one layer's four
+    prefill matmuls; K6: a decode step's 32 qkv, 32 o and one head call),
+    so that ms x launches is the kernel's time per prefill or step."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    c = MISTRAL_7B
+    H, I, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
+    Nq, Nk = c["num_attention_heads"], c["num_key_value_heads"]
+    D, G = H // Nq, INT4_GROUP
+    B = len(PROMPT_LENS)
+    M_pre = B * max(PROMPT_LENS)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    stacks = {
+        "qkv": _int4_stack(g, L, H, (Nq + 2 * Nk) * D, G),
+        "o": _int4_stack(g, L, Nq * D, H, G),
+        "gate_up": _int4_stack(g, L, H, 2 * I, G),
+        "down": _int4_stack(g, L, I, H, G),
+        "head": _int4_stack(g, 1, H, V, G),
+    }
+    ln = {dt: (1 + 0.1 * torch.randn((L, H), generator=g, device=DEVICE)).to(dt)
+          for dt in (torch.bfloat16, torch.float32)}
+    worst = {}
+    rows = {}   # name -> list of (weight in the mix, ms, plain, bound, library, err)
+
+    def check(name, label, dt, got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        dname = str(dt).replace("torch.", "")
+        tol = INT4_TOL[dname] * want.float().abs().max().item()
+        key = (name, dname)
+        worst[key] = max(worst.get(key, 0.0), err / max(tol, 1e-30))
+        if not (math.isfinite(err) and err <= tol):
+            raise PhaseError(f"{name} {label} {dname}: max_abs_err {err} > {tol}")
+        return err, tol
+
+    def run(name, label, weight, make, kern, plain, nbytes, flops, Ls, library=None,
+            deq=None):
+        """Checks kern against plain in bf16 and fp32 (make(dt, l) gives the
+        arguments of layer l), then times the bf16 call."""
+        for dt in (torch.float32, torch.bfloat16):
+            for l in sorted({0, Ls - 1}):
+                args = make(dt, l)
+                err, tol = check(name, label, dt, kern(*args), plain(*args))
+        t_k = _time_layers(lambda l: kern(*make(torch.bfloat16, l)), Ls, 3 * Ls)
+        args = make(torch.bfloat16, Ls - 1)
+        t_p = cuda_time_ms(lambda: plain(*args), iters=3, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+        t_lib, why = None, None
+        if library is not None:
+            call, why = library(args)
+            if call is not None:
+                lib_err = (call().float() - plain(*args).float()).abs().max().item()
+                t_lib = cuda_time_ms(call, iters=10)
+                why = f"max_abs_err vs plain {lib_err:.3g} (bf16 scales)"
+        else:
+            why = "no single PyTorch call computes the fused function"
+        t_deq = cuda_time_ms(deq(args), iters=10) if deq is not None else None
+        log(f"[int4] {name} {label}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
+            f"{t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}) library "
+            + (f"{t_lib:.4f} ms" if t_lib is not None else "-") + f" [{why}]"
+            + (f" x@w(bf16 dequantized) {t_deq:.4f} ms" if t_deq is not None else ""))
+        rows.setdefault(name, []).append((weight, t_k, t_p, b_ms, b_by, t_lib, err, tol))
+
+    def x_of(dt, M, n, seed):
+        gx = torch.Generator(device=DEVICE).manual_seed(seed)
+        return torch.randn((M, n), generator=gx, device=DEVICE).to(dt)
+
+    def deq_mm(x, data, scales):
+        w = qk.dequant_fp32(qk.unpack_int4(data), scales, G).to(torch.bfloat16)
+        return lambda: x @ w
+
+    # K5b: the prefill's four layer matmuls at M = 4 x 512
+    for key, (IN, OUT) in (("qkv", (H, (Nq + 2 * Nk) * D)), ("o", (Nq * D, H)),
+                           ("gate_up", (H, 2 * I)), ("down", (I, H))):
+        data, scales = stacks[key]
+        xs = {dt: x_of(dt, M_pre, IN, 11) for dt in (torch.float32, torch.bfloat16)}
+        run("matmul_dequant_int4_stacked", f"{key} M={M_pre} {IN}->{OUT}", 1,
+            lambda dt, l, d=data, s=scales, xs=xs: (xs[dt], d, s, l, G),
+            qk.matmul_dequant_int4_stacked, qk.matmul_dequant_int4_stacked_plain,
+            _nbytes(xs[torch.bfloat16], data[0], scales[0]) + M_pre * OUT * 2,
+            2.0 * M_pre * IN * OUT, L,
+            library=lambda a: _int4pack_library(a[0], a[1][a[3]], a[2][a[3]], G),
+            deq=lambda a: deq_mm(a[0], a[1][a[3]], a[2][a[3]]))
+
+    # K4: the prefill's lm_head, M = 4
+    hd, hs = stacks["head"]
+    xs = {dt: x_of(dt, B, H, 12) for dt in (torch.float32, torch.bfloat16)}
+    run("matmul_dequant_int4", f"head M={B} {H}->{V}", 1,
+        lambda dt, l: (xs[dt], hd[0], hs[0], G),
+        qk.matmul_dequant_int4, qk.matmul_dequant_int4_plain,
+        _nbytes(xs[torch.bfloat16], hd, hs) + B * V * 2, 2.0 * B * H * V, 1,
+        library=lambda a: _int4pack_library(a[0], a[1], a[2], G),
+        deq=lambda a: deq_mm(a[0], a[1], a[2]))
+
+    # K6 at M = 4: qkv (norm prologue, RoPE), o (+ res), head (final norm)
+    inv = torch.rand((B, 1), generator=g, device=DEVICE) + 0.5
+    ang = torch.rand((B, D // 2), generator=g, device=DEVICE) * 6.3
+    cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+    qd, qs = stacks["qkv"]
+    xs = {dt: x_of(dt, B, H, 13) for dt in (torch.float32, torch.bfloat16)}
+    OQ = (Nq + 2 * Nk) * D
+    run("matmul_dequant_int4_stacked_fused", f"qkv ln+rope M={B} {H}->{OQ}", L,
+        lambda dt, l: (xs[dt], qd, qs, l, G, ln[dt], inv, None, None, False, cos, sin,
+                       Nq + Nk, D),
+        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
+        _nbytes(xs[torch.bfloat16], qd[0], qs[0], ln[torch.bfloat16][0], inv, cos, sin)
+        + B * OQ * 2, 2.0 * B * H * OQ, L)
+    od, os_ = stacks["o"]
+    res = {dt: x_of(dt, B, H, 14) for dt in (torch.float32, torch.bfloat16)}
+    xo = {dt: x_of(dt, B, Nq * D, 15) for dt in (torch.float32, torch.bfloat16)}
+    run("matmul_dequant_int4_stacked_fused", f"o res M={B} {Nq * D}->{H}", L,
+        lambda dt, l: (xo[dt], od, os_, l, G, None, None, res[dt]),
+        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
+        _nbytes(xo[torch.bfloat16], od[0], os_[0], res[torch.bfloat16]) + B * H * 2,
+        2.0 * B * Nq * D * H, L)
+    fln = {dt: ln[dt][:1] for dt in ln}
+    run("matmul_dequant_int4_stacked_fused", f"head ln M={B} {H}->{V}", 1,
+        lambda dt, l: (xs[dt], hd, hs, 0, G, fln[dt], inv),
+        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
+        _nbytes(xs[torch.bfloat16], hd, hs, fln[torch.bfloat16], inv) + B * V * 2,
+        2.0 * B * H * V, 1)
+    # the two-call MLP's second call (silu * up, + res): off the main path
+    dd, ds = stacks["down"]
+    xg = {dt: x_of(dt, B, 2 * I, 16) for dt in (torch.float32, torch.bfloat16)}
+    run("matmul_dequant_int4_stacked_fused", f"down silu+res M={B} {I}->{H} "
+        f"(off the main path)", 0,
+        lambda dt, l: (xg[dt], dd, ds, l, G, None, None, res[dt], None, True),
+        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
+        _nbytes(xg[torch.bfloat16], dd[0], ds[0], res[torch.bfloat16]) + B * H * 2,
+        2.0 * B * I * H, L)
+
+    # K7 at M = 4
+    gd, gs = stacks["gate_up"]
+    xm = {dt: x_of(dt, B, H, 17) for dt in (torch.float32, torch.bfloat16)}
+    run("mlp_fused_int4_stacked", f"mlp M={B} {H}->{2 * I}->{H}", 1,
+        lambda dt, l: (xm[dt], gd, gs, dd, ds, ln[dt], inv, l, G),
+        qk.mlp_fused_int4_stacked, qk.mlp_fused_int4_stacked_plain,
+        _nbytes(xm[torch.bfloat16], gd[0], gs[0], dd[0], ds[0], ln[torch.bfloat16][0],
+                inv) + B * H * 2, 2.0 * B * (H * 2 * I + I * H), L)
+
+    for (name, dname), r in sorted(worst.items()):
+        log(f"[int4] {name} {dname}: worst max_abs_err over all cases {r:.3g} of its "
+            f"tolerance")
+    for name, rs in rows.items():
+        wts = [r[0] for r in rs]  # launches of each shape in the path's mix
+        n = sum(wts)
+        mean = [sum(w * r[i] for w, r in zip(wts, rs)) / n for i in (1, 2, 3)]
+        libs = [r[5] for w, r in zip(wts, rs) if w]
+        lib = (sum(w * r[5] for w, r in zip(wts, rs)) / n
+               if all(x is not None for x in libs) else None)
+        by = "bytes" if all(r[4] == "bytes" for w, r in zip(wts, rs) if w) else "operations"
+        table[name] = dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=0, max_abs_err=max(r[6] for r in rs), tol=max(r[7] for r in rs),
+            ms=mean[0], plain_ms=mean[1], bound_ms=mean[2], bound_by=by, library_ms=lib)
+    del stacks
+    torch.cuda.empty_cache()
+
+
 def main_path_shapes() -> dict:
     """Shapes the model phase gives each kernel (the engine's cache length
     rule: the bucketed prompt plus every decode chunk)."""
@@ -457,7 +717,7 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None):
             t_decode * 1e3 / (N_CHUNKS * DECODE_CHUNK))
 
 
-def _profile_decode(params, cfg, batch, T) -> None:
+def _profile_decode(params, cfg, batch, T, label: str = "bf16") -> None:
     """Device time by kernel over PROFILE_STEPS decode steps of the kernel
     route (torch.profiler), against their wall time: where a step's time
     goes, and how much of it the device sits idle. The profiler's own cost
@@ -494,16 +754,19 @@ def _profile_decode(params, cfg, batch, T) -> None:
         log("[profile] decode steps: device time not measured (the profiler saw "
             "no device activity)")
         return
-    groups = {"flash_decode_frozen": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
+    groups = {"flash_decode_frozen": 0.0, "int4 (K6, K7)": 0.0, "GEMM (cuBLAS)": 0.0,
+              "other": 0.0}
     for us, _, key in kernels:
         if "flash_decode_frozen" in key:
             groups["flash_decode_frozen"] += us
+        elif "int4" in key:
+            groups["int4 (K6, K7)"] += us
         elif any(w in key.lower() for w in ("gemm", "nvjet", "cutlass", "gemv")):
             groups["GEMM (cuBLAS)"] += us
         else:
             groups["other"] += us
     launches = sum(c for _, c, _ in kernels)
-    log(f"[profile] {n} decode steps under the profiler: wall {wall_us / n / 1e3:.3f} "
+    log(f"[profile] {label}: {n} decode steps under the profiler: wall {wall_us / n / 1e3:.3f} "
         f"ms/step, device busy {busy_us / n / 1e3:.3f} ms/step "
         f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% "
         f"idle), {launches // n} device launches/step; by group (ms/step): "
@@ -627,9 +890,103 @@ def phase_model(table: dict) -> None:
         f"{prefill_bound_ms:.3f} ms")
 
 
+def phase_model_int4(table: dict) -> None:
+    """The Mistral-7B shape quantized to int4 (group 64) on the card, the
+    kernel route (K5b, K4 and K1 in the prefill; K6, K7 and K2 in every
+    decode step) against the plain route on the same params: first at 4
+    layers in fp32, then at all 32 layers in bf16 with forced tokens."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor, quantize_params
+
+    mp = main_path_shapes()
+    S, T = mp["prefill"]["S"], mp["prefill"]["T"]
+    B = len(PROMPT_LENS)
+    with torch.inference_mode():
+        cfg32 = parse_model_config(dict(MISTRAL_7B, num_hidden_layers=4))
+        params = quantize_params(causal_lm.init_params(cfg32, seed=0, dtype=torch.float32,
+                                                       device=DEVICE),
+                                 bits=4, group_size=INT4_GROUP)
+        batch = _left_padded_batch(S, PROMPT_LENS, cfg32.vocab_size, seed=1)
+        plain = _run_route(params, cfg32, batch, T, "plain")
+        kern = _run_route(params, cfg32, batch, T, "kernel", force=plain[1])
+        _check_routes("int4, fp32, 4 layers", kern, plain, MODEL_LOGIT_TOL["float32"])
+        if not torch.equal(_run_route(params, cfg32, batch, T, "kernel")[1], plain[1]):
+            raise PhaseError("int4, fp32, 4 layers: free-running greedy tokens of the "
+                             "kernel route differ from the plain route's")
+        log("[model4] int4, fp32, 4 layers: free-running greedy tokens identical on "
+            "both routes")
+        del params
+
+        cfg = parse_model_config(MISTRAL_7B)
+        L = cfg.num_hidden_layers
+        t0 = time.perf_counter()
+        params = causal_lm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEVICE)
+        params = quantize_params(params, bits=4, group_size=INT4_GROUP)  # frees bf16 stacks
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        quant = [params["lm_head"], *(v for v in params["layers"].values()
+                                      if isinstance(v, QuantizedTensor))]
+        q_bytes = sum(_nbytes(q.data, q.scales) for q in quant)
+        norms = sum(_nbytes(v) for v in params["layers"].values()
+                    if not isinstance(v, QuantizedTensor)) + _nbytes(params["final_ln"])
+        kv_bytes = 2 * L * B * cfg.num_kv_heads * T * cfg.head_dim * 2
+        step_bytes = q_bytes + norms + kv_bytes
+        layer_weights = sum(q.data.shape[0] * q.in_dim * q.out_dim for q in quant[1:])
+        prefill_flops = 2 * (layer_weights * sum(PROMPT_LENS)
+                             + cfg.hidden_size * cfg.vocab_size * B)
+        prefill_bound_ms = max((q_bytes + norms) / HBM_BYTES_PER_S,
+                               prefill_flops / PEAK_FLOPS["bfloat16"]) * 1e3
+        log(f"[model4] Mistral-7B shape, {L} layers, quantized to int4 group {INT4_GROUP} "
+            f"on the card in {time.perf_counter() - t0:.1f} s: packed weights and scales "
+            f"{q_bytes / 1e9:.3f} GB (layers and head), a decode step reads "
+            f"{step_bytes / 1e9:.3f} GB (with the norms and the {kv_bytes / 1e9:.3f} GB "
+            f"K/V cache)")
+        _run_route(params, cfg, batch, T, "kernel")       # warm-up
+        plain = _run_route(params, cfg, batch, T, "plain")
+        forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1])
+        ak.reset_launches()                                # the int4 main path's run
+        kern = _run_route(params, cfg, batch, T, "kernel")
+        launches = dict(ak.LAUNCHES)
+        _profile_decode(params, cfg, batch, T, label="int4")
+        del params
+    torch.cuda.empty_cache()
+
+    n = N_CHUNKS * DECODE_CHUNK
+    want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
+            "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
+            "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
+            "mlp_fused_int4_stacked": L * n}
+    log(f"[model4] launches {launches} (want {want}: per prefill K5b {4 * L}, K4 1, "
+        f"K1 {L}; per decode step K6 {2 * L + 1}, K7 {L}, K2 {L})")
+    if launches != want:
+        raise PhaseError(f"int4 kernel launches {launches} != {want}")
+    for name in ("matmul_dequant_int4", "matmul_dequant_int4_stacked",
+                 "matmul_dequant_int4_stacked_fused", "mlp_fused_int4_stacked"):
+        table[name]["launches"] = launches[name]
+    _check_routes(f"int4, bf16, {L} layers", forced, plain, MODEL_LOGIT_TOL["bfloat16"])
+    same = int((kern[1] == plain[1]).all(dim=0).sum())
+    log(f"[model4] int4, bf16, {L} layers: free-running greedy tokens of the two routes "
+        f"identical over all {kern[1].shape[0]} positions in {same} of "
+        f"{kern[1].shape[1]} rows")
+    pre_ms, dec_ms = kern[2:]
+    pre_ms_p, dec_ms_p = plain[2:]
+    log(f"[model4] kernel route: prefill {pre_ms:.2f} ms ({B}x{S} tokens), decode "
+        f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B}; plain "
+        f"route: prefill {pre_ms_p:.2f} ms, decode {dec_ms_p:.3f} ms/step; "
+        f"bound of a step ({step_bytes / 1e9:.3f} GB read once) "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; bound of the prefill "
+        f"({prefill_flops / 1e12:.2f} TFLOP for {sum(PROMPT_LENS)} real tokens) "
+        f"{prefill_bound_ms:.3f} ms")
+
+
 def phase_engine() -> None:
     """GPTEngine on a model dir written here: Mistral-7B widths, 2 layers,
-    random bf16 weights, the generated Metaspace-BPE tokenizer."""
+    random bf16 weights, the generated Metaspace-BPE tokenizer; once in
+    bf16, once quantized to int4 (awq=False)."""
     import shutil
     import tempfile
 
@@ -642,40 +999,50 @@ def phase_engine() -> None:
 
     max_tokens = 32
     cfg = dict(MISTRAL_7B, num_hidden_layers=2)
+    prompts = ["The meaning of life is", "Once upon a time,",
+               "In a shocking finding, scientists discovered",
+               "The best way to learn programming is"]
+    runs = {"bf16": ({}, ("flash_prefill", "flash_decode_frozen")),
+            "int4": (dict(quantization="int4", awq=False),
+                     ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int4",
+                      "matmul_dequant_int4_stacked", "matmul_dequant_int4_stacked_fused",
+                      "mlp_fused_int4_stacked"))}
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     d = tempfile.mkdtemp(prefix="smoke_model_", dir=cuda_build.BUILD_DIR)
     try:
         t0 = time.perf_counter()
         write_random_model_dir(d, cfg, seed=2, dtype=torch.bfloat16, device=DEVICE)
         size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
-        t_write = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE))
-        eng.prepare()
-        t_load = time.perf_counter() - t0
-        prompts = ["The meaning of life is", "Once upon a time,",
-                   "In a shocking finding, scientists discovered",
-                   "The best way to learn programming is"]
-        ak.reset_launches()
-        t0 = time.perf_counter()
-        outs = eng.generate_sync(prompts)
-        torch.cuda.synchronize()
-        t_gen = time.perf_counter() - t0
-        launches = dict(ak.LAUNCHES)
-        del eng
+        log(f"[engine] model dir {size / 1e9:.2f} GB written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for label, (kw, kernels) in runs.items():
+            t0 = time.perf_counter()
+            eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE,
+                                      **kw))
+            eng.prepare()
+            t_load = time.perf_counter() - t0
+            ak.reset_launches()
+            t0 = time.perf_counter()
+            outs = eng.generate_sync(prompts)
+            torch.cuda.synchronize()
+            t_gen = time.perf_counter() - t0
+            launches = dict(ak.LAUNCHES)
+            del eng
+            torch.cuda.empty_cache()
+            n = [len(o.token_ids) for o in outs]
+            log(f"[engine] {label}: prepare() {t_load:.1f} s; generate_sync of "
+                f"{len(prompts)} prompts: {sum(n)} tokens in {t_gen * 1e3:.0f} ms; "
+                f"launches {launches}")
+            log(f"[engine] {label}: first output: {outs[0].text[:60]!r}")
+            if n != [max_tokens] * len(prompts):
+                raise PhaseError(f"{label} engine produced {n} tokens, want "
+                                 f"{max_tokens} per prompt")
+            missing = [k for k in kernels if not launches.get(k)]
+            if missing:
+                raise PhaseError(f"{label} engine run launched {launches}: {missing} "
+                                 f"never launched")
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    torch.cuda.empty_cache()
-    n = [len(o.token_ids) for o in outs]
-    log(f"[engine] model dir {size / 1e9:.2f} GB written in {t_write:.1f} s, "
-        f"prepare() {t_load:.1f} s; generate_sync of {len(prompts)} prompts: "
-        f"{sum(n)} tokens in {t_gen * 1e3:.0f} ms; launches {launches}")
-    log(f"[engine] first output: {outs[0].text[:60]!r}")
-    if n != [max_tokens] * len(prompts):
-        raise PhaseError(f"engine produced {n} tokens, want {max_tokens} per prompt")
-    if not (launches.get("flash_prefill", 0) > 0
-            and launches.get("flash_decode_frozen", 0) > 0):
-        raise PhaseError(f"engine run launched {launches}: both kernels expected")
 
 
 def main() -> int:
@@ -696,7 +1063,9 @@ def main() -> int:
     try:
         phase_build()
         table = phase_kernels(main_path_shapes())
+        phase_int4_kernels(table)
         phase_model(table)
+        phase_model_int4(table)
         phase_engine()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

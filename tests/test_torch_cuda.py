@@ -180,3 +180,168 @@ def test_model_on_the_card_matches_the_cpu(dev):
     assert dict(ak.LAUNCHES) == {"flash_prefill": 2, "flash_decode_frozen": 2 * 2 * chunk}
     assert _max_err(lg_gpu, lg_cpu) <= 1e-4
     assert torch.equal(toks_gpu, toks_cpu)
+
+
+# -- int4 dequant-matmul kernels (K4, K5b, K6, K7) -------------------------------
+#
+# Kernel and plain version dequantize the same bytes exactly in fp32 and sum
+# in fp32 in another order (the tensor-core path splits fp32 activations into
+# two bf16 parts, exact to about 2^-17), then round once. Tolerance, relative
+# to the largest output: 1e-4 in fp32, one bf16 ulp (2^-7) in bf16.
+
+from tinygpt_tpu_torch.ops import quant_kernels as qk  # noqa: E402
+from tinygpt_tpu_torch.ops.quant import pad_x_to, quantize_weight  # noqa: E402
+
+QTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _qclose(got, want, dtype, what=""):
+    err = _max_err(got, want)
+    scale = want.float().abs().max().item()
+    assert err <= QTOL[dtype] * scale, (what, err, scale)
+
+
+def _qweight(gen, L, IN, OUT, group, dev):
+    w = torch.randn((L, IN, OUT), generator=gen) * 0.05
+    qt = quantize_weight(w, bits=4, group_size=group)
+    return qt.data.to(dev), qt.scales.to(dev), qt.group_size, qt.in_dim
+
+
+MATMUL_CASES = [
+    # (M, IN, OUT, group, L, dtype): IN 192 and 320 are row-padded to 256 / 512
+    (1, 256, 384, 64, 2, torch.float32),
+    (3, 192, 200, 64, 1, torch.bfloat16),
+    (4, 4096, 1024, 64, 2, torch.bfloat16),
+    (5, 512, 136, 32, 3, torch.float32),
+    (32, 320, 256, 128, 2, torch.bfloat16),
+    (33, 256, 384, 64, 2, torch.float32),
+    (100, 192, 200, 64, 2, torch.bfloat16),
+    (200, 1024, 520, 64, 2, torch.float32),
+    (257, 4096, 256, 64, 1, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", MATMUL_CASES)
+def test_int4_matmul_kernels_match_plain(dev, case):
+    M, IN, OUT, group, L, dtype = case
+    gen = torch.Generator().manual_seed(3)
+    data, scales, g, in_p = _qweight(gen, L, IN, OUT, group, dev)
+    x = pad_x_to(_randn(gen, M, IN, dtype=dtype, dev=dev), in_p).contiguous()
+    for l in range(L):
+        ak.reset_launches()
+        got = qk.matmul_dequant_int4_stacked(x, data, scales, l, g)
+        assert ak.LAUNCHES["matmul_dequant_int4_stacked"] == 1
+        want = qk.matmul_dequant_int4_stacked_plain(x, data, scales, l, g)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, OUT)
+        _qclose(got, want, dtype, f"K5b layer {l}")
+    got = qk.matmul_dequant_int4(x, data[0], scales[0], g)
+    assert ak.LAUNCHES["matmul_dequant_int4"] == 1
+    _qclose(got, qk.matmul_dequant_int4_plain(x, data[0], scales[0], g), dtype, "K4")
+
+
+FUSED_CASES = [
+    # (variant, M, IN, Nq, Nk, D, dtype); OUT = (Nq + 2 Nk) * D, so the
+    # q || k / v boundary is at column (Nq + Nk) * D: 896 and 5120 fall
+    # inside the TPU kernel's output tiles, and here the RoPE tiles are
+    # single heads gated by their first column
+    ("ln", 4, 256, 3, 1, 128, torch.float32),
+    ("ln", 7, 192, 3, 1, 64, torch.bfloat16),              # padded rows
+    ("silu_res", 4, 320, 2, 1, 64, torch.bfloat16),        # padded per segment
+    ("silu_res", 1, 256, 3, 1, 128, torch.float32),
+    ("ln_bias", 4, 256, 3, 1, 128, torch.bfloat16),
+    ("ln_rope", 4, 256, 6, 1, 128, torch.float32),
+    ("ln_rope", 4, 4096, 32, 8, 128, torch.bfloat16),     # Mistral-7B qkv
+    ("ln_rope", 9, 192, 4, 2, 64, torch.bfloat16),
+    ("ln_rope", 2, 256, 4, 2, 32, torch.float32),
+    ("ln_bias_rope_qk", 4, 256, 6, 2, 128, torch.float32),
+    ("ln_rope_qk", 4, 2048, 16, 8, 128, torch.bfloat16),  # qwen3-1.7B qkv
+    ("ln_rope_qk", 3, 256, 4, 2, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_int4_fused_kernel_matches_plain(dev, case):
+    variant, M, IN, Nq, Nk, D, dtype = case
+    gen = torch.Generator().manual_seed(4)
+    L, OUT = 2, (Nq + 2 * Nk) * D
+    data, scales, g, _ = _qweight(gen, L, IN, OUT, 64, dev)
+    x = _randn(gen, M, 2 * IN if variant == "silu_res" else IN, dtype=dtype, dev=dev)
+    kw = {}
+    if variant.startswith("ln"):
+        kw["ln"] = (1 + 0.1 * torch.randn((L, 1, IN), generator=gen)).to(dtype).to(dev)
+        kw["invrms"] = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + 1e-5)
+    if variant == "silu_res":
+        kw.update(silu=True, res=_randn(gen, M, OUT, dtype=dtype, dev=dev))
+    if "bias" in variant:
+        kw["bias"] = _randn(gen, L, 1, OUT, dtype=dtype, dev=dev)
+    if "rope" in variant:
+        ang = torch.rand((M, D // 2), generator=gen) * 6.3
+        kw.update(rope_cos=torch.cat([ang.cos()] * 2, -1).to(dev),
+                  rope_sin=torch.cat([ang.sin()] * 2, -1).to(dev),
+                  rope_heads=Nq + Nk, rope_dim=D)
+    if "qk" in variant:
+        kw.update(qk_norm_w=tuple((1 + 0.1 * torch.randn((L, D), generator=gen))
+                                  .to(dtype).to(dev) for _ in range(2)),
+                  qk_heads=Nq, eps=1e-6)
+    for l in range(L):
+        ak.reset_launches()
+        got = qk.matmul_dequant_int4_stacked_fused(x, data, scales, l, g, **kw)
+        assert ak.LAUNCHES["matmul_dequant_int4_stacked_fused"] == 1
+        want = qk.matmul_dequant_int4_stacked_fused_plain(x, data, scales, l, g, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, OUT)
+        _qclose(got, want, dtype, f"{variant} layer {l}")
+
+
+@pytest.mark.parametrize("M,H,I,dtype", [(4, 1024, 3072, torch.bfloat16),
+                                         (1, 256, 320, torch.float32),
+                                         (7, 192, 512, torch.bfloat16),
+                                         (32, 512, 768, torch.float32)])
+def test_int4_mlp_kernel_matches_plain(dev, M, H, I, dtype):
+    gen = torch.Generator().manual_seed(5)
+    L = 2
+    gu, gus, g, _ = _qweight(gen, L, H, 2 * I, 64, dev)
+    dn, dns, _, _ = _qweight(gen, L, I, H, 64, dev)
+    x = _randn(gen, M, H, dtype=dtype, dev=dev)
+    ln = (1 + 0.1 * torch.randn((L, H), generator=gen)).to(dtype).to(dev)
+    inv = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + 1e-5)
+    for l in range(L):
+        ak.reset_launches()
+        got = qk.mlp_fused_int4_stacked(x, gu, gus, dn, dns, ln, inv, l, g)
+        assert ak.LAUNCHES["mlp_fused_int4_stacked"] == 1
+        want = qk.mlp_fused_int4_stacked_plain(x, gu, gus, dn, dns, ln, inv, l, g)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, H)
+        _qclose(got, want, dtype, f"layer {l}")
+
+
+def test_int4_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator().manual_seed(6)
+    data, scales, g, _ = _qweight(gen, 2, 256, 384, 64, dev)
+    x = _randn(gen, 4, 256, dtype=torch.bfloat16, dev=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        qk.matmul_dequant_int4_stacked(x.half(), data, scales, 0, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.matmul_dequant_int4_stacked(
+            x.t().contiguous().t(), data, scales, 0, g)
+    with pytest.raises(ValueError, match="expected"):
+        qk.matmul_dequant_int4_stacked(x, data.cpu(), scales, 0, g)
+    with pytest.raises(ValueError, match="layer"):
+        qk.matmul_dequant_int4_stacked(x, data, scales, 2, g)
+    with pytest.raises(ValueError, match="group"):
+        qk.matmul_dequant_int4_stacked(x, data, scales.reshape(2, 8, 192), 0, 8)
+    with pytest.raises(ValueError, match="rows"):
+        qk.matmul_dequant_int4_stacked_fused(
+            _randn(gen, 33, 256, dtype=torch.bfloat16, dev=dev), data, scales, 0, g)
+    with pytest.raises(ValueError, match="RoPE"):
+        c = torch.zeros(4, 96, device=dev)
+        qk.matmul_dequant_int4_stacked_fused(x, data, scales, 0, g, rope_cos=c,
+                                             rope_sin=c, rope_heads=1, rope_dim=96)
+    dn, dns, _, _ = _qweight(gen, 2, 192, 256, 64, dev)  # I = 384 / 2
+    ln = torch.ones(2, 256, device=dev, dtype=torch.bfloat16)
+    inv = torch.ones(4, 1, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        qk.mlp_fused_int4_stacked(x.float(), data, scales, dn, dns, ln, inv, 0, g)
+    with pytest.raises(ValueError, match="do not fit"):
+        qk.mlp_fused_int4_stacked(x, data, scales, dn, dns, ln[:, :128], inv, 0, g)

@@ -5,8 +5,9 @@
 Counterpart of tinygpt_tpu/cli.py: --model/--dtype/--max-tokens and the
 sampler flags, a fixed prompt batch (overridable with --prompt), and
 token/s timing. Runs on the CUDA device unless --device says otherwise.
-The flags of features not ported yet (--stream, --quantization, --awq,
---mesh, --speculative) are accepted and raise NotImplementedError.
+Weight-only int4 runs with `--quantization int4 --no-awq`. The flags of
+features not ported yet (--stream, --mesh, --speculative, int8 and AWQ)
+are accepted and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,8 +27,7 @@ DEFAULT_PROMPTS = [
 ]
 
 # flag -> ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {"stream": 5, "speculative": 5, "quantization": 6, "awq": 8,
-               "mesh": 13}
+_NOT_PORTED = {"stream": 5, "speculative": 5, "mesh": 13}
 
 
 def main(argv=None) -> int:
@@ -51,9 +51,12 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", action="store_true",
                     help="(not ported yet)")
     ap.add_argument("--quantization", default=None, choices=["int8", "int4"],
-                    help="(not ported yet)")
+                    help="weight-only quantization (int4; int8 not ported yet)")
+    ap.add_argument("--quant-group-size", type=int, default=None,
+                    help="default: 64 for int4")
     ap.add_argument("--awq", action=argparse.BooleanOptionalAction,
-                    default=None, help="(not ported yet)")
+                    default=None,
+                    help="AWQ is not ported yet: int4 needs --no-awq")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
                     help="(not ported yet)")
     ap.add_argument("--speculative", default=None, choices=["ngram"],
@@ -75,6 +78,9 @@ def main(argv=None) -> int:
         ),
         seed=args.seed,
         device=args.device,
+        quantization=args.quantization,
+        quant_group_size=args.quant_group_size,
+        awq=args.awq,
     ))
     t0 = time.perf_counter()
     engine.prepare()

@@ -9,10 +9,13 @@ one prefill, then chunks of `decode_chunk` frozen-cache decode steps
 the only point where the loop waits for the device.
 
 On the card every attention call goes through the Hopper kernels
-(ops/attention_kernels.py); given device="cpu" the same calls run their
-plain PyTorch versions. Not ported yet, each raising NotImplementedError
-when asked for: weight quantization and AWQ, the fp8 KV cache, device
-meshes, speculative decoding and streaming (generate_async).
+(ops/attention_kernels.py), and with quantization="int4" every weight
+matmul through the int4 kernels (ops/quant_kernels.py); given
+device="cpu" the same calls run their plain PyTorch versions. Not
+ported yet, each raising NotImplementedError when asked for: int8
+weights, AWQ (so int4 needs an explicit awq=False, where the JAX engine
+would run AWQ by default), the fp8 KV cache, device meshes, speculative
+decoding and streaming (generate_async).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
 from tinygpt_tpu_torch.hf.loader import GPTContext, load_model_dir, resolve_dtype
+from tinygpt_tpu_torch.ops.quant import quantize_params
 from tinygpt_tpu_torch.ops.sampling import SamplerConfig, sample
 from tinygpt_tpu_torch.utils.logging import get_logger
 
@@ -56,10 +60,14 @@ class GPTConfig:
     # decode steps per chunk; EOS is checked on the host between chunks
     decode_chunk: int = 32
     device: Any = "cuda"
-    # not ported yet (ROADMAP.md queue 1): must stay at these defaults
+    # weight-only quantization: None | "int4" ("int8" is not ported yet)
     quantization: Optional[str] = None
+    # None = auto (resolve_quant_group): 64 for int4
     quant_group_size: Optional[int] = None
+    # AWQ is not ported yet: int4 needs awq=False (None means "auto", which
+    # in the JAX engine runs AWQ for int4)
     awq: Optional[bool] = None
+    # not ported yet (ROADMAP.md queue 1): must stay at these defaults
     kv_cache_dtype: str = "auto"
     speculative: Optional[str] = None
     mesh_shape: Optional[tuple] = None
@@ -81,9 +89,27 @@ def _round_up(x: int, m: int) -> int:
 _FP8_NAMES = ("fp8", "float8_e4m3", "e4m3")
 
 
+def resolve_quant_group(bits: int, group: Optional[int]) -> int:
+    """Default quant group size, as the JAX engine chooses it for dense
+    models: an explicit group wins; int4 takes 64, int8 128."""
+    if group is not None:
+        return group
+    return 64 if bits == 4 else 128
+
+
 def _check_ported(cfg: GPTConfig) -> None:
+    if cfg.quantization not in (None, "int4", "int8"):
+        raise ValueError(f"unknown quantization {cfg.quantization!r}")
+    if cfg.quantization == "int8":
+        raise NotImplementedError(
+            "GPTConfig.quantization='int8' is not ported to tinygpt_tpu_torch "
+            "yet (ROADMAP.md queue 1, item 6; kernels K3 and K5a)")
+    if cfg.quantization == "int4" and cfg.awq is not False:
+        raise NotImplementedError(
+            f"GPTConfig.awq={cfg.awq!r} with int4: AWQ is not ported to "
+            f"tinygpt_tpu_torch yet (ROADMAP.md queue 1, item 8), and the "
+            f"default would run it; pass awq=False for plain int4")
     deferred = [
-        ("quantization", cfg.quantization is not None, 6),
         ("awq", bool(cfg.awq), 8),
         ("kv_cache_dtype", cfg.kv_cache_dtype in _FP8_NAMES, 7),
         ("speculative", cfg.speculative is not None, 5),
@@ -112,6 +138,11 @@ class GPTEngine:
         self._device = torch.device(cfg.device)
         self.ctx = load_model_dir(cfg.model_dir, dtype=cfg.dtype,
                                   device=self._device)
+        if cfg.quantization == "int4":
+            group = resolve_quant_group(4, cfg.quant_group_size)
+            self.ctx.params = quantize_params(self.ctx.params, bits=4,
+                                              group_size=group)
+            log.info("quantized weights to int4 (group %d)", group)
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(cfg.seed)
         self._collect_eos_ids()

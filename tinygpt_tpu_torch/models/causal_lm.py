@@ -22,8 +22,17 @@ the Hopper kernels (ops/attention_kernels.py) under attn_impl="kernel",
 or through the plain position-masked oracles under "plain". The KV cache
 is updated in place (engine/kv_cache.py).
 
-Not ported yet, each raising NotImplementedError: quantized weights
-(ROADMAP queue 1 item 6), the fp8 KV cache (item 7) and MoE (item 12).
+int4 weight-only params (ops/quant.quantize_params) run the int4 kernels
+of ops/quant_kernels.py: in `forward` every layer matmul goes through K5b
+and the lm_head through K4; `decode_steps` takes the fused route (K6 for
+qkv with the norm prologue and the RoPE / qk-norm epilogue, for o with
+the residual and for the head with the final norm; K7 for the MLP). The
+layer is an offset into the [L, ...] stacks. attn_impl="plain" runs the
+plain version of every kernel instead.
+
+Not ported yet, each raising NotImplementedError: int8 weights (ROADMAP
+queue 1 item 6, kernels K3/K5a), the fp8 KV cache (item 7) and MoE
+(item 12).
 """
 
 from __future__ import annotations
@@ -41,7 +50,13 @@ from tinygpt_tpu_torch.ops.attention import (
     sdpa_decode_frozen,
 )
 from tinygpt_tpu_torch.ops.attention_kernels import flash_decode_frozen
+from tinygpt_tpu_torch.ops import quant_kernels as qk
 from tinygpt_tpu_torch.ops.norms import rms_norm
+from tinygpt_tpu_torch.ops.quant import (
+    QuantizedTensor,
+    matmul_dequant,
+    matmul_dequant_stacked,
+)
 from tinygpt_tpu_torch.ops.rope import (
     apply_rope_gathered,
     compute_rope_freqs,
@@ -59,9 +74,15 @@ def _check_supported(cfg: ModelConfig, params: Optional[Dict] = None) -> None:
     if cfg.num_local_experts:
         raise _not_ported("the MoE MLP (mixtral)", 12)
     if params is not None:
-        for k, v in params["layers"].items():
-            if not isinstance(v, torch.Tensor):
-                raise _not_ported(f"quantized weight {k!r}", 6)
+        weights = dict(params["layers"], lm_head=params.get("lm_head"))
+        for k, v in weights.items():
+            if isinstance(v, QuantizedTensor) and v.bits != 4:
+                raise NotImplementedError(
+                    f"int{v.bits} weight {k!r}: int8 weights are not ported to "
+                    f"tinygpt_tpu_torch yet (ROADMAP.md queue 1, item 6; "
+                    f"kernels K3 and K5a)")
+            if not (v is None or isinstance(v, (torch.Tensor, QuantizedTensor))):
+                raise _not_ported(f"weight {k!r} of type {type(v).__name__}", 6)
 
 
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -199,11 +220,21 @@ def params_from_numpy(np_params: Dict, device: Any = "cuda",
     """The JAX package's params as numpy arrays
     (`jax.tree.map(np.asarray, params)`) → this package's params, with the
     same keys and layouts. `dtype` casts the weights (not the fp32 rope
-    tables); None keeps the arrays' own dtype."""
+    tables, nor quantized bytes and scales); None keeps the arrays' own
+    dtype. A quantized weight is any object with `data`, `scales`,
+    `bits`, `group_size` and `in_dim` (what the tree map makes of the JAX
+    QuantizedTensor); it becomes this package's QuantizedTensor on the
+    same bytes."""
 
     def conv(key: str, a):
         if a is None:
             return None
+        if not isinstance(a, np.ndarray) and all(
+                hasattr(a, n) for n in ("data", "scales", "bits", "group_size", "in_dim")):
+            return QuantizedTensor(
+                _from_numpy(np.asarray(a.data)).to(device),
+                _from_numpy(np.asarray(a.scales)).to(device),
+                int(a.bits), int(a.group_size), int(a.in_dim))
         t = _from_numpy(np.asarray(a)).to(device)
         if dtype is not None and not key.startswith("rope_"):
             t = t.to(dtype)
@@ -217,7 +248,22 @@ def params_from_numpy(np_params: Dict, device: Any = "cuda",
 # -- layers ---------------------------------------------------------------
 
 
-def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, rope_c, rope_s):
+def _impl(attn_impl: str) -> str:
+    if attn_impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown attention route {attn_impl!r}")
+    return attn_impl
+
+
+def _mm(lp: Dict, key: str, h: torch.Tensor, l: int, impl: str) -> torch.Tensor:
+    """h @ layer weight `key`: an int4 stack goes through K5b at layer l."""
+    w = lp[key]
+    if isinstance(w, QuantizedTensor):
+        return matmul_dequant_stacked(h, w, l, impl)
+    return h @ w
+
+
+def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, rope_c, rope_s,
+         l: int = 0, impl: str = "kernel"):
     """Pre-norm, fused QKV projection, qk-norm and RoPE of one layer.
     x [B, S, H] -> q [B, S, Nq, D], k / v [B, S, Nk, D]."""
     B, S = x.shape[0], x.shape[1]
@@ -225,7 +271,7 @@ def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, rope_c, rope_s):
     Nq, Nk = cfg.num_attention_heads, cfg.num_kv_heads
     q_dim = Nq * D
     h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
-    qkv = h @ lp["qkv_w"]
+    qkv = _mm(lp, "qkv_w", h, l, impl)
     if "qkv_b" in lp:
         qkv = qkv + lp["qkv_b"]
     q = qkv[..., :q_dim].reshape(B, S, Nq, D)
@@ -239,20 +285,28 @@ def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, rope_c, rope_s):
 
 
 def _out_and_mlp(lp: Dict, x: torch.Tensor, attn: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, l: int = 0, impl: str = "kernel") -> torch.Tensor:
     """Output projection + residual, then the post-norm SwiGLU MLP +
     residual. attn [B, S, Nq, D]."""
     B, S = x.shape[0], x.shape[1]
-    x = x + attn.reshape(B, S, -1) @ lp["o_w"]
+    x = x + _mm(lp, "o_w", attn.reshape(B, S, -1), l, impl)
     h = rms_norm(x, lp["post_ln"], cfg.rms_norm_eps)
-    gate, up = (h @ lp["gate_up_w"]).chunk(2, dim=-1)
-    return x + (F.silu(gate.float()).to(up.dtype) * up) @ lp["down_w"]
+    gate, up = _mm(lp, "gate_up_w", h, l, impl).chunk(2, dim=-1)
+    act = F.silu(gate.float()).to(up.dtype) * up
+    return x + _mm(lp, "down_w", act, l, impl)
 
 
-def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+            impl: str = "kernel") -> torch.Tensor:
     x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
     head = params["lm_head"]
-    logits = x @ params["embed"].T if head is None else x @ head
+    if head is None:
+        logits = x @ params["embed"].T
+    elif isinstance(head, QuantizedTensor):
+        # K4; the head's pad columns (quant.pad_head_out) are sliced away
+        logits = matmul_dequant(x, head, impl)[..., : cfg.vocab_size]
+    else:
+        logits = x @ head
     return logits.float()
 
 
@@ -270,23 +324,29 @@ def decoder_layer_step(
     rope_c: torch.Tensor,     # [B, S, 1, D] gathered rope rows
     rope_s: torch.Tensor,
     attn_impl: str = "kernel",
+    l: int = 0,               # layer index into lp's quantized stacks
 ) -> torch.Tensor:
     """One pre-norm decoder layer (attention + SwiGLU MLP) over the dense
     cache. Writes this step's K/V into the cache at `slot` and returns
-    the new hidden states."""
+    the new hidden states. Quantized weights in `lp` are the whole
+    [L, ...] stacks, read at layer `l`."""
+    impl = _impl(attn_impl)
     S = x.shape[1]
-    q, k, v = _qkv(lp, x, cfg, rope_c, rope_s)
+    q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
     k_cache[:, :, slot : slot + S] = k.transpose(1, 2)
     v_cache[:, :, slot : slot + S] = v.transpose(1, 2)
     attn = attention_with_cache(
         q, k_cache, v_cache, q_pos=positions, kv_pos=kv_pos, kv_valid=valid,
-        slot=slot, sliding_window=cfg.sliding_window, kernel=attn_impl,
+        slot=slot, sliding_window=cfg.sliding_window, kernel=impl,
     )
-    return _out_and_mlp(lp, x, attn, cfg)
+    return _out_and_mlp(lp, x, attn, cfg, l, impl)
 
 
 def _layer(params: Dict, l: int) -> Dict:
-    return {k: v[l] for k, v in params["layers"].items()}
+    """Layer l's weights: float stacks sliced, quantized stacks whole (the
+    kernels take the layer as an offset)."""
+    return {k: v if isinstance(v, QuantizedTensor) else v[l]
+            for k, v in params["layers"].items()}
 
 
 def forward(
@@ -304,6 +364,7 @@ def forward(
     Returns (fp32 logits [B, S, V], or [B, 1, V] if last_only, and the
     cache, which was updated in place)."""
     _check_supported(cfg, params)
+    impl = _impl(attn_impl)
     if cache.k.element_size() < 2:
         raise _not_ported("the fp8 KV cache", 7)
     S = input_ids.shape[1]
@@ -320,36 +381,122 @@ def forward(
         x = decoder_layer_step(
             _layer(params, l), x, cache.k[l], cache.v[l], cfg=cfg,
             positions=positions, kv_pos=cache.kv_pos, valid=cache.valid,
-            slot=slot, rope_c=rope_c, rope_s=rope_s, attn_impl=attn_impl,
+            slot=slot, rope_c=rope_c, rope_s=rope_s, attn_impl=impl, l=l,
         )
     if last_only:  # left padding puts every row's last token at S - 1
         x = x[:, -1:]
     cache.length = slot + S
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, impl), cache
+
+
+# -- the fused int4 decode route -------------------------------------------------
+
+_FUSED_KEYS = ("qkv_w", "o_w", "gate_up_w", "down_w")
+
+
+def _int4_fused(params: Dict) -> bool:
+    """The fused decode route runs when all four layer matrices are int4."""
+    return all(isinstance(params["layers"].get(k), QuantizedTensor)
+               and params["layers"][k].bits == 4 for k in _FUSED_KEYS)
+
+
+def _invrms(x2: torch.Tensor, eps: float) -> torch.Tensor:
+    """fp32 per-row 1/rms [M, 1], computed outside the kernels."""
+    xf = x2.float()
+    return torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+
+
+def _fused_fns(impl: str):
+    """(K6, K7) of a route: the kernel wrappers, or their plain versions."""
+    if impl == "plain":
+        return (qk.matmul_dequant_int4_stacked_fused_plain,
+                qk.mlp_fused_int4_stacked_plain)
+    return qk.matmul_dequant_int4_stacked_fused, qk.mlp_fused_int4_stacked
+
+
+def _qkv_fused(params: Dict, x2: torch.Tensor, cfg: ModelConfig, c, s,
+               l: int, impl: str):
+    """K6 for qkv: input-norm prologue, then + qkv_b (qwen2), per-head
+    qk-norm (qwen3) and RoPE on the q || k heads in the epilogue.
+    x2 [B, H]; c / s [B, D] gathered rope rows."""
+    B, D = x2.shape[0], cfg.head_dim
+    Nq, Nk = cfg.num_attention_heads, cfg.num_kv_heads
+    lay = params["layers"]
+    qt = lay["qkv_w"]
+    kw = dict(ln=lay["input_ln"], invrms=_invrms(x2, cfg.rms_norm_eps),
+              bias=lay.get("qkv_b"), rope_cos=c, rope_sin=s,
+              rope_heads=Nq + Nk, rope_dim=D)
+    if cfg.qk_norm:
+        kw.update(qk_norm_w=(lay["q_norm"], lay["k_norm"]), qk_heads=Nq,
+                  eps=cfg.rms_norm_eps)
+    qkv = _fused_fns(impl)[0](x2, qt.data, qt.scales, l, qt.group_size, **kw)
+    q = qkv[:, : Nq * D].reshape(B, 1, Nq, D).contiguous()  # K2 reads q dense
+    k = qkv[:, Nq * D : (Nq + Nk) * D].reshape(B, 1, Nk, D)
+    v = qkv[:, (Nq + Nk) * D :].reshape(B, 1, Nk, D)
+    return q, k, v
+
+
+def _out_and_mlp_fused(params: Dict, x2: torch.Tensor, attn: torch.Tensor,
+                       cfg: ModelConfig, l: int, impl: str) -> torch.Tensor:
+    """K6 for o with the residual, then the MLP: K7 for at most 32 rows
+    when gate_up and down share a group, else K6 twice (norm prologue;
+    silu * up prologue with the residual). x2 [B, H] -> [B, H]."""
+    B = x2.shape[0]
+    mm_fused, mlp_fused = _fused_fns(impl)
+    lay = params["layers"]
+    qt = lay["o_w"]
+    x2 = mm_fused(attn.reshape(B, -1), qt.data, qt.scales, l, qt.group_size,
+                  res=x2)
+    gu, dn = lay["gate_up_w"], lay["down_w"]
+    inv = _invrms(x2, cfg.rms_norm_eps)
+    if B <= qk.MAX_DECODE_ROWS and gu.group_size == dn.group_size:
+        return mlp_fused(x2, gu.data, gu.scales, dn.data, dn.scales,
+                         lay["post_ln"], inv, l, gu.group_size)
+    gate_up = mm_fused(x2, gu.data, gu.scales, l, gu.group_size,
+                       ln=lay["post_ln"], invrms=inv)
+    return mm_fused(gate_up, dn.data, dn.scales, l, dn.group_size, silu=True,
+                    res=x2)
+
+
+def _logits_fused(params: Dict, x2: torch.Tensor, cfg: ModelConfig,
+                  impl: str) -> torch.Tensor:
+    """The head of the fused route: K6 with one layer and the final-norm
+    prologue for an int4 head, else _logits. Returns [B, 1, V] fp32."""
+    head = params["lm_head"]
+    if not (isinstance(head, QuantizedTensor) and head.bits == 4):
+        return _logits(params, x2[:, None], cfg, impl)
+    logits = _fused_fns(impl)[0](
+        x2, head.data[None], head.scales[None], 0, head.group_size,
+        ln=params["final_ln"][None], invrms=_invrms(x2, cfg.rms_norm_eps))
+    return logits[:, None, : cfg.vocab_size].float()
 
 
 def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
                 attn_impl):
     """Logits [B, 1, V] of one decode step over the frozen cache; writes
     this step's K/V into the in-flight buffers at `step`."""
+    impl = _impl(attn_impl)
     B = tok.shape[0]
     D = cfg.head_dim
     window = cfg.sliding_window
+    fused = _int4_fused(params)
     rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], pos)
-    if attn_impl == "kernel":
+    if impl == "kernel":
         # frozen-slot mask (causal & valid & window), shared by the layers
         mask_f = (cache.kv_pos <= pos) & cache.valid
         if window is not None:
             mask_f &= cache.kv_pos > pos - window
-    elif attn_impl != "plain":
-        raise ValueError(f"unknown attention route {attn_impl!r}")
     x = params["embed"][tok.long()][:, None]  # [B, 1, H]
     for l in range(cfg.num_hidden_layers):
         lp = _layer(params, l)
-        q, k, v = _qkv(lp, x, cfg, rope_c, rope_s)
+        if fused:
+            q, k, v = _qkv_fused(params, x[:, 0], cfg, rope_c[:, 0, 0],
+                                 rope_s[:, 0, 0], l, impl)
+        else:
+            q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
         infl_k[l, :, :, step] = k[:, 0]
         infl_v[l, :, :, step] = v[:, 0]
-        if attn_impl == "kernel":
+        if impl == "kernel":
             attn = flash_decode_frozen(
                 q[:, 0], cache.k, cache.v, mask_f, infl_k[l], infl_v[l], l,
                 step, scale=D ** -0.5, window=window,
@@ -359,8 +506,13 @@ def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
                 q, cache.k[l], cache.v[l], cache.kv_pos, cache.valid,
                 infl_k[l], infl_v[l], step, pos, sliding_window=window,
             )
-        x = _out_and_mlp(lp, x, attn, cfg)
-    return _logits(params, x.reshape(B, 1, -1), cfg)
+        if fused:
+            x = _out_and_mlp_fused(params, x[:, 0], attn, cfg, l, impl)[:, None]
+        else:
+            x = _out_and_mlp(lp, x, attn, cfg, l, impl)
+    if fused:
+        return _logits_fused(params, x[:, 0], cfg, impl)
+    return _logits(params, x.reshape(B, 1, -1), cfg, impl)
 
 
 def decode_steps(
@@ -378,7 +530,8 @@ def decode_steps(
     Each step's K/V land in a small in-flight buffer [L, B, Nk, n_steps, D]
     that attention merges with the frozen cache (flash_decode_frozen);
     the chunk is written into the cache once, at the end, in place. No
-    step reads anything back to the host.
+    step reads anything back to the host. int4 params take the fused
+    route (K6 and K7), on the card and on the CPU alike.
 
     Returns (toks [n_steps, B] int32 — the tokens sampled AFTER each
     input — and the advanced cache)."""

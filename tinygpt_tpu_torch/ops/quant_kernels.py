@@ -1,0 +1,408 @@
+"""Hopper int4 dequant-matmul kernels, each beside its plain version.
+
+Counterparts of the TPU kernels in tinygpt_tpu/ops/quant_kernels.py,
+written in CUDA C++ for sm_90a and bound with ctypes (ops/cuda_build.py):
+
+  matmul_dequant_int4                K4   csrc/int4_matmul.cu (layer 0)
+  matmul_dequant_int4_stacked        K5b  csrc/int4_matmul.cu
+  matmul_dequant_int4_stacked_fused  K6   csrc/int4_fused.cu
+  mlp_fused_int4_stacked             K7   csrc/int4_mlp.cu
+
+Weights keep the JAX package's layout (ops/quant.py): packed int8
+[L, IN/2, OUT] holding biased, half-split nibbles, and fp32 scales
+[L, IN/group, OUT]. A layer is an offset into the stack; no layer's bytes
+are copied. The kernels dequantize on chip and accumulate in fp32; they
+take bf16 and fp32 activations.
+
+Each wrapper dispatches on the device of its tensors: on the CPU it runs
+its plain PyTorch version (``*_plain``: weights dequantized exactly in
+fp32, products in fp32, one rounding at the end), on a CUDA device it
+launches its kernel or raises. It never falls back from one to the
+other. Every call on the card adds one to ``LAUNCHES[name]`` (the
+counter shared with ops/attention_kernels.py). The Mosaic tile pickers
+and VMEM budgets of the TPU kernels have no counterpart here; the shape
+rules the Hopper kernels do have are checked in ``_check_weight``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from tinygpt_tpu_torch.ops.attention_kernels import LAUNCHES, _ptr
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+_ROPE_DIMS = (32, 64, 128)  # head dims the fused RoPE epilogue takes
+MAX_DECODE_ROWS = 32        # rows of the decode-shaped kernels (K6, K7)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_MATMUL_ARGS = [_P] * 4 + [_I] * 6 + [_P]
+_FUSED_ARGS = [_P] * 12 + [_I] * 10 + [_F, _I, _P]
+_MLP_ARGS = [_P] * 9 + [_I] * 8 + [_P]
+
+
+def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+# -- plain versions -------------------------------------------------------------
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of quant.pack_int4 along axis -2: [..., in/2, out] packed
+    int8 → [..., in, out] int8 q in [-8, 7], original row order."""
+    u = packed.view(torch.uint8)
+    lo = (u & 0x0F).to(torch.int8) - 8
+    hi = (u >> 4).to(torch.int8) - 8
+    return torch.cat([lo, hi], dim=-2)
+
+
+def dequant_fp32(q: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tensor:
+    """q [..., in, out] int8 and scales [..., in/group, out] → the weight in
+    fp32, each element q * scale rounded once."""
+    *lead, in_dim, out = q.shape
+    w = (q.float().reshape(*lead, in_dim // group, group, out)
+         * scales.float()[..., :, None, :])
+    return w.reshape(*lead, in_dim, out)
+
+
+def _weight(data: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tensor:
+    return dequant_fp32(unpack_int4(data), scales, group)
+
+
+def _pad_cols(a: torch.Tensor, width: int) -> torch.Tensor:
+    return torch.nn.functional.pad(a, (0, width - a.shape[-1]))
+
+
+def matmul_dequant_int4_plain(x, data, scales, group: int) -> torch.Tensor:
+    """Plain version of matmul_dequant_int4: x [M, IN] @ W → x's dtype."""
+    return (x.float() @ _weight(data, scales, group)).to(x.dtype)
+
+
+def matmul_dequant_int4_stacked_plain(x, data, scales, l: int,
+                                      group: int) -> torch.Tensor:
+    """Plain version of matmul_dequant_int4_stacked."""
+    return matmul_dequant_int4_plain(x, data[l], scales[l], group)
+
+
+def _rows(t: Optional[torch.Tensor], L: int) -> Optional[torch.Tensor]:
+    """[L, 1, n] or [L, n] per-layer rows → [L, n]."""
+    return None if t is None else t.reshape(L, -1)
+
+
+def matmul_dequant_int4_stacked_fused_plain(
+    x, data, scales, l: int, group: int, ln=None, invrms=None, res=None,
+    bias=None, silu: bool = False, rope_cos=None, rope_sin=None,
+    rope_heads: int = 0, rope_dim: int = 0, qk_norm_w=None, qk_heads: int = 0,
+    eps: float = 0.0,
+) -> torch.Tensor:
+    """Plain version of matmul_dequant_int4_stacked_fused, same semantics:
+    prologue, matmul and epilogue in fp32, one rounding to the output
+    type (res's when res is given, else x's)."""
+    L, inp, _ = data.shape
+    xf = x.float()
+    if silu:
+        n = x.shape[1] // 2
+        g, u = xf[:, :n], xf[:, n:]
+        a = g * torch.sigmoid(g) * u
+    else:
+        a = xf
+    if ln is not None:
+        a = a * invrms.float().reshape(-1, 1) * _rows(ln, L)[l].float()
+    acc = _pad_cols(a, 2 * inp) @ _weight(data[l], scales[l], group)
+    if bias is not None:
+        acc = acc + _rows(bias, L)[l].float()
+    if rope_cos is not None:
+        M, D = acc.shape[0], rope_dim
+        cols = rope_heads * D
+        h = acc[:, :cols].reshape(M, rope_heads, D)
+        if qk_norm_w is not None:
+            qn, kn = (w.reshape(L, -1)[l].float() for w in qk_norm_w)
+            inv = torch.rsqrt((h * h).mean(dim=-1, keepdim=True) + eps)
+            nw = torch.where(torch.arange(rope_heads, device=h.device)[:, None]
+                             < qk_heads, qn, kn)
+            h = h * inv * nw
+        rot = torch.cat([-h[..., D // 2:], h[..., : D // 2]], dim=-1)
+        h = h * rope_cos.float()[:, None, :] + rot * rope_sin.float()[:, None, :]
+        acc = torch.cat([h.reshape(M, cols), acc[:, cols:]], dim=1)
+    if res is not None:
+        acc = acc + res.float()
+    return acc.to(res.dtype if res is not None else x.dtype)
+
+
+def mlp_fused_int4_stacked_plain(x, gu_data, gu_scales, dn_data, dn_scales,
+                                 ln, invrms, l: int, group: int) -> torch.Tensor:
+    """Plain version of mlp_fused_int4_stacked: the gate_up activation
+    stays fp32 between the two matmuls."""
+    L = gu_data.shape[0]
+    a = x.float() * invrms.float().reshape(-1, 1) * _rows(ln, L)[l].float()
+    gu = (_pad_cols(a, 2 * gu_data.shape[1])
+          @ _weight(gu_data[l], gu_scales[l], group))
+    i = gu.shape[1] // 2
+    act = torch.nn.functional.silu(gu[:, :i]) * gu[:, i:]
+    act = _pad_cols(act, 2 * dn_data.shape[1])
+    out = x.float() + act @ _weight(dn_data[l], dn_scales[l], group)
+    return out.to(x.dtype)
+
+
+# -- operand checks -------------------------------------------------------------
+
+
+def _check_weight(name: str, x: torch.Tensor, data: torch.Tensor,
+                  scales: torch.Tensor, group: int) -> Tuple[int, int, int]:
+    """Shared checks of a kernel's activation and packed weight stack;
+    returns (L, IN, OUT). The kernels read 8 columns of a packed row at a
+    time (OUT % 8 == 0) and 16 packed rows inside one group at a time
+    (group % 16 == 0, (IN/2) % group == 0), and the GEMV kernel splits the
+    packed rows over 8 blocks of a cluster in such steps ((IN/2) % 128 ==
+    0, which quant.quantize_weight's row padding gives every int4
+    weight)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: activations of dtype {x.dtype} not supported "
+                        f"(float32, bfloat16)")
+    if data.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{name}: packed weight must be int8 and scales float32, "
+                        f"got {data.dtype} / {scales.dtype}")
+    if data.ndim != 3 or x.ndim != 2:
+        raise ValueError(f"{name}: want x [M, IN] and data [L, IN/2, OUT], got "
+                         f"{tuple(x.shape)} / {tuple(data.shape)}")
+    L, inp, out = data.shape
+    IN = 2 * inp
+    if group <= 0 or group % 16 or inp % group or inp % 128 or out % 8:
+        raise ValueError(f"{name}: group {group} and weight [{IN}, {out}] need "
+                         f"group % 16 == 0, (IN/2) % group == 0, (IN/2) % 128 "
+                         f"== 0, OUT % 8 == 0")
+    if scales.shape != (L, IN // group, out):
+        raise ValueError(f"{name}: scales {tuple(scales.shape)} != "
+                         f"{(L, IN // group, out)}")
+    return L, IN, out
+
+
+def _check_operands(name: str, dev: torch.device, *tensors) -> None:
+    """Device, dtype, contiguity and 16-byte alignment of every operand;
+    `tensors` are (label, tensor or None, allowed dtypes or None)."""
+    for label, t, want in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} on {t.device}, expected {dev}")
+        if want is not None and t.dtype not in want:
+            raise TypeError(f"{name}: {label} has dtype {t.dtype}, expected one "
+                            f"of {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+
+
+def _check_rows(name: str, M: int) -> None:
+    if not 0 < M <= MAX_DECODE_ROWS:
+        raise ValueError(f"{name}: {M} rows; the decode-shaped kernel takes "
+                         f"1 to {MAX_DECODE_ROWS}")
+
+
+# -- K4 / K5b -------------------------------------------------------------------
+
+
+def _launch_matmul(name, x, data, scales, l, group):
+    L, IN, OUT = _check_weight(name, x, data, scales, group)
+    M = x.shape[0]
+    if x.shape[1] != IN:
+        raise ValueError(f"{name}: x has {x.shape[1]} columns, the weight "
+                         f"{IN} rows (pad x with quant.pad_x_to)")
+    if not 0 <= l < L:
+        raise ValueError(f"{name}: layer {l} of {L}")
+    _check_operands(name, x.device, ("x", x, None), ("data", data, None),
+                    ("scales", scales, None))
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("int4_matmul.cu", "tg_int4_matmul", _MATMUL_ARGS)
+    out = torch.empty((M, OUT), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group,
+                 int(l), _DTYPE_CODE[x.dtype], _stream(x.device))
+    cuda_build.check("int4_matmul.cu", err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def matmul_dequant_int4(
+    x: torch.Tensor,       # [M, IN] bf16/fp32
+    data: torch.Tensor,    # [IN/2, OUT] packed int8
+    scales: torch.Tensor,  # [IN/group, OUT] fp32
+    group: int,
+) -> torch.Tensor:
+    """x @ dequant(int4 weight) → [M, OUT] in x's dtype (K4)."""
+    if x.device.type == "cpu":
+        return matmul_dequant_int4_plain(x, data, scales, group)
+    return _launch_matmul("matmul_dequant_int4", x, data[None], scales[None],
+                          0, group)
+
+
+def matmul_dequant_int4_stacked(
+    x: torch.Tensor,       # [M, IN]
+    data: torch.Tensor,    # [L, IN/2, OUT]
+    scales: torch.Tensor,  # [L, IN/group, OUT]
+    l: int,                # layer index into the stack
+    group: int,
+) -> torch.Tensor:
+    """x @ dequant(layer l of a stacked int4 weight) (K5b). M <= 32 runs
+    the GEMV kernel, larger M the tensor-core kernel."""
+    if x.device.type == "cpu":
+        return matmul_dequant_int4_stacked_plain(x, data, scales, l, group)
+    return _launch_matmul("matmul_dequant_int4_stacked", x, data, scales, l, group)
+
+
+# -- K6 -------------------------------------------------------------------------
+
+
+def matmul_dequant_int4_stacked_fused(
+    x: torch.Tensor,       # [M, IN] (with silu: [M, 2 * IN] = gate || up)
+    data: torch.Tensor,    # [L, IN_p/2, OUT], IN_p >= IN (row-padded)
+    scales: torch.Tensor,  # [L, IN_p/group, OUT]
+    l: int,
+    group: int,
+    ln: Optional[torch.Tensor] = None,      # [L, IN] or [L, 1, IN], x's dtype
+    invrms: Optional[torch.Tensor] = None,  # [M, 1] fp32 per-row 1/rms
+    res: Optional[torch.Tensor] = None,     # [M, OUT], x's dtype
+    bias: Optional[torch.Tensor] = None,    # [L, OUT] or [L, 1, OUT]
+    silu: bool = False,
+    rope_cos: Optional[torch.Tensor] = None,  # [M, D] fp32 gathered rows
+    rope_sin: Optional[torch.Tensor] = None,
+    rope_heads: int = 0,                   # leading heads to rotate (Nq + Nk)
+    rope_dim: int = 0,                     # head dim D
+    qk_norm_w=None,                        # (q_norm [L, D], k_norm [L, D])
+    qk_heads: int = 0,                     # q heads (the q / k norm boundary)
+    eps: float = 0.0,
+) -> torch.Tensor:
+    """The decode-shaped int4 matmul of layer l with its elementwise steps
+    fused (K6): prologue x * invrms * ln[l] or silu(gate) * up; epilogue
+    + bias[l], per-head qk RMS-norm, RoPE on heads below rope_heads,
+    + res. M <= 32; RoPE heads of 32, 64 or 128 columns (a kernel tile
+    of 256 columns holds whole heads), not with res."""
+    args = (x, data, scales, l, group, ln, invrms, res, bias, silu, rope_cos,
+            rope_sin, rope_heads, rope_dim, qk_norm_w, qk_heads, eps)
+    if x.device.type == "cpu":
+        return matmul_dequant_int4_stacked_fused_plain(*args)
+    name = "matmul_dequant_int4_stacked_fused"
+    L, IN, OUT = _check_weight(name, x, data, scales, group)
+    M = x.shape[0]
+    _check_rows(name, M)
+    in_x = x.shape[1] // 2 if silu else x.shape[1]
+    if in_x > IN or (silu and x.shape[1] % 2):
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit a weight of "
+                         f"{IN} rows")
+    if (ln is None) != (invrms is None) or (silu and ln is not None):
+        raise ValueError(f"{name}: ln needs invrms, and silu takes no ln")
+    ln, bias = _rows(ln, L), _rows(bias, L)
+    if ln is not None and ln.shape != (L, in_x):
+        raise ValueError(f"{name}: ln {tuple(ln.shape)} != {(L, in_x)}")
+    if bias is not None and bias.shape != (L, OUT):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} != {(L, OUT)}")
+    if invrms is not None and invrms.numel() != M:
+        raise ValueError(f"{name}: invrms has {invrms.numel()} values for {M} rows")
+    if res is not None and res.shape != (M, OUT):
+        raise ValueError(f"{name}: res {tuple(res.shape)} != {(M, OUT)}")
+    rope_cols = qk_cols = 0
+    qn = kn = None
+    if rope_cos is not None:
+        D = rope_dim
+        if (D not in _ROPE_DIMS or OUT % D or not 0 < rope_heads * D <= OUT
+                or res is not None):
+            raise ValueError(f"{name}: RoPE needs a head dim in {_ROPE_DIMS} "
+                             f"dividing OUT, 0 < rope_heads * D <= OUT and no res")
+        if rope_cos.shape != (M, D) or rope_sin.shape != (M, D):
+            raise ValueError(f"{name}: rope rows {tuple(rope_cos.shape)} != {(M, D)}")
+        rope_cols = rope_heads * D
+        if qk_norm_w is not None:
+            qn, kn = (w.reshape(L, -1) for w in qk_norm_w)
+            if qn.shape != (L, D) or kn.shape != (L, D):
+                raise ValueError(f"{name}: qk norm weights must be [L, {D}]")
+            qk_cols = qk_heads * D
+    elif qk_norm_w is not None:
+        raise ValueError(f"{name}: the fused qk norm rides the RoPE epilogue")
+    xt = (x.dtype,)
+    _check_operands(
+        name, x.device, ("x", x, None), ("data", data, None),
+        ("scales", scales, None), ("ln", ln, xt),
+        ("invrms", invrms, (torch.float32,)), ("res", res, xt),
+        ("bias", bias, xt), ("rope_cos", rope_cos, (torch.float32,)),
+        ("rope_sin", rope_sin, (torch.float32,)), ("q_norm", qn, xt),
+        ("k_norm", kn, xt))
+    if not 0 <= l < L:
+        raise ValueError(f"{name}: layer {l} of {L}")
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("int4_fused.cu", "tg_int4_fused", _FUSED_ARGS)
+    out = torch.empty((M, OUT), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(data), _ptr(scales), _opt_ptr(ln), _opt_ptr(invrms),
+                 _opt_ptr(res), _opt_ptr(bias), _opt_ptr(rope_cos),
+                 _opt_ptr(rope_sin), _opt_ptr(qn), _opt_ptr(kn), _ptr(out),
+                 M, in_x, IN, OUT, group, int(l), int(bool(silu)), rope_cols,
+                 int(rope_dim), qk_cols, float(eps), _DTYPE_CODE[x.dtype],
+                 _stream(x.device))
+    cuda_build.check("int4_fused.cu", err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+# -- K7 -------------------------------------------------------------------------
+
+
+def mlp_fused_int4_stacked(
+    x: torch.Tensor,          # [M, H] residual stream (post-attention)
+    gu_data: torch.Tensor,    # [L, H_p/2, 2I] packed int4
+    gu_scales: torch.Tensor,  # [L, H_p/group, 2I]
+    dn_data: torch.Tensor,    # [L, I_p/2, H]
+    dn_scales: torch.Tensor,  # [L, I_p/group, H]
+    ln: torch.Tensor,         # [L, H] or [L, 1, H] post-attention norm weight
+    invrms: torch.Tensor,     # [M, 1] fp32 per-row 1/rms of x
+    l: int,
+    group: int,                # the group of both weights
+) -> torch.Tensor:
+    """x + down(silu(g) * u) with [g || u] = gate_up(x * invrms * ln[l]),
+    the gate_up activation kept in fp32 (K7). M <= 32. On the card one
+    call makes two device launches (gate_up, then down) on the stream."""
+    if x.device.type == "cpu":
+        return mlp_fused_int4_stacked_plain(x, gu_data, gu_scales, dn_data,
+                                            dn_scales, ln, invrms, l, group)
+    name = "mlp_fused_int4_stacked"
+    L, Hp, I2 = _check_weight(name, x, gu_data, gu_scales, group)
+    _, Ip, H = _check_weight(name, x, dn_data, dn_scales, group)
+    M = x.shape[0]
+    _check_rows(name, M)
+    ln = _rows(ln, L)
+    if (x.shape[1] != H or H > Hp or I2 // 2 > Ip or dn_data.shape[0] != L
+            or ln.shape != (L, H) or invrms.numel() != M):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, gate_up "
+                         f"{tuple(gu_data.shape)}, down {tuple(dn_data.shape)}, "
+                         f"ln {tuple(ln.shape)} do not fit")
+    if not 0 <= l < L:
+        raise ValueError(f"{name}: layer {l} of {L}")
+    _check_operands(
+        name, x.device, ("x", x, None), ("gu_data", gu_data, None),
+        ("gu_scales", gu_scales, None), ("dn_data", dn_data, None),
+        ("dn_scales", dn_scales, None), ("ln", ln, (x.dtype,)),
+        ("invrms", invrms, (torch.float32,)))
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("int4_mlp.cu", "tg_int4_mlp", _MLP_ARGS)
+    act = torch.empty((M, I2), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(gu_data), _ptr(gu_scales), _ptr(dn_data),
+                 _ptr(dn_scales), _ptr(ln), _ptr(invrms), _ptr(act), _ptr(out),
+                 M, H, Hp, I2, Ip, group, int(l), _DTYPE_CODE[x.dtype],
+                 _stream(x.device))
+    cuda_build.check("int4_mlp.cu", err, name)
+    LAUNCHES[name] += 1
+    return out
