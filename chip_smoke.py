@@ -14,6 +14,11 @@ Phases, in order:
   int4     the same for the int4 dequant-matmul kernels (K4, K5b, K6, K7)
            at the int4 path's shapes, with torch._weight_int4pack_mm as
            the library yardstick where it computes the same function;
+  paged    holds the paged frozen-pool decode kernel (K8) against its
+           plain version on the card (bf16 and fp32, head dims 128 and 64,
+           4 and 1 query heads per KV head, ragged rows, dead table
+           entries, inactive rows, a window) and times it beside its bound
+           and scaled_dot_product_attention on the same rows gathered dense;
   model    full-width Mistral-7B shape (32 layers, bf16, random weights):
            prefill of 4 left-padded prompts, then two greedy decode chunks
            of 32 steps, through the kernels and through the plain
@@ -21,12 +26,23 @@ Phases, in order:
   model4   the same shape quantized to int4 (group 64) on the card: first
            4 layers in fp32, then all 32 in bf16, kernel route against
            plain route, exact launch counts per prefill and decode step;
+  serve    the continuous batcher on model4's int4 params: 16
+           staggered requests of 512 random tokens, 256 new each (the JAX
+           package's serving leg, benches/flagship_bench.py), with TTFT,
+           whole-run and steady tok/s, exact launch counts per decode step
+           and per admission, a torch.profiler trace of one quantum, and
+           kernel route against plain route (4 layers fp32: identical
+           greedy streams; 32 layers bf16: one quantum's logits);
   engine   writes a 2-layer Mistral-width model dir with a generated
            Metaspace-BPE tokenizer and runs GPTEngine.generate_sync on it,
-           in bf16 and with quantization="int4", awq=False.
+           in bf16 and with quantization="int4", awq=False;
+  server   serves that model dir over HTTP in-process (TinyGPTServer on
+           127.0.0.1): four concurrent clients, completions plain and SSE,
+           chat completions and /health.
 
 Every phase must pass; the script exits non-zero at the first failure.
-Its last two lines are the kernel table as JSON and the result line
+Its last three lines are the card's name and power limit, the kernel
+table as JSON and the result line
 {"ok": true, "device": {...}}. It needs a CUDA device and the rest of the
 repository beside it; without either it exits non-zero and prints no
 result.
@@ -38,8 +54,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
@@ -92,6 +110,7 @@ REPLACES = {
     "matmul_dequant_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:636",
     "matmul_dequant_int4_stacked_fused": "tinygpt_tpu/ops/quant_kernels.py:984",
     "mlp_fused_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:1304",
+    "paged_decode_frozen": "tinygpt_tpu/ops/paged_attention.py:378",
 }
 SOURCES = {
     "flash_prefill": "tinygpt_tpu_torch/csrc/flash_prefill.cu",
@@ -100,7 +119,13 @@ SOURCES = {
     "matmul_dequant_int4_stacked": "tinygpt_tpu_torch/csrc/int4_matmul.cu",
     "matmul_dequant_int4_stacked_fused": "tinygpt_tpu_torch/csrc/int4_fused.cu",
     "mlp_fused_int4_stacked": "tinygpt_tpu_torch/csrc/int4_mlp.cu",
+    "paged_decode_frozen": "tinygpt_tpu_torch/csrc/paged_decode_frozen.cu",
 }
+# the serving phase: the JAX package's serving leg
+# (benches/flagship_bench.py:396-535) at the Mistral-7B shape in int4
+SERVE = dict(n_requests=16, prompt_len=512, max_new=256, gap_s=0.25, capacity=16,
+             block=64, n_blocks=16 * 16 + 1, max_blocks=16, bucket=64, quantum=8,
+             warm_new=32, profile_new=64)
 
 
 DEVICE = "cuda"
@@ -641,6 +666,177 @@ def phase_int4_kernels(table: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- paged frozen-pool decode kernel (K8) ------------------------------------------
+
+# the serve phase's K8 shape: 16 rows, Mistral-7B heads, block 64, 16 blocks
+# a row, the serving pool of 257 blocks, a quantum of 8 steps
+PAGED = dict(B=16, Nq=32, Nk=8, D=128, bs=64, MB=16, n_blocks=257, N=8)
+PAGED_LENGTHS = tuple(512 + 17 * i for i in range(16))   # ragged, 512..767
+
+
+def _paged_case(L, Nq, Nk, D, lengths, inactive, dtype, seed):
+    """Inputs of one paged_decode_frozen call at the serve shape: row b owns
+    ceil(lengths[b] / bs) distinct random blocks and its later table
+    entries are dead (0); inactive rows keep their length (stale, or 0 as
+    the batcher's release leaves it) over a zero table; block 0 holds
+    values like any block (an inactive row's scatter may have landed
+    there)."""
+    import torch
+
+    p = PAGED
+    bs, MB, n_blocks, N = p["bs"], p["MB"], p["n_blocks"], p["N"]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    B = len(lengths)
+    kp = torch.randn(L, n_blocks, Nk, bs, D, generator=g, device=DEVICE).to(dtype)
+    vp = torch.randn(L, n_blocks, Nk, bs, D, generator=g, device=DEVICE).to(dtype)
+    q = torch.randn(B, Nq, D, generator=g, device=DEVICE).to(dtype)
+    ki = torch.randn(B, Nk, N, D, generator=g, device=DEVICE).to(dtype)
+    vi = torch.randn(B, Nk, N, D, generator=g, device=DEVICE).to(dtype)
+    ids = (torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(seed))
+           + 1).tolist()
+    tables = torch.zeros(B, MB, dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        if b not in inactive:
+            nb = -(-n // bs)
+            tables[b, :nb] = torch.tensor(ids[:nb], dtype=torch.int32)
+            ids = ids[nb:]
+    i32 = dict(dtype=torch.int32, device=DEVICE)
+    return (q, kp, vp, tables.to(DEVICE), torch.tensor(lengths, **i32),
+            torch.zeros(B, **i32), ki, vi)
+
+
+def _paged_visible(lengths, step, window):
+    """(pool slots, in-flight slots) that one call sees, summed over rows."""
+    cap = PAGED["MB"] * PAGED["bs"]
+    pool = 0
+    for n in lengths:
+        lo = n + step - window + 1 if window else 0
+        pool += max(min(n, cap) - max(lo, 0), 0)
+    n_infl = min(step + 1, window) if window else step + 1
+    return pool, len(lengths) * n_infl
+
+
+def _paged_cost(q, Nk, lengths, step, window):
+    """(bytes, flops) this call's data needs: the visible slots' K and V
+    rows (pool and in flight) read once, q, the table, lengths and starts,
+    and the output; 4*D operations per visible (query head, slot) pair."""
+    B, Nq, D = q.shape
+    pool, infl = _paged_visible(lengths, step, window)
+    isz = q.element_size()
+    nbytes = (2 * q.numel() * isz + 2 * (pool + infl) * Nk * D * isz
+              + 4 * B * (PAGED["MB"] + 2))
+    return nbytes, 4.0 * D * Nq * (pool + infl)
+
+
+def _sdpa_paged(q, kp, vp, tables, lens, starts, ki, vi, l, step, scale, window):
+    """scaled_dot_product_attention on the same rows with K/V gathered
+    dense OUTSIDE the timed call (timing yardstick only)."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    B, N = q.shape[0], ki.shape[2]
+    k = torch.cat([pa.paged_gather_dense(kp[l], tables), ki], dim=2)
+    v = torch.cat([pa.paged_gather_dense(vp[l], tables), vi], dim=2)
+    t = torch.arange(tables.shape[1] * kp.shape[3], device=q.device)[None, :]
+    mask_f = (t < lens[:, None]) & (t >= starts[:, None])
+    j = torch.arange(N, device=q.device)
+    mask_i = j <= step
+    if window:
+        mask_f = mask_f & (t > lens[:, None] + step - window)
+        mask_i = mask_i & (step - j < window)
+    attn_mask = torch.cat([mask_f, mask_i.expand(B, N)], dim=1)[:, None, None, :]
+    return _sdpa(q[:, :, None, :], k, v, attn_mask, scale)
+
+
+def _paged_tol(dname, want) -> float:
+    """K8's limit against its plain version: both round one fp32 result to
+    the output dtype, so they differ by at most one ulp of an output; in
+    bf16 that is at most 2^-7 of the largest output (under 4e-3 at the
+    serve shape, whose outputs stay below 0.5), never more than TOL."""
+    if dname == "bfloat16":
+        return min(TOL[dname], 2.0 ** -7 * want.float().abs().max().item())
+    return TOL[dname]
+
+
+def phase_paged_kernels(table: dict) -> None:
+    """K8 against its plain version on the card at the serve phase's shape
+    (ragged rows of 512 to 767 slots, dead table entries) and beside it:
+    fp32, inactive rows (one at length 0, as the batcher releases a row,
+    and stale lengths up to one past the table, which the kernel still
+    walks over block 0), a window, head dim 64 with one query head per KV
+    head; the first and the last step of a quantum, the first and the last
+    layer. Times kernel, plain version and SDPA beside the bound; the
+    main-path row is bf16 at the last step, all 16 rows live, the call
+    walking all 32 layers of a 257-block pool."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    p = PAGED
+    Nq, Nk, D, N = p["Nq"], p["Nk"], p["D"], p["N"]
+    L = MISTRAL_7B["num_hidden_layers"]
+    lens = PAGED_LENGTHS
+    # (label, L, Nq, Nk, D, {inactive row: its length}, window, dtype,
+    #  is_main_path)
+    cases = [
+        ("main path", L, Nq, Nk, D, {}, None, torch.bfloat16, True),
+        ("inactive rows at 0 and 32768", 4, Nq, Nk, D, {3: 0, 9: 32768}, None,
+         torch.float32, False),
+        ("w300, 1 inactive row", 4, Nq, Nk, D, {5: lens[5]}, 300, torch.bfloat16, False),
+        ("D64 G1", 4, 8, 8, 64, {}, None, torch.bfloat16, False),
+        ("D64 G1 w100, 1 inactive row", 4, 8, 8, 64, {2: lens[2]}, 100, torch.float32,
+         False),
+    ]
+    worst = {}
+    for i, (label, Lc, nq, nk, d, inactive, window, dtype, main) in enumerate(cases):
+        dname = str(dtype).replace("torch.", "")
+        lens_c = [inactive.get(b, n) for b, n in enumerate(lens)]
+        q, kp, vp, tables, lengths, starts, ki, vi = _paged_case(
+            Lc, nq, nk, d, lens_c, inactive, dtype, seed=200 + i)
+        for step in (0, N - 1):
+            for l in sorted({0, Lc - 1}):
+                args = (q, kp, vp, tables, lengths, starts, ki, vi, l, step, d ** -0.5,
+                        window)
+                got = pa.paged_decode_frozen(*args)
+                want = pa.paged_decode_frozen_plain(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = _paged_tol(dname, want)
+                worst[dname] = max(err, worst.get(dname, 0.0))
+                if not (math.isfinite(err) and err <= tol):
+                    raise PhaseError(f"paged_decode_frozen {label} l={l} step={step} "
+                                     f"{dname}: error {err} > {tol}")
+        step = N - 1
+        layers = iter(range(10 ** 9))   # walk the layers: cold K/V, as a step reads
+        t_k = cuda_time_ms(lambda: pa.paged_decode_frozen(
+            q, kp, vp, tables, lengths, starts, ki, vi, next(layers) % Lc, step,
+            d ** -0.5, window), iters=4 * Lc)
+        args = (q, kp, vp, tables, lengths, starts, ki, vi, Lc - 1, step, d ** -0.5,
+                window)
+        t_p = cuda_time_ms(lambda: pa.paged_decode_frozen_plain(*args), iters=10)
+        t_l = cuda_time_ms(_sdpa_paged(*args), iters=20)
+        live = [n for b, n in enumerate(lens) if b not in inactive]
+        nbytes, flops = _paged_cost(q, nk, live + [0] * len(inactive), step, window)
+        b_ms, b_by = bound_ms(nbytes, flops, dname)
+        log(f"[paged] paged_decode_frozen {label} D={d} G={nq // nk} step={step} "
+            f"{dname}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms "
+            f"plain {t_p:.4f} ms sdpa (K/V gathered dense beforehand) {t_l:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+        if main:
+            table["paged_decode_frozen"] = dict(
+                name="paged_decode_frozen", route="cuda",
+                source=SOURCES["paged_decode_frozen"],
+                replaces=REPLACES["paged_decode_frozen"], launches=0, max_abs_err=err,
+                tol=tol, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_l)
+        del q, kp, vp, ki, vi
+        torch.cuda.empty_cache()
+    for dname, err in sorted(worst.items()):
+        log(f"[paged] paged_decode_frozen {dname}: worst max_abs_err over all cases "
+            f"{err:.3g} (tol at most {TOL[dname]}; bf16: 2^-7 of the largest output)")
+
+
 def main_path_shapes() -> dict:
     """Shapes the model phase gives each kernel (the engine's cache length
     rule: the bucketed prompt plus every decode chunk)."""
@@ -890,11 +1086,12 @@ def phase_model(table: dict) -> None:
         f"{prefill_bound_ms:.3f} ms")
 
 
-def phase_model_int4(table: dict) -> None:
+def phase_model_int4(table: dict) -> dict:
     """The Mistral-7B shape quantized to int4 (group 64) on the card, the
     kernel route (K5b, K4 and K1 in the prefill; K6, K7 and K2 in every
     decode step) against the plain route on the same params: first at 4
-    layers in fp32, then at all 32 layers in bf16 with forced tokens."""
+    layers in fp32, then at all 32 layers in bf16 with forced tokens.
+    Returns the 32-layer int4 params (the serve phase runs on them)."""
     import torch
 
     from tinygpt_tpu_torch.hf.config import parse_model_config
@@ -952,7 +1149,6 @@ def phase_model_int4(table: dict) -> None:
         kern = _run_route(params, cfg, batch, T, "kernel")
         launches = dict(ak.LAUNCHES)
         _profile_decode(params, cfg, batch, T, label="int4")
-        del params
     torch.cuda.empty_cache()
 
     n = N_CHUNKS * DECODE_CHUNK
@@ -981,24 +1177,299 @@ def phase_model_int4(table: dict) -> None:
         f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; bound of the prefill "
         f"({prefill_flops / 1e12:.2f} TFLOP for {sum(PROMPT_LENS)} real tokens) "
         f"{prefill_bound_ms:.3f} ms")
+    return params
 
 
-def phase_engine() -> None:
-    """GPTEngine on a model dir written here: Mistral-7B widths, 2 layers,
-    random bf16 weights, the generated Metaspace-BPE tokenizer; once in
-    bf16, once quantized to int4 (awq=False)."""
-    import shutil
-    import tempfile
+# -- serving -------------------------------------------------------------------
 
+
+def _serving_model(counts):
+    """The model entry the batcher drives, counting admissions (one dense
+    forward each) and decode steps."""
+    from types import SimpleNamespace
+
+    from tinygpt_tpu_torch.models import causal_lm
+
+    def forward(*args, **kw):
+        counts["admissions"] += 1
+        return causal_lm.forward(*args, **kw)
+
+    def decode_paged_steps(params, cfg, tok0, state, n_steps, sample_fn,
+                           attn_impl="kernel"):
+        counts["steps"] += n_steps
+        return causal_lm.decode_paged_steps(params, cfg, tok0, state, n_steps,
+                                            sample_fn, attn_impl=attn_impl)
+
+    return SimpleNamespace(forward=forward, decode_paged_steps=decode_paged_steps)
+
+
+def _serving_batcher(params, cfg, counts, dtype="bfloat16", attn_impl="kernel"):
+    """The serving leg's scheduler: capacity 16, block 64, 257 blocks, 16
+    blocks a row, bucket 64, whole-prompt admission, prefix cache on,
+    quantum 8, pipelined."""
+    from tinygpt_tpu_torch.engine.scheduler import ContinuousBatcher, SchedulerConfig
+
+    s = SERVE
+    return ContinuousBatcher(
+        _serving_model(counts), cfg, params, eos_ids=set(),
+        config=SchedulerConfig(
+            batch_capacity=s["capacity"], block_size=s["block"],
+            n_blocks=s["n_blocks"], max_blocks_per_seq=s["max_blocks"],
+            prefill_bucket=s["bucket"], dtype=dtype, attn_impl=attn_impl,
+            decode_quantum=s["quantum"], pipeline_quanta=True,
+            enable_prefix_cache=True, prefill_chunk_tokens=0))
+
+
+def _drive(batcher, prompts, max_new, gap_s=None):
+    """The serving leg's loop (benches/flagship_bench.py:496-515): request
+    i joins at i * gap_s seconds, between scheduler steps; with gap_s None
+    it joins at scheduler step i (the same interleaving on every route)."""
+    from tinygpt_tpu_torch.engine.scheduler import Request
+
+    submit, first, streams = {}, {}, {}
+    toks, tok_times, nxt, n_steps = 0, [], 0, 0
+    t0 = time.perf_counter()
+    while nxt < len(prompts) or batcher.has_work:
+        now = time.perf_counter()
+        while nxt < len(prompts) and (n_steps >= nxt if gap_s is None
+                                      else now - t0 >= nxt * gap_s):
+            batcher.add_request(Request(request_id=nxt, prompt_ids=prompts[nxt],
+                                        max_new_tokens=max_new))
+            submit[nxt] = now
+            nxt += 1
+        if not batcher.has_work:
+            time.sleep(0.001)
+            continue
+        for ev in batcher.step():
+            if ev.token_id is not None:
+                toks += 1
+                streams.setdefault(ev.request_id, []).append(ev.token_id)
+                first.setdefault(ev.request_id, time.perf_counter())
+        n_steps += 1
+        tok_times.append((time.perf_counter(), toks))
+    return dict(submit=submit, first=first, streams=streams, toks=toks,
+                tok_times=tok_times, t0=t0, wall=time.perf_counter() - t0)
+
+
+def _serving_metrics(run) -> dict:
+    """TTFT percentiles, whole-run and steady tok/s (the middle half of the
+    wall time, flagship_bench.py:516-525)."""
+    import numpy as np
+
+    wall, t0 = run["wall"], run["t0"]
+    ttfts = [run["first"][i] - run["submit"][i] for i in sorted(run["first"])]
+    lo, hi = t0 + 0.25 * wall, t0 + 0.75 * wall
+    win = [(t, n) for t, n in run["tok_times"] if lo <= t <= hi]
+    if len(win) >= 2 and win[-1][0] > win[0][0]:
+        steady = (win[-1][1] - win[0][1]) / (win[-1][0] - win[0][0])
+    else:
+        steady = run["toks"] / wall
+    return dict(ttft_p50_s=float(np.percentile(ttfts, 50)),
+                ttft_p95_s=float(np.percentile(ttfts, 95)),
+                tok_s=run["toks"] / wall, steady_tok_s=float(steady), wall_s=wall)
+
+
+def phase_serve(table: dict, params) -> None:
+    """The continuous batcher on the card, at the Mistral-7B shape in int4
+    (model4's params), under the JAX package's serving traffic: the main
+    path of this phase, with exact launch counts; then one quantum under
+    torch.profiler; then kernel route against plain route."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinygpt_tpu_torch.engine.scheduler import Request
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor, quantize_params
+
+    s = SERVE
+    cfg = parse_model_config(MISTRAL_7B)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    Nk, D = cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return [int(x) for x in rng.integers(3, V, n)]
+
+    with torch.inference_mode():
+        counts = Counter()
+        batcher = _serving_batcher(params, cfg, counts)
+        t0 = time.perf_counter()
+        _drive(batcher, [prompt(s["prompt_len"])], s["warm_new"])
+        torch.cuda.synchronize()
+        log(f"[serve] warm-up: one request of {s['prompt_len']} tokens, {s['warm_new']} "
+            f"new, in {time.perf_counter() - t0:.2f} s")
+        prompts = [prompt(s["prompt_len"]) for _ in range(s["n_requests"])]
+        counts.clear()
+        ak.reset_launches()                                   # the main path's run
+        run = _drive(batcher, prompts, s["max_new"], s["gap_s"])
+        torch.cuda.synchronize()
+        launches = dict(ak.LAUNCHES)
+        steps, admissions = counts["steps"], counts["admissions"]
+        m = _serving_metrics(run)
+        n_out = sorted(len(v) for v in run["streams"].values())
+        log(f"[serve] {s['n_requests']} requests of {s['prompt_len']} random tokens, "
+            f"{s['max_new']} new each, one every {s['gap_s']} s, capacity "
+            f"{s['capacity']}, quantum {s['quantum']}: TTFT p50 {m['ttft_p50_s']:.4f} s "
+            f"p95 {m['ttft_p95_s']:.4f} s; {run['toks']} tokens in {m['wall_s']:.3f} s = "
+            f"{m['tok_s']:.2f} tok/s whole run, {m['steady_tok_s']:.2f} tok/s steady "
+            f"(middle half of the wall time); {steps} decode steps, {admissions} "
+            f"admissions; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if n_out != [s["max_new"]] * s["n_requests"]:
+            raise PhaseError(f"serve: tokens per request {n_out}, want {s['max_new']} each")
+        want = {"paged_decode_frozen": L * steps,
+                "matmul_dequant_int4_stacked_fused": (2 * L + 1) * steps,
+                "mlp_fused_int4_stacked": L * steps,
+                "flash_prefill": L * admissions,
+                "matmul_dequant_int4_stacked": 4 * L * admissions,
+                "matmul_dequant_int4": admissions}
+        log(f"[serve] launches {launches} (want {want}: per decode step K8 {L}, K6 "
+            f"{2 * L + 1}, K7 {L}; per admission K1 {L}, K5b {4 * L}, K4 1)")
+        if admissions != s["n_requests"] or launches != want:
+            raise PhaseError(f"serve: launches {launches} != {want} "
+                             f"({admissions} admissions)")
+        table["paged_decode_frozen"]["launches"] = launches["paged_decode_frozen"]
+
+        # one quantum under the profiler, all rows live: fill the rows, then
+        # run decode_paged_steps on the batcher's state as the batcher would
+        for i in range(s["capacity"]):
+            batcher.add_request(Request(request_id=1000 + i, prompt_ids=prompt(
+                s["prompt_len"]), max_new_tokens=s["profile_new"]))
+        while batcher.waiting or batcher.n_running < s["capacity"]:
+            batcher.step()
+        batcher._drain_inflight()
+        Q = s["quantum"]
+        batcher._ensure_blocks(Q)
+        batcher._sync_state_meta()
+        state = batcher.state
+        tok = torch.tensor(batcher._tokens, device=DEVICE)
+        lens = batcher._lengths[batcher._active].astype(np.int64)
+        names = ("k_pool", "v_pool", "block_tables", "lengths", "starts", "active")
+        snap = {k: getattr(state, k).clone() for k in names}
+
+        def restore():
+            for k in names:
+                if k in ("k_pool", "v_pool"):
+                    getattr(state, k).copy_(snap[k])
+                else:
+                    setattr(state, k, snap[k].clone())
+
+        argmax = lambda lg: lg.argmax(-1).to(torch.int32)  # noqa: E731
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            causal_lm.decode_paged_steps(params, cfg, tok, state, Q, argmax)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_us = sum(us for us, _, _ in kernels)
+        k8_us = sum(us for us, _, key in kernels if "paged_decode_frozen" in key)
+        quant = [params["lm_head"], *(v for v in params["layers"].values()
+                                      if isinstance(v, QuantizedTensor))]
+        w_bytes = (sum(_nbytes(q.data, q.scales) for q in quant)
+                   + sum(_nbytes(v) for v in params["layers"].values()
+                         if not isinstance(v, QuantizedTensor)) + _nbytes(params["final_ln"]))
+        # K/V slots a step reads, averaged over the quantum (pool + in flight)
+        kv_slots = float(np.mean([(lens + t + 1).sum() for t in range(Q)]))
+        kv_bytes = 2 * L * Nk * D * 2 * kv_slots
+        step_bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+        if busy_us:
+            log(f"[serve] one quantum of {Q} steps at {s['capacity']} live rows under the "
+                f"profiler: wall {wall_us / Q / 1e3:.3f} ms/step, device busy "
+                f"{busy_us / Q / 1e3:.3f} ms/step ({100 * busy_us / wall_us:.1f}% busy), "
+                f"{sum(c for _, c, _ in kernels) // Q} device launches/step, K8 "
+                f"{k8_us / Q / 1e3:.3f} ms/step ({100 * k8_us / busy_us:.1f}% of busy); a "
+                f"step reads {(w_bytes + kv_bytes) / 1e9:.3f} GB (weights "
+                f"{w_bytes / 1e9:.3f}, K/V {kv_bytes / 1e9:.3f}): bound {step_bound:.3f} ms")
+            for us, count, key in sorted(kernels, reverse=True)[:8]:
+                log(f"[serve]   {us / Q / 1e3:8.4f} ms/step  {count // Q:4d} launches/step  "
+                    f"{key[:90]}")
+        else:
+            log("[serve] one quantum: device time not measured (the profiler saw no "
+                "device activity)")
+
+        # kernel route against plain route on one quantum at full width, bf16,
+        # the same state and forced tokens
+        forced = torch.randint(3, V, (Q, s["capacity"]), dtype=torch.int32, device=DEVICE,
+                               generator=torch.Generator(device=DEVICE).manual_seed(5))
+
+        def quantum_logits(impl):
+            restore()
+            seen = []
+
+            def pick(lg):
+                seen.append(lg.float())
+                return forced[len(seen) - 1]
+
+            causal_lm.decode_paged_steps(params, cfg, tok, state, Q, pick, attn_impl=impl)
+            return torch.stack(seen)
+
+        lg_k, lg_p = quantum_logits("kernel"), quantum_logits("plain")
+        err = (lg_k - lg_p).abs().max().item()
+        tol = MODEL_LOGIT_TOL["bfloat16"]
+        log(f"[serve] int4, bf16, {L} layers: one quantum on forced tokens, logits kernel "
+            f"vs plain route max_abs_err {err:.4g} (tol {tol}), logits std "
+            f"{lg_p.std().item():.3g}")
+        if not (math.isfinite(err) and err <= tol):
+            raise PhaseError(f"serve: quantum logits differ by {err} > {tol}")
+        del batcher, state, snap
+        torch.cuda.empty_cache()
+
+        # 4 layers in fp32: identical greedy streams of the two routes for 6
+        # staggered requests, two sharing a 128-token prefix (2 blocks)
+        cfg4 = parse_model_config(dict(MISTRAL_7B, num_hidden_layers=4))
+        p4 = quantize_params(causal_lm.init_params(cfg4, seed=0, dtype=torch.float32,
+                                                   device=DEVICE),
+                             bits=4, group_size=INT4_GROUP)
+        shared = prompt(2 * s["block"])
+        prompts6 = [shared + prompt(40), prompt(300), shared + prompt(100), prompt(9),
+                    prompt(200), prompt(64)]
+        streams = {}
+        for impl in ("kernel", "plain"):
+            b = _serving_batcher(p4, cfg4, Counter(), dtype="float32", attn_impl=impl)
+            streams[impl] = _drive(b, prompts6, 24)["streams"]
+            idle = b.allocator.n_idle_cached
+        same = streams["kernel"] == streams["plain"]
+        log(f"[serve] int4, fp32, 4 layers: greedy streams of 6 staggered requests (two "
+            f"sharing a {len(shared)}-token prefix; {idle} blocks idle-cached at the end) "
+            f"{'identical' if same else 'DIFFER'} on the kernel and plain routes")
+        if not same or sorted(map(len, streams["kernel"].values())) != [24] * 6:
+            raise PhaseError(f"serve: fp32 streams differ: {streams}")
+        del p4
+    torch.cuda.empty_cache()
+
+
+def _write_model_dir(d: str) -> None:
+    """A model dir of Mistral-7B widths, 2 layers, random bf16 weights and
+    the generated Metaspace-BPE tokenizer (the engine and server phases)."""
+    import torch
+
+    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
+
+    t0 = time.perf_counter()
+    write_random_model_dir(d, dict(MISTRAL_7B, num_hidden_layers=2), seed=2,
+                           dtype=torch.bfloat16, device=DEVICE)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"[engine] model dir {size / 1e9:.2f} GB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_engine(d: str) -> None:
+    """GPTEngine on the model dir `d`: once in bf16, once quantized to int4
+    (awq=False)."""
     import torch
 
     from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
     from tinygpt_tpu_torch.ops import attention_kernels as ak
-    from tinygpt_tpu_torch.ops import cuda_build
-    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
 
     max_tokens = 32
-    cfg = dict(MISTRAL_7B, num_hidden_layers=2)
     prompts = ["The meaning of life is", "Once upon a time,",
                "In a shocking finding, scientists discovered",
                "The best way to learn programming is"]
@@ -1007,42 +1478,125 @@ def phase_engine() -> None:
                      ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int4",
                       "matmul_dequant_int4_stacked", "matmul_dequant_int4_stacked_fused",
                       "mlp_fused_int4_stacked"))}
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    d = tempfile.mkdtemp(prefix="smoke_model_", dir=cuda_build.BUILD_DIR)
-    try:
+    for label, (kw, kernels) in runs.items():
         t0 = time.perf_counter()
-        write_random_model_dir(d, cfg, seed=2, dtype=torch.bfloat16, device=DEVICE)
-        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
-        log(f"[engine] model dir {size / 1e9:.2f} GB written in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for label, (kw, kernels) in runs.items():
-            t0 = time.perf_counter()
-            eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE,
-                                      **kw))
-            eng.prepare()
-            t_load = time.perf_counter() - t0
-            ak.reset_launches()
-            t0 = time.perf_counter()
-            outs = eng.generate_sync(prompts)
-            torch.cuda.synchronize()
-            t_gen = time.perf_counter() - t0
-            launches = dict(ak.LAUNCHES)
-            del eng
-            torch.cuda.empty_cache()
-            n = [len(o.token_ids) for o in outs]
-            log(f"[engine] {label}: prepare() {t_load:.1f} s; generate_sync of "
-                f"{len(prompts)} prompts: {sum(n)} tokens in {t_gen * 1e3:.0f} ms; "
-                f"launches {launches}")
-            log(f"[engine] {label}: first output: {outs[0].text[:60]!r}")
-            if n != [max_tokens] * len(prompts):
-                raise PhaseError(f"{label} engine produced {n} tokens, want "
-                                 f"{max_tokens} per prompt")
-            missing = [k for k in kernels if not launches.get(k)]
-            if missing:
-                raise PhaseError(f"{label} engine run launched {launches}: {missing} "
-                                 f"never launched")
+        eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE,
+                                  **kw))
+        eng.prepare()
+        t_load = time.perf_counter() - t0
+        ak.reset_launches()
+        t0 = time.perf_counter()
+        outs = eng.generate_sync(prompts)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(ak.LAUNCHES)
+        del eng
+        torch.cuda.empty_cache()
+        n = [len(o.token_ids) for o in outs]
+        log(f"[engine] {label}: prepare() {t_load:.1f} s; generate_sync of "
+            f"{len(prompts)} prompts: {sum(n)} tokens in {t_gen * 1e3:.0f} ms; "
+            f"launches {launches}")
+        log(f"[engine] {label}: first output: {outs[0].text[:60]!r}")
+        if n != [max_tokens] * len(prompts):
+            raise PhaseError(f"{label} engine produced {n} tokens, want "
+                             f"{max_tokens} per prompt")
+        missing = [k for k in kernels if not launches.get(k)]
+        if missing:
+            raise PhaseError(f"{label} engine run launched {launches}: {missing} "
+                             f"never launched")
+
+
+def phase_server(d: str) -> None:
+    """TinyGPTServer on the model dir `d` (bf16, on the card), in-process on
+    127.0.0.1 and a free port, with a chat template passed in: four
+    concurrent clients send a completion, a streamed (SSE) completion, a
+    chat completion and a health check; every answer must be a 200 with
+    text and the usage counts. The server is shut down at the end."""
+    import concurrent.futures
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.server.http import ServerConfig, TinyGPTServer, _make_handler
+    from tinygpt_tpu_torch.tokenizer.chat_template import CHATML_TEMPLATE
+
+    max_tokens = 16
+    t0 = time.perf_counter()
+    srv = TinyGPTServer(ServerConfig(model_dir=d, host="127.0.0.1", port=0,
+                                     max_tokens=max_tokens, chat_template=CHATML_TEMPLATE,
+                                     device=DEVICE))
+    srv.prepare()
+    srv._httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(srv))
+    url = f"http://127.0.0.1:{srv._httpd.server_address[1]}"
+    thread = threading.Thread(target=srv._httpd.serve_forever, daemon=True)
+    thread.start()
+    log(f"[server] TinyGPTServer ready at {url} in {time.perf_counter() - t0:.1f} s")
+
+    def call(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(url + path, data=data,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.headers.get("Content-Type", ""), resp.read().decode()
+
+    def completion():
+        st, _, body = call("/v1/completions", {"prompt": "The meaning of life is",
+                                               "max_tokens": max_tokens})
+        d = json.loads(body)
+        return st, d["choices"][0]["text"], d["usage"]
+
+    def completion_sse():
+        st, ctype, body = call("/v1/completions", {"prompt": "Once upon a time,",
+                                                   "max_tokens": max_tokens,
+                                                   "stream": True})
+        frames = [f[6:] for f in body.split("\n\n") if f.startswith("data: ")]
+        if not ctype.startswith("text/event-stream") or frames[-1] != "[DONE]":
+            raise PhaseError(f"server: SSE answer malformed: {body[:200]!r}")
+        payloads = [json.loads(f) for f in frames[:-1]]
+        text = "".join(p["choices"][0].get("text", "") for p in payloads)
+        return st, text, payloads[-1]["usage"]
+
+    def chat():
+        st, _, body = call("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Hello there"}],
+            "max_tokens": max_tokens})
+        d = json.loads(body)
+        return st, d["choices"][0]["message"]["content"], d["usage"]
+
+    def health():
+        st, _, body = call("/health")
+        return st, json.loads(body)["status"], None
+
+    calls = {"completion": completion, "completion SSE": completion_sse, "chat": chat,
+             "health": health}
+    try:
+        ak.reset_launches()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(calls)) as ex:
+            futs = {name: ex.submit(fn) for name, fn in calls.items()}
+            results = {name: f.result() for name, f in futs.items()}
+        t_req = time.perf_counter() - t0
+        launches = dict(ak.LAUNCHES)
     finally:
-        shutil.rmtree(d, ignore_errors=True)
+        srv._httpd.shutdown()
+        srv.worker.stop()
+        thread.join(timeout=30)
+    for name, (st, text, usage) in results.items():
+        log(f"[server] {name}: HTTP {st}, {text[:40]!r}"
+            + (f", usage {usage}" if usage else ""))
+        if st != 200 or not text:
+            raise PhaseError(f"server: {name} answered {st} with {text!r}")
+        if usage and not (usage["completion_tokens"] == max_tokens
+                          and usage["prompt_tokens"] > 0 and usage["total_tokens"]
+                          == usage["prompt_tokens"] + usage["completion_tokens"]):
+            raise PhaseError(f"server: {name} usage {usage}")
+    log(f"[server] 4 concurrent requests answered in {t_req:.2f} s; launches {launches}; "
+        f"server shut down ({'stopped' if not thread.is_alive() else 'STILL RUNNING'})")
+    if thread.is_alive() or not (launches.get("paged_decode_frozen")
+                                 and launches.get("flash_prefill")):
+        raise PhaseError(f"server: launches {launches}, thread alive "
+                         f"{thread.is_alive()}")
 
 
 def main() -> int:
@@ -1064,9 +1618,22 @@ def main() -> int:
         phase_build()
         table = phase_kernels(main_path_shapes())
         phase_int4_kernels(table)
+        phase_paged_kernels(table)
         phase_model(table)
-        phase_model_int4(table)
-        phase_engine()
+        params4 = phase_model_int4(table)
+        phase_serve(table, params4)
+        del params4
+        torch.cuda.empty_cache()
+        from tinygpt_tpu_torch.ops import cuda_build
+
+        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        d = tempfile.mkdtemp(prefix="smoke_model_", dir=cuda_build.BUILD_DIR)
+        try:
+            _write_model_dir(d)
+            phase_engine(d)
+            phase_server(d)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -345,3 +345,176 @@ def test_int4_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         qk.mlp_fused_int4_stacked(x.float(), data, scales, dn, dns, ln, inv, 0, g)
     with pytest.raises(ValueError, match="do not fit"):
         qk.mlp_fused_int4_stacked(x, data, scales, dn, dns, ln[:, :128], inv, 0, g)
+
+
+# -- paged frozen-pool decode (K8) ------------------------------------------------
+#
+# Both sides compute in fp32 from the same inputs in another order and round
+# the output once, so they differ by at most one ulp of an output: K2's TOL,
+# and in bf16 no more than one ulp of the largest output (2^-7 of it), which
+# at the serving shape (outputs below 0.5) is under 4e-3. Dead table entries
+# point to the null block 0; "poisoned" cases fill block 0 with NaN, which a
+# kernel that read a dead entry, or let a masked slot in as 0 * value, would
+# carry into the output. Inactive rows keep stale lengths over zero tables
+# (they read block 0 and nothing out of range).
+
+from tinygpt_tpu_torch.ops import paged_attention as pa  # noqa: E402
+
+PAGED_CASES = [
+    # (D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, steps,
+    #  window, poison)
+    (128, torch.bfloat16, 4, 8, 64, 16, 257, 8,            # the serving shape
+     tuple(512 + 17 * i for i in range(16)), (0,) * 16, (3, 9), (0, 7), None, False),
+    (128, torch.float32, 4, 8, 64, 16, 257, 8,
+     tuple(512 + 17 * i for i in range(16)), (0,) * 16, (), (0, 7), None, True),
+    (64, torch.float32, 1, 4, 16, 8, 40, 4, (1, 17, 100, 128), (0, 5, 20, 0), (),
+     (0, 3), 20, True),
+    (128, torch.float16, 8, 1, 32, 4, 9, 8, (33, 64, 0), (0, 0, 0), (), (0, 7), None,
+     True),
+    (64, torch.bfloat16, 3, 2, 64, 3, 10, 5, (190, 64, 65), (0, 0, 10), (), (4,), 3,
+     True),
+    (128, torch.float32, 2, 2, 16, 4, 20, 6, (60, 33, 1000), (0, 0, 0), (2,), (0, 5),
+     40, False),                                          # stale length > MB * bs
+]
+
+
+def _paged_case(dev, D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts,
+                inactive, poison, L=2, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    B = len(lengths)
+    kp = _randn(gen, L, n_blocks, Nk, bs, D, dtype=dtype, dev=dev)
+    vp = _randn(gen, L, n_blocks, Nk, bs, D, dtype=dtype, dev=dev)
+    if poison:
+        kp[:, 0] = float("nan")
+        vp[:, 0] = float("nan")
+    tables = torch.zeros(B, MB, dtype=torch.int32)
+    ids = (torch.randperm(n_blocks - 1, generator=gen) + 1).tolist()
+    for b in range(B):
+        if b in inactive:
+            continue
+        nb = -(-lengths[b] // bs)
+        tables[b, :nb] = torch.tensor(ids[:nb], dtype=torch.int32)
+        ids = ids[nb:]
+    q = _randn(gen, B, Nk * G, D, dtype=dtype, dev=dev)
+    ki = _randn(gen, B, Nk, N, D, dtype=dtype, dev=dev)
+    vi = _randn(gen, B, Nk, N, D, dtype=dtype, dev=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q, kp, vp, tables.to(dev), torch.tensor(lengths, **i32),
+            torch.tensor(starts, **i32), ki, vi)
+
+
+def _paged_tol(dtype, want):
+    if dtype == torch.bfloat16:
+        return min(TOL[dtype], 2.0 ** -7 * want.float().abs().max().item())
+    return TOL[dtype]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_decode_frozen_kernel_matches_plain(dev, case):
+    D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, steps, window, \
+        poison = case
+    q, kp, vp, tables, lens, sts, ki, vi = _paged_case(
+        dev, D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, poison)
+    for step in steps:
+        for l in range(kp.shape[0]):
+            args = (q, kp, vp, tables, lens, sts, ki, vi, l, step, D ** -0.5, window)
+            ak.reset_launches()
+            got = pa.paged_decode_frozen(*args)
+            assert ak.LAUNCHES["paged_decode_frozen"] == 1
+            want = pa.paged_decode_frozen_plain(*args)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(want).all())
+            assert _max_err(got, want) <= _paged_tol(dtype, want), f"step {step} layer {l}"
+
+
+def test_paged_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q, kp, vp, tables, lens, sts, ki, vi = _paged_case(
+        dev, 64, torch.float32, 2, 2, 16, 4, 9, 4, (20, 5), (0, 0), (), False)
+    with pytest.raises(ValueError, match="out of range"):
+        pa.paged_decode_frozen(q, kp, vp, tables, lens, sts, ki, vi, 0, 4, 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        pa.paged_decode_frozen(q, kp, vp, tables.long(), lens, sts, ki, vi, 0, 0, 0.1)
+    with pytest.raises(ValueError, match="at most"):
+        pa.paged_decode_frozen(q.repeat(1, 9, 1), kp, vp, tables, lens, sts, ki, vi,
+                               0, 0, 0.1)
+    if hasattr(torch, "float8_e4m3fn"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            pa.paged_decode_frozen(q, kp.to(torch.float8_e4m3fn), vp, tables, lens,
+                                   sts, ki, vi, 0, 0, 0.1)
+
+
+def _card_cfg(max_position_embeddings=256):
+    return parse_model_config(dict(
+        model_type="mistral", vocab_size=211, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, max_position_embeddings=max_position_embeddings,
+        sliding_window=9))
+
+
+def _batcher_streams(cfg, params, device, impl, prompts, max_new):
+    """Greedy streams of a 3-row batcher (block 16, 6 blocks a row), one
+    arrival per scheduler step; max_new[i] tokens for request i."""
+    from tinygpt_tpu_torch.engine.scheduler import (
+        ContinuousBatcher,
+        Request,
+        SchedulerConfig,
+    )
+    from tinygpt_tpu_torch.models import get_model
+
+    p = {k: v.to(device) if isinstance(v, torch.Tensor) else
+         ({n: t.to(device) for n, t in v.items()} if isinstance(v, dict) else v)
+         for k, v in params.items()}
+    b = ContinuousBatcher(get_model("mistral"), cfg, p, eos_ids=set(),
+                          config=SchedulerConfig(
+                              batch_capacity=3, block_size=16, n_blocks=32,
+                              max_blocks_per_seq=6, prefill_bucket=16,
+                              dtype="float32", decode_quantum=4, attn_impl=impl))
+    got, pending = {}, list(enumerate(prompts))
+    while b.has_work or pending:
+        if pending:
+            i, pr = pending.pop(0)
+            b.add_request(Request(request_id=i, prompt_ids=pr, max_new_tokens=max_new[i]))
+        for ev in b.step():
+            if ev.token_id is not None:
+                got.setdefault(ev.request_id, []).append(ev.token_id)
+    return got
+
+
+def test_batcher_on_the_card_matches_the_cpu(dev):
+    """The continuous batcher on the card (kernel route: K1 at admission,
+    K8 in every decode step) against the same params through the plain
+    versions on the CPU: identical greedy streams for staggered requests,
+    more requests than rows, two sharing a prefix block."""
+    cfg = _card_cfg()
+    params = causal_lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    prefix = torch.randint(3, cfg.vocab_size, (16,), generator=gen).tolist()
+    prompts = [prefix + torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (3, 30)]
+    prompts += [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+                for n in (1, 40, 7)]
+    max_new = [10] * len(prompts)
+    want = _batcher_streams(cfg, params, "cpu", "plain", prompts, max_new)
+    ak.reset_launches()
+    got = _batcher_streams(cfg, params, dev, "kernel", prompts, max_new)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["paged_decode_frozen"] > 0 and ak.LAUNCHES["flash_prefill"] > 0
+    assert got == want
+
+
+def test_batcher_at_the_context_cap_on_the_card(dev):
+    """A row's pool range (6 blocks of 16) equals the context (96): the
+    request that fills it runs its pipelined quanta past position 95 and is
+    released while another row decodes on. No device assert, and the
+    streams equal the plain route's on the CPU."""
+    cfg = _card_cfg(max_position_embeddings=96)
+    params = causal_lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (90, 5)]
+    max_new = [6, 40]
+    want = _batcher_streams(cfg, params, "cpu", "plain", prompts, max_new)
+    got = _batcher_streams(cfg, params, dev, "kernel", prompts, max_new)
+    torch.cuda.synchronize()
+    assert [len(got[i]) for i in (0, 1)] == max_new
+    assert got == want

@@ -82,3 +82,39 @@ def test_cuda_build_paths(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.nvcc_path()
+
+
+_IMPORT_SERVING = """
+import sys
+import tinygpt_tpu_torch.server, tinygpt_tpu_torch.server.api, tinygpt_tpu_torch.server.utils
+import tinygpt_tpu_torch.engine.scheduler, tinygpt_tpu_torch.engine.paged_kv
+import tinygpt_tpu_torch.engine.native_pool, tinygpt_tpu_torch.ops.paged_attention
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tinygpt_tpu"))
+assert not bad, bad
+print("serving path imports alone")
+"""
+
+
+def test_serving_modules_import_without_jax():
+    """The server, the scheduler and the paged modules import neither jax
+    nor the JAX package."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_SERVING], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "serving path imports alone" in r.stdout
+
+
+def test_web_ui_is_a_copy():
+    ui = Path("server") / "web" / "index.html"
+    assert (PKG / ui).read_bytes() == (REPO / "tinygpt_tpu" / ui).read_bytes()
+
+
+def test_server_main_runs_only_as_a_script():
+    """`python -m tinygpt_tpu_torch.server` parses its arguments; importing
+    the module (as pkgutil.walk_packages does) runs nothing."""
+    r = subprocess.run([sys.executable, "-m", "tinygpt_tpu_torch.server", "--help"],
+                       cwd=REPO, env=_clean_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0 and "--model" in r.stdout and "--device" in r.stdout

@@ -63,6 +63,18 @@ def test_apply_rope_gathered():
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-6, atol=1e-6)
 
 
+def test_gather_rope_clamps_past_the_table_like_jax():
+    """Positions past the table take its last row, as JAX's gather clamps."""
+    D, P = 32, 128
+    pos = np.array([[0, 5, 127, 128, 200, 10 ** 6]], np.int32)
+    jc, js = jrope.compute_rope_freqs(D, P, 10000.0)
+    tc, ts = rope.compute_rope_freqs(D, P, 10000.0)
+    c, s = rope.gather_rope(tc, ts, _t(pos))
+    np.testing.assert_array_equal(c[:, :, 0].numpy(), np.asarray(jnp.asarray(jc)[pos]))
+    np.testing.assert_array_equal(s[:, :, 0].numpy(), np.asarray(jnp.asarray(js)[pos]))
+    np.testing.assert_array_equal(c[0, 3:, 0].numpy(), np.broadcast_to(jc[-1], (3, D)))
+
+
 def _logits(seed=2, B=3, V=40):
     return np.random.default_rng(seed).standard_normal((B, V)).astype(np.float32) * 2
 

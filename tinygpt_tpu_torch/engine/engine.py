@@ -158,6 +158,8 @@ class GPTEngine:
                      cfg.sampler)
         mc = self.ctx.model_config
         self._max_context = cfg.max_context or mc.context_size
+        # the attention route the continuous batcher takes (server/api.py)
+        self._attn_impl = "kernel" if self._device.type == "cuda" else "plain"
         log.info(
             "engine ready: %s, %d layers, context %d, eos=%s, device %s",
             mc.model_type, mc.num_hidden_layers, self._max_context,
@@ -201,6 +203,12 @@ class GPTEngine:
         if kd in ("auto", None):
             return resolve_dtype(self.config.dtype)
         return resolve_dtype(kd)
+
+    def apply_chat_template(self, messages, add_generation_prompt=True) -> str:
+        assert self.ctx is not None
+        return self.ctx.tokenizer.apply_chat_template(
+            messages, add_generation_prompt=add_generation_prompt
+        )
 
     # -- encoding --------------------------------------------------------
 

@@ -30,6 +30,10 @@ the residual and for the head with the final norm; K7 for the MLP). The
 layer is an offset into the [L, ...] stacks. attn_impl="plain" runs the
 plain version of every kernel instead.
 
+`decode_paged_steps` is the continuous batcher's decode quantum over the
+paged KV pool (engine/paged_kv.py): the same layer loop as decode_steps,
+with attention through the block tables (K8, ops/paged_attention.py).
+
 Not ported yet, each raising NotImplementedError: int8 weights (ROADMAP
 queue 1 item 6, kernels K3/K5a), the fp8 KV cache (item 7) and MoE
 (item 12).
@@ -44,12 +48,17 @@ import torch
 import torch.nn.functional as F
 
 from tinygpt_tpu_torch.engine.kv_cache import KVCache
+from tinygpt_tpu_torch.engine.paged_kv import PagedKVState
 from tinygpt_tpu_torch.hf.config import ModelConfig
 from tinygpt_tpu_torch.ops.attention import (
     attention_with_cache,
     sdpa_decode_frozen,
 )
 from tinygpt_tpu_torch.ops.attention_kernels import flash_decode_frozen
+from tinygpt_tpu_torch.ops.paged_attention import (
+    paged_decode_frozen,
+    paged_decode_frozen_plain,
+)
 from tinygpt_tpu_torch.ops import quant_kernels as qk
 from tinygpt_tpu_torch.ops.norms import rms_norm
 from tinygpt_tpu_torch.ops.quant import (
@@ -358,6 +367,9 @@ def forward(
     token_valid: torch.Tensor,  # [B, S] bool — real token vs pad
     last_only: bool = False,
     attn_impl: str = "kernel",  # "kernel" | "plain"
+    last_pos: Optional[torch.Tensor] = None,  # [B] row of the last REAL
+                                # token for trailing-padded prompts
+                                # (default: S - 1)
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward step (prefill S>1 or decode S=1) at slot cache.length.
 
@@ -383,7 +395,9 @@ def forward(
             positions=positions, kv_pos=cache.kv_pos, valid=cache.valid,
             slot=slot, rope_c=rope_c, rope_s=rope_s, attn_impl=impl, l=l,
         )
-    if last_only:  # left padding puts every row's last token at S - 1
+    if last_only and last_pos is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), last_pos.long()][:, None]
+    elif last_only:  # left padding puts every row's last token at S - 1
         x = x[:, -1:]
     cache.length = slot + S
     return _logits(params, x, cfg, impl), cache
@@ -471,21 +485,15 @@ def _logits_fused(params: Dict, x2: torch.Tensor, cfg: ModelConfig,
     return logits[:, None, : cfg.vocab_size].float()
 
 
-def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
-                attn_impl):
-    """Logits [B, 1, V] of one decode step over the frozen cache; writes
-    this step's K/V into the in-flight buffers at `step`."""
-    impl = _impl(attn_impl)
+def _decode_token(params, cfg, tok, pos, infl_k, infl_v, step, attend,
+                  impl: str):
+    """Logits [B, 1, V] of one decode step: every layer writes this step's
+    K/V into the in-flight buffers at `step`, then attends through
+    attend(l, q [B, 1, Nq, D]) -> [B, 1, Nq, D]. int4 params take the
+    fused route (K6, K7)."""
     B = tok.shape[0]
-    D = cfg.head_dim
-    window = cfg.sliding_window
     fused = _int4_fused(params)
     rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], pos)
-    if impl == "kernel":
-        # frozen-slot mask (causal & valid & window), shared by the layers
-        mask_f = (cache.kv_pos <= pos) & cache.valid
-        if window is not None:
-            mask_f &= cache.kv_pos > pos - window
     x = params["embed"][tok.long()][:, None]  # [B, 1, H]
     for l in range(cfg.num_hidden_layers):
         lp = _layer(params, l)
@@ -496,16 +504,7 @@ def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
             q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
         infl_k[l, :, :, step] = k[:, 0]
         infl_v[l, :, :, step] = v[:, 0]
-        if impl == "kernel":
-            attn = flash_decode_frozen(
-                q[:, 0], cache.k, cache.v, mask_f, infl_k[l], infl_v[l], l,
-                step, scale=D ** -0.5, window=window,
-            )[:, None]
-        else:
-            attn = sdpa_decode_frozen(
-                q, cache.k[l], cache.v[l], cache.kv_pos, cache.valid,
-                infl_k[l], infl_v[l], step, pos, sliding_window=window,
-            )
+        attn = attend(l, q)
         if fused:
             x = _out_and_mlp_fused(params, x[:, 0], attn, cfg, l, impl)[:, None]
         else:
@@ -513,6 +512,34 @@ def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
     if fused:
         return _logits_fused(params, x[:, 0], cfg, impl)
     return _logits(params, x.reshape(B, 1, -1), cfg, impl)
+
+
+def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
+                attn_impl):
+    """Logits [B, 1, V] of one decode step over the frozen cache; writes
+    this step's K/V into the in-flight buffers at `step`."""
+    impl = _impl(attn_impl)
+    D = cfg.head_dim
+    window = cfg.sliding_window
+    if impl == "kernel":
+        # frozen-slot mask (causal & valid & window), shared by the layers
+        mask_f = (cache.kv_pos <= pos) & cache.valid
+        if window is not None:
+            mask_f &= cache.kv_pos > pos - window
+
+    def attend(l, q):
+        if impl == "kernel":
+            return flash_decode_frozen(
+                q[:, 0], cache.k, cache.v, mask_f, infl_k[l], infl_v[l], l,
+                step, scale=D ** -0.5, window=window,
+            )[:, None]
+        return sdpa_decode_frozen(
+            q, cache.k[l], cache.v[l], cache.kv_pos, cache.valid,
+            infl_k[l], infl_v[l], step, pos, sliding_window=window,
+        )
+
+    return _decode_token(params, cfg, tok, pos, infl_k, infl_v, step, attend,
+                         impl)
 
 
 def decode_steps(
@@ -566,3 +593,75 @@ def decode_steps(
     cache.valid[:, slot0:end] = True
     cache.length = end
     return toks, cache
+
+
+def decode_paged_steps(
+    params: Dict,
+    cfg: ModelConfig,
+    tok0: torch.Tensor,      # [B] int32 first input token of the quantum
+    state: PagedKVState,
+    n_steps: int,
+    sample_fn: Callable[[torch.Tensor], torch.Tensor],  # logits [B, V] -> tok [B]
+    attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """n_steps paged decode steps with the block POOLS frozen (the paged
+    analogue of decode_steps): each step's K/V land in an in-flight
+    buffer [L, B, Nk, n_steps, D] that paged_decode_frozen (K8) merges
+    with the pool, and ONE scatter at the end writes slot lengths0 + t of
+    every active row into its (block, offset); inactive rows write to the
+    null block 0. Sliding windows are handled inside the merge (the
+    current token's slot is lengths0[b] + step, and slot deltas equal
+    logical deltas within a row). int4 params take the fused route (K6,
+    K7). No step reads anything back to the host.
+
+    Updates `state` in place (pools, and lengths advanced by
+    n_steps * active) and returns the tokens sampled after each input,
+    [n_steps, B] int32."""
+    _check_supported(cfg, params)
+    impl = _impl(attn_impl)
+    if state.k_pool.element_size() < 2:
+        raise _not_ported("the fp8 KV pool", 7)
+    B = tok0.shape[0]
+    L, D, Nk = cfg.num_hidden_layers, cfg.head_dim, cfg.num_kv_heads
+    window = cfg.sliding_window
+    bs, MB = state.block_size, state.max_blocks
+    dev = state.k_pool.device
+    tables, starts, active = state.block_tables, state.starts, state.active
+    lengths0 = state.lengths
+    act = active.to(torch.int32)
+    attend_fn = paged_decode_frozen if impl == "kernel" else paged_decode_frozen_plain
+    infl_k = torch.zeros((L, B, Nk, n_steps, D), dtype=state.k_pool.dtype, device=dev)
+    infl_v = torch.zeros_like(infl_k)
+    toks = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
+    tok = tok0.to(torch.int32)
+    for step in range(n_steps):
+        # [B, 1] logical; may pass the context at the cap (gather_rope clamps)
+        pos = (lengths0 + step * act - starts)[:, None]
+
+        def attend(l, q, step=step):
+            return attend_fn(q[:, 0], state.k_pool, state.v_pool, tables, lengths0,
+                             starts, infl_k[l], infl_v[l], l, step,
+                             scale=D ** -0.5, window=window)[:, None]
+
+        logits = _decode_token(params, cfg, tok, pos, infl_k, infl_v, step,
+                               attend, impl)
+        tok = sample_fn(logits[:, -1, :]).to(torch.int32)
+        toks[step] = tok
+
+    # scatter the quantum's K/V into their (block, offset) slots: step t's
+    # token occupies slot lengths0 + t of its row. A slot past the table
+    # takes its last entry (the JAX gather clamps so); inactive rows write
+    # to the null block.
+    steps = torch.arange(n_steps, dtype=torch.int32, device=dev)
+    slot_t = lengths0[None, :] + steps[:, None] * act[None, :]          # [N, B]
+    rows = torch.arange(B, device=dev)[None, :].expand(n_steps, B)
+    blk = tables[rows, (slot_t // bs).clamp(max=MB - 1).long()]
+    blk = torch.where(active[None, :], blk, 0).reshape(-1).long()
+    off = (slot_t % bs).reshape(-1).long()
+    # the indexed dims go to the front: pool[:, blk, :, off, :] is [N*B, L, Nk, D]
+    state.k_pool[:, blk, :, off, :] = infl_k.permute(3, 1, 0, 2, 4).reshape(
+        n_steps * B, L, Nk, D)
+    state.v_pool[:, blk, :, off, :] = infl_v.permute(3, 1, 0, 2, 4).reshape(
+        n_steps * B, L, Nk, D)
+    state.lengths = lengths0 + n_steps * act
+    return toks

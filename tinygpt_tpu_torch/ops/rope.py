@@ -66,8 +66,12 @@ def gather_rope(
     positions: torch.Tensor,  # [B, S] absolute positions
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather the per-position rotation rows once per step ([B, S, 1, D]);
-    every layer reuses them through apply_rope_gathered."""
-    positions = positions.long()
+    every layer reuses them through apply_rope_gathered. A position past
+    the table takes its last row, as the JAX gather clamps: a paged decode
+    quantum may run a row (or an inactive row's stale length) past the
+    model's context, and an out-of-range index on the card is a device
+    assert that loses the CUDA context."""
+    positions = positions.long().clamp(max=cos.shape[0] - 1)
     return cos[positions][:, :, None, :], sin[positions][:, :, None, :]
 
 

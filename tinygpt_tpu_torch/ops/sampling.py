@@ -5,7 +5,8 @@ set; otherwise temperature-scale → top-k → top-p (always keeping the top-1
 token) → min-p (threshold = max_prob · min_p) → categorical draw. The
 draw takes an explicit `torch.Generator` (on the logits' device), so a
 seeded engine is reproducible; it does not reproduce jax.random's bits.
-The per-row `sample_batched` comes with the scheduler.
+`sample_batched` takes the knobs per row, as tensors, for the continuous
+batcher, whose decode step mixes requests with different settings.
 """
 
 from __future__ import annotations
@@ -90,3 +91,59 @@ def sample(
         raise ValueError("stochastic sampling requires a torch.Generator")
     probs = torch.softmax(masked_logits(logits.float(), cfg), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def masked_logits_batched(
+    logits: torch.Tensor,       # [B, V] fp32
+    temperature: torch.Tensor,  # [B] — <= 0 treated as 1.0 here (the caller
+                                # routes greedy rows to argmax)
+    top_k: torch.Tensor,        # [B] int32 — 0 ⇒ disabled
+    top_p: torch.Tensor,        # [B] — 1.0 ⇒ disabled
+    min_p: torch.Tensor,        # [B] — 0.0 ⇒ disabled
+) -> torch.Tensor:
+    """Each row's processed sampling distribution as masked logits:
+    temperature-scaled, with the top-k / top-p / min-p losers at NEG_INF.
+    One descending sort; every knob becomes a value threshold on it (the
+    tie semantics of apply_top_k / apply_top_p)."""
+    V = logits.shape[-1]
+    t = torch.where(temperature <= 0, 1.0, temperature)[:, None]
+    scaled = logits / t
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+
+    # top-k threshold: the k-th largest value (k == 0 disables)
+    k_eff = torch.where(top_k <= 0, V, top_k).clamp(1, V)
+    kth_k = sorted_desc.gather(-1, (k_eff - 1)[:, None].long())
+
+    # top-p threshold: the smallest value whose preceding cumulative mass
+    # is still below p (rank 0 always kept)
+    probs_sorted = torch.softmax(sorted_desc, dim=-1)
+    cum = torch.cumsum(probs_sorted, dim=-1)
+    keep_sorted = (cum - probs_sorted) < top_p[:, None]
+    keep_sorted[:, 0] = True
+    kth_p = torch.where(keep_sorted, sorted_desc, torch.inf).amin(
+        dim=-1, keepdim=True)
+
+    # min-p threshold in probability space
+    probs = torch.softmax(scaled, dim=-1)
+    thr_min = probs.amax(dim=-1, keepdim=True) * min_p[:, None]
+
+    keep = (scaled >= kth_k) & (scaled >= kth_p) & (probs >= thr_min)
+    return torch.where(keep, scaled, NEG_INF)
+
+
+def sample_batched(
+    logits: torch.Tensor,       # [B, V] fp32
+    temperature: torch.Tensor,  # [B] — 0 ⇒ greedy for that row
+    top_k: torch.Tensor,        # [B] int32 — 0 ⇒ disabled
+    top_p: torch.Tensor,        # [B] — 1.0 ⇒ disabled
+    min_p: torch.Tensor,        # [B] — 0.0 ⇒ disabled
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """Per-row sampling knobs in one call. Returns token ids [B] int32 on
+    the logits' device; rows with temperature <= 0 take the argmax."""
+    logits = logits.float()
+    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    masked = masked_logits_batched(logits, temperature, top_k, top_p, min_p)
+    sampled = torch.multinomial(torch.softmax(masked, dim=-1), 1,
+                                generator=generator)[:, 0].to(torch.int32)
+    return torch.where(temperature <= 0, greedy_tok, sampled)
