@@ -23,6 +23,10 @@ Phases, in order:
            prefill of 4 left-padded prompts, then two greedy decode chunks
            of 32 steps, through the kernels and through the plain
            versions, compared; the launch counts show each kernel's use;
+  awq      AWQ at full width on the model phase's bf16 params: statistics,
+           search and fold timed, the fold identity (fp32 at 4 layers, bf16
+           at 32), then int4 at group 64 through K5b, K4, K6 and K7 against
+           the plain route, exact launch counts;
   model4   the same shape quantized to int4 (group 64) on the card: first
            4 layers in fp32, then all 32 in bf16, kernel route against
            plain route, exact launch counts per prefill and decode step;
@@ -33,16 +37,25 @@ Phases, in order:
            and per admission, a torch.profiler trace of one quantum, and
            kernel route against plain route (4 layers fp32: identical
            greedy streams; 32 layers bf16: one quantum's logits);
+  int8     the int4 phase's checks and timings for the int8 dequant-matmul
+           kernels (K3, K5a) at the int8 path's shapes (decode and
+           prefill) and at contraction dims of 896 and 64, with cuBLAS on
+           the bf16-dequantized weight as the library yardstick;
+  model8   the same shape in int8 (group 128): K5a and K3 in the prefill
+           and in every decode step (the unfused route), the same checks;
   engine   writes a 2-layer Mistral-width model dir with a generated
            Metaspace-BPE tokenizer and runs GPTEngine.generate_sync on it,
-           in bf16 and with quantization="int4", awq=False;
+           in bf16, with quantization="int4", awq=False, with "int8", and
+           with "int4" and AWQ by default;
+  evaluate python -m tinygpt_tpu_torch.evaluate on that dir, bf16 and int8,
+           kernel route against plain route;
   server   serves that model dir over HTTP in-process (TinyGPTServer on
            127.0.0.1): four concurrent clients, completions plain and SSE,
            chat completions and /health.
 
 Every phase must pass; the script exits non-zero at the first failure.
-Its last three lines are the card's name and power limit, the kernel
-table as JSON and the result line
+Its last lines are the seconds each phase took, the card's name and power
+limit, the kernel table as JSON and the result line
 {"ok": true, "device": {...}}. It needs a CUDA device and the rest of the
 repository beside it; without either it exits non-zero and prints no
 result.
@@ -50,6 +63,7 @@ result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -84,6 +98,13 @@ MISTRAL_7B = {
     "rms_norm_eps": 1e-5,
 }
 PROMPT_LENS = (512, 400, 300, 128)   # left-padded to one bucket of 512
+# the AWQ fold at 32 layers in bf16 (awq phase), max abs error of the
+# logits: folding re-rounds every layer weight and norm to bf16 (each by up
+# to half an ulp), where the kernel and plain routes differ only in
+# attention's summation order; the random stack amplifies either, so the
+# limit is twice MODEL_LOGIT_TOL's bf16 one (the fp32 fold at 4 layers is
+# the sharp check of the identity)
+AWQ_FOLD_TOL_BF16 = 1.2
 # kernel route vs plain route at full width (model phase), max abs error
 # of the logits (std ~1.3) at every sampled position, both routes fed the
 # same tokens. Both routes run the same matmuls; attention differs only in
@@ -93,13 +114,15 @@ PROMPT_LENS = (512, 400, 300, 128)   # left-padded to one bucket of 512
 # amplifies one-ulp differences layer after layer (0.27 at the prefill's
 # last position on an H100), so only a coarse bound holds.
 MODEL_LOGIT_TOL = {"float32": 1e-3, "bfloat16": 0.6}
-# int4 kernels against their plain versions, max abs error relative to the
-# largest output: both dequantize the same bytes exactly in fp32 and sum in
-# fp32 in another order (the tensor-core path splits fp32 activations into
-# two bf16 parts, exact to about 2^-17), then round once: 1e-4 in fp32, one
-# bf16 ulp (2^-7 of the magnitude, at most) in bf16
-INT4_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# int4 and int8 kernels against their plain versions, max abs error
+# relative to the largest output: both dequantize the same bytes exactly in
+# fp32 and sum in fp32 in another order (the tensor-core paths split fp32
+# activations into two bf16 parts, exact to about 2^-17), then round once:
+# 1e-4 in fp32, one bf16 ulp (2^-7 of the magnitude, at most) in bf16
+QUANT_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 INT4_GROUP = 64  # the JAX engine's int4 default for dense models
+INT8_GROUP = 128  # its int8 default
+LIB_LAYERS = 4  # bf16 layers the int8 phase's cuBLAS yardstick walks (> the 50 MB L2)
 DECODE_CHUNK = 32
 N_CHUNKS = 2
 PROFILE_STEPS = 8  # decode steps traced by torch.profiler (model phase)
@@ -111,6 +134,8 @@ REPLACES = {
     "matmul_dequant_int4_stacked_fused": "tinygpt_tpu/ops/quant_kernels.py:984",
     "mlp_fused_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:1304",
     "paged_decode_frozen": "tinygpt_tpu/ops/paged_attention.py:378",
+    "matmul_dequant_int8": "tinygpt_tpu/ops/quant_kernels.py:208",
+    "matmul_dequant_int8_stacked": "tinygpt_tpu/ops/quant_kernels.py:481",
 }
 SOURCES = {
     "flash_prefill": "tinygpt_tpu_torch/csrc/flash_prefill.cu",
@@ -120,6 +145,8 @@ SOURCES = {
     "matmul_dequant_int4_stacked_fused": "tinygpt_tpu_torch/csrc/int4_fused.cu",
     "mlp_fused_int4_stacked": "tinygpt_tpu_torch/csrc/int4_mlp.cu",
     "paged_decode_frozen": "tinygpt_tpu_torch/csrc/paged_decode_frozen.cu",
+    "matmul_dequant_int8": "tinygpt_tpu_torch/csrc/int8_matmul.cu",
+    "matmul_dequant_int8_stacked": "tinygpt_tpu_torch/csrc/int8_matmul.cu",
 }
 # the serving phase: the JAX package's serving leg
 # (benches/flagship_bench.py:396-535) at the Mistral-7B shape in int4
@@ -133,6 +160,8 @@ DEVICE = "cuda"
 
 class PhaseError(RuntimeError):
     pass
+
+
 
 
 def log(msg: str) -> None:
@@ -535,7 +564,7 @@ def phase_int4_kernels(table: dict) -> None:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         dname = str(dt).replace("torch.", "")
-        tol = INT4_TOL[dname] * want.float().abs().max().item()
+        tol = QUANT_TOL[dname] * want.float().abs().max().item()
         key = (name, dname)
         worst[key] = max(worst.get(key, 0.0), err / max(tol, 1e-30))
         if not (math.isfinite(err) and err <= tol):
@@ -650,19 +679,151 @@ def phase_int4_kernels(table: dict) -> None:
     for (name, dname), r in sorted(worst.items()):
         log(f"[int4] {name} {dname}: worst max_abs_err over all cases {r:.3g} of its "
             f"tolerance")
+    _mix_rows(table, rows)
+    del stacks
+    torch.cuda.empty_cache()
+
+
+def _mix_rows(table: dict, rows: dict) -> None:
+    """Kernel table rows from per-shape measurements: rows[name] is a list
+    of (weight, ms, plain ms, bound ms, bound_by, library ms or None,
+    max_abs_err, tol), the weight being the shape's launches in the main
+    path's mix. Times are launch-weighted means, so that ms x launches is
+    the kernel's time in the run; bound_by is the bound of most of the
+    weighted bound time."""
     for name, rs in rows.items():
-        wts = [r[0] for r in rs]  # launches of each shape in the path's mix
+        wts = [r[0] for r in rs]
         n = sum(wts)
         mean = [sum(w * r[i] for w, r in zip(wts, rs)) / n for i in (1, 2, 3)]
         libs = [r[5] for w, r in zip(wts, rs) if w]
-        lib = (sum(w * r[5] for w, r in zip(wts, rs)) / n
+        lib = (sum(w * r[5] for w, r in zip(wts, rs) if w) / n
                if all(x is not None for x in libs) else None)
-        by = "bytes" if all(r[4] == "bytes" for w, r in zip(wts, rs) if w) else "operations"
+        t_bytes = sum(w * r[3] for w, r in zip(wts, rs) if r[4] == "bytes")
+        by = "bytes" if 2 * t_bytes >= sum(w * r[3] for w, r in zip(wts, rs)) else "operations"
         table[name] = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=0, max_abs_err=max(r[6] for r in rs), tol=max(r[7] for r in rs),
             ms=mean[0], plain_ms=mean[1], bound_ms=mean[2], bound_by=by, library_ms=lib)
+
+
+# -- int8 kernels --------------------------------------------------------------
+
+
+def _int8_stack(g, L, IN, OUT, group, dev=None):
+    """Random int8 bytes [L, IN, OUT] and fp32 scales [L, IN/group, OUT]."""
+    import torch
+
+    dev = dev or DEVICE
+    data = torch.randint(-128, 128, (L, IN, OUT), generator=g, device=dev,
+                         dtype=torch.int8)
+    scales = torch.rand((L, IN // group, OUT), generator=g, device=dev) * 0.01 + 1e-3
+    return data, scales
+
+
+def phase_int8_kernels(table: dict) -> None:
+    """K3 and K5a against their plain versions on the card, bf16 and fp32:
+    at the int8 main path's shapes (Mistral-7B widths, group 128; K5a's
+    four layer matmuls at M = 4, a decode step, and M = 2048, the prefill;
+    K3 the head at M = 4), and beside them at IN = 896 (7 groups) and 64,
+    M = 1, 4, 32, 33 and 2048. Times the bf16 calls beside their bound,
+    the plain version and the library call: cuBLAS (torch.matmul) on the
+    weight dequantized to bf16 beforehand, outside the timed call. The
+    table rows are launch-weighted means over the main path's mix (64
+    decode steps to one prefill)."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    c = MISTRAL_7B
+    H, I, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
+    Nq, Nk = c["num_attention_heads"], c["num_key_value_heads"]
+    D, G = H // Nq, INT8_GROUP
+    B = len(PROMPT_LENS)
+    M_pre = B * max(PROMPT_LENS)
+    steps = N_CHUNKS * DECODE_CHUNK
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    dts = (torch.float32, torch.bfloat16)
+    rows, worst = {}, {}
+
+    def x_of(dt, M, n, seed):
+        gx = torch.Generator(device=DEVICE).manual_seed(seed)
+        return torch.randn((M, n), generator=gx, device=DEVICE).to(dt)
+
+    def check(name, label, dt, got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        dname = str(dt).replace("torch.", "")
+        tol = QUANT_TOL[dname] * want.float().abs().max().item()
+        worst[(name, dname)] = max(worst.get((name, dname), 0.0), err / max(tol, 1e-30))
+        if not (math.isfinite(err) and err <= tol):
+            raise PhaseError(f"{name} {label} {dname}: max_abs_err {err} > {tol}")
+        return err, tol
+
+    # the main path's shapes: (name, label, weight in the mix, stack, M)
+    stacks = {
+        "qkv": _int8_stack(g, L, H, (Nq + 2 * Nk) * D, G),
+        "o": _int8_stack(g, L, Nq * D, H, G),
+        "gate_up": _int8_stack(g, L, H, 2 * I, G),
+        "down": _int8_stack(g, L, I, H, G),
+        "head": _int8_stack(g, 1, H, V, G),
+    }
+    cases = [("matmul_dequant_int8_stacked", key, L * w, key, M)
+             for key in ("qkv", "o", "gate_up", "down")
+             for M, w in ((B, steps), (M_pre, 1))]
+    cases.append(("matmul_dequant_int8", "head", 1 + steps, "head", B))
+    for name, key, weight, skey, M in cases:
+        data, scales = stacks[skey]
+        Ls, IN, OUT = data.shape
+        xs = {dt: x_of(dt, M, IN, M) for dt in dts}
+        def call(fn, x, l, data=data, scales=scales, stacked=name.endswith("stacked")):
+            if stacked:
+                return fn(x, data, scales, l, G)
+            return fn(x, data[l], scales[l], G)   # K3: the head, a one-layer stack
+
+        kern = functools.partial(call, getattr(qk, name))
+        plain = functools.partial(call, getattr(qk, name + "_plain"))
+        label = f"{key} M={M} {IN}->{OUT}"
+        for dt in dts:
+            for l in sorted({0, Ls - 1}):
+                err, tol = check(name, label, dt, kern(xs[dt], l), plain(xs[dt], l))
+        xb = xs[torch.bfloat16]
+        t_k = _time_layers(lambda l: kern(xb, l), Ls, 3 * Ls)
+        t_p = cuda_time_ms(lambda: plain(xb, Ls - 1), iters=3, warmup=1)
+        # the library call walks LIB_LAYERS dequantized layers, as the kernel
+        # walks the stack: either reads its weight cold from device memory
+        nl = min(Ls, LIB_LAYERS)
+        ws = [qk.dequant_fp32(data[l], scales[l], G).to(torch.bfloat16) for l in range(nl)]
+        t_lib = _time_layers(lambda l: torch.matmul(xb, ws[l]), nl, 3 * LIB_LAYERS)
+        del ws
+        nbytes = _nbytes(xb, data[0], scales[0]) + M * OUT * 2
+        b_ms, b_by = bound_ms(nbytes, 2.0 * M * IN * OUT, "bfloat16")
+        log(f"[int8] {name} {label}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
+            f"{t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}) cuBLAS on "
+            f"the bf16-dequantized weight {t_lib:.4f} ms")
+        rows.setdefault(name, []).append((weight, t_k, t_p, b_ms, b_by, t_lib, err, tol))
     del stacks
+    torch.cuda.empty_cache()
+
+    # beside the main path: contraction dims the GEMV splits unevenly over
+    # its 8 blocks (896 = 7 groups of 128; 64, one group of 64), and every
+    # row regime of both kernels
+    for IN, OUT, gs in ((896, 4864, 128), (64, 256, 64)):
+        data, scales = _int8_stack(g, 2, IN, OUT, gs)
+        for M in (1, 4, 32, 33, 2048):
+            for dt in dts:
+                x = x_of(dt, M, IN, 100 + M)
+                check("matmul_dequant_int8_stacked", f"IN={IN} M={M}", dt,
+                      qk.matmul_dequant_int8_stacked(x, data, scales, 1, gs),
+                      qk.matmul_dequant_int8_stacked_plain(x, data, scales, 1, gs))
+                check("matmul_dequant_int8", f"IN={IN} M={M}", dt,
+                      qk.matmul_dequant_int8(x, data[0], scales[0], gs),
+                      qk.matmul_dequant_int8_plain(x, data[0], scales[0], gs))
+        log(f"[int8] IN={IN}, group {gs}: K3 and K5a at M = 1, 4, 32, 33 "
+            f"and 2048, bf16 and fp32, within tolerance")
+    for (name, dname), r in sorted(worst.items()):
+        log(f"[int8] {name} {dname}: worst max_abs_err over all cases {r:.3g} of its "
+            f"tolerance")
+    _mix_rows(table, rows)
     torch.cuda.empty_cache()
 
 
@@ -869,13 +1030,13 @@ def _left_padded_batch(S, lens, vocab, seed):
     return ids, positions, valid
 
 
-def _run_route(params, cfg, batch, T, attn_impl, force=None):
-    """Prefill + N_CHUNKS greedy decode chunks on one attention route.
+def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS):
+    """Prefill + n_chunks greedy decode chunks on one attention route.
 
-    With `force` (the tokens [1 + N*chunk, B] of another run) every step
+    With `force` (the tokens [1 + n_chunks*chunk, B] of another run) every step
     is fed force's token instead of its own argmax, so two routes see the
     same inputs at every position. Returns (the logits of every sampled
-    position [1 + N*chunk, B, V], the tokens fed on [1 + N*chunk, B],
+    position [1 + n_chunks*chunk, B, V], the tokens fed on [1 + n_chunks*chunk, B],
     prefill ms, decode ms/step)."""
     import torch
 
@@ -902,7 +1063,7 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for c in range(N_CHUNKS):
+    for c in range(n_chunks):
         pos0 = (lens + c * DECODE_CHUNK)[:, None]
         chunk, cache = causal_lm.decode_steps(params, cfg, tok, cache, pos0,
                                               DECODE_CHUNK, pick, attn_impl)
@@ -910,7 +1071,22 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None):
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     return (torch.stack(seen), torch.stack(fed), t_prefill * 1e3,
-            t_decode * 1e3 / (N_CHUNKS * DECODE_CHUNK))
+            t_decode * 1e3 / (n_chunks * DECODE_CHUNK))
+
+
+def host_launch_us(n: int = 2000) -> float:
+    """Wall microseconds a tiny kernel launch costs the host (n in-place
+    adds on a 16-element tensor, then one synchronize): the rate that
+    bounds a host-bound decode step."""
+    import torch
+
+    x = torch.zeros(16, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def _profile_decode(params, cfg, batch, T, label: str = "bf16") -> None:
@@ -950,13 +1126,15 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16") -> None:
         log("[profile] decode steps: device time not measured (the profiler saw "
             "no device activity)")
         return
-    groups = {"flash_decode_frozen": 0.0, "int4 (K6, K7)": 0.0, "GEMM (cuBLAS)": 0.0,
-              "other": 0.0}
+    groups = {"flash_decode_frozen": 0.0, "int4 (K6, K7)": 0.0, "int8 (K5a, K3)": 0.0,
+              "GEMM (cuBLAS)": 0.0, "other": 0.0}
     for us, _, key in kernels:
         if "flash_decode_frozen" in key:
             groups["flash_decode_frozen"] += us
         elif "int4" in key:
             groups["int4 (K6, K7)"] += us
+        elif "int8" in key:
+            groups["int8 (K5a, K3)"] += us
         elif any(w in key.lower() for w in ("gemm", "nvjet", "cutlass", "gemv")):
             groups["GEMM (cuBLAS)"] += us
         else:
@@ -1003,11 +1181,12 @@ def _check_routes(label, kern, plain, tol):
                          f"with top-2 gap {gap[i, b].item()} >= {near_tie}")
 
 
-def phase_model(table: dict) -> None:
+def phase_model(table: dict):
     """Full-width Mistral-7B shape, random weights, kernel route against
     plain-attention route on the same params: first in fp32 at 4 layers
     (where the two may differ only by summation order), then the main
-    path itself, bf16 at all 32 layers."""
+    path itself, bf16 at all 32 layers. Returns the 32-layer bf16 params
+    (the awq phase folds them)."""
     import torch
 
     from tinygpt_tpu_torch.hf.config import parse_model_config
@@ -1060,7 +1239,6 @@ def phase_model(table: dict) -> None:
         kern = _run_route(params, cfg, batch, T, "kernel")
         launches = dict(ak.LAUNCHES)
         _profile_decode(params, cfg, batch, T)
-        del params
     torch.cuda.empty_cache()
 
     want = {"flash_prefill": L, "flash_decode_frozen": L * N_CHUNKS * DECODE_CHUNK}
@@ -1078,20 +1256,25 @@ def phase_model(table: dict) -> None:
     pre_ms_p, dec_ms_p = plain[2:]
     B = len(PROMPT_LENS)
     log(f"[model] kernel route: prefill {pre_ms:.2f} ms ({B}x{S} tokens), decode "
-        f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B}; plain "
+        f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B} (host: "
+        f"{host_launch_us():.2f} us a tiny launch); plain "
         f"route: prefill {pre_ms_p:.2f} ms, decode {dec_ms_p:.3f} ms/step; "
         f"bound of a step (weights + K/V cache read once, {step_bytes / 1e9:.2f} GB) "
         f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; bound of the prefill "
         f"({prefill_flops / 1e12:.2f} TFLOP for {sum(PROMPT_LENS)} real tokens) "
         f"{prefill_bound_ms:.3f} ms")
+    return params
 
 
-def phase_model_int4(table: dict) -> dict:
-    """The Mistral-7B shape quantized to int4 (group 64) on the card, the
-    kernel route (K5b, K4 and K1 in the prefill; K6, K7 and K2 in every
-    decode step) against the plain route on the same params: first at 4
-    layers in fp32, then at all 32 layers in bf16 with forced tokens.
-    Returns the 32-layer int4 params (the serve phase runs on them)."""
+def phase_model_quant(table: dict, bits: int):
+    """The Mistral-7B shape quantized on the card (int4: group 64; int8:
+    group 128), the kernel route against the plain route on the same
+    params: first at 4 layers in fp32, then at all 32 layers in bf16 with
+    forced tokens, with exact launch counts. int4 runs K5b, K4 and K1 in
+    the prefill and K6, K7 and K2 in every decode step (the fused route);
+    int8 runs K5a, K3 and K1 in the prefill and K5a, K3 and K2 in every
+    decode step (the unfused route). Returns the 32-layer params (the
+    serve phase runs on the int4 ones)."""
     import torch
 
     from tinygpt_tpu_torch.hf.config import parse_model_config
@@ -1099,6 +1282,7 @@ def phase_model_int4(table: dict) -> dict:
     from tinygpt_tpu_torch.ops import attention_kernels as ak
     from tinygpt_tpu_torch.ops.quant import QuantizedTensor, quantize_params
 
+    tag, group = (f"[model{bits}]", INT4_GROUP if bits == 4 else INT8_GROUP)
     mp = main_path_shapes()
     S, T = mp["prefill"]["S"], mp["prefill"]["T"]
     B = len(PROMPT_LENS)
@@ -1106,23 +1290,23 @@ def phase_model_int4(table: dict) -> dict:
         cfg32 = parse_model_config(dict(MISTRAL_7B, num_hidden_layers=4))
         params = quantize_params(causal_lm.init_params(cfg32, seed=0, dtype=torch.float32,
                                                        device=DEVICE),
-                                 bits=4, group_size=INT4_GROUP)
+                                 bits=bits, group_size=group)
         batch = _left_padded_batch(S, PROMPT_LENS, cfg32.vocab_size, seed=1)
         plain = _run_route(params, cfg32, batch, T, "plain")
         kern = _run_route(params, cfg32, batch, T, "kernel", force=plain[1])
-        _check_routes("int4, fp32, 4 layers", kern, plain, MODEL_LOGIT_TOL["float32"])
+        _check_routes(f"int{bits}, fp32, 4 layers", kern, plain, MODEL_LOGIT_TOL["float32"])
         if not torch.equal(_run_route(params, cfg32, batch, T, "kernel")[1], plain[1]):
-            raise PhaseError("int4, fp32, 4 layers: free-running greedy tokens of the "
-                             "kernel route differ from the plain route's")
-        log("[model4] int4, fp32, 4 layers: free-running greedy tokens identical on "
-            "both routes")
+            raise PhaseError(f"int{bits}, fp32, 4 layers: free-running greedy tokens of "
+                             f"the kernel route differ from the plain route's")
+        log(f"{tag} int{bits}, fp32, 4 layers: free-running greedy tokens identical on "
+            f"both routes")
         del params
 
         cfg = parse_model_config(MISTRAL_7B)
         L = cfg.num_hidden_layers
         t0 = time.perf_counter()
         params = causal_lm.init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEVICE)
-        params = quantize_params(params, bits=4, group_size=INT4_GROUP)  # frees bf16 stacks
+        params = quantize_params(params, bits=bits, group_size=group)  # frees bf16 stacks
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         quant = [params["lm_head"], *(v for v in params["layers"].values()
@@ -1137,47 +1321,148 @@ def phase_model_int4(table: dict) -> dict:
                              + cfg.hidden_size * cfg.vocab_size * B)
         prefill_bound_ms = max((q_bytes + norms) / HBM_BYTES_PER_S,
                                prefill_flops / PEAK_FLOPS["bfloat16"]) * 1e3
-        log(f"[model4] Mistral-7B shape, {L} layers, quantized to int4 group {INT4_GROUP} "
-            f"on the card in {time.perf_counter() - t0:.1f} s: packed weights and scales "
+        log(f"{tag} Mistral-7B shape, {L} layers, quantized to int{bits} group {group} "
+            f"on the card in {time.perf_counter() - t0:.1f} s: weights and scales "
             f"{q_bytes / 1e9:.3f} GB (layers and head), a decode step reads "
             f"{step_bytes / 1e9:.3f} GB (with the norms and the {kv_bytes / 1e9:.3f} GB "
             f"K/V cache)")
         _run_route(params, cfg, batch, T, "kernel")       # warm-up
         plain = _run_route(params, cfg, batch, T, "plain")
         forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1])
-        ak.reset_launches()                                # the int4 main path's run
+        ak.reset_launches()                                # the main path's run
         kern = _run_route(params, cfg, batch, T, "kernel")
         launches = dict(ak.LAUNCHES)
-        _profile_decode(params, cfg, batch, T, label="int4")
+        _profile_decode(params, cfg, batch, T, label=f"int{bits}")
     torch.cuda.empty_cache()
 
     n = N_CHUNKS * DECODE_CHUNK
-    want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
-            "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
-            "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
-            "mlp_fused_int4_stacked": L * n}
-    log(f"[model4] launches {launches} (want {want}: per prefill K5b {4 * L}, K4 1, "
-        f"K1 {L}; per decode step K6 {2 * L + 1}, K7 {L}, K2 {L})")
+    if bits == 4:
+        want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
+                "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
+                "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
+                "mlp_fused_int4_stacked": L * n}
+        rule = f"per prefill K5b {4 * L}, K4 1, K1 {L}; per decode step K6 {2 * L + 1}, " \
+               f"K7 {L}, K2 {L}"
+    else:
+        want = {"flash_prefill": L, "matmul_dequant_int8_stacked": 4 * L * (1 + n),
+                "matmul_dequant_int8": 1 + n, "flash_decode_frozen": L * n}
+        rule = f"per prefill K1 {L}, K5a {4 * L}, K3 1; per decode step K5a {4 * L}, " \
+               f"K3 1, K2 {L}"
+    log(f"{tag} launches {launches} (want {want}: {rule})")
     if launches != want:
-        raise PhaseError(f"int4 kernel launches {launches} != {want}")
-    for name in ("matmul_dequant_int4", "matmul_dequant_int4_stacked",
-                 "matmul_dequant_int4_stacked_fused", "mlp_fused_int4_stacked"):
-        table[name]["launches"] = launches[name]
-    _check_routes(f"int4, bf16, {L} layers", forced, plain, MODEL_LOGIT_TOL["bfloat16"])
+        raise PhaseError(f"int{bits} kernel launches {launches} != {want}")
+    for name in want:
+        if "dequant" in name or "mlp" in name:
+            table[name]["launches"] = launches[name]
+    _check_routes(f"int{bits}, bf16, {L} layers", forced, plain, MODEL_LOGIT_TOL["bfloat16"])
     same = int((kern[1] == plain[1]).all(dim=0).sum())
-    log(f"[model4] int4, bf16, {L} layers: free-running greedy tokens of the two routes "
+    log(f"{tag} int{bits}, bf16, {L} layers: free-running greedy tokens of the two routes "
         f"identical over all {kern[1].shape[0]} positions in {same} of "
         f"{kern[1].shape[1]} rows")
     pre_ms, dec_ms = kern[2:]
     pre_ms_p, dec_ms_p = plain[2:]
-    log(f"[model4] kernel route: prefill {pre_ms:.2f} ms ({B}x{S} tokens), decode "
-        f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B}; plain "
+    log(f"{tag} kernel route: prefill {pre_ms:.2f} ms ({B}x{S} tokens), decode "
+        f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B} (host: "
+        f"{host_launch_us():.2f} us a tiny launch); plain "
         f"route: prefill {pre_ms_p:.2f} ms, decode {dec_ms_p:.3f} ms/step; "
         f"bound of a step ({step_bytes / 1e9:.3f} GB read once) "
         f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; bound of the prefill "
         f"({prefill_flops / 1e12:.2f} TFLOP for {sum(PROMPT_LENS)} real tokens) "
         f"{prefill_bound_ms:.3f} ms")
     return params
+
+
+AWQ_CALIB = (4, 512)  # full-width calibration batch: random tokens, numpy seed 0
+
+
+def _max_logit_err(a, b) -> float:
+    return (a[0] - b[0]).abs().max().item()
+
+
+def phase_awq(params) -> None:
+    """AWQ at full width on the model phase's bf16 params (Mistral-7B shape,
+    32 layers): calibration statistics over 4 x 512 random tokens, the
+    alpha search and the fold, timed; the fold identity (the folded float
+    params against the unfolded on the same tokens: fp32 at 4 layers, bf16
+    at 32); then int4 quantization at group 64 and one prefill and one
+    decode chunk through K1, K5b, K4, K2, K6 and K7 against the plain
+    route, with exact launch counts."""
+    import numpy as np
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops import awq
+    from tinygpt_tpu_torch.ops.quant import quantize_params
+
+    mp = main_path_shapes()
+    S, T = mp["prefill"]["S"], mp["prefill"]["T"]
+    cfg = parse_model_config(MISTRAL_7B)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    calib = np.random.default_rng(0).integers(3, V, AWQ_CALIB).astype(np.int32)
+    batch = _left_padded_batch(S, PROMPT_LENS, V, seed=1)
+    with torch.inference_mode():
+        cfg4 = parse_model_config(dict(MISTRAL_7B, num_hidden_layers=4))
+        p4 = causal_lm.init_params(cfg4, seed=0, dtype=torch.float32, device=DEVICE)
+        f4 = awq.apply_awq(p4, cfg4, awq.collect_act_stats(p4, cfg4, calib), bits=4,
+                           group_size=INT4_GROUP)
+        ref = _run_route(p4, cfg4, batch, T, "kernel", n_chunks=1)
+        err = _max_logit_err(_run_route(f4, cfg4, batch, T, "kernel", force=ref[1],
+                                        n_chunks=1), ref)
+        tol = MODEL_LOGIT_TOL["float32"]
+        log(f"[awq] fold identity, fp32, 4 layers: logits of the folded params against "
+            f"the unfolded, max_abs_err {err:.4g} over {ref[0].shape[0]} positions "
+            f"(tol {tol})")
+        if not (math.isfinite(err) and err <= tol):
+            raise PhaseError(f"awq: fp32 fold changes the logits by {err} > {tol}")
+        del p4, f4
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = awq.collect_act_stats(params, cfg, calib)
+        torch.cuda.synchronize()
+        t_stats = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        folded = awq.apply_awq(params, cfg, stats, bits=4, group_size=INT4_GROUP)
+        torch.cuda.synchronize()
+        t_fold = time.perf_counter() - t0
+        del stats
+        ref = _run_route(params, cfg, batch, T, "kernel", n_chunks=1)
+        got = _run_route(folded, cfg, batch, T, "kernel", force=ref[1], n_chunks=1)
+        err = _max_logit_err(got, ref)
+        rel = ((got[0] - ref[0]).norm() / ref[0].norm()).item()
+        tol = AWQ_FOLD_TOL_BF16
+        log(f"[awq] fold identity, bf16, {L} layers: max_abs_err {err:.4g} over "
+            f"{ref[0].shape[0]} positions (tol {tol}), relative L2 {rel:.3g}, logits std "
+            f"{ref[0][0].std().item():.3g}")
+        if not (math.isfinite(err) and err <= tol):
+            raise PhaseError(f"awq: bf16 fold changes the logits by {err} > {tol}")
+        t0 = time.perf_counter()
+        q = quantize_params(folded, bits=4, group_size=INT4_GROUP)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        del folded
+        torch.cuda.empty_cache()
+        log(f"[awq] Mistral-7B shape, {L} layers, on the card: statistics over "
+            f"{calib.size} calibration tokens {t_stats:.2f} s, alpha search and fold "
+            f"{t_fold:.2f} s, int4 quantization {t_quant:.2f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        plain = _run_route(q, cfg, batch, T, "plain", n_chunks=1)
+        ak.reset_launches()                                # AWQ's int4 route
+        kern = _run_route(q, cfg, batch, T, "kernel", force=plain[1], n_chunks=1)
+        launches = dict(ak.LAUNCHES)
+        del q
+    torch.cuda.empty_cache()
+    n = DECODE_CHUNK
+    want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
+            "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
+            "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
+            "mlp_fused_int4_stacked": L * n}
+    log(f"[awq] launches {launches} (want {want})")
+    if launches != want:
+        raise PhaseError(f"awq: launches {launches} != {want}")
+    _check_routes(f"AWQ int4, bf16, {L} layers", kern, plain, MODEL_LOGIT_TOL["bfloat16"])
 
 
 # -- serving -------------------------------------------------------------------
@@ -1462,8 +1747,10 @@ def _write_model_dir(d: str) -> None:
 
 
 def phase_engine(d: str) -> None:
-    """GPTEngine on the model dir `d`: once in bf16, once quantized to int4
-    (awq=False)."""
+    """GPTEngine on the model dir `d`: in bf16; quantized to int4 with
+    awq=False; to int8; and to int4 by default, which runs AWQ
+    (calibrating on the built-in corpus through the dir's generated
+    tokenizer) before quantizing."""
     import torch
 
     from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
@@ -1473,11 +1760,15 @@ def phase_engine(d: str) -> None:
     prompts = ["The meaning of life is", "Once upon a time,",
                "In a shocking finding, scientists discovered",
                "The best way to learn programming is"]
+    int4 = ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int4",
+            "matmul_dequant_int4_stacked", "matmul_dequant_int4_stacked_fused",
+            "mlp_fused_int4_stacked")
     runs = {"bf16": ({}, ("flash_prefill", "flash_decode_frozen")),
-            "int4": (dict(quantization="int4", awq=False),
-                     ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int4",
-                      "matmul_dequant_int4_stacked", "matmul_dequant_int4_stacked_fused",
-                      "mlp_fused_int4_stacked"))}
+            "int4": (dict(quantization="int4", awq=False), int4),
+            "int8": (dict(quantization="int8"),
+                     ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int8",
+                      "matmul_dequant_int8_stacked")),
+            "int4 (AWQ by default)": (dict(quantization="int4"), int4)}
     for label, (kw, kernels) in runs.items():
         t0 = time.perf_counter()
         eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE,
@@ -1504,6 +1795,62 @@ def phase_engine(d: str) -> None:
         if missing:
             raise PhaseError(f"{label} engine run launched {launches}: {missing} "
                              f"never launched")
+
+
+# kernel route against plain route of the evaluator (relative, on the
+# perplexity): both run the same bf16 model and differ only where a kernel
+# sums in another order than its plain version (attention; the int8
+# matmuls), which moves each token's log-probability by bf16 noise
+EVAL_PPL_RTOL = 5e-3
+EVAL_TEXT = " ".join(
+    f"Line {i}: the {w} of {i * 7 % 101} reports went to {c} on day {i % 28 + 1}."
+    for i, (w, c) in enumerate(zip(["review", "summary", "audit", "draft"] * 30,
+                                   ["Paris", "Oslo", "Lima", "Quito", "Accra"] * 24)))
+
+
+def phase_evaluate(d: str) -> None:
+    """python -m tinygpt_tpu_torch.evaluate on the model dir `d` over a text
+    the script writes (1,024 tokens, windows of 512 advanced by 256), in
+    bf16 and with int8 weights, on the kernel route and on the plain route:
+    the two perplexities must agree within EVAL_PPL_RTOL."""
+    import contextlib
+    import io
+
+    from tinygpt_tpu_torch import evaluate
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    path = os.path.join(d, "eval.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(EVAL_TEXT)
+    base = ["--model", d, "--text", path, "--dtype", "bfloat16", "--window", "512",
+            "--stride", "256", "--max-tokens", "1024", "--device", DEVICE]
+    runs = {"bf16": ([], ("flash_prefill",)),
+            "int8": (["--quantization", "int8"],
+                     ("flash_prefill", "matmul_dequant_int8_stacked", "matmul_dequant_int8"))}
+    for label, (extra, kernels) in runs.items():
+        ppl = {}
+        for impl in ("kernel", "plain"):
+            out = io.StringIO()
+            ak.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = evaluate.main(base + extra + ["--impl", impl])
+            dt = time.perf_counter() - t0
+            launches = dict(ak.LAUNCHES)
+            m = re.search(r"perplexity: ([0-9.]+) over (\d+) tokens", out.getvalue())
+            if rc != 0 or m is None:
+                raise PhaseError(f"evaluate {label} {impl}: rc {rc}, {out.getvalue()!r}")
+            ppl[impl] = float(m.group(1))
+            log(f"[evaluate] {label}, {impl} route: perplexity {ppl[impl]:.4f} over "
+                f"{m.group(2)} tokens in {dt:.2f} s (load included); launches {launches}")
+            missing = [k for k in kernels if not launches.get(k)]
+            if (impl == "kernel" and missing) or (impl == "plain" and launches):
+                raise PhaseError(f"evaluate {label} {impl}: launches {launches}")
+        rel = abs(ppl["kernel"] - ppl["plain"]) / ppl["plain"]
+        log(f"[evaluate] {label}: kernel vs plain route, relative difference {rel:.3g} "
+            f"(tol {EVAL_PPL_RTOL})")
+        if not rel <= EVAL_PPL_RTOL:
+            raise PhaseError(f"evaluate {label}: perplexities {ppl} differ by {rel}")
 
 
 def phase_server(d: str) -> None:
@@ -1614,29 +1961,49 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     env = phase_env()
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name: str, fn, *args):
+        """fn(*args), its wall seconds recorded under `name`."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
     try:
-        phase_build()
-        table = phase_kernels(main_path_shapes())
-        phase_int4_kernels(table)
-        phase_paged_kernels(table)
-        phase_model(table)
-        params4 = phase_model_int4(table)
-        phase_serve(table, params4)
+        timed("build", phase_build)
+        table = timed("kernels", phase_kernels, main_path_shapes())
+        timed("int4", phase_int4_kernels, table)
+        timed("paged", phase_paged_kernels, table)
+        params = timed("model", phase_model, table)
+        timed("awq", phase_awq, params)
+        del params
+        torch.cuda.empty_cache()
+        params4 = timed("model4", phase_model_quant, table, 4)
+        timed("serve", phase_serve, table, params4)
         del params4
+        torch.cuda.empty_cache()
+        timed("int8", phase_int8_kernels, table)
+        timed("model8", phase_model_quant, table, 8)
         torch.cuda.empty_cache()
         from tinygpt_tpu_torch.ops import cuda_build
 
         cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         d = tempfile.mkdtemp(prefix="smoke_model_", dir=cuda_build.BUILD_DIR)
         try:
-            _write_model_dir(d)
-            phase_engine(d)
-            phase_server(d)
+            timed("model dir", _write_model_dir, d)
+            timed("engine", phase_engine, d)
+            timed("evaluate", phase_evaluate, d)
+            timed("server", phase_server, d)
         finally:
             shutil.rmtree(d, ignore_errors=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    log(f"[time] all phases {time.perf_counter() - t_start:.1f} s; by phase (s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log(env["smi"])
     log(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -518,3 +518,140 @@ def test_batcher_at_the_context_cap_on_the_card(dev):
     torch.cuda.synchronize()
     assert [len(got[i]) for i in (0, 1)] == max_new
     assert got == want
+
+
+# -- int8 dequant-matmul kernels (K3, K5a) ----------------------------------------
+#
+# As the int4 kernels: the same bytes dequantized exactly in fp32 (q * s,
+# rounded once), fp32 sums in another order, one rounding; QTOL. int8 rows
+# are never padded, so IN is any multiple of the group: 896 (7 groups of
+# 128), 64 and 80 split unevenly over the GEMV's 8 blocks (some get none);
+# 80 and 896 leave a last tensor-core stage shorter than 64 rows.
+
+INT8_CASES = [
+    # (M, IN, OUT, group, L, dtype)
+    (1, 64, 64, 64, 2, torch.float32),
+    (4, 896, 256, 128, 2, torch.bfloat16),
+    (4, 4096, 6144, 128, 3, torch.bfloat16),      # Mistral-7B qkv
+    (5, 80, 24, 16, 2, torch.float32),
+    (32, 14336, 4096, 128, 2, torch.bfloat16),    # Mistral-7B down
+    (33, 896, 136, 128, 2, torch.float32),
+    (100, 64, 200, 32, 3, torch.bfloat16),
+    (257, 80, 264, 16, 2, torch.bfloat16),
+    (2048, 4096, 1024, 128, 2, torch.bfloat16),   # prefill-shaped
+    (300, 14336, 512, 128, 2, torch.float32),
+]
+
+
+def _q8weight(gen, L, IN, OUT, group, dev):
+    qt = quantize_weight(torch.randn((L, IN, OUT), generator=gen) * 0.05, bits=8,
+                         group_size=group)
+    assert qt.in_dim == IN
+    return qt.data.to(dev), qt.scales.to(dev), qt.group_size
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_matmul_kernels_match_plain(dev, case):
+    M, IN, OUT, group, L, dtype = case
+    gen = torch.Generator().manual_seed(7)
+    data, scales, g = _q8weight(gen, L, IN, OUT, group, dev)
+    x = _randn(gen, M, IN, dtype=dtype, dev=dev)
+    for l in range(L):  # every layer: the offset of layer l > 0 into the stack
+        ak.reset_launches()
+        got = qk.matmul_dequant_int8_stacked(x, data, scales, l, g)
+        assert ak.LAUNCHES["matmul_dequant_int8_stacked"] == 1
+        want = qk.matmul_dequant_int8_stacked_plain(x, data, scales, l, g)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, OUT)
+        _qclose(got, want, dtype, f"K5a layer {l}")
+    got = qk.matmul_dequant_int8(x, data[L - 1], scales[L - 1], g)
+    assert ak.LAUNCHES["matmul_dequant_int8"] == 1
+    _qclose(got, qk.matmul_dequant_int8_plain(x, data[L - 1], scales[L - 1], g), dtype,
+            "K3")
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    """No fallback: an fp16 activation and a weight left on the CPU raise,
+    as do shapes the kernels do not take."""
+    gen = torch.Generator().manual_seed(8)
+    data, scales, g = _q8weight(gen, 2, 256, 384, 64, dev)
+    x = _randn(gen, 4, 256, dtype=torch.bfloat16, dev=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        qk.matmul_dequant_int8_stacked(x.half(), data, scales, 0, g)
+    with pytest.raises(TypeError, match="dtype"):
+        qk.matmul_dequant_int8(x.half(), data[0], scales[0], g)
+    with pytest.raises(ValueError, match="expected"):
+        qk.matmul_dequant_int8_stacked(x, data.cpu(), scales, 0, g)
+    with pytest.raises(ValueError, match="expected"):
+        qk.matmul_dequant_int8(x, data[0], scales[0].cpu(), g)
+    with pytest.raises(ValueError, match="layer"):
+        qk.matmul_dequant_int8_stacked(x, data, scales, 2, g)
+    with pytest.raises(ValueError, match="group"):
+        qk.matmul_dequant_int8_stacked(x, data, scales, 0, 24)
+    with pytest.raises(ValueError, match="columns"):
+        qk.matmul_dequant_int8_stacked(x[:, :128].contiguous(), data, scales, 0, g)
+
+
+def _model_dir(tmp_path, cfg):
+    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
+
+    return write_random_model_dir(str(tmp_path / "m"), cfg, seed=9, dtype=torch.float32)
+
+
+_TINY_DIR_CFG = dict(model_type="llama", vocab_size=503, hidden_size=256,
+                     intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=2, max_position_embeddings=256)
+
+
+def test_int8_engine_on_the_card_matches_the_cpu(dev, tmp_path):
+    """GPTEngine(quantization="int8") on the card (K1, K5a and K3 in the
+    prefill; K5a, K3 and K2 in decode) against the same dir on the CPU, in
+    fp32: identical greedy tokens."""
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+
+    d = _model_dir(tmp_path, _TINY_DIR_CFG)
+    kw = dict(model_dir=d, dtype="float32", max_tokens=12, prefill_bucket=16,
+              decode_chunk=4, quantization="int8")
+    prompts = ["Hello world", "the quick brown fox jumps over the lazy dog"]
+    want = GPTEngine(GPTConfig(device="cpu", **kw))
+    want.prepare()
+    eng = GPTEngine(GPTConfig(device="cuda", **kw))
+    eng.prepare()
+    ak.reset_launches()
+    got = eng.generate_sync(prompts)
+    torch.cuda.synchronize()
+    for name in ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int8",
+                 "matmul_dequant_int8_stacked"):
+        assert ak.LAUNCHES[name] > 0, name
+    assert [o.token_ids for o in got] == [o.token_ids for o in want.generate_sync(prompts)]
+
+
+def test_awq_on_the_card_matches_the_cpu(dev, tmp_path):
+    """AWQ of a 2-layer model on the card against the CPU, in fp32: the
+    calibration statistics within 1e-5 relative, the same alpha for every
+    layer and matrix (scales within 1e-5), and the int4 bytes equal up to a
+    step in a few places."""
+    from tinygpt_tpu_torch.hf.loader import load_model_dir
+    from tinygpt_tpu_torch.ops import awq
+
+    d = _model_dir(tmp_path, _TINY_DIR_CFG)
+    calib = torch.randint(3, 503, (2, 64), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device in ("cpu", "cuda"):
+        ctx = load_model_dir(d, dtype="float32", device=device)
+        p, cfg = ctx.params, ctx.model_config
+        for ln in ("input_ln", "post_ln"):  # salient channels
+            p["layers"][ln][:, :4] *= 8
+        stats = awq.collect_act_stats(p, cfg, calib.numpy())
+        scales = {k: awq.search_scales(p["layers"][k], stats[s], 4, 64).cpu()
+                  for k, s in (("qkv_w", "qkv_in"), ("gate_up_w", "gate_up_in"),
+                               ("down_w", "down_in"))}
+        q = awq.awq_quantize_params(p, cfg, calib.numpy(), bits=4, group_size=64)
+        out[device] = ({k: v.cpu() for k, v in stats.items()}, scales,
+                       {k: q["layers"][k].data.cpu() for k in scales})
+    (st_c, sc_c, q_c), (st_g, sc_g, q_g) = out["cpu"], out["cuda"]
+    for k in st_c:
+        assert ((st_g[k] - st_c[k]).abs().max() / st_c[k].abs().max()).item() < 1e-5, k
+    for k in sc_c:
+        assert ((sc_g[k] - sc_c[k]).abs().max()).item() < 1e-5, k
+        assert (q_g[k] != q_c[k]).float().mean().item() < 1e-3, k

@@ -82,7 +82,7 @@ def test_batch_row_matches_single(engines):
     assert solo.token_ids == batch.token_ids
 
 
-@pytest.mark.parametrize("kw", [dict(quantization="int4"),
+@pytest.mark.parametrize("kw", [dict(quantization="int4", kv_cache_dtype="e4m3"),
                                 dict(kv_cache_dtype="fp8"),
                                 dict(speculative="ngram"),
                                 dict(mesh_shape=(1, 1, 2))])

@@ -106,6 +106,35 @@ def test_serving_modules_import_without_jax():
     assert "serving path imports alone" in r.stdout
 
 
+_IMPORT_QUANT = """
+import sys
+import tinygpt_tpu_torch.ops.awq, tinygpt_tpu_torch.evaluate, tinygpt_tpu_torch.ops.quant_kernels
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tinygpt_tpu"))
+assert not bad, bad
+from tinygpt_tpu_torch.ops import cuda_build
+assert "int8_matmul.cu" in cuda_build.SOURCES and not cuda_build._libs
+print("quantization path imports alone")
+"""
+
+
+def test_quantization_modules_import_without_jax():
+    """AWQ, the evaluator and the int8 kernel wrappers import neither jax
+    nor the JAX package, and build nothing at import."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_QUANT], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "quantization path imports alone" in r.stdout
+
+
+def test_evaluate_main_runs_only_as_a_script():
+    r = subprocess.run([sys.executable, "-m", "tinygpt_tpu_torch.evaluate", "--help"],
+                       cwd=REPO, env=_clean_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0 and "--text" in r.stdout and "--device" in r.stdout
+
+
 def test_web_ui_is_a_copy():
     ui = Path("server") / "web" / "index.html"
     assert (PKG / ui).read_bytes() == (REPO / "tinygpt_tpu" / ui).read_bytes()

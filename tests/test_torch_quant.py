@@ -108,18 +108,14 @@ def test_quantized_params_carry_across_from_jax():
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_matmul_any_matches_jax_reference(bits):
-    """matmul_any on a quantized weight against JAX's matmul_any (whose
-    CPU reference rounds the dequantized weight to bf16, so the check is
-    against the fp32 product with that rounding's tolerance); int8 raises
-    until its kernels are ported."""
+    """matmul_any on a quantized weight (int8 through K3's plain version,
+    int4 through K4's) against JAX's matmul_any, whose CPU reference
+    rounds the dequantized weight to bf16, so the check is against the
+    fp32 product with that rounding's tolerance."""
     rng = np.random.default_rng(6)
     w = (rng.standard_normal((192, 64)) * 0.05).astype(np.float32)
     x = rng.standard_normal((2, 5, 192)).astype(np.float32)
     qt = tq.quantize_weight(torch.from_numpy(w), bits=bits, group_size=64)
-    if bits == 8:
-        with pytest.raises(NotImplementedError, match="K3"):
-            tq.matmul_any(torch.from_numpy(x), qt)
-        return
     got = tq.matmul_any(torch.from_numpy(x), qt)
     want = np.asarray(jq.matmul_any(
         jnp.asarray(x), jq.quantize_weight(w, bits=bits, group_size=64)))

@@ -5,9 +5,11 @@
 Counterpart of tinygpt_tpu/cli.py: --model/--dtype/--max-tokens and the
 sampler flags, a fixed prompt batch (overridable with --prompt), and
 token/s timing. Runs on the CUDA device unless --device says otherwise.
-Weight-only int4 runs with `--quantization int4 --no-awq`. The flags of
-features not ported yet (--stream, --mesh, --speculative, int8 and AWQ)
-are accepted and raise NotImplementedError.
+Weight-only quantization: `--quantization int8`, or `--quantization int4`
+with AWQ by default (`--awq-calib FILE` to calibrate on your own text,
+`--no-awq` for plain round-to-nearest). The flags of features not ported
+yet (--stream, --mesh, --speculative) are accepted and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,12 +53,16 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", action="store_true",
                     help="(not ported yet)")
     ap.add_argument("--quantization", default=None, choices=["int8", "int4"],
-                    help="weight-only quantization (int4; int8 not ported yet)")
+                    help="weight-only quantization")
     ap.add_argument("--quant-group-size", type=int, default=None,
-                    help="default: 64 for int4")
+                    help="default: 64 for int4, 128 for int8")
     ap.add_argument("--awq", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="AWQ is not ported yet: int4 needs --no-awq")
+                    help="AWQ activation-aware scaling before "
+                         "quantization (default: on for int4; "
+                         "--no-awq forces plain RTN)")
+    ap.add_argument("--awq-calib", default=None, metavar="TEXT_FILE",
+                    help="calibration text for --awq (default: built-in)")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
                     help="(not ported yet)")
     ap.add_argument("--speculative", default=None, choices=["ngram"],
@@ -81,6 +87,7 @@ def main(argv=None) -> int:
         quantization=args.quantization,
         quant_group_size=args.quant_group_size,
         awq=args.awq,
+        awq_calib_path=args.awq_calib,
     ))
     t0 = time.perf_counter()
     engine.prepare()

@@ -1,6 +1,8 @@
-// Shared parts of the int4 dequant-matmul kernels (K4/K5b, K6, K7):
-// nibble unpacking and dequantization, and the decode-shaped (M <= 32)
-// GEMV kernel with its optional prologues and epilogues.
+// Shared parts of the dequant-matmul kernels (int4: K4/K5b, K6, K7; int8:
+// K3/K5a): nibble unpacking and dequantization, the decode-shaped (M <= 32)
+// int4 GEMV kernel with its optional prologues and epilogues, its tile
+// constants (which the int8 GEMV shares), and the mma.sync helpers of the
+// prefill-shaped (M > 32) tensor-core kernels.
 //
 // Weight layout (tinygpt_tpu/ops/quant.py, kept byte for byte): a stacked
 // weight is data int8 [L, IN/2, OUT] and scales fp32 [L, IN/group, OUT].
@@ -314,6 +316,78 @@ inline GemvArgs plain_gemv_args(const void* x, const void* data, const void* sca
   a.layer = layer;
   return a;
 }
+
+// -- mma.sync helpers of the tensor-core (M > 32) kernels ------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 bf16 matrices from shared memory into mma fragments: lane l
+// gives the address of row l % 8 of matrix l / 8, which lands in r[l / 8].
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// The A fragment of rows [0, 16) x columns [0, 16) of a staged activation
+// tile (at `tile`, row stride LD elements), times the B fragments of four
+// 8-column tiles, into c: one product for bf16 (loaded with ldmatrix), two
+// for fp32, whose activations are split into bf16 parts x = hi + lo (exact
+// to about 2^-17), both multiplied.
+template <typename T, int LD>
+struct MmaRows;
+
+template <int LD>
+struct MmaRows<__nv_bfloat16, LD> {
+  static __device__ __forceinline__ void run(const __nv_bfloat16* tile, int lane,
+                                             const uint32_t (*b)[2], float (*c)[4]) {
+    uint32_t af[4];
+    ldsm_x4(af, tile + (lane % 16) * LD + (lane / 16) * 8);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) mma_bf16(c[nt], af, b[nt]);
+  }
+};
+
+template <int LD>
+struct MmaRows<float, LD> {
+  static __device__ __forceinline__ void run(const float* tile, int lane,
+                                             const uint32_t (*b)[2], float (*c)[4]) {
+    const float* ap = tile + (lane / 4) * LD + (lane % 4) * 2;
+    const float* src[4] = {ap, ap + 8 * LD, ap + 8, ap + 8 * LD + 8};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = *reinterpret_cast<const float2*>(src[i]);
+      const float h0 = __bfloat162float(__float2bfloat16(f.x));
+      const float h1 = __bfloat162float(__float2bfloat16(f.y));
+      hi[i] = pack_bf16x2(h0, h1);
+      lo[i] = pack_bf16x2(f.x - h0, f.y - h1);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      mma_bf16(c[nt], hi, b[nt]);
+      mma_bf16(c[nt], lo, b[nt]);
+    }
+  }
+};
 
 }  // namespace
 }  // namespace tg

@@ -24,7 +24,9 @@
 
 namespace {
 
+using tg::cp_async16;
 using tg::from_float;
+using tg::ldsm_x4;
 
 constexpr int BM = 128;  // rows of a block tile
 constexpr int BN = 128;  // columns of a block tile
@@ -50,11 +52,6 @@ constexpr size_t tc_smem_bytes() {
          2 * SROWS * BN * sizeof(float);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Byte j of a (row k) and byte j of b (row k + 1), each a biased nibble u,
 // as the bf16 pair (u_a - 8, u_b - 8): the byte goes into the mantissa of
 // bf16 128 (0x43XX is 128 + XX), and 136 is subtracted. Exact, and a third
@@ -65,68 +62,6 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t a, uint32_t b, int j) {
   __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t),
                              __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 bf16 matrices from shared memory into mma fragments: lane l
-// gives the address of row l % 8 of matrix l / 8, which lands in r[l / 8].
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// The A fragment of rows [0, 16) x columns [0, 16) of a staged tile (at
-// `tile`, row stride XTile<T>::LD), times the B fragments, into c: one
-// product for bf16 (loaded with ldmatrix), two (hi and lo parts) for fp32.
-template <typename T>
-__device__ __forceinline__ void mma_rows(const T* tile, int lane, const uint32_t (*b)[2],
-                                         float (*c)[4]);
-
-template <>
-__device__ __forceinline__ void mma_rows<__nv_bfloat16>(const __nv_bfloat16* tile, int lane,
-                                                        const uint32_t (*b)[2], float (*c)[4]) {
-  constexpr int LD = XTile<__nv_bfloat16>::LD;
-  uint32_t af[4];
-  ldsm_x4(af, tile + (lane % 16) * LD + (lane / 16) * 8);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) mma_bf16(c[nt], af, b[nt]);
-}
-
-template <>
-__device__ __forceinline__ void mma_rows<float>(const float* tile, int lane,
-                                                const uint32_t (*b)[2], float (*c)[4]) {
-  constexpr int LD = XTile<float>::LD;
-  const float* ap = tile + (lane / 4) * LD + (lane % 4) * 2;
-  const float* src[4] = {ap, ap + 8 * LD, ap + 8, ap + 8 * LD + 8};
-  uint32_t hi[4], lo[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = *reinterpret_cast<const float2*>(src[i]);
-    const float h0 = __bfloat162float(__float2bfloat16(f.x));
-    const float h1 = __bfloat162float(__float2bfloat16(f.y));
-    hi[i] = pack_bf16x2(h0, h1);
-    lo[i] = pack_bf16x2(f.x - h0, f.y - h1);
-  }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    mma_bf16(c[nt], hi, b[nt]);
-    mma_bf16(c[nt], lo, b[nt]);
-  }
 }
 
 // 8 warps as 2 (rows) x 4 (columns), each computing a 64 x 32 tile of the
@@ -247,7 +182,8 @@ __global__ void __launch_bounds__(NTHREADS)
                                  kk + ((lane / 8) % 2) * 8]);
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt)
-          mma_rows<T>(xst + (plane * BM + wm * 64 + mt * 16) * X::LD + kk, lane, b, tmp[mt]);
+          tg::MmaRows<T, X::LD>::run(xst + (plane * BM + wm * 64 + mt * 16) * X::LD + kk, lane,
+                                     b, tmp[mt]);
         if ((p0 + kk + 16) % group == 0 || kk + 16 == KC) {  // scale into the sums
           const float* srow = ss + ((s % 2) * SROWS + plane * (KC / 16) + kk / 16) * BN;
 #pragma unroll

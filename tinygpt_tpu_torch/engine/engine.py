@@ -9,13 +9,15 @@ one prefill, then chunks of `decode_chunk` frozen-cache decode steps
 the only point where the loop waits for the device.
 
 On the card every attention call goes through the Hopper kernels
-(ops/attention_kernels.py), and with quantization="int4" every weight
-matmul through the int4 kernels (ops/quant_kernels.py); given
-device="cpu" the same calls run their plain PyTorch versions. Not
-ported yet, each raising NotImplementedError when asked for: int8
-weights, AWQ (so int4 needs an explicit awq=False, where the JAX engine
-would run AWQ by default), the fp8 KV cache, device meshes, speculative
-decoding and streaming (generate_async).
+(ops/attention_kernels.py), and with quantization="int8" or "int4" every
+weight matmul through the dequant-matmul kernels (ops/quant_kernels.py);
+given device="cpu" the same calls run their plain PyTorch versions.
+quantization="int4" runs AWQ by default, as the JAX engine does: prepare()
+calibrates on `awq_calib_tokens` tokens of `awq_calib_path` (or the
+built-in corpus), folds the scales into the float weights and quantizes
+them (ops/awq.py). Not ported yet, each raising NotImplementedError when
+asked for: the fp8 KV cache, device meshes, speculative decoding and
+streaming (generate_async).
 """
 
 from __future__ import annotations
@@ -29,9 +31,15 @@ import torch
 
 from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
 from tinygpt_tpu_torch.hf.loader import GPTContext, load_model_dir, resolve_dtype
+from tinygpt_tpu_torch.ops.awq import (
+    awq_policy,
+    awq_quantize_params,
+    default_calib_ids,
+)
 from tinygpt_tpu_torch.ops.quant import quantize_params
 from tinygpt_tpu_torch.ops.sampling import SamplerConfig, sample
 from tinygpt_tpu_torch.utils.logging import get_logger
+from tinygpt_tpu_torch.utils.timer import timed
 
 log = get_logger("engine")
 
@@ -60,13 +68,16 @@ class GPTConfig:
     # decode steps per chunk; EOS is checked on the host between chunks
     decode_chunk: int = 32
     device: Any = "cuda"
-    # weight-only quantization: None | "int4" ("int8" is not ported yet)
+    # weight-only quantization: None | "int8" | "int4"
     quantization: Optional[str] = None
-    # None = auto (resolve_quant_group): 64 for int4
+    # None = auto (resolve_quant_group): 64 for int4, 128 for int8
     quant_group_size: Optional[int] = None
-    # AWQ is not ported yet: int4 needs awq=False (None means "auto", which
-    # in the JAX engine runs AWQ for int4)
+    # AWQ activation-aware scaling before quantization (ops/awq.py). None =
+    # auto: on for int4, off for int8; False forces plain round-to-nearest
     awq: Optional[bool] = None
+    # calibration text file for AWQ; None = the built-in sample corpus
+    awq_calib_path: Optional[str] = None
+    awq_calib_tokens: int = 2048  # total calibration tokens (batched)
     # not ported yet (ROADMAP.md queue 1): must stay at these defaults
     kv_cache_dtype: str = "auto"
     speculative: Optional[str] = None
@@ -100,17 +111,7 @@ def resolve_quant_group(bits: int, group: Optional[int]) -> int:
 def _check_ported(cfg: GPTConfig) -> None:
     if cfg.quantization not in (None, "int4", "int8"):
         raise ValueError(f"unknown quantization {cfg.quantization!r}")
-    if cfg.quantization == "int8":
-        raise NotImplementedError(
-            "GPTConfig.quantization='int8' is not ported to tinygpt_tpu_torch "
-            "yet (ROADMAP.md queue 1, item 6; kernels K3 and K5a)")
-    if cfg.quantization == "int4" and cfg.awq is not False:
-        raise NotImplementedError(
-            f"GPTConfig.awq={cfg.awq!r} with int4: AWQ is not ported to "
-            f"tinygpt_tpu_torch yet (ROADMAP.md queue 1, item 8), and the "
-            f"default would run it; pass awq=False for plain int4")
     deferred = [
-        ("awq", bool(cfg.awq), 8),
         ("kv_cache_dtype", cfg.kv_cache_dtype in _FP8_NAMES, 7),
         ("speculative", cfg.speculative is not None, 5),
         ("mesh_shape", cfg.mesh_shape is not None, 13),
@@ -120,6 +121,35 @@ def _check_ported(cfg: GPTConfig) -> None:
             raise NotImplementedError(
                 f"GPTConfig.{name} is not ported to tinygpt_tpu_torch yet "
                 f"(ROADMAP.md queue 1, item {item})")
+
+
+def quantize_loaded(ctx: GPTContext, quantization: str,
+                    group_size: Optional[int] = None, awq: Optional[bool] = None,
+                    calib_path: Optional[str] = None,
+                    calib_tokens: int = 2048) -> dict:
+    """Weight-only quantization of a loaded model's params, as the JAX
+    engine's prepare() does it: AWQ (calibrate on `calib_tokens` tokens of
+    `calib_path` or the built-in corpus, fold, quantize) where awq_policy
+    says so, else round-to-nearest. Shared with the evaluator."""
+    bits = {"int8": 8, "int4": 4}[quantization]
+    group = resolve_quant_group(bits, group_size)
+    awq_on, awq_layout = awq_policy(awq, bits, ctx.params["layers"])
+    if awq_on and awq_layout:
+        calib = default_calib_ids(ctx.tokenizer, calib_tokens, path=calib_path)
+        with timed() as t:
+            params = awq_quantize_params(ctx.params, ctx.model_config, calib,
+                                         bits=bits, group_size=group)
+        log.info("AWQ-quantized weights to %s (group %d, %d calib tokens) in %.1fs",
+                 quantization, group, calib.size, t())
+        return params
+    if awq_on and awq:
+        log.warning("awq requested but %s has no causal_lm layer layout; "
+                    "plain quantization", ctx.model_config.model_type)
+    elif bits == 4 and not awq_on:
+        log.warning("plain int4 (awq off) missed the ppl gate's relative bar "
+                    "on the gate model (PPL_GATE.json)")
+    log.info("quantizing weights to %s (group %d)", quantization, group)
+    return quantize_params(ctx.params, bits=bits, group_size=group)
 
 
 class GPTEngine:
@@ -138,11 +168,10 @@ class GPTEngine:
         self._device = torch.device(cfg.device)
         self.ctx = load_model_dir(cfg.model_dir, dtype=cfg.dtype,
                                   device=self._device)
-        if cfg.quantization == "int4":
-            group = resolve_quant_group(4, cfg.quant_group_size)
-            self.ctx.params = quantize_params(self.ctx.params, bits=4,
-                                              group_size=group)
-            log.info("quantized weights to int4 (group %d)", group)
+        if cfg.quantization:
+            self.ctx.params = quantize_loaded(
+                self.ctx, cfg.quantization, cfg.quant_group_size, cfg.awq,
+                cfg.awq_calib_path, cfg.awq_calib_tokens)
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(cfg.seed)
         self._collect_eos_ids()

@@ -22,21 +22,24 @@ the Hopper kernels (ops/attention_kernels.py) under attn_impl="kernel",
 or through the plain position-masked oracles under "plain". The KV cache
 is updated in place (engine/kv_cache.py).
 
-int4 weight-only params (ops/quant.quantize_params) run the int4 kernels
-of ops/quant_kernels.py: in `forward` every layer matmul goes through K5b
-and the lm_head through K4; `decode_steps` takes the fused route (K6 for
-qkv with the norm prologue and the RoPE / qk-norm epilogue, for o with
-the residual and for the head with the final norm; K7 for the MLP). The
-layer is an offset into the [L, ...] stacks. attn_impl="plain" runs the
-plain version of every kernel instead.
+Weight-only params (ops/quant.quantize_params) run the kernels of
+ops/quant_kernels.py. int4: in `forward` every layer matmul goes through
+K5b and the lm_head through K4; `decode_steps` takes the fused route (K6
+for qkv with the norm prologue and the RoPE / qk-norm epilogue, for o
+with the residual and for the head with the final norm; K7 for the MLP)
+when all four layer matrices are int4, as the JAX package does. int8:
+every layer matmul goes through K5a and the head through K3, in `forward`
+and in decode alike (the unfused route). A float head beside quantized
+layers (quantize_lm_head=False) stays a plain matmul. The layer is an
+offset into the [L, ...] stacks. attn_impl="plain" runs the plain
+version of every kernel instead.
 
 `decode_paged_steps` is the continuous batcher's decode quantum over the
 paged KV pool (engine/paged_kv.py): the same layer loop as decode_steps,
 with attention through the block tables (K8, ops/paged_attention.py).
 
-Not ported yet, each raising NotImplementedError: int8 weights (ROADMAP
-queue 1 item 6, kernels K3/K5a), the fp8 KV cache (item 7) and MoE
-(item 12).
+Not ported yet, each raising NotImplementedError: the fp8 KV cache
+(ROADMAP queue 1 item 7) and MoE (item 12).
 """
 
 from __future__ import annotations
@@ -85,11 +88,8 @@ def _check_supported(cfg: ModelConfig, params: Optional[Dict] = None) -> None:
     if params is not None:
         weights = dict(params["layers"], lm_head=params.get("lm_head"))
         for k, v in weights.items():
-            if isinstance(v, QuantizedTensor) and v.bits != 4:
-                raise NotImplementedError(
-                    f"int{v.bits} weight {k!r}: int8 weights are not ported to "
-                    f"tinygpt_tpu_torch yet (ROADMAP.md queue 1, item 6; "
-                    f"kernels K3 and K5a)")
+            if isinstance(v, QuantizedTensor) and v.bits not in (8, 4):
+                raise ValueError(f"int{v.bits} weight {k!r}: int8 or int4 only")
             if not (v is None or isinstance(v, (torch.Tensor, QuantizedTensor))):
                 raise _not_ported(f"weight {k!r} of type {type(v).__name__}", 6)
 
@@ -264,7 +264,8 @@ def _impl(attn_impl: str) -> str:
 
 
 def _mm(lp: Dict, key: str, h: torch.Tensor, l: int, impl: str) -> torch.Tensor:
-    """h @ layer weight `key`: an int4 stack goes through K5b at layer l."""
+    """h @ layer weight `key`: a quantized stack goes through K5a (int8)
+    or K5b (int4) at layer l."""
     w = lp[key]
     if isinstance(w, QuantizedTensor):
         return matmul_dequant_stacked(h, w, l, impl)
@@ -312,7 +313,7 @@ def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     if head is None:
         logits = x @ params["embed"].T
     elif isinstance(head, QuantizedTensor):
-        # K4; the head's pad columns (quant.pad_head_out) are sliced away
+        # K3 or K4; the head's pad columns (quant.pad_head_out) are sliced away
         logits = matmul_dequant(x, head, impl)[..., : cfg.vocab_size]
     else:
         logits = x @ head
@@ -490,7 +491,7 @@ def _decode_token(params, cfg, tok, pos, infl_k, infl_v, step, attend,
     """Logits [B, 1, V] of one decode step: every layer writes this step's
     K/V into the in-flight buffers at `step`, then attends through
     attend(l, q [B, 1, Nq, D]) -> [B, 1, Nq, D]. int4 params take the
-    fused route (K6, K7)."""
+    fused route (K6, K7), int8 params the unfused one (K5a, K3)."""
     B = tok.shape[0]
     fused = _int4_fused(params)
     rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], pos)

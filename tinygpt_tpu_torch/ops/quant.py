@@ -10,12 +10,10 @@ byte. Weights are stored [in, out]; quantization groups run along `in`
   scales fp32  [in/group, out]
   dequant: w[i, o] = q[i, o] * scales[i // group, o]
 
-Stacked layer weights carry a leading [L] axis on both arrays. The int4
-matmuls run the Hopper kernels of ops/quant_kernels.py (on a CUDA tensor)
-or their plain versions (on a CPU tensor, or when the caller asks for
-the plain route). int8 weights quantize with the same layout code, but
-nothing runs them yet: their kernels (K3, K5a) come with the next slice
-of the port.
+Stacked layer weights carry a leading [L] axis on both arrays. The
+matmuls run the Hopper kernels of ops/quant_kernels.py (int8: K3, K5a;
+int4: K4, K5b) on a CUDA tensor, or their plain versions (on a CPU
+tensor, or when the caller asks for the plain route).
 """
 
 from __future__ import annotations
@@ -54,12 +52,6 @@ class QuantizedTensor:
                 f"group={self.group_size})")
 
 
-def _not_ported_int8(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: int8 weights are not ported to tinygpt_tpu_torch yet "
-        f"(ROADMAP.md queue 1, item 6; kernels K3 and K5a)")
-
-
 def pack_int4(q: np.ndarray) -> np.ndarray:
     """Pack int4 values in [-8, 7] along axis 0, HALF-SPLIT and BIASED:
     values are stored as u = q + 8 in [0, 15]; packed row p holds
@@ -79,12 +71,13 @@ def _pack_int4_torch(q: torch.Tensor) -> torch.Tensor:
     return ((u[..., :half, :] & 0x0F) | (u[..., half:, :] << 4)).view(torch.int8)
 
 
-def _quantize_2d(w: torch.Tensor, bits: int, g: int):
+def group_quant(w: torch.Tensor, bits: int, g: int):
     """Symmetric per-group quantization of one [in, out] weight in fp32:
     scale = absmax / qmax (1e-8 for an all-zero group), q = round half to
     even of w / scale, clipped to [-qmax-1, qmax]. The scale is absmax
     times the fp32 reciprocal of qmax: XLA computes the JAX package's
-    absmax / qmax that way, and the bytes must be the same."""
+    absmax / qmax that way, and the bytes must be the same. Returns q as
+    fp32 integers [in/g, g, out] and the scales [in/g, out]."""
     in_dim, out_dim = w.shape
     qmax = 127.0 if bits == 8 else 7.0
     wg = w.to(torch.float32).reshape(in_dim // g, g, out_dim)
@@ -93,7 +86,12 @@ def _quantize_2d(w: torch.Tensor, bits: int, g: int):
     scales = torch.where(absmax == 0, torch.full_like(absmax, 1e-8),
                          absmax * recip)
     q = torch.clamp(torch.round(wg / scales[:, None, :]), -qmax - 1, qmax)
-    q = q.to(torch.int8).reshape(in_dim, out_dim)
+    return q, scales
+
+
+def _quantize_2d(w: torch.Tensor, bits: int, g: int):
+    q, scales = group_quant(w, bits, g)
+    q = q.to(torch.int8).reshape(w.shape)
     return (_pack_int4_torch(q) if bits == 4 else q), scales
 
 
@@ -153,15 +151,23 @@ def pad_x_to(x2: torch.Tensor, in_dim: int) -> torch.Tensor:
     return torch.nn.functional.pad(x2, (0, pad))
 
 
+# bits -> (kernel wrapper, its plain version), 2-D and stacked
+_MATMUL = {8: (qk.matmul_dequant_int8, qk.matmul_dequant_int8_plain),
+           4: (qk.matmul_dequant_int4, qk.matmul_dequant_int4_plain)}
+_MATMUL_STACKED = {
+    8: (qk.matmul_dequant_int8_stacked, qk.matmul_dequant_int8_stacked_plain),
+    4: (qk.matmul_dequant_int4_stacked, qk.matmul_dequant_int4_stacked_plain)}
+
+
 def matmul_dequant(x: torch.Tensor, qt: QuantizedTensor,
                    impl: str = "kernel") -> torch.Tensor:
-    """x [..., in] @ dequant(qt) → [..., out] in x's dtype, through K4
-    (matmul_dequant_int4). impl="plain" runs its plain version."""
-    if qt.bits != 4:
-        raise _not_ported_int8("matmul_dequant")
+    """x [..., in] @ dequant(qt) → [..., out] in x's dtype, through K3
+    (matmul_dequant_int8) or K4 (matmul_dequant_int4). impl="plain" runs
+    the plain version."""
     lead = x.shape[:-1]
     x2 = pad_x_to(x.reshape(-1, x.shape[-1]), qt.in_dim).contiguous()
-    fn = qk.matmul_dequant_int4_plain if impl == "plain" else qk.matmul_dequant_int4
+    kernel, plain = _MATMUL[qt.bits]
+    fn = plain if impl == "plain" else kernel
     out = fn(x2, qt.data, qt.scales, qt.group_size)
     return out.reshape(*lead, qt.out_dim)
 
@@ -176,14 +182,13 @@ def matmul_any(x: torch.Tensor, w, impl: str = "kernel") -> torch.Tensor:
 def matmul_dequant_stacked(x: torch.Tensor, qt: QuantizedTensor, l: int,
                            impl: str = "kernel") -> torch.Tensor:
     """x [..., in] @ dequant(qt[l]) for a stacked [L, in, out] weight,
-    through K5b (matmul_dequant_int4_stacked). The layer is an offset
-    into the stack: no layer's bytes are copied."""
-    if qt.bits != 4:
-        raise _not_ported_int8("matmul_dequant_stacked")
+    through K5a (matmul_dequant_int8_stacked) or K5b
+    (matmul_dequant_int4_stacked). The layer is an offset into the stack:
+    no layer's bytes are copied."""
     lead = x.shape[:-1]
     x2 = pad_x_to(x.reshape(-1, x.shape[-1]), qt.in_dim).contiguous()
-    fn = (qk.matmul_dequant_int4_stacked_plain if impl == "plain"
-          else qk.matmul_dequant_int4_stacked)
+    kernel, plain = _MATMUL_STACKED[qt.bits]
+    fn = plain if impl == "plain" else kernel
     out = fn(x2, qt.data, qt.scales, l, qt.group_size)
     return out.reshape(*lead, qt.out_dim)
 
@@ -207,20 +212,23 @@ def pad_head_out(w: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_params(params: Dict, bits: int = 8,
-                    group_size: Optional[int] = 128) -> Dict:
+                    group_size: Optional[int] = 128,
+                    quantize_lm_head: bool = True) -> Dict:
     """Weight-only quantization of a params dict (causal_lm layout). Norms,
     biases, embeddings and rope tables stay in float. With tied embeddings
     the head becomes a quantized TRANSPOSED copy of the embedding table;
-    the float table stays for the embedding gather."""
+    the float table stays for the embedding gather. quantize_lm_head=False
+    leaves the head as it is (None when tied)."""
     out = dict(params)
     layers = dict(params["layers"])
     for key, w in layers.items():
         if key in _QUANT_KEYS:
             layers[key] = quantize_weight(w, bits=bits, group_size=group_size)
     out["layers"] = layers
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    out["lm_head"] = quantize_weight(pad_head_out(head), bits=bits,
-                                     group_size=group_size)
+    if quantize_lm_head:
+        head = params.get("lm_head")
+        if head is None:
+            head = params["embed"].T
+        out["lm_head"] = quantize_weight(pad_head_out(head), bits=bits,
+                                         group_size=group_size)
     return out

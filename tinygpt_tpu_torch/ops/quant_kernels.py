@@ -1,18 +1,21 @@
-"""Hopper int4 dequant-matmul kernels, each beside its plain version.
+"""Hopper dequant-matmul kernels (int8 and int4), each beside its plain
+version.
 
 Counterparts of the TPU kernels in tinygpt_tpu/ops/quant_kernels.py,
 written in CUDA C++ for sm_90a and bound with ctypes (ops/cuda_build.py):
 
+  matmul_dequant_int8                K3   csrc/int8_matmul.cu (layer 0)
+  matmul_dequant_int8_stacked        K5a  csrc/int8_matmul.cu
   matmul_dequant_int4                K4   csrc/int4_matmul.cu (layer 0)
   matmul_dequant_int4_stacked        K5b  csrc/int4_matmul.cu
   matmul_dequant_int4_stacked_fused  K6   csrc/int4_fused.cu
   mlp_fused_int4_stacked             K7   csrc/int4_mlp.cu
 
-Weights keep the JAX package's layout (ops/quant.py): packed int8
-[L, IN/2, OUT] holding biased, half-split nibbles, and fp32 scales
-[L, IN/group, OUT]. A layer is an offset into the stack; no layer's bytes
-are copied. The kernels dequantize on chip and accumulate in fp32; they
-take bf16 and fp32 activations.
+Weights keep the JAX package's layout (ops/quant.py): int8 [L, IN, OUT]
+or packed int4 [L, IN/2, OUT] holding biased, half-split nibbles, and
+fp32 scales [L, IN/group, OUT]. A layer is an offset into the stack; no
+layer's bytes are copied. The kernels dequantize on chip and accumulate
+in fp32; they take bf16 and fp32 activations.
 
 Each wrapper dispatches on the device of its tensors: on the CPU it runs
 its plain PyTorch version (``*_plain``: weights dequantized exactly in
@@ -78,6 +81,17 @@ def _weight(data: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tenso
 
 def _pad_cols(a: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, width - a.shape[-1]))
+
+
+def matmul_dequant_int8_plain(x, data, scales, group: int) -> torch.Tensor:
+    """Plain version of matmul_dequant_int8: x [M, IN] @ W → x's dtype."""
+    return (x.float() @ dequant_fp32(data, scales, group)).to(x.dtype)
+
+
+def matmul_dequant_int8_stacked_plain(x, data, scales, l: int,
+                                      group: int) -> torch.Tensor:
+    """Plain version of matmul_dequant_int8_stacked."""
+    return matmul_dequant_int8_plain(x, data[l], scales[l], group)
 
 
 def matmul_dequant_int4_plain(x, data, scales, group: int) -> torch.Tensor:
@@ -155,31 +169,32 @@ def mlp_fused_int4_stacked_plain(x, gu_data, gu_scales, dn_data, dn_scales,
 
 
 def _check_weight(name: str, x: torch.Tensor, data: torch.Tensor,
-                  scales: torch.Tensor, group: int) -> Tuple[int, int, int]:
-    """Shared checks of a kernel's activation and packed weight stack;
-    returns (L, IN, OUT). The kernels read 8 columns of a packed row at a
-    time (OUT % 8 == 0) and 16 packed rows inside one group at a time
-    (group % 16 == 0, (IN/2) % group == 0), and the GEMV kernel splits the
-    packed rows over 8 blocks of a cluster in such steps ((IN/2) % 128 ==
-    0, which quant.quantize_weight's row padding gives every int4
-    weight)."""
+                  scales: torch.Tensor, group: int, bits: int = 4) -> Tuple[int, int, int]:
+    """Shared checks of a kernel's activation and weight stack; returns
+    (L, IN, OUT). The kernels read 8 columns of a row at a time (OUT % 8
+    == 0) and 16 rows inside one group at a time (group % 16 == 0, rows %
+    group == 0). The int4 GEMV also splits the packed rows over 8 blocks
+    of a cluster in such steps ((IN/2) % 128 == 0, which
+    quant.quantize_weight's row padding gives every int4 weight); the int8
+    kernels split whatever rows there are, so every int8 weight that
+    quant.quantize_weight makes with such a group passes."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: activations of dtype {x.dtype} not supported "
                         f"(float32, bfloat16)")
     if data.dtype != torch.int8 or scales.dtype != torch.float32:
-        raise TypeError(f"{name}: packed weight must be int8 and scales float32, "
+        raise TypeError(f"{name}: weight must be int8 and scales float32, "
                         f"got {data.dtype} / {scales.dtype}")
     if data.ndim != 3 or x.ndim != 2:
-        raise ValueError(f"{name}: want x [M, IN] and data [L, IN/2, OUT], got "
-                         f"{tuple(x.shape)} / {tuple(data.shape)}")
-    L, inp, out = data.shape
-    IN = 2 * inp
-    if group <= 0 or group % 16 or inp % group or inp % 128 or out % 8:
+        raise ValueError(f"{name}: want x [M, IN] and a weight stack [L, rows, "
+                         f"OUT], got {tuple(x.shape)} / {tuple(data.shape)}")
+    L, rows, out = data.shape
+    IN = rows * (8 // bits)
+    if group <= 0 or group % 16 or rows % group or out % 8 or (bits == 4 and rows % 128):
+        rule = "(IN/2) % group == 0, (IN/2) % 128 == 0" if bits == 4 else "IN % group == 0"
         raise ValueError(f"{name}: group {group} and weight [{IN}, {out}] need "
-                         f"group % 16 == 0, (IN/2) % group == 0, (IN/2) % 128 "
-                         f"== 0, OUT % 8 == 0")
+                         f"group % 16 == 0, {rule}, OUT % 8 == 0")
     if scales.shape != (L, IN // group, out):
         raise ValueError(f"{name}: scales {tuple(scales.shape)} != "
                          f"{(L, IN // group, out)}")
@@ -209,11 +224,14 @@ def _check_rows(name: str, M: int) -> None:
                          f"1 to {MAX_DECODE_ROWS}")
 
 
-# -- K4 / K5b -------------------------------------------------------------------
+# -- K3 / K5a, K4 / K5b -------------------------------------------------------------
+
+_MATMUL_LIBS = {8: ("int8_matmul.cu", "tg_int8_matmul"),
+                4: ("int4_matmul.cu", "tg_int4_matmul")}
 
 
-def _launch_matmul(name, x, data, scales, l, group):
-    L, IN, OUT = _check_weight(name, x, data, scales, group)
+def _launch_matmul(name, x, data, scales, l, group, bits):
+    L, IN, OUT = _check_weight(name, x, data, scales, group, bits)
     M = x.shape[0]
     if x.shape[1] != IN:
         raise ValueError(f"{name}: x has {x.shape[1]} columns, the weight "
@@ -224,14 +242,43 @@ def _launch_matmul(name, x, data, scales, l, group):
                     ("scales", scales, None))
     from tinygpt_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.function("int4_matmul.cu", "tg_int4_matmul", _MATMUL_ARGS)
+    source, symbol = _MATMUL_LIBS[bits]
+    fn = cuda_build.function(source, symbol, _MATMUL_ARGS)
     out = torch.empty((M, OUT), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group,
                  int(l), _DTYPE_CODE[x.dtype], _stream(x.device))
-    cuda_build.check("int4_matmul.cu", err, name)
+    cuda_build.check(source, err, name)
     LAUNCHES[name] += 1
     return out
+
+
+def matmul_dequant_int8(
+    x: torch.Tensor,       # [M, IN] bf16/fp32
+    data: torch.Tensor,    # [IN, OUT] int8
+    scales: torch.Tensor,  # [IN/group, OUT] fp32
+    group: int,
+) -> torch.Tensor:
+    """x @ dequant(int8 weight) → [M, OUT] in x's dtype (K3)."""
+    if x.device.type == "cpu":
+        return matmul_dequant_int8_plain(x, data, scales, group)
+    return _launch_matmul("matmul_dequant_int8", x, data[None], scales[None],
+                          0, group, bits=8)
+
+
+def matmul_dequant_int8_stacked(
+    x: torch.Tensor,       # [M, IN]
+    data: torch.Tensor,    # [L, IN, OUT] int8
+    scales: torch.Tensor,  # [L, IN/group, OUT]
+    l: int,                # layer index into the stack
+    group: int,
+) -> torch.Tensor:
+    """x @ dequant(layer l of a stacked int8 weight) (K5a). M <= 32 runs
+    the GEMV kernel, larger M the tensor-core kernel."""
+    if x.device.type == "cpu":
+        return matmul_dequant_int8_stacked_plain(x, data, scales, l, group)
+    return _launch_matmul("matmul_dequant_int8_stacked", x, data, scales, l,
+                          group, bits=8)
 
 
 def matmul_dequant_int4(
@@ -244,7 +291,7 @@ def matmul_dequant_int4(
     if x.device.type == "cpu":
         return matmul_dequant_int4_plain(x, data, scales, group)
     return _launch_matmul("matmul_dequant_int4", x, data[None], scales[None],
-                          0, group)
+                          0, group, bits=4)
 
 
 def matmul_dequant_int4_stacked(
@@ -258,7 +305,8 @@ def matmul_dequant_int4_stacked(
     the GEMV kernel, larger M the tensor-core kernel."""
     if x.device.type == "cpu":
         return matmul_dequant_int4_stacked_plain(x, data, scales, l, group)
-    return _launch_matmul("matmul_dequant_int4_stacked", x, data, scales, l, group)
+    return _launch_matmul("matmul_dequant_int4_stacked", x, data, scales, l,
+                          group, bits=4)
 
 
 # -- K6 -------------------------------------------------------------------------

@@ -7,13 +7,13 @@ fallback > chat disabled, graceful SIGINT/SIGTERM shutdown, and one
 inference worker consuming a task queue: the continuous batcher over the
 paged KV pool (server/api.BatchedInferenceWorker).
 
-    python -m tinygpt_tpu_torch.server --model DIR [--quantization int4 --no-awq]
+    python -m tinygpt_tpu_torch.server --model DIR [--quantization int8|int4]
 
 The engine runs on the card (ServerConfig.device="cuda") unless asked for
-the CPU. Not ported yet, each raising NotImplementedError: the
-sequential worker (scheduler="sequential", ROADMAP.md queue 1 item 5),
-AWQ (item 8), int8 (item 6), device meshes (item 13) and speculative
-quanta (item 10).
+the CPU; int4 runs AWQ by default (--awq-calib FILE, --no-awq). Not
+ported yet, each raising NotImplementedError: the sequential worker
+(scheduler="sequential", ROADMAP.md queue 1 item 5), device meshes (item
+13) and speculative quanta (item 10).
 """
 
 from __future__ import annotations
@@ -53,10 +53,10 @@ class ServerConfig:
     chat_template: Optional[str] = None  # literal template string
     chat_template_file: Optional[str] = None
     web_dir: Optional[str] = None
-    quantization: Optional[str] = None  # None | "int4" ("int8" not ported)
-    quant_group_size: Optional[int] = None  # None = auto (64 for int4)
-    awq: Optional[bool] = None  # AWQ is not ported: int4 needs awq=False
-    awq_calib_path: Optional[str] = None
+    quantization: Optional[str] = None  # None | "int8" | "int4"
+    quant_group_size: Optional[int] = None  # None = auto (int4 64, int8 128)
+    awq: Optional[bool] = None  # None = auto: on for int4
+    awq_calib_path: Optional[str] = None  # None = the built-in corpus
     mesh_shape: Optional[tuple] = None  # (dp, sp, tp); not ported
     speculative: bool = False  # n-gram speculative quanta; not ported
     # "continuous" = paged continuous batching; "sequential" = the
@@ -82,10 +82,6 @@ class TinyGPTServer:
 
     def prepare(self) -> None:
         cfg = self.config
-        if cfg.awq_calib_path is not None:
-            raise NotImplementedError(
-                "ServerConfig.awq_calib_path: AWQ is not ported to "
-                "tinygpt_tpu_torch yet (ROADMAP.md queue 1, item 8)")
         sampler = SamplerConfig(
             temperature=cfg.temperature, top_p=cfg.top_p, min_p=cfg.min_p
         )
@@ -94,7 +90,8 @@ class TinyGPTServer:
             max_tokens=cfg.max_tokens, sampler=sampler,
             quantization=cfg.quantization,
             quant_group_size=cfg.quant_group_size,
-            awq=cfg.awq, mesh_shape=cfg.mesh_shape, device=cfg.device,
+            awq=cfg.awq, awq_calib_path=cfg.awq_calib_path,
+            mesh_shape=cfg.mesh_shape, device=cfg.device,
         ))
         self.engine.prepare()
         self._setup_chat_template()
@@ -343,10 +340,11 @@ def main(argv=None) -> None:
     ap.add_argument("--web-dir", default=None)
     ap.add_argument("--quantization", default=None, choices=["int8", "int4"])
     ap.add_argument("--quant-group-size", type=int, default=None,
-                    help="default: 64 for int4")
+                    help="default: 64 for int4, 128 for int8")
     ap.add_argument("--awq", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="AWQ is not ported: int4 needs --no-awq")
+                    help="AWQ activation-aware scaling (default: on "
+                         "for int4; --no-awq forces plain RTN)")
     ap.add_argument("--awq-calib", default=None, metavar="TEXT_FILE")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
                     help="device mesh (not ported)")
