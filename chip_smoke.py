@@ -8,17 +8,23 @@ Phases, in order:
   build    compiles the CUDA kernels from the checkout's sources (nvcc,
            one process per source, all at once);
   kernels  holds each attention kernel against its plain PyTorch version
-           on the card (bf16 and fp32, head dims 128 and 64) and times
-           kernel, plain version and torch's scaled_dot_product_attention
-           beside the kernel's bound;
+           on the card (bf16 and fp32, head dims 128 and 64, and an e4m3
+           cache beside bf16 queries) and times kernel, plain version and
+           torch's scaled_dot_product_attention beside the kernel's bound;
   int4     the same for the int4 dequant-matmul kernels (K4, K5b, K6, K7)
            at the int4 path's shapes, with torch._weight_int4pack_mm as
            the library yardstick where it computes the same function;
   paged    holds the paged frozen-pool decode kernel (K8) against its
-           plain version on the card (bf16 and fp32, head dims 128 and 64,
-           4 and 1 query heads per KV head, ragged rows, dead table
-           entries, inactive rows, a window) and times it beside its bound
-           and scaled_dot_product_attention on the same rows gathered dense;
+           plain version on the card (bf16, fp32 and e4m3 pools, head dims
+           128 and 64, 4 and 1 query heads per KV head, ragged rows, dead
+           table entries, inactive rows, a window) and times it beside its
+           bound and scaled_dot_product_attention on the same rows gathered
+           dense;
+  spec_kernels  the same for the speculative-verify kernel (K10) at the
+           serving shape (16 rows, 5 verify positions, bf16, fp32 and e4m3
+           pools, a binding window), with SDPA on the gathered K/V and an
+           explicit mask as the yardstick; and the card's e4m3 cast against
+           the CPU's bytes;
   model    full-width Mistral-7B shape (32 layers, bf16, random weights):
            prefill of 4 left-padded prompts, then two greedy decode chunks
            of 32 steps, through the kernels and through the plain
@@ -27,6 +33,9 @@ Phases, in order:
            search and fold timed, the fold identity (fp32 at 4 layers, bf16
            at 32), then int4 at group 64 through K5b, K4, K6 and K7 against
            the plain route, exact launch counts;
+  model_fp8  the model phase's bf16 params over an fp8 (e4m3) KV cache: K1
+           and K2 on e4m3, kernel route against plain route, exact launch
+           counts, the decode step's device time under the profiler;
   model4   the same shape quantized to int4 (group 64) on the card: first
            4 layers in fp32, then all 32 in bf16, kernel route against
            plain route, exact launch counts per prefill and decode step;
@@ -37,6 +46,11 @@ Phases, in order:
            and per admission, a torch.profiler trace of one quantum, and
            kernel route against plain route (4 layers fp32: identical
            greedy streams; 32 layers bf16: one quantum's logits);
+  spec_serve  the same batcher with n-gram speculation (K10 in every verify
+           layer) on traffic whose prompts repeat a 64-token span, against
+           the same traffic with speculation off: tok/s, TTFT, acceptance,
+           verifies, exact launch counts, one speculative quantum under the
+           profiler, and identical streams at 4 layers in fp32;
   int8     the int4 phase's checks and timings for the int8 dequant-matmul
            kernels (K3, K5a) at the int8 path's shapes (decode and
            prefill) and at contraction dims of 896 and 64, with cuBLAS on
@@ -45,10 +59,11 @@ Phases, in order:
            and in every decode step (the unfused route), the same checks;
   engine   writes a 2-layer Mistral-width model dir with a generated
            Metaspace-BPE tokenizer and runs GPTEngine.generate_sync on it,
-           in bf16, with quantization="int4", awq=False, with "int8", and
-           with "int4" and AWQ by default;
-  evaluate python -m tinygpt_tpu_torch.evaluate on that dir, bf16 and int8,
-           kernel route against plain route;
+           in bf16, with quantization="int4", awq=False, with "int8", with
+           "int4" and AWQ by default, with kv_cache_dtype="fp8", and with
+           speculative="ngram" on one prompt; then the batcher on fp8 pools;
+  evaluate python -m tinygpt_tpu_torch.evaluate on that dir, bf16, int8 and
+           an fp8 KV cache, kernel route against plain route;
   server   serves that model dir over HTTP in-process (TinyGPTServer on
            127.0.0.1): four concurrent clients, completions plain and SSE,
            chat completions and /health.
@@ -133,7 +148,8 @@ REPLACES = {
     "matmul_dequant_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:636",
     "matmul_dequant_int4_stacked_fused": "tinygpt_tpu/ops/quant_kernels.py:984",
     "mlp_fused_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:1304",
-    "paged_decode_frozen": "tinygpt_tpu/ops/paged_attention.py:378",
+    "paged_decode_frozen": "tinygpt_tpu/ops/paged_attention.py:436",
+    "paged_decode_spec": "tinygpt_tpu/ops/paged_attention.py:681",
     "matmul_dequant_int8": "tinygpt_tpu/ops/quant_kernels.py:208",
     "matmul_dequant_int8_stacked": "tinygpt_tpu/ops/quant_kernels.py:481",
 }
@@ -147,15 +163,21 @@ SOURCES = {
     "paged_decode_frozen": "tinygpt_tpu_torch/csrc/paged_decode_frozen.cu",
     "matmul_dequant_int8": "tinygpt_tpu_torch/csrc/int8_matmul.cu",
     "matmul_dequant_int8_stacked": "tinygpt_tpu_torch/csrc/int8_matmul.cu",
+    "paged_decode_spec": "tinygpt_tpu_torch/csrc/paged_decode_spec.cu",
 }
 # the serving phase: the JAX package's serving leg
 # (benches/flagship_bench.py:396-535) at the Mistral-7B shape in int4
 SERVE = dict(n_requests=16, prompt_len=512, max_new=256, gap_s=0.25, capacity=16,
              block=64, n_blocks=16 * 16 + 1, max_blocks=16, bucket=64, quantum=8,
              warm_new=32, profile_new=64)
+# the speculative serving phase: the serving leg's scheduler and arrivals
+# with n-gram speculation (the batcher's defaults: 4 drafts, 3-grams), on
+# prompts that repeat one random span of SPEC_SPAN tokens
+SPEC = dict(span=64, draft_len=4, ngram=3, fp32_new=64)
 
 
 DEVICE = "cuda"
+E4M3 = None  # torch.float8_e4m3fn, set by main() (torch is imported there)
 
 
 class PhaseError(RuntimeError):
@@ -269,8 +291,8 @@ def _prefill_case(B, Nq, Nk, D, S, T, pads, q_slot, window, dtype, seed):
 
 def _prefill_cost(q, k, valid, q_slot, window):
     """(bytes, flops) that this call's data needs: q, the cache rows some
-    query row sees (K and V), the validity bytes and the output; 4*D
-    operations per visible (query, slot) pair."""
+    query row sees (K and V, in the cache's dtype), the validity bytes and
+    the output; 4*D operations per visible (query, slot) pair."""
     import torch
 
     B, Nq, S, D = q.shape
@@ -284,7 +306,7 @@ def _prefill_cost(q, k, valid, q_slot, window):
     pairs = int(vis.sum()) * Nq
     seen = int(vis.any(dim=1).sum()) * Nk                  # cache rows read
     isz = q.element_size()
-    nbytes = 2 * q.numel() * isz + 2 * seen * D * isz + valid.numel()
+    nbytes = 2 * q.numel() * isz + 2 * seen * D * k.element_size() + valid.numel()
     return nbytes, 4.0 * D * pairs
 
 
@@ -312,14 +334,17 @@ def _decode_case(L, B, Nq, Nk, D, T, N, pads, length, step, window, dtype, seed)
     return q, ks, vs, mask.contiguous(), ki, vi, step, window
 
 
-def _decode_cost(q, mask, k_infl, step, window):
+def _decode_cost(q, mask, k_infl, step, window, kv_size=None):
+    """(bytes, flops): q, the visible frozen slots' K and V (kv_size bytes
+    an element, default q's) and in-flight slots', the mask, the output."""
     B, Nq, D = q.shape
     Nk, N = k_infl.shape[1], k_infl.shape[2]
     n_infl = min(step + 1, window) if window else step + 1
-    visible = int(mask.sum()) + B * n_infl                  # per kv head
     isz = q.element_size()
-    nbytes = 2 * q.numel() * isz + 2 * visible * Nk * D * isz + mask.numel()
-    return nbytes, 4.0 * D * visible * Nq
+    frozen = int(mask.sum()) * Nk * D * 2 * (kv_size or isz)
+    nbytes = (2 * q.numel() * isz + frozen + 2 * B * n_infl * Nk * D * k_infl.element_size()
+              + mask.numel())
+    return nbytes, 4.0 * D * (int(mask.sum()) + B * n_infl) * Nq
 
 
 def _sdpa(q, k, v, attn_mask, scale):
@@ -414,6 +439,16 @@ def phase_kernels(main_path: dict) -> dict:
                 tol=TOL[dname], ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                 library_ms=t_l)
 
+    # the e4m3 branch at the main path's shape: bf16 queries over an fp8 cache
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+
+    q, k, v, valid, scale, q_slot, window = _prefill_case(
+        B, Nq, Nk, 128, mp["S"], mp["T"], mp["pads"], 0, None, torch.bfloat16, seed=0)
+    args = (q, kv_cast(k, E4M3), kv_cast(v, E4M3), valid, scale, q_slot, window)
+    _e4m3_row("flash_prefill", "[kernels]", "main path", lambda: ak.flash_prefill(*args),
+              lambda: ak.flash_prefill_plain(*args), _prefill_cost(q, args[1], valid, 0, None),
+              iters=(20, 5))
+
     md = main_path["decode"]
     # (label, L, D, T, N, pads, length, steps, window, dtype, is_main_path)
     decode_cases = [
@@ -470,10 +505,53 @@ def phase_kernels(main_path: dict) -> dict:
                     replaces=REPLACES["flash_decode_frozen"], launches=0,
                     max_abs_err=err, tol=TOL[dname], ms=t_k, plain_ms=t_p,
                     bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+    # the e4m3 branch at the main path's decode shape (in-flight K/V bf16)
+    q, ks, vs, mask, ki, vi, step, window = _decode_case(
+        32, B, Nq, Nk, 128, md["T"], md["N"], md["pads"], md["length"], md["step"], None,
+        torch.bfloat16, seed=100)
+    ks8, vs8 = kv_cast(ks, E4M3), kv_cast(vs, E4M3)
+    del ks, vs
+    layers = iter(range(10 ** 9))
+    _e4m3_row("flash_decode_frozen", "[kernels]", "main path",
+              lambda: ak.flash_decode_frozen(q, ks8, vs8, mask, ki, vi, next(layers) % 32,
+                                             step, 128 ** -0.5),
+              lambda: ak.flash_decode_frozen_plain(q, ks8, vs8, mask, ki, vi, 31, step,
+                                                   128 ** -0.5),
+              _decode_cost(q, mask, ki, step, None, kv_size=1), iters=(4 * 32, 10),
+              check=lambda: (ak.flash_decode_frozen(q, ks8, vs8, mask, ki, vi, 31, step,
+                                                    128 ** -0.5),
+                             ak.flash_decode_frozen_plain(q, ks8, vs8, mask, ki, vi, 31,
+                                                          step, 128 ** -0.5)))
+    del ks8, vs8
+    torch.cuda.empty_cache()
     for (name, dname), err in sorted(worst.items()):
         log(f"[kernels] {name} {dname}: worst max_abs_err over all cases {err:.3g} "
             f"(tol {TOL[dname]})")
     return table
+
+
+E4M3_ROWS = {}  # kernel -> its e4m3 branch's numbers at the main path's shape
+
+
+def _e4m3_row(name, tag, label, kern, plain, cost, iters, check=None, tol=None):
+    """Checks a kernel's e4m3 branch against its plain version (bf16
+    queries and output: one bf16 ulp, as the bf16 cases) and times both
+    beside the bound with the cache's bytes at one byte an element."""
+    import torch
+
+    got, want = check() if check else (kern(), plain())
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = tol if tol is not None else TOL["bfloat16"]
+    if not (math.isfinite(err) and err <= tol):
+        raise PhaseError(f"{name} e4m3 {label}: error {err} > {tol}")
+    t_k = cuda_time_ms(kern, iters=iters[0])
+    t_p = cuda_time_ms(plain, iters=iters[1])
+    b_ms, b_by = bound_ms(*cost, "bfloat16")
+    E4M3_ROWS[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, max_abs_err=err)
+    log(f"{tag} {name} e4m3 {label} (bf16 q): max_abs_err {err:.3g} (tol {tol:.3g}) "
+        f"kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+        f"{cost[0] / 1e6:.2f} MB)")
 
 
 # -- int4 kernels --------------------------------------------------------------
@@ -877,14 +955,15 @@ def _paged_visible(lengths, step, window):
     return pool, len(lengths) * n_infl
 
 
-def _paged_cost(q, Nk, lengths, step, window):
+def _paged_cost(q, Nk, lengths, step, window, pool_size=None):
     """(bytes, flops) this call's data needs: the visible slots' K and V
-    rows (pool and in flight) read once, q, the table, lengths and starts,
-    and the output; 4*D operations per visible (query head, slot) pair."""
+    rows (pool, pool_size bytes an element, default q's; in flight, q's)
+    read once, q, the table, lengths and starts, and the output; 4*D
+    operations per visible (query head, slot) pair."""
     B, Nq, D = q.shape
     pool, infl = _paged_visible(lengths, step, window)
     isz = q.element_size()
-    nbytes = (2 * q.numel() * isz + 2 * (pool + infl) * Nk * D * isz
+    nbytes = (2 * q.numel() * isz + 2 * (pool * (pool_size or isz) + infl * isz) * Nk * D
               + 4 * B * (PAGED["MB"] + 2))
     return nbytes, 4.0 * D * Nq * (pool + infl)
 
@@ -993,9 +1072,238 @@ def phase_paged_kernels(table: dict) -> None:
                 library_ms=t_l)
         del q, kp, vp, ki, vi
         torch.cuda.empty_cache()
+    # the e4m3 branch at the main path's shape: e4m3 pools, bf16 q and in flight
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+
+    q, kp, vp, tables, lengths, starts, ki, vi = _paged_case(
+        L, Nq, Nk, D, lens, {}, torch.bfloat16, seed=200)
+    kp, vp = kv_cast(kp, E4M3), kv_cast(vp, E4M3)
+    step = N - 1
+    args = (q, kp, vp, tables, lengths, starts, ki, vi, L - 1, step, D ** -0.5, None)
+    want = pa.paged_decode_frozen_plain(*args)
+    layers = iter(range(10 ** 9))
+    _e4m3_row("paged_decode_frozen", "[paged]", "main path",
+              lambda: pa.paged_decode_frozen(q, kp, vp, tables, lengths, starts, ki, vi,
+                                             next(layers) % L, step, D ** -0.5),
+              lambda: pa.paged_decode_frozen_plain(*args),
+              _paged_cost(q, Nk, list(lens), step, None, pool_size=1), iters=(4 * L, 10),
+              check=lambda: (pa.paged_decode_frozen(*args), want),
+              tol=_paged_tol("bfloat16", want))
+    del q, kp, vp, ki, vi
+    torch.cuda.empty_cache()
     for dname, err in sorted(worst.items()):
         log(f"[paged] paged_decode_frozen {dname}: worst max_abs_err over all cases "
             f"{err:.3g} (tol at most {TOL[dname]}; bf16: 2^-7 of the largest output)")
+
+
+# -- speculative-verify kernel (K10) -------------------------------------------------
+
+# the spec serve phase's K10 shape: 16 rows, Mistral-7B heads, the serving
+# pool; S = 5 verify positions (4 drafts), one round a quantum (quantum 8)
+SPEC_S = 5
+SPEC_LENGTHS = tuple(64 + 56 * i for i in range(16))   # 64 .. 904 slots
+
+
+def _spec_kernel_case(L, Nq, Nk, D, lengths, inactive, dtype, e4m3, rnd, seed):
+    """Inputs of one paged_decode_spec call at round `rnd` of rnd + 1: the
+    K8 case's pools and tables (e4m3 pools beside bf16 in-flight K/V),
+    q [B, S, Nq, D], earlier rounds' slots accepted at random, each row's
+    verify slots after its accepted ones. Returns (args, base, q_slots,
+    infl_slots)."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+
+    S = SPEC_S
+    N = (rnd + 1) * S
+    q1, kp, vp, tables, lens, starts, _, _ = _paged_case(L, Nq, Nk, D, lengths, inactive,
+                                                         dtype, seed)
+    del q1
+    if e4m3:
+        kp, vp = kv_cast(kp, E4M3), kv_cast(vp, E4M3)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    B = len(lengths)
+    infl_dt = torch.bfloat16 if e4m3 else dtype
+    q = torch.randn(B, S, Nq, D, generator=g, device=DEVICE).to(dtype)
+    ki = torch.randn(B, Nk, N, D, generator=g, device=DEVICE).to(infl_dt)
+    vi = torch.randn(B, Nk, N, D, generator=g, device=DEVICE).to(infl_dt)
+    gh = torch.Generator().manual_seed(seed + 2)
+    acc = torch.zeros(B, dtype=torch.int32)
+    valid = torch.zeros(B, N, dtype=torch.bool)
+    infl_slots = torch.zeros(B, N, dtype=torch.int32)
+    lens_h = torch.tensor(lengths, dtype=torch.int32)
+    for r in range(rnd):
+        m = torch.randint(0, S, (B,), generator=gh).to(torch.int32)
+        for b in range(B):
+            for i in range(int(m[b]) + 1):
+                valid[b, r * S + i] = True
+                infl_slots[b, r * S + i] = lens_h[b] + acc[b] + i
+        acc += m + 1
+    q_slots = lens_h[:, None] + acc[:, None] + torch.arange(S, dtype=torch.int32)[None, :]
+    return ((q, kp, vp, tables, lens, starts, ki, vi, valid.to(DEVICE)), rnd * S,
+            q_slots.to(DEVICE), infl_slots.to(DEVICE))
+
+
+def _spec_cost(args, base, q_slots, infl_slots, window):
+    """(bytes, flops) one K10 call's data needs: every K/V slot some verify
+    position sees, read once (pool slots at the pool's element size), q,
+    the output, tables, lengths, starts and validity; 4*D operations per
+    visible (verify position, query head, slot)."""
+    import torch
+
+    q, kp, _, tables, lens, starts, ki, _, valid = args
+    B, S, Nq, D = q.shape
+    Nk, bs = kp.shape[2], kp.shape[3]
+    N = ki.shape[2]
+    cap = tables.shape[1] * bs
+    lens, starts = lens.cpu()[:, None], starts.cpu()[:, None]
+    qs = q_slots.cpu()
+    t = torch.arange(cap)[None, None, :]
+    pool = (t < lens[:, :, None].clamp(max=cap)) & (t >= starts[:, :, None])
+    pool = pool.expand(B, S, cap)
+    j = torch.arange(N)[None, None, :]
+    s_idx = torch.arange(S)[None, :, None]
+    infl = valid.cpu()[:, None, :] | ((j >= base) & (j <= base + s_idx))
+    if window:
+        pool = pool & (t > qs[:, :, None] - window)
+        jj = torch.arange(N)[None, :]
+        own = qs.gather(1, (jj - base).clamp(0, S - 1).expand(B, N))
+        slot_j = torch.where(jj >= base, own, infl_slots.cpu())
+        infl = infl & (slot_j[:, None, :] > qs[:, :, None] - window)
+    n_pool, n_infl = int(pool.any(1).sum()), int(infl.any(1).sum())
+    pairs = int(pool.sum()) + int(infl.sum())
+    isz = q.element_size()
+    nbytes = (2 * q.numel() * isz + 2 * Nk * D * (n_pool * kp.element_size()
+                                                    + n_infl * ki.element_size())
+              + tables.numel() * 4 + B * 8 + valid.numel())
+    return nbytes, 4.0 * D * Nq * pairs
+
+
+def _sdpa_spec(args, l, base, scale, window, q_slots, infl_slots):
+    """scaled_dot_product_attention on the same function: K/V gathered dense
+    and the in-flight slots appended, with an explicit boolean mask
+    [B, 1, S, T + N], both built OUTSIDE the timed call (yardstick only)."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, tables, lens, starts, ki, vi, valid = args
+    B, S, Nq, D = q.shape
+    N = ki.shape[2]
+    k = torch.cat([pa.paged_gather_dense(kp[l], tables).to(q.dtype), ki.to(q.dtype)], dim=2)
+    v = torch.cat([pa.paged_gather_dense(vp[l], tables).to(q.dtype), vi.to(q.dtype)], dim=2)
+    T = k.shape[2] - N
+    t = torch.arange(T, device=q.device)[None, None, :]
+    mask_f = ((t < lens[:, None, None]) & (t >= starts[:, None, None])).expand(B, S, T)
+    j = torch.arange(N, device=q.device)[None, None, :]
+    s_idx = torch.arange(S, device=q.device)[None, :, None]
+    mask_i = valid[:, None, :] | ((j >= base) & (j <= base + s_idx))
+    if window:
+        qs = q_slots[:, :, None]
+        mask_f = mask_f & (t > qs - window)
+        jj = torch.arange(N, device=q.device)[None, :]
+        own = q_slots.gather(1, (jj - base).clamp(0, S - 1).expand(B, N))
+        slot_j = torch.where(jj >= base, own, infl_slots)
+        mask_i = mask_i & (slot_j[:, None, :] > qs - window)
+    mask = torch.cat([mask_f, mask_i], dim=2)[:, None]          # [B, 1, S, T+N]
+    return _sdpa(q.transpose(1, 2).contiguous(), k, v, mask, scale)
+
+
+def phase_spec_kernels(table: dict) -> None:
+    """K10 against its plain version on the card at the spec serve phase's
+    shape (16 rows of 64 to 904 slots, two of them inactive at length 0 as
+    the batcher releases them, S = 5) and beside it: fp32 at a later round
+    (accepted slots of earlier rounds), e4m3 pools, a binding window, head
+    dim 64 with one query head per KV head; the first and the last layer.
+    Times kernel, plain version and SDPA (with an explicit mask) beside the
+    bound; the main-path row is bf16 at round 0, the call walking all 32
+    layers of a 257-block pool. Then the card's e4m3 cast against the
+    CPU's bytes."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    p = PAGED
+    Nq, Nk, D = p["Nq"], p["Nk"], p["D"]
+    L = MISTRAL_7B["num_hidden_layers"]
+    lens = SPEC_LENGTHS
+    # (label, L, Nq, Nk, D, {inactive row: its length}, dtype, e4m3, round,
+    #  window, is_main_path, timed)
+    cases = [
+        ("main path", L, Nq, Nk, D, {3: 0, 9: 0}, torch.bfloat16, False, 0, None, True, True),
+        ("main path e4m3", L, Nq, Nk, D, {3: 0, 9: 0}, torch.bfloat16, True, 0, None, False,
+         True),
+        ("fp32 round 1", 4, Nq, Nk, D, {5: 0}, torch.float32, False, 1, None, False, False),
+        ("w300 round 1", 4, Nq, Nk, D, {}, torch.bfloat16, False, 1, 300, False, True),
+        ("D64 G1 e4m3 fp32 w100 round 2", 4, 8, 8, 64, {2: 0}, torch.float32, True, 2, 100,
+         False, False),
+    ]
+    worst = 0.0
+    for i, (label, Lc, nq, nk, d, inactive, dtype, e4m3, rnd, window, main, timed) in \
+            enumerate(cases):
+        dname = str(dtype).replace("torch.", "")
+        lens_c = [inactive.get(b, n) for b, n in enumerate(lens)]
+        args, base, q_slots, infl_slots = _spec_kernel_case(
+            Lc, nq, nk, d, lens_c, inactive, dtype, e4m3, rnd, seed=300 + i)
+        for l in sorted({0, Lc - 1}):
+            call = (*args, l, base, d ** -0.5, window, q_slots, infl_slots)
+            got = pa.paged_decode_spec(*call)
+            want = pa.paged_decode_spec_plain(*call)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = _paged_tol(dname, want)
+            worst = max(worst, err / tol)
+            if not (math.isfinite(err) and err <= tol):
+                raise PhaseError(f"paged_decode_spec {label} l={l} {dname}: error {err} "
+                                 f"> {tol}")
+        nbytes, flops = _spec_cost(args, base, q_slots, infl_slots, window)
+        b_ms, b_by = bound_ms(nbytes, flops, dname)
+        if not timed:
+            log(f"[spec] paged_decode_spec {label} D={d} G={nq // nk} S={SPEC_S} {dname}: "
+                f"max_abs_err {err:.3g} (tol {tol:.3g}) ok")
+            continue
+        layers = iter(range(10 ** 9))
+        t_k = cuda_time_ms(lambda: pa.paged_decode_spec(
+            *args, next(layers) % Lc, base, d ** -0.5, window, q_slots, infl_slots),
+            iters=4 * Lc)
+        call = (*args, Lc - 1, base, d ** -0.5, window, q_slots, infl_slots)
+        t_p = cuda_time_ms(lambda: pa.paged_decode_spec_plain(*call), iters=5)
+        t_l = cuda_time_ms(_sdpa_spec(args, Lc - 1, base, d ** -0.5, window, q_slots,
+                                      infl_slots), iters=20)
+        log(f"[spec] paged_decode_spec {label} D={d} G={nq // nk} S={SPEC_S} {dname}"
+            f"{' e4m3 pools' if e4m3 else ''}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
+            f"{t_k:.4f} ms plain {t_p:.4f} ms sdpa (K/V gathered, mask built beforehand) "
+            f"{t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+        if main:
+            table["paged_decode_spec"] = dict(
+                name="paged_decode_spec", route="cuda", source=SOURCES["paged_decode_spec"],
+                replaces=REPLACES["paged_decode_spec"], launches=0, max_abs_err=err, tol=tol,
+                ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        elif e4m3:
+            E4M3_ROWS["paged_decode_spec"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                                  max_abs_err=err)
+        del args
+        torch.cuda.empty_cache()
+    log(f"[spec] paged_decode_spec: worst max_abs_err over all cases {worst:.3g} of its "
+        f"tolerance (one ulp of the largest output in bf16, 1e-4 in fp32)")
+
+    # the e4m3 cast: the card's bytes against the CPU's, overflow included
+    g = torch.Generator().manual_seed(9)
+    x = torch.cat([torch.randn(1 << 16, generator=g) * 200, torch.randn(4096, generator=g)
+                   * 1e-3, torch.tensor([448.0, -448.0, 464.0, 470.0, 480.0, 500.0, -1000.0,
+                                         float("inf"), float("-inf"), float("nan")])])
+    for dt in (torch.float32, torch.bfloat16):
+        cpu = kv_cast(x.to(dt), E4M3).view(torch.uint8)
+        card = kv_cast(x.to(dt).to(DEVICE), E4M3).view(torch.uint8).cpu()
+        raw = (x.to(dt).to(DEVICE).to(E4M3).view(torch.uint8).cpu()
+               == x.to(dt).to(E4M3).view(torch.uint8))
+        n_over = int((x.abs() > 448).sum())
+        log(f"[spec] e4m3 cast of {x.numel()} {str(dt)[6:]} values ({n_over} past 448): "
+            f"kv_cast card bytes {'equal' if torch.equal(card, cpu) else 'DIFFER from'} the "
+            f"CPU's; torch's own cast agrees on {int(raw.sum())} of {x.numel()}")
+        if not torch.equal(card, cpu):
+            raise PhaseError(f"e4m3 cast: the card's bytes differ from the CPU's ({dt})")
 
 
 def main_path_shapes() -> dict:
@@ -1030,8 +1338,10 @@ def _left_padded_batch(S, lens, vocab, seed):
     return ids, positions, valid
 
 
-def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS):
-    """Prefill + n_chunks greedy decode chunks on one attention route.
+def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS,
+               kv_dtype=None):
+    """Prefill + n_chunks greedy decode chunks on one attention route, the
+    KV cache in kv_dtype (default: the params' dtype).
 
     With `force` (the tokens [1 + n_chunks*chunk, B] of another run) every step
     is fed force's token instead of its own argmax, so two routes see the
@@ -1054,7 +1364,8 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS):
         fed.append(tok.to(torch.int32))
         return fed[-1]
 
-    cache = create_kv_cache(cfg, B, T, dtype=params["embed"].dtype, device=DEVICE)
+    cache = create_kv_cache(cfg, B, T, dtype=kv_dtype or params["embed"].dtype,
+                            device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = causal_lm.forward(params, cfg, ids, cache, positions, valid,
@@ -1089,7 +1400,7 @@ def host_launch_us(n: int = 2000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def _profile_decode(params, cfg, batch, T, label: str = "bf16") -> None:
+def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None) -> None:
     """Device time by kernel over PROFILE_STEPS decode steps of the kernel
     route (torch.profiler), against their wall time: where a step's time
     goes, and how much of it the device sits idle. The profiler's own cost
@@ -1103,7 +1414,7 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16") -> None:
 
     ids, positions, valid = batch
     lens = valid.sum(dim=1).to(torch.int32)
-    cache = create_kv_cache(cfg, ids.shape[0], T, dtype=params["embed"].dtype,
+    cache = create_kv_cache(cfg, ids.shape[0], T, dtype=kv_dtype or params["embed"].dtype,
                             device=DEVICE)
     logits, cache = causal_lm.forward(params, cfg, ids, cache, positions, valid,
                                       last_only=True)
@@ -1264,6 +1575,56 @@ def phase_model(table: dict):
         f"({prefill_flops / 1e12:.2f} TFLOP for {sum(PROMPT_LENS)} real tokens) "
         f"{prefill_bound_ms:.3f} ms")
     return params
+
+
+def phase_model_fp8(params) -> None:
+    """The model phase's bf16 params (Mistral-7B shape, 32 layers, batch 4)
+    over an fp8 (e4m3) KV cache: the prefill through K1 and the decode
+    through K2, both on e4m3 (in-flight K/V bf16), the kernel route against
+    the plain route on the same fp8 cache with forced tokens, exact launch
+    counts, the decode step under the profiler, and the logits beside the
+    bf16 cache's on the same tokens."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    mp = main_path_shapes()
+    S, T = mp["prefill"]["S"], mp["prefill"]["T"]
+    cfg = parse_model_config(MISTRAL_7B)
+    L, B = cfg.num_hidden_layers, len(PROMPT_LENS)
+    batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
+    with torch.inference_mode():
+        _run_route(params, cfg, batch, T, "kernel", kv_dtype=E4M3)        # warm-up
+        plain = _run_route(params, cfg, batch, T, "plain", kv_dtype=E4M3)
+        forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1], kv_dtype=E4M3)
+        ak.reset_launches()                                                # the main path's run
+        kern = _run_route(params, cfg, batch, T, "kernel", kv_dtype=E4M3)
+        launches = dict(ak.LAUNCHES)
+        bf16 = _run_route(params, cfg, batch, T, "kernel", force=kern[1])
+        _profile_decode(params, cfg, batch, T, label="bf16 weights, fp8 KV", kv_dtype=E4M3)
+    torch.cuda.empty_cache()
+    want = {"flash_prefill": L, "flash_decode_frozen": L * N_CHUNKS * DECODE_CHUNK}
+    log(f"[model_fp8] launches {launches} (want {want}: L per prefill, L per decode step)")
+    if launches != want:
+        raise PhaseError(f"fp8 KV: kernel launches {launches} != {want}")
+    _check_routes("fp8 KV, bf16, 32 layers", forced, plain, MODEL_LOGIT_TOL["bfloat16"])
+    diff = (kern[0] - bf16[0]).abs().amax(dim=-1)
+    agree = (kern[0].argmax(-1) == bf16[0].argmax(-1)).float().mean().item()
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  [params["lm_head"], *params["layers"].values()])
+    kv_bytes = 2 * L * B * cfg.num_kv_heads * T * cfg.head_dim   # one byte an element
+    step_bytes = n_bytes + kv_bytes
+    pre_ms, dec_ms = kern[2:]
+    log(f"[model_fp8] fp8 KV against the bf16 cache on the same tokens (kernel route): "
+        f"logits max_abs_diff {diff.max().item():.4g}, greedy choice equal at "
+        f"{100 * agree:.1f}% of {diff.numel()} positions")
+    log(f"[model_fp8] kernel route: prefill {pre_ms:.2f} ms ({B}x{S} tokens), decode "
+        f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B} (host: "
+        f"{host_launch_us():.2f} us a tiny launch); plain route: prefill {plain[2]:.2f} ms, "
+        f"decode {plain[3]:.3f} ms/step; bound of a step (weights + the fp8 K/V cache "
+        f"read once, {step_bytes / 1e9:.3f} GB, the K/V {kv_bytes / 1e9:.3f} of it) "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
 
 
 def phase_model_quant(table: dict, bits: int):
@@ -1470,7 +1831,7 @@ def phase_awq(params) -> None:
 
 def _serving_model(counts):
     """The model entry the batcher drives, counting admissions (one dense
-    forward each) and decode steps."""
+    forward each), plain decode steps and speculative verify rounds."""
     from types import SimpleNamespace
 
     from tinygpt_tpu_torch.models import causal_lm
@@ -1485,13 +1846,20 @@ def _serving_model(counts):
         return causal_lm.decode_paged_steps(params, cfg, tok0, state, n_steps,
                                             sample_fn, attn_impl=attn_impl)
 
-    return SimpleNamespace(forward=forward, decode_paged_steps=decode_paged_steps)
+    def decode_paged_spec_steps(params, cfg, tok0, state, ctx, clen, n_rounds, *args,
+                                **kw):
+        counts["rounds"] += n_rounds
+        return causal_lm.decode_paged_spec_steps(params, cfg, tok0, state, ctx, clen,
+                                                 n_rounds, *args, **kw)
+
+    return SimpleNamespace(forward=forward, decode_paged_steps=decode_paged_steps,
+                           decode_paged_spec_steps=decode_paged_spec_steps)
 
 
-def _serving_batcher(params, cfg, counts, dtype="bfloat16", attn_impl="kernel"):
+def _serving_batcher(params, cfg, counts, dtype="bfloat16", attn_impl="kernel", **kw):
     """The serving leg's scheduler: capacity 16, block 64, 257 blocks, 16
     blocks a row, bucket 64, whole-prompt admission, prefix cache on,
-    quantum 8, pipelined."""
+    quantum 8, pipelined; `kw` adds SchedulerConfig fields (speculation)."""
     from tinygpt_tpu_torch.engine.scheduler import ContinuousBatcher, SchedulerConfig
 
     s = SERVE
@@ -1502,7 +1870,7 @@ def _serving_batcher(params, cfg, counts, dtype="bfloat16", attn_impl="kernel"):
             n_blocks=s["n_blocks"], max_blocks_per_seq=s["max_blocks"],
             prefill_bucket=s["bucket"], dtype=dtype, attn_impl=attn_impl,
             decode_quantum=s["quantum"], pipeline_quanta=True,
-            enable_prefix_cache=True, prefill_chunk_tokens=0))
+            enable_prefix_cache=True, prefill_chunk_tokens=0, **kw))
 
 
 def _drive(batcher, prompts, max_new, gap_s=None):
@@ -1731,6 +2099,159 @@ def phase_serve(table: dict, params) -> None:
     torch.cuda.empty_cache()
 
 
+def _spec_prompts(V: int):
+    """The spec serve phase's prompts (numpy seed 0): each repeats its own
+    random span of SPEC["span"] tokens up to the serving prompt length."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    reps = SERVE["prompt_len"] // SPEC["span"]
+    return [[int(x) for x in rng.integers(3, V, SPEC["span"])] * reps
+            for _ in range(SERVE["n_requests"] + 1)]
+
+
+def _spec_kw():
+    return dict(speculative="ngram", spec_draft_len=SPEC["draft_len"],
+                spec_ngram=SPEC["ngram"])
+
+
+def phase_spec_serve(table: dict, params) -> None:
+    """The continuous batcher with n-gram speculation on the card, at the
+    Mistral-7B shape in int4 (model4's params): the serving leg's scheduler
+    and arrivals (16 requests, one every 0.25 s, 256 greedy new tokens) on
+    prompts that repeat a 64-token span, with exact launch counts; the same
+    traffic with speculation off; one speculative quantum at 16 live rows
+    under the profiler; and at 4 layers in fp32, the streams of both."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinygpt_tpu_torch.engine.scheduler import Request
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops.quant import quantize_params
+
+    s = SERVE
+    cfg = parse_model_config(MISTRAL_7B)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    prompts = _spec_prompts(V)
+    warm, prompts = prompts[-1], prompts[:-1]
+    runs, streams = {}, {}
+    with torch.inference_mode():
+        for mode in ("spec", "plain"):
+            counts = Counter()
+            batcher = _serving_batcher(params, cfg, counts,
+                                       **(_spec_kw() if mode == "spec" else {}))
+            _drive(batcher, [warm], s["warm_new"])
+            torch.cuda.synchronize()
+            counts.clear()
+            batcher.spec_emitted = batcher.spec_verifies = 0
+            ak.reset_launches()                               # the main path's run
+            run = _drive(batcher, prompts, s["max_new"], s["gap_s"])
+            torch.cuda.synchronize()
+            runs[mode] = (run, _serving_metrics(run), dict(ak.LAUNCHES), dict(counts),
+                          batcher.spec_acceptance, batcher.spec_verifies)
+            streams[mode] = run["streams"]
+            if mode == "spec":
+                spec_batcher = batcher
+        for mode, (run, m, launches, counts, acc, verifies) in runs.items():
+            n_out = sorted(len(v) for v in run["streams"].values())
+            log(f"[spec_serve] {mode}: {s['n_requests']} requests of {s['prompt_len']} tokens "
+                f"(a {SPEC['span']}-token span repeated), {s['max_new']} new each, one every "
+                f"{s['gap_s']} s: TTFT p50 {m['ttft_p50_s']:.4f} s p95 {m['ttft_p95_s']:.4f} s; "
+                f"{run['toks']} tokens in {m['wall_s']:.3f} s = {m['tok_s']:.2f} tok/s whole "
+                f"run, {m['steady_tok_s']:.2f} tok/s steady; {counts.get('rounds', 0)} verify "
+                f"rounds, {counts.get('steps', 0)} plain decode steps, "
+                f"{counts.get('admissions', 0)} admissions; acceptance {acc:.3f} accepted "
+                f"drafts a verify over {verifies} row verifies")
+            if n_out != [s["max_new"]] * s["n_requests"]:
+                raise PhaseError(f"spec_serve {mode}: tokens per request {n_out}")
+        launches, counts = runs["spec"][2], runs["spec"][3]
+        rounds, steps, adm = counts.get("rounds", 0), counts.get("steps", 0), \
+            counts.get("admissions", 0)
+        want = {"paged_decode_spec": L * rounds,
+                "paged_decode_frozen": L * steps,
+                "matmul_dequant_int4_stacked_fused": (2 * L + 1) * steps,
+                "mlp_fused_int4_stacked": L * steps,
+                "flash_prefill": L * adm,
+                "matmul_dequant_int4_stacked": 4 * L * (adm + rounds),
+                "matmul_dequant_int4": adm + rounds}
+        want = {k: v for k, v in want.items() if v}
+        log(f"[spec_serve] launches {launches} (want {want}: per verify round K10 {L}, "
+            f"K5b {4 * L} at {s['capacity']} x {SPEC['draft_len'] + 1} rows, K4 1; per plain "
+            f"step K8 {L}, K6 {2 * L + 1}, K7 {L}; per admission K1 {L}, K5b {4 * L}, K4 1)")
+        if adm != s["n_requests"] or not rounds or launches != want:
+            raise PhaseError(f"spec_serve: launches {launches} != {want} ({adm} admissions, "
+                             f"{rounds} rounds)")
+        table["paged_decode_spec"]["launches"] = launches["paged_decode_spec"]
+        same = sum(streams["spec"][i] == streams["plain"][i] for i in streams["plain"])
+        log(f"[spec_serve] greedy streams identical with and without speculation in {same} "
+            f"of {s['n_requests']} requests (bf16: the verify's K5b and the step's K6/K7 "
+            f"sum in other orders, so a near-tie may part two streams)")
+
+        # one speculative quantum at 16 live rows under the profiler
+        b = spec_batcher
+        b._spec_disabled = False
+        for i in range(s["capacity"]):
+            b.add_request(Request(request_id=1000 + i, prompt_ids=prompts[i],
+                                  max_new_tokens=s["profile_new"]))
+        while b.waiting or b.n_running < s["capacity"]:
+            b.step()
+        b._drain_inflight()
+        b._spec_disabled = False
+        b._spec_eligible = lambda: True
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            b._decode()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(us for us, _, _ in kernels)
+        k10 = sum(us for us, _, k in kernels if "paged_decode_spec" in k)
+        k5b = sum(us for us, _, k in kernels if "int4" in k)
+        if busy:
+            log(f"[spec_serve] one speculative quantum (1 round of {SPEC['draft_len'] + 1} "
+                f"verify positions) at {s['capacity']} live rows under the profiler: wall "
+                f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+                f"({100 * busy / wall_us:.1f}% busy), {sum(c for _, c, _ in kernels)} device "
+                f"launches; K10 {k10 / 1e3:.3f} ms ({100 * k10 / busy:.1f}% of busy), the "
+                f"int4 matmuls (K5b, K4) {k5b / 1e3:.3f} ms ({100 * k5b / busy:.1f}%)")
+            for us, count, key in sorted(kernels, reverse=True)[:8]:
+                log(f"[spec_serve]   {us / 1e3:8.4f} ms  {count:4d} launches  {key[:90]}")
+        else:
+            log("[spec_serve] one speculative quantum: device time not measured (the "
+                "profiler saw no device activity)")
+        del b, spec_batcher
+        torch.cuda.empty_cache()
+
+        # 4 layers in fp32: the same prompts, arrivals by scheduler step
+        cfg4 = parse_model_config(dict(MISTRAL_7B, num_hidden_layers=4))
+        p4 = quantize_params(causal_lm.init_params(cfg4, seed=0, dtype=torch.float32,
+                                                   device=DEVICE),
+                             bits=4, group_size=INT4_GROUP)
+        got = {}
+        for mode in ("spec", "plain"):
+            b = _serving_batcher(p4, cfg4, Counter(), dtype="float32",
+                                 **(_spec_kw() if mode == "spec" else {}))
+            got[mode] = _drive(b, prompts, SPEC["fp32_new"])["streams"]
+            if mode == "spec":
+                acc4 = b.spec_acceptance
+        same = sum(got["spec"][i] == got["plain"][i] for i in got["plain"])
+        log(f"[spec_serve] int4, fp32, 4 layers: greedy streams of the {s['n_requests']} "
+            f"requests ({SPEC['fp32_new']} new each) identical with and without "
+            f"speculation in {same} of {s['n_requests']} (acceptance {acc4:.3f})")
+        if same != s["n_requests"]:
+            raise PhaseError(f"spec_serve: fp32 streams differ in "
+                             f"{s['n_requests'] - same} requests")
+        del p4
+    torch.cuda.empty_cache()
+
+
 def _write_model_dir(d: str) -> None:
     """A model dir of Mistral-7B widths, 2 layers, random bf16 weights and
     the generated Metaspace-BPE tokenizer (the engine and server phases)."""
@@ -1748,9 +2269,10 @@ def _write_model_dir(d: str) -> None:
 
 def phase_engine(d: str) -> None:
     """GPTEngine on the model dir `d`: in bf16; quantized to int4 with
-    awq=False; to int8; and to int4 by default, which runs AWQ
-    (calibrating on the built-in corpus through the dir's generated
-    tokenizer) before quantizing."""
+    awq=False; to int8; to int4 by default, which runs AWQ (calibrating on
+    the built-in corpus through the dir's generated tokenizer) before
+    quantizing; and over an fp8 KV cache. Then batch-1 n-gram speculation
+    against the chunked loop on one prompt, and the batcher on fp8 pools."""
     import torch
 
     from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
@@ -1768,7 +2290,9 @@ def phase_engine(d: str) -> None:
             "int8": (dict(quantization="int8"),
                      ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int8",
                       "matmul_dequant_int8_stacked")),
-            "int4 (AWQ by default)": (dict(quantization="int4"), int4)}
+            "int4 (AWQ by default)": (dict(quantization="int4"), int4),
+            "bf16, fp8 KV": (dict(kv_cache_dtype="fp8"),
+                             ("flash_prefill", "flash_decode_frozen"))}
     for label, (kw, kernels) in runs.items():
         t0 = time.perf_counter()
         eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE,
@@ -1795,6 +2319,103 @@ def phase_engine(d: str) -> None:
         if missing:
             raise PhaseError(f"{label} engine run launched {launches}: {missing} "
                              f"never launched")
+    _engine_spec(d)
+    _engine_fp8_batcher(d)
+
+
+ENGINE_SPEC_PROMPT = ("def add(a, b):\n    return a + b\n\ndef sub(a, b):\n    return a - b\n"
+                      "\ndef mul(a, b):\n    return a * b\n\ndef div(a, b):\n    return")
+
+
+def _engine_spec(d: str) -> None:
+    """Batch-1 speculative="ngram" on the model dir: its rounds (each a
+    5-token verify through K1 at the round's first slot, and one read of
+    the round's accepted count on the host), the tokens against the
+    chunked loop's, and what a read costs: the device-to-host round trip
+    of a few int32 on an idle card."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    max_tokens = 64
+    outs, secs = {}, {}
+    rounds = []
+    real = causal_lm.spec_accept
+
+    def counting(*a, **kw):
+        rounds.append(1)
+        return real(*a, **kw)
+
+    causal_lm.spec_accept = counting
+    try:
+        for mode in ("ngram", None):
+            eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE,
+                                      speculative=mode))
+            eng.prepare()
+            eng.generate_sync([ENGINE_SPEC_PROMPT])             # warm-up
+            rounds.clear()
+            ak.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[mode] = eng.generate_sync([ENGINE_SPEC_PROMPT])[0].token_ids
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+            if mode:
+                n_rounds, launches = len(rounds), dict(ak.LAUNCHES)
+            del eng
+    finally:
+        causal_lm.spec_accept = real
+    x = torch.zeros(6, dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        x.cpu()
+    read_ms = (time.perf_counter() - t0) / 200 * 1e3
+    same = sum(a == b for a, b in zip(outs["ngram"], outs[None]))
+    log(f"[engine] batch-1 speculative=ngram: {len(outs['ngram'])} tokens in {n_rounds} "
+        f"verify rounds ({len(outs['ngram']) / max(n_rounds, 1):.2f} tokens a round), "
+        f"{secs['ngram'] * 1e3:.0f} ms ({secs['ngram'] * 1e3 / max(n_rounds, 1):.3f} ms a "
+        f"round, one host read each); the chunked loop {secs[None] * 1e3:.0f} ms "
+        f"({secs[None] * 1e3 / max_tokens:.3f} ms a token); the read's device-to-host "
+        f"round trip on an idle card {read_ms:.4f} ms; tokens equal to the chunked loop's "
+        f"at {same} of {max_tokens} positions; launches {launches}")
+    if len(outs["ngram"]) != max_tokens or launches.get("flash_prefill", 0) <= 1:
+        raise PhaseError(f"speculative engine: {len(outs['ngram'])} tokens, launches "
+                         f"{launches}")
+
+
+def _engine_fp8_batcher(d: str) -> None:
+    """The continuous batcher over fp8 (e4m3) pools on the model dir's bf16
+    params: K1 on an e4m3 dense cache at each admission, K8 on e4m3 pools
+    in every decode step."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.scheduler import ContinuousBatcher, Request, SchedulerConfig
+    from tinygpt_tpu_torch.hf.loader import load_model_dir
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    ctx = load_model_dir(d, dtype="bfloat16", device=DEVICE)
+    b = ContinuousBatcher(ctx.model, ctx.model_config, ctx.params, eos_ids=set(),
+                          config=SchedulerConfig(batch_capacity=4, n_blocks=64,
+                                                 max_blocks_per_seq=16, kv_cache_dtype="fp8"))
+    toks = [ctx.tokenizer.encode(p) for p in ("Once upon a time,", ENGINE_SPEC_PROMPT)]
+    ak.reset_launches()
+    for i, t in enumerate(toks * 3):
+        b.add_request(Request(request_id=i, prompt_ids=t, max_new_tokens=24))
+    got = {}
+    while b.has_work:
+        for ev in b.step():
+            if ev.token_id is not None:
+                got[ev.request_id] = got.get(ev.request_id, 0) + 1
+    torch.cuda.synchronize()
+    launches = dict(ak.LAUNCHES)
+    log(f"[engine] batcher on fp8 pools ({b.state.k_pool.dtype}): {sum(got.values())} "
+        f"tokens for {len(got)} requests; launches {launches}")
+    if (b.state.k_pool.dtype != E4M3 or sorted(got.values()) != [24] * 6
+            or not (launches.get("paged_decode_frozen") and launches.get("flash_prefill"))):
+        raise PhaseError(f"fp8 batcher: {got}, launches {launches}")
 
 
 # kernel route against plain route of the evaluator (relative, on the
@@ -1802,6 +2423,10 @@ def phase_engine(d: str) -> None:
 # sums in another order than its plain version (attention; the int8
 # matmuls), which moves each token's log-probability by bf16 noise
 EVAL_PPL_RTOL = 5e-3
+# the fp8 KV cache against the bf16 one (relative, on the perplexity): e4m3
+# keeps 3 mantissa bits of each K/V element, which moves each token's
+# log-probability by far more than summation order does
+EVAL_FP8_RTOL = 2e-2
 EVAL_TEXT = " ".join(
     f"Line {i}: the {w} of {i * 7 % 101} reports went to {c} on day {i % 28 + 1}."
     for i, (w, c) in enumerate(zip(["review", "summary", "audit", "draft"] * 30,
@@ -1826,7 +2451,9 @@ def phase_evaluate(d: str) -> None:
             "--stride", "256", "--max-tokens", "1024", "--device", DEVICE]
     runs = {"bf16": ([], ("flash_prefill",)),
             "int8": (["--quantization", "int8"],
-                     ("flash_prefill", "matmul_dequant_int8_stacked", "matmul_dequant_int8"))}
+                     ("flash_prefill", "matmul_dequant_int8_stacked", "matmul_dequant_int8")),
+            "fp8 KV": (["--kv-cache-dtype", "fp8"], ("flash_prefill",))}
+    by_label = {}
     for label, (extra, kernels) in runs.items():
         ppl = {}
         for impl in ("kernel", "plain"):
@@ -1851,6 +2478,12 @@ def phase_evaluate(d: str) -> None:
             f"(tol {EVAL_PPL_RTOL})")
         if not rel <= EVAL_PPL_RTOL:
             raise PhaseError(f"evaluate {label}: perplexities {ppl} differ by {rel}")
+        by_label[label] = ppl["kernel"]
+    rel = abs(by_label["fp8 KV"] - by_label["bf16"]) / by_label["bf16"]
+    log(f"[evaluate] fp8 KV against the bf16 cache (kernel route): relative difference "
+        f"{rel:.3g} (tol {EVAL_FP8_RTOL})")
+    if not rel <= EVAL_FP8_RTOL:
+        raise PhaseError(f"evaluate: the fp8 KV cache moves the perplexity by {rel}")
 
 
 def phase_server(d: str) -> None:
@@ -1959,6 +2592,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global E4M3
+    E4M3 = torch.float8_e4m3fn
 
     env = phase_env()
     t_start = time.perf_counter()
@@ -1977,12 +2612,15 @@ def main() -> int:
         table = timed("kernels", phase_kernels, main_path_shapes())
         timed("int4", phase_int4_kernels, table)
         timed("paged", phase_paged_kernels, table)
+        timed("spec_kernels", phase_spec_kernels, table)
         params = timed("model", phase_model, table)
         timed("awq", phase_awq, params)
+        timed("model_fp8", phase_model_fp8, params)
         del params
         torch.cuda.empty_cache()
         params4 = timed("model4", phase_model_quant, table, 4)
         timed("serve", phase_serve, table, params4)
+        timed("spec_serve", phase_spec_serve, table, params4)
         del params4
         torch.cuda.empty_cache()
         timed("int8", phase_int8_kernels, table)
@@ -2004,6 +2642,7 @@ def main() -> int:
         return 1
     log(f"[time] all phases {time.perf_counter() - t_start:.1f} s; by phase (s): "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    log("[e4m3] " + json.dumps(E4M3_ROWS))
     log(env["smi"])
     log(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

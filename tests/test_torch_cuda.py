@@ -9,7 +9,8 @@ the repository's conftest:
 The cases reach the edges that chip_smoke.py's main-path shapes do not:
 one query row, caches that end inside a tile, 1 to 8 query heads per KV
 head, windows narrower than a tile, query rows that see no slot, and every
-dtype the kernels take. Both sides compute in fp32 from the same inputs
+dtype the kernels take, e4m3 caches and pools included (decoded exactly,
+so the same tolerances hold). Both sides compute in fp32 from the same inputs
 in another order, then round the output once: tolerance 1e-4 in fp32,
 one ulp of an output below 2 in fp16 (4e-3) and bf16 (2e-2).
 """
@@ -437,10 +438,15 @@ def test_paged_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="at most"):
         pa.paged_decode_frozen(q.repeat(1, 9, 1), kp, vp, tables, lens, sts, ki, vi,
                                0, 0, 0.1)
-    if hasattr(torch, "float8_e4m3fn"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            pa.paged_decode_frozen(q, kp.to(torch.float8_e4m3fn), vp, tables, lens,
-                                   sts, ki, vi, 0, 0, 0.1)
+    # e4m3 pools take bf16 in-flight K/V, and both pools one dtype
+    kp8 = kp.to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError, match="dtype"):
+        pa.paged_decode_frozen(q, kp8, kp8, tables, lens, sts, ki, vi, 0, 0, 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        pa.paged_decode_frozen(q, kp8, vp, tables, lens, sts, ki.bfloat16(), vi.bfloat16(),
+                               0, 0, 0.1)
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        pa.paged_decode_frozen(q, kp.half(), vp.half(), tables, lens, sts, ki, vi, 0, 0, 0.1)
 
 
 def _card_cfg(max_position_embeddings=256):
@@ -655,3 +661,257 @@ def test_awq_on_the_card_matches_the_cpu(dev, tmp_path):
     for k in sc_c:
         assert ((sc_g[k] - sc_c[k]).abs().max()).item() < 1e-5, k
         assert (q_g[k] != q_c[k]).float().mean().item() < 1e-3, k
+
+
+# -- e4m3 caches (K1, K2, K8) and the speculative verify (K10) ----------------------
+#
+# An e4m3 cache decodes exactly to fp32 on both sides, so the tolerances
+# above hold; beside an e4m3 cache the in-flight K/V are bf16.
+
+E4M3 = torch.float8_e4m3fn
+
+
+def _e4m3(x):
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+
+    return kv_cast(x * 4, E4M3)  # spread over e4m3's exponents
+
+
+@pytest.mark.parametrize("case", [PREFILL_CASES[1], PREFILL_CASES[2], PREFILL_CASES[4],
+                                  PREFILL_CASES[3]])
+def test_flash_prefill_e4m3_matches_plain(dev, case):
+    D, dtype, Nq, Nk, S, T, pads, q_slot, window = case
+    gen = torch.Generator().manual_seed(10)
+    B = len(pads)
+    q = _randn(gen, B, Nq, S, D, dtype=dtype, dev=dev)
+    k = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+    v = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+    slots = torch.arange(T, device=dev)[None, :]
+    valid = (slots >= torch.tensor(pads, device=dev)[:, None]) & (slots < q_slot + S)
+    args = (q, k, v, valid, D ** -0.5, q_slot, window)
+    ak.reset_launches()
+    got = ak.flash_prefill(*args)
+    assert ak.LAUNCHES["flash_prefill"] == 1
+    want = ak.flash_prefill_plain(*args)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= TOL[dtype] * 4  # outputs of e4m3 values x4 reach ~8
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_decode_frozen_e4m3_matches_plain(dev, case):
+    D, dtype, Nq, Nk, L, T, N, pads, length, step, window = case
+    gen = torch.Generator().manual_seed(11)
+    B = len(pads)
+    ks = _e4m3(_randn(gen, L, B, Nk, T, D, dtype=torch.float32, dev=dev))
+    vs = _e4m3(_randn(gen, L, B, Nk, T, D, dtype=torch.float32, dev=dev))
+    ki = _randn(gen, B, Nk, N, D, dtype=torch.bfloat16, dev=dev)
+    vi = _randn(gen, B, Nk, N, D, dtype=torch.bfloat16, dev=dev)
+    q = _randn(gen, B, Nq, D, dtype=dtype, dev=dev)
+    slots = torch.arange(T, device=dev)[None, :]
+    mask = (slots >= torch.tensor(pads, device=dev)[:, None]) & (slots < length)
+    for l in range(L):
+        args = (q, ks, vs, mask, ki, vi, l, step, D ** -0.5, window)
+        ak.reset_launches()
+        got = ak.flash_decode_frozen(*args)
+        assert ak.LAUNCHES["flash_decode_frozen"] == 1
+        want = ak.flash_decode_frozen_plain(*args)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= TOL[dtype] * 4, f"layer {l}"
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_decode_frozen_e4m3_matches_plain(dev, case):
+    D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, steps, window, \
+        poison = case
+    q, kp, vp, tables, lens, sts, ki, vi = _paged_case(
+        dev, D, torch.float32, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, poison)
+    q = q.to(dtype)
+    kp, vp = _e4m3(kp), _e4m3(vp)  # NaN stays NaN (0x7F) in the null block
+    ki, vi = ki.bfloat16(), vi.bfloat16()
+    for step in steps:
+        for l in range(kp.shape[0]):
+            args = (q, kp, vp, tables, lens, sts, ki, vi, l, step, D ** -0.5, window)
+            got = pa.paged_decode_frozen(*args)
+            want = pa.paged_decode_frozen_plain(*args)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(want).all())
+            assert _max_err(got, want) <= 4 * _paged_tol(dtype, want), f"step {step} layer {l}"
+
+
+SPEC_CASES = [
+    # (D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, round, lengths, starts,
+    #  inactive, window, poison)
+    (128, torch.bfloat16, False, 4, 5, 8, 64, 16, 257, 1, 0,   # the serving shape
+     tuple(64 + 53 * i for i in range(16)), (0,) * 16, (3, 9), None, False),
+    (128, torch.bfloat16, True, 4, 5, 8, 64, 16, 257, 1, 0,
+     tuple(64 + 53 * i for i in range(16)), (0,) * 16, (), None, True),
+    (128, torch.float32, False, 4, 5, 8, 64, 16, 257, 2, 1,
+     tuple(64 + 53 * i for i in range(16)), (0,) * 16, (), 300, True),
+    (64, torch.float32, True, 2, 3, 2, 16, 8, 40, 3, 2, (1, 17, 100, 60), (0, 5, 20, 0),
+     (), 20, True),
+    (64, torch.float16, False, 1, 2, 4, 16, 8, 40, 2, 1, (7, 128, 0, 33), (0, 0, 0, 3),
+     (), None, False),
+    (128, torch.bfloat16, False, 8, 8, 1, 32, 4, 12, 1, 0, (33, 64, 5), (0, 0, 0), (),
+     None, True),                                          # 64 rows a KV head
+    (128, torch.float32, False, 3, 4, 2, 16, 4, 20, 2, 1, (60, 33, 1000), (0, 0, 0),
+     (2,), 7, False),                                      # a stale length > MB * bs
+]
+
+
+def _spec_case(dev, D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, rnd, lengths,
+               starts, inactive, poison):
+    """The K8 case's pools and tables, q [B, S, Nq, D], in-flight K/V over
+    n_rounds * S slots, earlier rounds' slots accepted at random, and each
+    row's verify slots after its accepted ones."""
+    q1, kp, vp, tables, lens, sts, ki, vi = _paged_case(
+        dev, D, torch.float32, G, Nk, bs, MB, n_blocks, n_rounds * S, lengths, starts,
+        inactive, poison, seed=6)
+    gen = torch.Generator().manual_seed(12)
+    B = len(lengths)
+    q = _randn(gen, B, S, Nk * G, D, dtype=dtype, dev=dev)
+    infl_dt = torch.bfloat16 if e4m3 else dtype
+    ki, vi = ki.to(infl_dt), vi.to(infl_dt)
+    if e4m3:
+        kp, vp = _e4m3(kp), _e4m3(vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    base = rnd * S
+    N = n_rounds * S
+    acc = torch.zeros(B, dtype=torch.int32)
+    valid = torch.zeros(B, N, dtype=torch.bool)
+    infl_slots = torch.zeros(B, N, dtype=torch.int32)
+    for r in range(rnd):
+        m = torch.randint(0, S, (B,), generator=gen)
+        for b in range(B):
+            for i in range(int(m[b]) + 1):
+                valid[b, r * S + i] = True
+                infl_slots[b, r * S + i] = lengths[b] + acc[b] + i
+        acc += (m + 1).to(torch.int32)
+    q_slots = (torch.tensor(lengths, dtype=torch.int32)[:, None] + acc[:, None]
+               + torch.arange(S, dtype=torch.int32)[None, :])
+    return (q, kp, vp, tables, lens, sts, ki, vi, valid.to(dev)), base, (
+        q_slots.to(dev), infl_slots.to(dev))
+
+
+@pytest.mark.parametrize("case", SPEC_CASES)
+def test_paged_decode_spec_kernel_matches_plain(dev, case):
+    D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, rnd, lengths, starts, inactive, \
+        window, poison = case
+    args, base, (q_slots, infl_slots) = _spec_case(
+        dev, D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, rnd, lengths, starts,
+        inactive, poison)
+    for l in range(args[1].shape[0]):
+        call = (*args, l, base, D ** -0.5, window, q_slots, infl_slots)
+        ak.reset_launches()
+        got = pa.paged_decode_spec(*call)
+        assert ak.LAUNCHES["paged_decode_spec"] == 1
+        want = pa.paged_decode_spec_plain(*call)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(want).all())
+        tol = 4 * _paged_tol(dtype, want) if e4m3 else _paged_tol(dtype, want)
+        assert _max_err(got, want) <= tol, f"layer {l}"
+
+
+def test_paged_decode_spec_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    c = SPEC_CASES[4]
+    args, base, (q_slots, infl_slots) = _spec_case(dev, *c[:14], c[15])
+    q, kp, vp, tables, lens, sts, ki, vi, valid = args
+    with pytest.raises(ValueError, match="out of range"):
+        pa.paged_decode_spec(*args, 2, base, 0.1)
+    with pytest.raises(ValueError, match="q_slots"):
+        pa.paged_decode_spec(*args, 0, base, 0.1, 20)
+    with pytest.raises(ValueError, match="at most"):
+        pa.paged_decode_spec(q.repeat(1, 1, 33, 1), kp, vp, tables, lens, sts, ki, vi,
+                             valid, 0, base, 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        pa.paged_decode_spec(q, kp, vp, tables, lens, sts, ki, vi, valid.int(), 0, base,
+                             0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        pa.paged_decode_spec(q, _e4m3(kp.float()), _e4m3(vp.float()), tables, lens, sts,
+                             ki, vi, valid, 0, base, 0.1)  # e4m3 pools need bf16 in flight
+
+
+def test_kv_cast_on_the_card_matches_the_cpu(dev):
+    """The e4m3 cast of engine/kv_cache.kv_cast gives the CPU's bytes on
+    the card: normals, subnormals, +-448 and past it (saturating), NaN."""
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+
+    gen = torch.Generator().manual_seed(13)
+    x = torch.cat([torch.randn(4096, generator=gen) * 3, torch.randn(1024, generator=gen)
+                   * 1e-3, torch.tensor([448.0, -448.0, 470.0, 500.0, -1000.0,
+                                         float("inf"), float("nan"), 0.0137])])
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = kv_cast(x.to(dtype), E4M3).view(torch.uint8)
+        card = kv_cast(x.to(dtype).to(dev), E4M3).view(torch.uint8).cpu()
+        assert torch.equal(card, cpu), dtype
+
+
+def _spec_batcher_streams(cfg, params, device, impl, prompts, max_new, **kw):
+    from tinygpt_tpu_torch.engine.scheduler import ContinuousBatcher, Request, SchedulerConfig
+    from tinygpt_tpu_torch.models import get_model
+
+    p = {k: v.to(device) if isinstance(v, torch.Tensor) else
+         ({n: t.to(device) for n, t in v.items()} if isinstance(v, dict) else v)
+         for k, v in params.items()}
+    b = ContinuousBatcher(get_model("mistral"), cfg, p, eos_ids=set(),
+                          config=SchedulerConfig(
+                              batch_capacity=3, block_size=16, n_blocks=40,
+                              max_blocks_per_seq=8, prefill_bucket=16, dtype="float32",
+                              decode_quantum=8, attn_impl=impl, **kw))
+    for i, pr in enumerate(prompts):
+        b.add_request(Request(request_id=i, prompt_ids=pr, max_new_tokens=max_new))
+    got = {}
+    while b.has_work:
+        for ev in b.step():
+            if ev.token_id is not None:
+                got.setdefault(ev.request_id, []).append(ev.token_id)
+    return got, b
+
+
+def test_spec_batcher_on_the_card_matches_the_cpu(dev):
+    """Speculative quanta on the card (K10 in every verify layer, K1 at
+    admission) against the same params through the plain versions on the
+    CPU: identical greedy streams, drafts accepted, and the streams of
+    plain quanta."""
+    cfg = _card_cfg()
+    params = causal_lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(14)
+    phrase = torch.randint(3, cfg.vocab_size, (6,), generator=gen).tolist()
+    prompts = [phrase * 4, torch.randint(3, cfg.vocab_size, (21,), generator=gen).tolist(),
+               phrase * 2 + phrase[:3]]
+    kw = dict(speculative="ngram", spec_draft_len=3, spec_ngram=2)
+    want, _ = _spec_batcher_streams(cfg, params, "cpu", "plain", prompts, 16, **kw)
+    ak.reset_launches()
+    got, b = _spec_batcher_streams(cfg, params, dev, "kernel", prompts, 16, **kw)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["paged_decode_spec"] > 0 and b.spec_acceptance > 0
+    assert got == want
+    plain, _ = _spec_batcher_streams(cfg, params, dev, "kernel", prompts, 16)
+    assert plain == want
+
+
+def test_fp8_engine_and_spec_on_the_card(dev, tmp_path):
+    """GPTEngine on the card: batch-1 speculation gives the chunked loop's
+    greedy tokens (fp32; K1 at each round's slot), and an fp8 KV cache
+    runs K1 and K2 on e4m3 with logits near the fp32 cache's."""
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+
+    d = _model_dir(tmp_path, _TINY_DIR_CFG)
+    kw = dict(model_dir=d, dtype="float32", max_tokens=16, prefill_bucket=16,
+              decode_chunk=4, device="cuda", spec_ngram=2)
+    prompt = ["the cat sat on the mat. the cat sat on the"]
+    spec = GPTEngine(GPTConfig(speculative="ngram", **kw))
+    spec.prepare()
+    ak.reset_launches()
+    got = spec.generate_sync(prompt)[0].token_ids
+    assert ak.LAUNCHES["flash_prefill"] > 1
+    plain = GPTEngine(GPTConfig(**kw))
+    plain.prepare()
+    assert got == plain.generate_sync(prompt)[0].token_ids
+    fp8 = GPTEngine(GPTConfig(kv_cache_dtype="fp8", **kw))
+    fp8.prepare()
+    ak.reset_launches()
+    out = fp8.generate_sync(prompt + ["Hello world"])
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["flash_prefill"] > 0 and ak.LAUNCHES["flash_decode_frozen"] > 0
+    assert all(len(o.token_ids) == 16 for o in out)

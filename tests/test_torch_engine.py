@@ -82,13 +82,27 @@ def test_batch_row_matches_single(engines):
     assert solo.token_ids == batch.token_ids
 
 
-@pytest.mark.parametrize("kw", [dict(quantization="int4", kv_cache_dtype="e4m3"),
-                                dict(kv_cache_dtype="fp8"),
-                                dict(speculative="ngram"),
-                                dict(mesh_shape=(1, 1, 2))])
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1, 2))])
 def test_deferred_features_raise(model_dir, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTEngine(GPTConfig(model_dir=model_dir, device="cpu", **kw)).prepare()
+
+
+@pytest.mark.parametrize("kw", [dict(quantization="int4", awq=False, kv_cache_dtype="e4m3"),
+                                dict(kv_cache_dtype="fp8"),
+                                dict(speculative="ngram")])
+def test_fp8_cache_and_speculation_match_jax(model_dir, kw):
+    """The fp8 KV cache (with int4 weights too) and n-gram speculation run
+    through the engine and give the JAX engine's greedy tokens (one prompt
+    with speculation: a batch takes the chunked loop)."""
+    prompts = PROMPTS[1:2] if kw.get("speculative") else PROMPTS
+    jeng = JGPTEngine(JGPTConfig(model_dir=model_dir, **ENGINE_KW, **kw))
+    jeng.prepare()
+    teng = GPTEngine(GPTConfig(model_dir=model_dir, device="cpu", **ENGINE_KW, **kw))
+    teng.prepare()
+    got = teng.generate_sync(prompts)
+    assert [g.token_ids for g in got] == [w.token_ids for w in jeng.generate_sync(prompts)]
+    assert all(len(g.token_ids) == ENGINE_KW["max_tokens"] for g in got)
 
 
 def test_generate_async_not_ported(engines):

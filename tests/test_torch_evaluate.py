@@ -96,10 +96,16 @@ def test_quantization_ppl_delta(bits, budget):
     assert abs(math.log(qppl) - math.log(base)) < budget
 
 
-def test_fp8_kv_dtype_raises():
-    *_, cfg, model, tp, ids = _llama()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        evaluate.window_nll(model, cfg, tp, ids, kv_dtype=torch.float8_e4m3fn)
+def test_fp8_kv_dtype_matches_jax():
+    """kv_dtype=float8_e4m3fn: each window's cache in e4m3, the NLL within
+    1e-5 relative of the JAX evaluator's on its fp8 cache."""
+    jcfg, jmodel, jp, cfg, model, tp, ids = _llama()
+    want = jeval.window_nll(jmodel, jcfg, jp, ids, window=64, stride=32,
+                            kv_dtype=jnp.float8_e4m3fn)
+    got = evaluate.window_nll(model, cfg, tp, ids, window=64, stride=32,
+                              kv_dtype=torch.float8_e4m3fn)
+    assert got[1] == want[1]
+    assert abs(got[0] - want[0]) <= REL * abs(want[0])
 
 
 @pytest.fixture(scope="module")

@@ -147,3 +147,30 @@ def test_server_main_runs_only_as_a_script():
                        cwd=REPO, env=_clean_env(), capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0 and "--model" in r.stdout and "--device" in r.stdout
+
+
+_IMPORT_SPEC = """
+import sys
+import tinygpt_tpu_torch.models.causal_lm as lm
+from tinygpt_tpu_torch.engine.engine import ngram_draft
+from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+assert lm.decode_paged_spec_steps and lm.spec_accept and lm.ngram_draft_batched
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tinygpt_tpu"))
+assert not bad, bad
+from tinygpt_tpu_torch.ops import cuda_build
+assert "paged_decode_spec.cu" in cuda_build.SOURCES and not cuda_build._libs
+print("speculation path imports alone")
+"""
+
+
+def test_speculation_modules_import_without_jax():
+    """The speculative quantum, the engine's draft and the fp8 cast import
+    neither jax nor the JAX package, in either order of the models and
+    engine packages (the engine imports the model's speculation at call
+    time), and build nothing at import."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_SPEC], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "speculation path imports alone" in r.stdout

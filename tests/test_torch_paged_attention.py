@@ -100,11 +100,26 @@ def test_wrapper_on_cpu_is_the_plain_version():
     assert not ak.LAUNCHES  # nothing launched on the CPU
 
 
-def test_fp8_pools_raise():
-    if not hasattr(torch, "float8_e4m3fn"):
-        pytest.skip("this torch has no float8_e4m3fn")
+def test_fp8_pools_match_jax():
+    """e4m3 pools (the same bytes in both packages) beside bf16 in-flight
+    K/V: the wrapper on CPU tensors against the JAX oracle and the JAX
+    kernel's e4m3 branch (interpret mode)."""
     x = _inputs(1)
-    kp = _t(x["kp"]).to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pa.paged_decode_frozen(_t(x["q"]), kp, kp, _t(TABLES), _t(LENGTHS0),
-                               _t(STARTS), _t(x["ki"]), _t(x["vi"]), 0, 0, 0.1)
+    kp8 = jnp.asarray(x["kp"]).astype(jnp.float8_e4m3fn)
+    vp8 = jnp.asarray(x["vp"]).astype(jnp.float8_e4m3fn)
+    ki = jnp.asarray(x["ki"]).astype(jnp.bfloat16)
+    vi = jnp.asarray(x["vi"]).astype(jnp.bfloat16)
+    f8 = lambda a: torch.from_numpy(np.array(a).view(np.uint8)).view(torch.float8_e4m3fn)  # noqa: E731
+    bf = lambda a: torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)  # noqa: E731
+    common = (jnp.asarray(TABLES), jnp.asarray(LENGTHS0), jnp.asarray(STARTS), ki, vi)
+    for l in range(L):
+        got = pa.paged_decode_frozen(_t(x["q"]), f8(kp8), f8(vp8), _t(TABLES),
+                                     _t(LENGTHS0), _t(STARTS), bf(ki), bf(vi), l, 3,
+                                     D ** -0.5).numpy()
+        oracle = paged_decode_frozen_xla(jnp.asarray(x["q"]), kp8[l], vp8[l], *common,
+                                         jnp.asarray(3, jnp.int32), scale=D ** -0.5)
+        kernel = paged_decode_frozen_tpu(jnp.asarray(x["q"]), kp8, vp8, *common,
+                                         jnp.asarray(l, jnp.int32), jnp.asarray(3, jnp.int32),
+                                         scale=D ** -0.5, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(oracle), **TOL, err_msg=f"layer {l}")
+        np.testing.assert_allclose(got, np.asarray(kernel), **TOL, err_msg=f"layer {l}")

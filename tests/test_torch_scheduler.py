@@ -464,12 +464,32 @@ def test_pool_exhaustion_finishes_with_length():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_shape=(1, 1, 2)), "item 13"),
-    (dict(speculative="ngram"), "K10"),
-    (dict(kv_cache_dtype="fp8"), "item 7"),
 ])
 def test_not_ported_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         _port_batcher("llama", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(speculative="ngram", spec_draft_len=3, spec_ngram=2),
+                                dict(kv_cache_dtype="fp8")])
+def test_speculation_and_fp8_pools_match_jax(kw):
+    """Speculative quanta and fp8 pools run in the batcher and give the
+    JAX batcher's greedy streams on the same configuration."""
+    jcfg, jparams, _, _ = _models("llama")
+    prompts = _prompts(61, (12, 5, 30))
+    prompts[0] = prompts[0][:4] * 3
+    kw = dict(kw, batch_capacity=2, n_blocks=40, max_blocks_per_seq=6, decode_quantum=8)
+    jb = JBatcher(j_get_model(jcfg.model_type), jcfg, jparams, eos_ids=set(),
+                  config=JSchedulerConfig(**SC, **kw))
+    want, _ = _run(jb, prompts, 9)
+    b = _port_batcher("llama", **kw)
+    got, _ = _run(b, prompts, 9)
+    assert all(len(v) == 9 for v in got.values())
+    _assert_streams_agree("llama", prompts, got, want)
+    if "speculative" in kw:
+        assert b.spec_verifies > 0 and b.spec_acceptance == jb.spec_acceptance
+    else:
+        assert b.state.k_pool.dtype == torch.float8_e4m3fn
 
 
 def test_model_without_paged_quantum_raises():

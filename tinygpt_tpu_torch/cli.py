@@ -7,9 +7,10 @@ sampler flags, a fixed prompt batch (overridable with --prompt), and
 token/s timing. Runs on the CUDA device unless --device says otherwise.
 Weight-only quantization: `--quantization int8`, or `--quantization int4`
 with AWQ by default (`--awq-calib FILE` to calibrate on your own text,
-`--no-awq` for plain round-to-nearest). The flags of features not ported
-yet (--stream, --mesh, --speculative) are accepted and raise
-NotImplementedError.
+`--no-awq` for plain round-to-nearest). `--speculative ngram` decodes a
+single prompt by n-gram speculation (a batch of prompts takes the chunked
+loop). The flags of features not ported yet (--stream, --mesh) are
+accepted and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ DEFAULT_PROMPTS = [
 ]
 
 # flag -> ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {"stream": 5, "speculative": 5, "mesh": 13}
+_NOT_PORTED = {"stream": 5, "mesh": 13}
 
 
 def main(argv=None) -> int:
@@ -66,7 +67,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
                     help="(not ported yet)")
     ap.add_argument("--speculative", default=None, choices=["ngram"],
-                    help="(not ported yet)")
+                    help="speculative decoding (one prompt; greedy exact, "
+                         "sampled via exact rejection sampling)")
     args = ap.parse_args(argv)
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
@@ -88,6 +90,7 @@ def main(argv=None) -> int:
         quant_group_size=args.quant_group_size,
         awq=args.awq,
         awq_calib_path=args.awq_calib,
+        speculative=args.speculative,
     ))
     t0 = time.perf_counter()
     engine.prepare()

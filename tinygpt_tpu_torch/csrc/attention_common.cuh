@@ -1,11 +1,14 @@
-// Shared helpers of the attention kernels: element types, 16-byte vector
-// loads converted to float, the dtype codes of the C interface.
+// Shared helpers of the attention kernels: element types, vector loads
+// converted to float, the dtype codes of the C interface.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tg {
 
@@ -13,48 +16,60 @@ namespace tg {
 // finite (never exp(-inf + inf) = NaN) while a row has seen no visible slot.
 constexpr float NEG_INF = -1e30f;
 
-// dtype codes shared with the Python wrappers (ops/attention_kernels.py)
-enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2 };
+// dtype codes shared with the Python wrappers (ops/attention_kernels.py);
+// kE4M3 is a KV cache or pool type only (q and the output keep theirs)
+enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2, kE4M3 = 3 };
+
+using e4m3 = __nv_fp8_e4m3;
+
+// The in-flight K/V type beside a frozen cache of type C when q is T: T
+// itself, or bf16 beside an e4m3 cache (the JAX package keeps the newest
+// tokens in bf16 until they are merged into an fp8 cache).
+template <typename T, typename C>
+struct Inflight {
+  using type = T;
+};
+template <typename T>
+struct Inflight<T, e4m3> {
+  using type = __nv_bfloat16;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// e4m3 decodes exactly through the card's conversion (0x7F, never written by
+// the port, decodes as the conversion gives it: NaN)
+__device__ __forceinline__ float to_f32(e4m3 x) { return static_cast<float>(x); }
+
+// N elements of E at p (N * sizeof(E) = 4, 8 or 16 bytes, aligned to that),
+// read through the read-only path into the low bytes of a uint4.
+template <typename E, int N>
+__device__ __forceinline__ uint4 load_raw(const E* p) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(E));
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "4, 8 or 16 bytes a load");
+  if constexpr (BYTES == 16) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else if constexpr (BYTES == 8) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_uint4(r.x, r.y, 0u, 0u);
+  } else {
+    return make_uint4(__ldg(reinterpret_cast<const unsigned int*>(p)), 0u, 0u, 0u);
+  }
+}
+
+// The N elements of E in the low bytes of `raw`, as floats.
+template <typename E, int N>
+__device__ __forceinline__ void raw_to_float(const uint4& raw, float* f) {
+  const E* e = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) f[i] = to_f32(e[i]);
+}
 
 // Elements per 16-byte vector.
 template <typename T>
 struct Vec {
   static constexpr int N = 16 / sizeof(T);
 };
-
-// Unpacks one 16-byte vector of T into N floats.
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& raw, float* f);
-
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& raw, float* f) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-template <>
-__device__ __forceinline__ void unpack<__half>(const uint4& raw, float* f) {
-  const __half2* h = reinterpret_cast<const __half2*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __half22float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -70,12 +85,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half(x);
-}
-
-// One 16-byte load of src[0 .. Vec<T>::N), read through the read-only path.
-template <typename T>
-__device__ __forceinline__ uint4 load16(const T* src) {
-  return __ldg(reinterpret_cast<const uint4*>(src));
 }
 
 // Sets the dynamic shared memory a kernel may use, once per kernel. Above

@@ -12,7 +12,9 @@
 // What bounds it on an H100: the bytes of the visible K/V slots, read once
 // (2 * B * Nk * visible * D * 2 bytes in bf16), against 4 * B * Nq * visible
 // * D operations, about 2 operations per byte for G = 4. It is bound by
-// memory. What the design does about it: one block per (kv head, batch row)
+// memory; an e4m3 cache (kv_dtype = kE4M3) halves the frozen bytes. Its
+// slots are decoded to fp32 in registers by the card's conversion, and the
+// in-flight K/V beside it are bf16, as the JAX package keeps them. What the design does about it: one block per (kv head, batch row)
 // serves all G = Nq / Nk query heads from one read of each K/V row; the layer
 // is addressed by pointer offset into the stacked cache, so nothing is copied;
 // groups of D / 8 (bf16) lanes each read one slot's K and V row as 16-byte
@@ -43,17 +45,20 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (NG * G * D + 2 * NG * G);  // acc, m, l of every group
 }
 
-template <typename T, int D, int G>
+template <typename T, typename C, int D, int G>
 __global__ void __launch_bounds__(NTHREADS)
-    flash_decode_frozen_kernel(const T* __restrict__ q, const T* __restrict__ k_stack,
-                               const T* __restrict__ v_stack, const uint8_t* __restrict__ mask,
-                               const T* __restrict__ k_infl, const T* __restrict__ v_infl,
+    flash_decode_frozen_kernel(const T* __restrict__ q, const C* __restrict__ k_stack,
+                               const C* __restrict__ v_stack, const uint8_t* __restrict__ mask,
+                               const typename tg::Inflight<T, C>::type* __restrict__ k_infl,
+                               const typename tg::Inflight<T, C>::type* __restrict__ v_infl,
                                T* __restrict__ out, int B, int Nk, int Tlen, int N, int layer,
                                int step, float scale, int window) {
+  using TI = typename tg::Inflight<T, C>::type;
   constexpr int VEC = Shape<T, D>::VEC;
   constexpr int LPR = Shape<T, D>::LPR;
   constexpr int NG = Shape<T, D>::NG;
   constexpr int U = G <= 4 ? 4 : 2;  // slots in flight per group
+  constexpr bool SAME = std::is_same<C, TI>::value;
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -66,16 +71,17 @@ __global__ void __launch_bounds__(NTHREADS)
   float qr[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    tg::unpack<T>(tg::load16(q + ((size_t)b * Nq + kvh * G + g) * D + d0), qr[g]);
+    tg::raw_to_float<T, VEC>(tg::load_raw<T, VEC>(q + ((size_t)b * Nq + kvh * G + g) * D + d0),
+                             qr[g]);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qr[g][e] *= scale;
   }
 
   const size_t row = (size_t)b * Nk + kvh;
-  const T* kf = k_stack + ((size_t)layer * B * Nk + row) * Tlen * D;
-  const T* vf = v_stack + ((size_t)layer * B * Nk + row) * Tlen * D;
-  const T* ki = k_infl + row * N * D;
-  const T* vi = v_infl + row * N * D;
+  const C* kf = k_stack + ((size_t)layer * B * Nk + row) * Tlen * D;
+  const C* vf = v_stack + ((size_t)layer * B * Nk + row) * Tlen * D;
+  const TI* ki = k_infl + row * N * D;
+  const TI* vi = v_infl + row * N * D;
   const uint8_t* mk = mask + (size_t)b * Tlen;
 
   float m[G], l[G], acc[G][VEC];
@@ -94,28 +100,26 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int it = 0; it < n_iter; ++it) {
     const int base = (it * NG + grp) * U;
     uint4 kr[U], vr[U];
-    bool ok[U];
+    bool ok[U], frozen[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = base + u;
-      const T* kp;
-      const T* vp;
-      if (t < Tlen) {
+      frozen[u] = t < Tlen;
+      kr[u] = make_uint4(0, 0, 0, 0);
+      vr[u] = make_uint4(0, 0, 0, 0);
+      if (frozen[u]) {
         ok[u] = mk[t] != 0;
-        kp = kf + (size_t)t * D;
-        vp = vf + (size_t)t * D;
+        if (ok[u]) {
+          kr[u] = tg::load_raw<C, VEC>(kf + (size_t)t * D + d0);
+          vr[u] = tg::load_raw<C, VEC>(vf + (size_t)t * D + d0);
+        }
       } else {
         const int j = t - Tlen;
         ok[u] = j <= step && (window <= 0 || step - j < window);
-        kp = ki + (size_t)j * D;
-        vp = vi + (size_t)j * D;
-      }
-      if (ok[u]) {
-        kr[u] = tg::load16(kp + d0);
-        vr[u] = tg::load16(vp + d0);
-      } else {
-        kr[u] = make_uint4(0, 0, 0, 0);
-        vr[u] = make_uint4(0, 0, 0, 0);
+        if (ok[u]) {
+          kr[u] = tg::load_raw<TI, VEC>(ki + (size_t)j * D + d0);
+          vr[u] = tg::load_raw<TI, VEC>(vi + (size_t)j * D + d0);
+        }
       }
     }
 
@@ -123,7 +127,11 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kv[VEC];
-      tg::unpack<T>(kr[u], kv);
+      if (SAME || frozen[u]) {
+        tg::raw_to_float<C, VEC>(kr[u], kv);
+      } else {
+        tg::raw_to_float<TI, VEC>(kr[u], kv);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float acc_s = 0.f;
@@ -150,11 +158,16 @@ __global__ void __launch_bounds__(NTHREADS)
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;  // contributes by select: nothing of a hidden slot
       float vv[VEC];
-      tg::unpack<T>(vr[u], vv);
+      if (SAME || frozen[u]) {
+        tg::raw_to_float<C, VEC>(vr[u], vv);
+      } else {
+        tg::raw_to_float<TI, VEC>(vr[u], vv);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float p = ok[u] ? expf(s[u][g] - m[g]) : 0.f;
+        const float p = expf(s[u][g] - m[g]);
         l[g] += p;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e]);
@@ -200,39 +213,49 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int G>
+template <typename T, typename C, int D, int G>
 cudaError_t launch(const Args& a) {
+  using TI = typename tg::Inflight<T, C>::type;
   constexpr size_t smem = smem_bytes<T, D, G>();
-  static const cudaError_t attr = tg::allow_smem(flash_decode_frozen_kernel<T, D, G>, smem);
+  static const cudaError_t attr =
+      tg::allow_smem(flash_decode_frozen_kernel<T, C, D, G>, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid(a.Nk, a.B);
-  flash_decode_frozen_kernel<T, D, G><<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_stack),
-      static_cast<const T*>(a.v_stack), static_cast<const uint8_t*>(a.mask),
-      static_cast<const T*>(a.k_infl), static_cast<const T*>(a.v_infl), static_cast<T*>(a.out),
-      a.B, a.Nk, a.T, a.N, a.layer, a.step, a.scale, a.window);
+  flash_decode_frozen_kernel<T, C, D, G><<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k_stack),
+      static_cast<const C*>(a.v_stack), static_cast<const uint8_t*>(a.mask),
+      static_cast<const TI*>(a.k_infl), static_cast<const TI*>(a.v_infl),
+      static_cast<T*>(a.out), a.B, a.Nk, a.T, a.N, a.layer, a.step, a.scale, a.window);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t launch_g(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<T, D, 1>(a);
-    case 2: return launch<T, D, 2>(a);
-    case 3: return launch<T, D, 3>(a);
-    case 4: return launch<T, D, 4>(a);
-    case 5: return launch<T, D, 5>(a);
-    case 6: return launch<T, D, 6>(a);
-    case 7: return launch<T, D, 7>(a);
-    case 8: return launch<T, D, 8>(a);
+    case 1: return launch<T, C, D, 1>(a);
+    case 2: return launch<T, C, D, 2>(a);
+    case 3: return launch<T, C, D, 3>(a);
+    case 4: return launch<T, C, D, 4>(a);
+    case 5: return launch<T, C, D, 5>(a);
+    case 6: return launch<T, C, D, 6>(a);
+    case 7: return launch<T, C, D, 7>(a);
+    case 8: return launch<T, C, D, 8>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t launch_d(int D, int G, const Args& a) {
-  if (D == 64) return launch_g<T, 64>(G, a);
-  if (D == 128) return launch_g<T, 128>(G, a);
+  if (D == 64) return launch_g<T, C, 64>(G, a);
+  if (D == 128) return launch_g<T, C, 128>(G, a);
+  return cudaErrorInvalidValue;
+}
+
+// the cache is of q's type, or e4m3
+template <typename T>
+cudaError_t launch_c(int kv_dtype, int dtype, int D, int G, const Args& a) {
+  if (kv_dtype == dtype) return launch_d<T, T>(D, G, a);
+  if (kv_dtype == tg::kE4M3) return launch_d<T, tg::e4m3>(D, G, a);
   return cudaErrorInvalidValue;
 }
 
@@ -243,20 +266,22 @@ extern "C" {
 // out [B, Nq, D] = attention of q [B, Nq, D] over layer `layer` of the frozen
 // k_stack/v_stack [L, B, Nk, T, D] under mask [B, T], merged with the in-flight
 // k_infl/v_infl [B, Nk, N, D] at slots j <= step (and step - j < window when
-// window > 0). Returns the cudaError_t of the launch (0 on success).
+// window > 0). q and out are of `dtype`; the stacks of `kv_dtype` (= dtype,
+// or kE4M3 with bf16 in-flight K/V). Returns the cudaError_t of the launch
+// (0 on success).
 int tg_flash_decode_frozen(const void* q, const void* k_stack, const void* v_stack,
                            const void* mask, const void* k_infl, const void* v_infl, void* out,
-                           int B, int Nq, int Nk, int T, int N, int D, int dtype, int layer,
-                           int step, float scale, int window, void* stream) {
+                           int B, int Nq, int Nk, int T, int N, int D, int dtype, int kv_dtype,
+                           int layer, int step, float scale, int window, void* stream) {
   if (Nk <= 0 || Nq % Nk != 0) return cudaErrorInvalidValue;
   const Args a{q,  k_stack, v_stack, mask,  k_infl, v_infl, out,
                B,  Nk,      T,       N,     layer,  step,   window,
                scale, static_cast<cudaStream_t>(stream)};
   const int G = Nq / Nk;
   switch (dtype) {
-    case tg::kF32: return launch_d<float>(D, G, a);
-    case tg::kF16: return launch_d<__half>(D, G, a);
-    case tg::kBF16: return launch_d<__nv_bfloat16>(D, G, a);
+    case tg::kF32: return launch_c<float>(kv_dtype, dtype, D, G, a);
+    case tg::kF16: return launch_c<__half>(kv_dtype, dtype, D, G, a);
+    case tg::kBF16: return launch_c<__nv_bfloat16>(kv_dtype, dtype, D, G, a);
   }
   return cudaErrorInvalidValue;
 }

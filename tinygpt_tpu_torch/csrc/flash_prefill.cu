@@ -15,7 +15,9 @@
 // slots only up to the causal limit (and from the window's start), stages each
 // K/V tile in shared memory once for all 64 rows with 16-byte coalesced loads,
 // and gives each thread a 4 x 4 block of scores and a 4 x D/16 block of the
-// output, so each shared-memory read feeds two or more FMAs.
+// output, so each shared-memory read feeds two or more FMAs. An e4m3 cache
+// (kv_dtype = kE4M3; q and the output keep their type) is decoded to fp32 by
+// the card's conversion as its tiles are staged.
 
 #include "attention_common.cuh"
 
@@ -33,20 +35,20 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (D + 1) + BT * (D + 1) + BT * D + BQ * (BT + 1));
 }
 
-// Copies rows [row0, row0 + nrows) of a [*, D] matrix into shared memory as
-// float with leading dimension ld; rows at or past `limit` are zeros, so no
+// Copies rows [row0, row0 + nrows) of a [*, D] matrix of E into shared memory
+// as float with leading dimension ld; rows at or past `limit` are zeros, so no
 // byte past the end of the matrix is read.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, int row0, int nrows,
+template <typename E, int D>
+__device__ __forceinline__ void load_rows(const E* __restrict__ src, int row0, int nrows,
                                           int limit, float* dst, int ld) {
-  constexpr int VEC = tg::Vec<T>::N;
-  constexpr int VPR = D / VEC;  // vectors per row
+  constexpr int VEC = tg::Vec<E>::N;  // elements per 16-byte load
+  constexpr int VPR = D / VEC;        // vectors per row
   for (int i = threadIdx.x; i < nrows * VPR; i += NTHREADS) {
     const int r = i / VPR;
     const int c = (i % VPR) * VEC;
     float f[VEC];
     if (row0 + r < limit) {
-      tg::unpack<T>(tg::load16(src + (size_t)(row0 + r) * D + c), f);
+      tg::raw_to_float<E, VEC>(tg::load_raw<E, VEC>(src + (size_t)(row0 + r) * D + c), f);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) f[e] = 0.f;
@@ -56,10 +58,10 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src, int row0, i
   }
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(NTHREADS)
-    flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const uint8_t* __restrict__ valid,
+    flash_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                         const C* __restrict__ v, const uint8_t* __restrict__ valid,
                          T* __restrict__ out, int Nq, int Nk, int S, int Tlen,
                          float scale, int q_slot, int window) {
   constexpr int DC = D / 16;  // output columns per thread: tx, tx+16, ...
@@ -77,8 +79,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const int tx = threadIdx.x % 16;
 
   const T* qb = q + (size_t)(b * Nq + h) * S * D;
-  const T* kb = k + (size_t)(b * Nk + kvh) * Tlen * D;
-  const T* vb = v + (size_t)(b * Nk + kvh) * Tlen * D;
+  const C* kb = k + (size_t)(b * Nk + kvh) * Tlen * D;
+  const C* vb = v + (size_t)(b * Nk + kvh) * Tlen * D;
   const uint8_t* vld = valid + (size_t)b * Tlen;
   T* ob = out + (size_t)(b * Nq + h) * S * D;
 
@@ -101,8 +103,8 @@ __global__ void __launch_bounds__(NTHREADS)
 
   for (int t0 = t_begin; t0 < t_stop; t0 += BT) {
     __syncthreads();  // the previous tile's k/v/p are no longer read
-    load_rows<T, D>(kb, t0, BT, Tlen, ks, D + 1);
-    load_rows<T, D>(vb, t0, BT, Tlen, vs, D);
+    load_rows<C, D>(kb, t0, BT, Tlen, ks, D + 1);
+    load_rows<C, D>(vb, t0, BT, Tlen, vs, D);
     __syncthreads();
 
     float s[4][4];
@@ -183,29 +185,45 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* valid, void* out,
                    int B, int Nq, int Nk, int S, int T_, float scale, int q_slot, int window,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  static const cudaError_t attr = tg::allow_smem(flash_prefill_kernel<T, D>, smem);
+  static const cudaError_t attr = tg::allow_smem(flash_prefill_kernel<T, C, D>, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((S + BQ - 1) / BQ, Nq, B);
-  flash_prefill_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_prefill_kernel<T, C, D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v),
       static_cast<const uint8_t*>(valid), static_cast<T*>(out), Nq, Nk, S, T_, scale, q_slot,
       window);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const void* valid,
                      void* out, int B, int Nq, int Nk, int S, int T_, float scale, int q_slot,
                      int window, cudaStream_t stream) {
   if (D == 64)
-    return launch<T, 64>(q, k, v, valid, out, B, Nq, Nk, S, T_, scale, q_slot, window, stream);
+    return launch<T, C, 64>(q, k, v, valid, out, B, Nq, Nk, S, T_, scale, q_slot, window,
+                            stream);
   if (D == 128)
-    return launch<T, 128>(q, k, v, valid, out, B, Nq, Nk, S, T_, scale, q_slot, window, stream);
+    return launch<T, C, 128>(q, k, v, valid, out, B, Nq, Nk, S, T_, scale, q_slot, window,
+                             stream);
+  return cudaErrorInvalidValue;
+}
+
+// the cache is of q's type, or e4m3
+template <typename T>
+cudaError_t launch_c(int kv_dtype, int dtype, int D, const void* q, const void* k,
+                     const void* v, const void* valid, void* out, int B, int Nq, int Nk, int S,
+                     int T_, float scale, int q_slot, int window, cudaStream_t stream) {
+  if (kv_dtype == dtype)
+    return launch_d<T, T>(D, q, k, v, valid, out, B, Nq, Nk, S, T_, scale, q_slot, window,
+                          stream);
+  if (kv_dtype == tg::kE4M3)
+    return launch_d<T, tg::e4m3>(D, q, k, v, valid, out, B, Nq, Nk, S, T_, scale, q_slot,
+                                 window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -215,19 +233,22 @@ extern "C" {
 
 // out [B, Nq, S, D] = causal attention of q [B, Nq, S, D] over k/v [B, Nk, T, D]
 // with the per-slot validity bytes valid [B, T]. window <= 0 means no window.
+// q and out are of `dtype`, k and v of `kv_dtype` (= dtype, or kE4M3).
 // Returns the cudaError_t of the launch (0 on success).
 int tg_flash_prefill(const void* q, const void* k, const void* v, const void* valid, void* out,
-                     int B, int Nq, int Nk, int S, int T, int D, int dtype, float scale,
-                     int q_slot, int window, void* stream) {
+                     int B, int Nq, int Nk, int S, int T, int D, int dtype, int kv_dtype,
+                     float scale, int q_slot, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case tg::kF32:
-      return launch_d<float>(D, q, k, v, valid, out, B, Nq, Nk, S, T, scale, q_slot, window, st);
+      return launch_c<float>(kv_dtype, dtype, D, q, k, v, valid, out, B, Nq, Nk, S, T, scale,
+                             q_slot, window, st);
     case tg::kF16:
-      return launch_d<__half>(D, q, k, v, valid, out, B, Nq, Nk, S, T, scale, q_slot, window, st);
+      return launch_c<__half>(kv_dtype, dtype, D, q, k, v, valid, out, B, Nq, Nk, S, T, scale,
+                              q_slot, window, st);
     case tg::kBF16:
-      return launch_d<__nv_bfloat16>(D, q, k, v, valid, out, B, Nq, Nk, S, T, scale, q_slot,
-                                     window, st);
+      return launch_c<__nv_bfloat16>(kv_dtype, dtype, D, q, k, v, valid, out, B, Nq, Nk, S, T,
+                                     scale, q_slot, window, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -14,6 +14,9 @@
 // What bounds it on an H100: the bytes of the visible K/V slots, read once
 // (2 * B * Nk * visible * D * 2 bytes in bf16), against 4 * B * Nq * visible
 // * D operations, about 2 operations per byte for G = 4: bound by memory.
+// An e4m3 pool (kv_dtype = kE4M3) halves the pool's bytes: its slots are
+// decoded to fp32 in registers by the card's conversion, and the in-flight
+// K/V beside it are bf16, as the JAX package keeps them.
 // What the design does about it: K2's shape (flash_decode_frozen.cu). One
 // block per (kv head, batch row) serves all G = Nq / Nk query heads from one
 // read of each K/V row. The visible slots of a row form two contiguous
@@ -59,14 +62,17 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int G>
+template <typename T, typename C, int D, int G>
 __global__ void __launch_bounds__(NTHREADS)
-    paged_decode_frozen_kernel(const T* __restrict__ q, const T* __restrict__ k_pools,
-                               const T* __restrict__ v_pools, const int* __restrict__ tables,
+    paged_decode_frozen_kernel(const T* __restrict__ q, const C* __restrict__ k_pools,
+                               const C* __restrict__ v_pools, const int* __restrict__ tables,
                                const int* __restrict__ lengths0, const int* __restrict__ starts,
-                               const T* __restrict__ k_infl, const T* __restrict__ v_infl,
+                               const typename tg::Inflight<T, C>::type* __restrict__ k_infl,
+                               const typename tg::Inflight<T, C>::type* __restrict__ v_infl,
                                T* __restrict__ out, int Nk, int n_blocks, int bs, int MB, int N,
                                int layer, int step, float scale, int window) {
+  using TI = typename tg::Inflight<T, C>::type;
+  constexpr bool SAME = std::is_same<C, TI>::value;
   constexpr int VEC = Shape<T, D>::VEC;
   constexpr int LPR = Shape<T, D>::LPR;
   constexpr int NG = Shape<T, D>::NG;
@@ -83,7 +89,8 @@ __global__ void __launch_bounds__(NTHREADS)
   float qr[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    tg::unpack<T>(tg::load16(q + ((size_t)b * Nq + kvh * G + g) * D + d0), qr[g]);
+    tg::raw_to_float<T, VEC>(tg::load_raw<T, VEC>(q + ((size_t)b * Nq + kvh * G + g) * D + d0),
+                             qr[g]);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qr[g][e] *= scale;
   }
@@ -102,12 +109,12 @@ __global__ void __launch_bounds__(NTHREADS)
 
   // layer `layer`, kv head `kvh` of a pool block: 64-bit offsets
   const size_t block_stride = (size_t)Nk * bs * D;
-  const T* kl = k_pools + (size_t)layer * n_blocks * block_stride + (size_t)kvh * bs * D;
-  const T* vl = v_pools + (size_t)layer * n_blocks * block_stride + (size_t)kvh * bs * D;
+  const C* kl = k_pools + (size_t)layer * n_blocks * block_stride + (size_t)kvh * bs * D;
+  const C* vl = v_pools + (size_t)layer * n_blocks * block_stride + (size_t)kvh * bs * D;
   const int* tab = tables + (size_t)b * MB;
   const size_t row = (size_t)b * Nk + kvh;
-  const T* ki = k_infl + row * N * D;
-  const T* vi = v_infl + row * N * D;
+  const TI* ki = k_infl + row * N * D;
+  const TI* vi = v_infl + row * N * D;
 
   float m[G], l[G], acc[G][VEC];
 #pragma unroll
@@ -125,30 +132,27 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int it = 0; it < n_iter; ++it) {
     const int base = (it * NG + grp) * U;
     uint4 kr[U], vr[U];
-    bool ok[U];
+    bool ok[U], pooled[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int x = base + u;
       ok[u] = x < total;
+      pooled[u] = x < n_pool;
       kr[u] = make_uint4(0, 0, 0, 0);
       vr[u] = make_uint4(0, 0, 0, 0);
       if (ok[u]) {
-        const T* kp;
-        const T* vp;
-        if (x < n_pool) {
+        if (pooled[u]) {
           const int t = lo + x;
           int blk = __ldg(tab + t / bs);
           if ((unsigned)blk >= (unsigned)n_blocks) blk = 0;  // never out of the pool
           const size_t off = (size_t)blk * block_stride + (size_t)(t % bs) * D;
-          kp = kl + off;
-          vp = vl + off;
+          kr[u] = tg::load_raw<C, VEC>(kl + off + d0);
+          vr[u] = tg::load_raw<C, VEC>(vl + off + d0);
         } else {
           const int j = j0 + (x - n_pool);
-          kp = ki + (size_t)j * D;
-          vp = vi + (size_t)j * D;
+          kr[u] = tg::load_raw<TI, VEC>(ki + (size_t)j * D + d0);
+          vr[u] = tg::load_raw<TI, VEC>(vi + (size_t)j * D + d0);
         }
-        kr[u] = tg::load16(kp + d0);
-        vr[u] = tg::load16(vp + d0);
       }
     }
 
@@ -156,7 +160,11 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kv[VEC];
-      tg::unpack<T>(kr[u], kv);
+      if (SAME || pooled[u]) {
+        tg::raw_to_float<C, VEC>(kr[u], kv);
+      } else {
+        tg::raw_to_float<TI, VEC>(kr[u], kv);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float acc_s = 0.f;
@@ -185,7 +193,11 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int u = 0; u < U; ++u) {
       if (!ok[u]) continue;  // contributes by select: nothing of a hidden slot
       float vv[VEC];
-      tg::unpack<T>(vr[u], vv);
+      if (SAME || pooled[u]) {
+        tg::raw_to_float<C, VEC>(vr[u], vv);
+      } else {
+        tg::raw_to_float<TI, VEC>(vr[u], vv);
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = expf(s[u][g] - m[g]);
@@ -227,39 +239,50 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, typename C, int D, int G>
 cudaError_t launch(const Args& a) {
+  using TI = typename tg::Inflight<T, C>::type;
   constexpr size_t smem = smem_bytes<T, D, G>();
-  static const cudaError_t attr = tg::allow_smem(paged_decode_frozen_kernel<T, D, G>, smem);
+  static const cudaError_t attr =
+      tg::allow_smem(paged_decode_frozen_kernel<T, C, D, G>, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid(a.Nk, a.B);
-  paged_decode_frozen_kernel<T, D, G><<<grid, NTHREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pools),
-      static_cast<const T*>(a.v_pools), a.tables, a.lengths0, a.starts,
-      static_cast<const T*>(a.k_infl), static_cast<const T*>(a.v_infl), static_cast<T*>(a.out),
-      a.Nk, a.n_blocks, a.bs, a.MB, a.N, a.layer, a.step, a.scale, a.window);
+  paged_decode_frozen_kernel<T, C, D, G><<<grid, NTHREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k_pools),
+      static_cast<const C*>(a.v_pools), a.tables, a.lengths0, a.starts,
+      static_cast<const TI*>(a.k_infl), static_cast<const TI*>(a.v_infl),
+      static_cast<T*>(a.out), a.Nk, a.n_blocks, a.bs, a.MB, a.N, a.layer, a.step, a.scale,
+      a.window);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t launch_g(int G, const Args& a) {
   switch (G) {
-    case 1: return launch<T, D, 1>(a);
-    case 2: return launch<T, D, 2>(a);
-    case 3: return launch<T, D, 3>(a);
-    case 4: return launch<T, D, 4>(a);
-    case 5: return launch<T, D, 5>(a);
-    case 6: return launch<T, D, 6>(a);
-    case 7: return launch<T, D, 7>(a);
-    case 8: return launch<T, D, 8>(a);
+    case 1: return launch<T, C, D, 1>(a);
+    case 2: return launch<T, C, D, 2>(a);
+    case 3: return launch<T, C, D, 3>(a);
+    case 4: return launch<T, C, D, 4>(a);
+    case 5: return launch<T, C, D, 5>(a);
+    case 6: return launch<T, C, D, 6>(a);
+    case 7: return launch<T, C, D, 7>(a);
+    case 8: return launch<T, C, D, 8>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t launch_d(int D, int G, const Args& a) {
-  if (D == 64) return launch_g<T, 64>(G, a);
-  if (D == 128) return launch_g<T, 128>(G, a);
+  if (D == 64) return launch_g<T, C, 64>(G, a);
+  if (D == 128) return launch_g<T, C, 128>(G, a);
+  return cudaErrorInvalidValue;
+}
+
+// the pools are of q's type, or e4m3
+template <typename T>
+cudaError_t launch_c(int kv_dtype, int dtype, int D, int G, const Args& a) {
+  if (kv_dtype == dtype) return launch_d<T, T>(D, G, a);
+  if (kv_dtype == tg::kE4M3) return launch_d<T, tg::e4m3>(D, G, a);
   return cudaErrorInvalidValue;
 }
 
@@ -272,12 +295,14 @@ extern "C" {
 // slots starts[b] <= t < lengths0[b], merged with the in-flight
 // k_infl/v_infl [B, Nk, N, D] at slots j <= step (and, when window > 0, pool
 // slots t > lengths0[b] + step - window and in-flight step - j < window).
-// Returns the cudaError_t of the launch (0 on success).
+// q and out are of `dtype`; the pools of `kv_dtype` (= dtype, or kE4M3 with
+// bf16 in-flight K/V). Returns the cudaError_t of the launch (0 on success).
 int tg_paged_decode_frozen(const void* q, const void* k_pools, const void* v_pools,
                            const void* tables, const void* lengths0, const void* starts,
                            const void* k_infl, const void* v_infl, void* out, int B, int Nq,
                            int Nk, int n_blocks, int bs, int MB, int N, int D, int dtype,
-                           int layer, int step, float scale, int window, void* stream) {
+                           int kv_dtype, int layer, int step, float scale, int window,
+                           void* stream) {
   if (Nk <= 0 || Nq % Nk != 0 || bs <= 0 || MB <= 0 || N <= 0 || step < 0 || step >= N)
     return cudaErrorInvalidValue;
   const Args a{q,
@@ -302,9 +327,9 @@ int tg_paged_decode_frozen(const void* q, const void* k_pools, const void* v_poo
                static_cast<cudaStream_t>(stream)};
   const int G = Nq / Nk;
   switch (dtype) {
-    case tg::kF32: return launch_d<float>(D, G, a);
-    case tg::kF16: return launch_d<__half>(D, G, a);
-    case tg::kBF16: return launch_d<__nv_bfloat16>(D, G, a);
+    case tg::kF32: return launch_c<float>(kv_dtype, dtype, D, G, a);
+    case tg::kF16: return launch_c<__half>(kv_dtype, dtype, D, G, a);
+    case tg::kBF16: return launch_c<__nv_bfloat16>(kv_dtype, dtype, D, G, a);
   }
   return cudaErrorInvalidValue;
 }

@@ -15,9 +15,16 @@ given device="cpu" the same calls run their plain PyTorch versions.
 quantization="int4" runs AWQ by default, as the JAX engine does: prepare()
 calibrates on `awq_calib_tokens` tokens of `awq_calib_path` (or the
 built-in corpus), folds the scales into the float weights and quantizes
-them (ops/awq.py). Not ported yet, each raising NotImplementedError when
-asked for: the fp8 KV cache, device meshes, speculative decoding and
-streaming (generate_async).
+them (ops/awq.py). kv_cache_dtype="fp8" stores the KV cache in e4m3.
+
+speculative="ngram" decodes a single prompt by n-gram speculation: each
+round drafts spec_draft_len tokens by prompt lookup on the device and
+verifies them in one (spec_draft_len + 1)-token forward over the dense
+cache (K1 at the round's first slot); a batch takes the chunked loop, as
+the JAX engine does.
+
+Not ported yet, each raising NotImplementedError when asked for: device
+meshes and streaming (generate_async).
 """
 
 from __future__ import annotations
@@ -78,9 +85,16 @@ class GPTConfig:
     # calibration text file for AWQ; None = the built-in sample corpus
     awq_calib_path: Optional[str] = None
     awq_calib_tokens: int = 2048  # total calibration tokens (batched)
-    # not ported yet (ROADMAP.md queue 1): must stay at these defaults
+    # KV cache storage dtype: "auto" (= compute dtype) | "fp8" | a dtype name
     kv_cache_dtype: str = "auto"
+    # speculative decoding of a single prompt: None | "ngram" (prompt-lookup
+    # drafts of spec_draft_len tokens, matched on the last spec_ngram
+    # tokens; greedy requests accept by argmax prefix, sampled ones by exact
+    # rejection sampling). A batch takes the chunked loop.
     speculative: Optional[str] = None
+    spec_draft_len: int = 4
+    spec_ngram: int = 3
+    # not ported yet (ROADMAP.md queue 1, item 13): must stay None
     mesh_shape: Optional[tuple] = None
 
 
@@ -108,19 +122,32 @@ def resolve_quant_group(bits: int, group: Optional[int]) -> int:
     return 64 if bits == 4 else 128
 
 
+def ngram_draft(context: Sequence[int], n: int, k: int) -> List[int]:
+    """Prompt-lookup drafting on the host: the most recent EARLIER
+    occurrence of the context's final n-gram gives up to k continuation
+    tokens ([] when none). causal_lm.ngram_draft_batched is its device
+    form, padded with the current token."""
+    L = len(context)
+    if L < n + 1 or k <= 0:
+        return []
+    tail = list(context[-n:])
+    for start in range(L - n - 1, -1, -1):
+        if list(context[start : start + n]) == tail:
+            cont = list(context[start + n : start + n + k])
+            if cont:
+                return cont
+    return []
+
+
 def _check_ported(cfg: GPTConfig) -> None:
     if cfg.quantization not in (None, "int4", "int8"):
         raise ValueError(f"unknown quantization {cfg.quantization!r}")
-    deferred = [
-        ("kv_cache_dtype", cfg.kv_cache_dtype in _FP8_NAMES, 7),
-        ("speculative", cfg.speculative is not None, 5),
-        ("mesh_shape", cfg.mesh_shape is not None, 13),
-    ]
-    for name, asked, item in deferred:
-        if asked:
-            raise NotImplementedError(
-                f"GPTConfig.{name} is not ported to tinygpt_tpu_torch yet "
-                f"(ROADMAP.md queue 1, item {item})")
+    if cfg.speculative not in (None, "ngram"):
+        raise ValueError(f"unknown speculative mode {cfg.speculative!r}")
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError(
+            "GPTConfig.mesh_shape is not ported to tinygpt_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 13)")
 
 
 def quantize_loaded(ctx: GPTContext, quantization: str,
@@ -227,10 +254,13 @@ class GPTEngine:
         self._collect_eos_ids()
 
     def _kv_dtype(self) -> torch.dtype:
-        """KV storage dtype: "auto" (= compute dtype) or a 16/32-bit type."""
+        """KV storage dtype: "auto" (= compute dtype), fp8 (e4m3: half the
+        KV bytes of bf16) or a named 16/32-bit type."""
         kd = self.config.kv_cache_dtype
         if kd in ("auto", None):
             return resolve_dtype(self.config.dtype)
+        if kd in _FP8_NAMES:
+            return torch.float8_e4m3fn
         return resolve_dtype(kd)
 
     def apply_chat_template(self, messages, add_generation_prompt=True) -> str:
@@ -278,6 +308,8 @@ class GPTEngine:
         for every generated position until it returns False or
         max_tokens positions were produced."""
         assert self.ctx is not None, "call prepare() first"
+        if self.config.speculative == "ngram" and len(texts) == 1:
+            return self._spec_prefill_and_loop(texts, max_tokens, on_token)
         mc = self.ctx.model_config
         model = self.ctx.model
         params = self.ctx.params
@@ -316,6 +348,76 @@ class GPTEngine:
                     return encoded
                 step += 1
             tok = toks[-1]
+        return encoded
+
+    def _spec_prefill_and_loop(self, texts: Sequence[str], max_tokens: int,
+                               on_token) -> List[List[int]]:
+        """One prompt decoded by n-gram speculation: a prefill, then rounds
+        of a device prompt-lookup draft, a (gamma + 1)-token verify forward
+        over the dense cache at the round's first slot (K1 on the card),
+        and the acceptance (causal_lm.spec_accept); each round emits the
+        current token and its m accepted drafts. Validity of the generated
+        region is `slot < slots`, so a rejected slot is overwritten by the
+        next round's writes. K1 takes the round's first slot as a host int,
+        so the loop reads each round's accepted count and tokens on the
+        host: one device-to-host read a round."""
+        # imported here: the models package imports this one's
+        from tinygpt_tpu_torch.models.causal_lm import ngram_draft_batched, spec_accept
+
+        mc = self.ctx.model_config
+        model = self.ctx.model
+        params = self.ctx.params
+        dev = self._device
+        scfg = self.config.sampler
+        gamma = max(1, self.config.spec_draft_len)
+        n = max(1, self.config.spec_ngram)
+        S_v = gamma + 1
+        ids, positions, valid, lens, encoded = self._encode_batch(texts)
+        S = ids.shape[1]
+        # a round writes S_v slots from `slots`, which stays below S + max_tokens
+        cache = create_kv_cache(mc, 1, S + max_tokens + S_v, dtype=self._kv_dtype(),
+                                device=dev)
+        logits, cache = model.forward(
+            params, mc, torch.from_numpy(ids).to(dev), cache,
+            torch.from_numpy(positions).to(dev), torch.from_numpy(valid).to(dev),
+            last_only=True)
+        cur = sample(logits[:, -1, :], scfg, self._generator)              # [1]
+        L = int(lens[0])
+        # the draft context: the prompt's real tokens, then the generated
+        # ones with the current input last
+        ctx = torch.zeros((1, S + max_tokens + S_v), dtype=torch.int32, device=dev)
+        ctx[0, :L] = torch.tensor(encoded[0], dtype=torch.int32, device=dev)
+        ctx[0, L] = cur[0]
+        clen, slots, gen_pos = L + 1, S, L
+        sampler = None
+        if not scfg.is_greedy:
+            sampler = (
+                torch.tensor([scfg.temperature or 0.0], device=dev),
+                torch.tensor([scfg.top_k or 0], dtype=torch.int32, device=dev),
+                torch.tensor([scfg.top_p if scfg.top_p is not None else 1.0], device=dev),
+                torch.tensor([scfg.min_p or 0.0], device=dev))
+        no_greedy = torch.zeros(1, dtype=torch.bool, device=dev)
+        ones = torch.ones((1, S_v), dtype=torch.bool, device=dev)
+        emitted = 0
+        while emitted < max_tokens:
+            draft = ngram_draft_batched(ctx, torch.tensor([clen], device=dev), cur, n,
+                                        gamma)                             # [1, gamma]
+            toks = torch.cat([cur[:, None], draft], dim=1)                 # [1, S_v]
+            pos = torch.arange(gen_pos, gen_pos + S_v, dtype=torch.int32, device=dev)[None]
+            cache.valid[:, slots:] = False  # rejected slots of the last round
+            cache.length = slots
+            logits, cache = model.forward(params, mc, toks, cache, pos, ones)
+            m, nxt, _ = spec_accept(logits, draft, sampler, self._generator, no_greedy)
+            # the round's one read on the host: its tokens and accepted count
+            host = torch.cat([toks[0], m]).cpu().tolist()
+            m_h = host[-1]
+            ctx[0, clen : clen + m_h] = draft[0, :m_h]
+            ctx[0, clen + m_h] = nxt[0]
+            clen, slots, gen_pos, cur = clen + m_h + 1, slots + m_h + 1, gen_pos + m_h + 1, nxt
+            for tok in host[: m_h + 1]:
+                if emitted >= max_tokens or not on_token(emitted, np.asarray([tok])):
+                    return encoded
+                emitted += 1
         return encoded
 
     @torch.inference_mode()

@@ -11,6 +11,10 @@ Unlike the JAX cache, which is an immutable value passed through each
 step, this one is UPDATED IN PLACE: `forward` and `decode_steps` write K/V,
 `kv_pos` and `valid` into these tensors and advance `length` (a host int,
 so no step reads it back from the device).
+
+The cache is of the compute dtype, or fp8 (torch.float8_e4m3fn: half the
+bytes of bf16). Every write into a cache or a paged pool goes through
+`kv_cast`, which saturates e4m3 at +-448 on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -21,6 +25,18 @@ from typing import Any
 import torch
 
 from tinygpt_tpu_torch.hf.config import ModelConfig
+
+E4M3_MAX = 448.0  # the largest finite float8_e4m3fn
+
+
+def kv_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in a KV cache's dtype. An e4m3 cache saturates: a value past
+    +-448 is written as +-448 (where JAX's cast, and torch's before it
+    saturated, give NaN); NaN stays NaN. Casting first is also what the
+    CPU's index_put into a float8 tensor needs: it refuses another dtype."""
+    if dtype == torch.float8_e4m3fn and x.dtype != dtype:
+        return x.clamp(-E4M3_MAX, E4M3_MAX).to(dtype)
+    return x.to(dtype)
 
 
 @dataclass

@@ -17,8 +17,17 @@ and blocks exist — favours TTFT), then one decode quantum for all live
 rows. Rows finish on EOS / stop ids / max_tokens / pool exhaustion
 (reported as a "length" finish) and their blocks return to the pool.
 
+With speculative="ngram" the decode quantum becomes rounds of n-gram
+drafting and (gamma + 1)-position verification per row
+(causal_lm.decode_paged_spec_steps, attention through K10): greedy rows
+accept the matched prefix of the argmax, sampled rows by exact rejection
+sampling. The auto-off policy falls back to plain quanta while the
+measured acceptance does not pay for the wider verify, and re-probes.
+The pools may be fp8 (kv_cache_dtype="fp8").
+
 The JAX package's jitted programs are plain functions here
-(_admit_program, _admit_chunk_program, _decode_quantum), run eagerly.
+(_admit_program, _admit_chunk_program, _decode_quantum,
+_decode_quantum_spec), run eagerly.
 Two rules keep the host from waiting on the card between quanta: every
 upload is a fresh pinned copy sent with non_blocking (a blocking copy
 from pageable memory would synchronise the stream, and a pinned buffer
@@ -27,10 +36,8 @@ a quantum's tokens come back through a pinned buffer and an event, so
 that reading quantum k does not wait for quantum k+1, already issued.
 
 Not ported yet, each raising NotImplementedError: device meshes
-(mesh_shape, ROADMAP.md queue 1 item 13), n-gram speculative quanta
-(speculative="ngram", kernel K10, item 10), a model without
-decode_paged_steps (GPT-2, whose paged step needs K9, item 9) and fp8
-pools (item 7).
+(mesh_shape, ROADMAP.md queue 1 item 13) and a model without
+decode_paged_steps (GPT-2, whose paged step needs K9, item 9).
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ class SchedulerConfig:
     max_blocks_per_seq: int = 64
     prefill_bucket: int = 64
     dtype: str = "bfloat16"
-    kv_cache_dtype: str = "auto"  # "auto" | explicit 16/32-bit dtype name
+    kv_cache_dtype: str = "auto"  # "auto" | "fp8" | explicit dtype name
     attn_impl: str = "kernel"  # "kernel" | "plain"
     seed: int = 0
     # decode steps per quantum. Admissions wait at most one quantum. Rows
@@ -96,7 +103,26 @@ class SchedulerConfig:
     prefill_chunk_tokens: int = 0
     # not ported yet: must stay None (see the module docstring)
     mesh_shape: Optional[tuple] = None
+    # speculative decoding in the batcher: None | "ngram". A quantum runs
+    # decode_quantum // (spec_draft_len + 1) rounds of device-resident
+    # n-gram drafting (the last spec_ngram tokens looked up in the row's
+    # context of at most spec_ctx tokens) and (spec_draft_len + 1)-token
+    # verification per row; each row's throughput multiplies by (1 + its
+    # mean accepted drafts). Greedy rows verify by argmax prefix, sampled
+    # rows by exact rejection sampling.
     speculative: Optional[str] = None
+    spec_draft_len: int = 4
+    spec_ngram: int = 3
+    spec_ctx: int = 2048
+    # auto-off: when the mean accepted drafts per verify over spec_window
+    # verifies falls below spec_min_acceptance (two consecutive low windows
+    # from a cold start, one when the window is a re-probe), plain quanta
+    # take over, and every spec_probe_every plain quanta one speculative
+    # window probes again
+    spec_auto_off: bool = True
+    spec_min_acceptance: float = 0.25
+    spec_window: int = 32
+    spec_probe_every: int = 64
     # issue quantum k+1 (chaining the last token on the device) BEFORE
     # reading quantum k's tokens on the host, so the host's work on one
     # overlaps the card's on the other. EOS is noticed one quantum late
@@ -158,20 +184,20 @@ class ContinuousBatcher:
         sc = self.sc
         if sc.mesh_shape is not None:
             raise _not_ported("SchedulerConfig.mesh_shape (sharded serving)", 13)
-        if sc.speculative is not None:
-            raise _not_ported(
-                f"SchedulerConfig.speculative={sc.speculative!r} (n-gram "
-                f"speculative quanta, kernel K10 paged_decode_spec)", 10)
+        if sc.speculative not in (None, "ngram"):
+            raise ValueError(f"unknown speculative mode {sc.speculative!r}")
         if getattr(model, "decode_paged_steps", None) is None:
             raise _not_ported(
                 f"{model_config.model_type} serving (a model without "
                 f"decode_paged_steps runs forward_paged, kernel K9 "
                 f"paged_decode; it comes with GPT-2)", 9)
-        if sc.kv_cache_dtype in _FP8_NAMES:
-            raise _not_ported("the fp8 KV pool", 7)
         self.dtype = resolve_dtype(sc.dtype)
-        self.kv_dtype = (self.dtype if sc.kv_cache_dtype in ("auto", None)
-                         else resolve_dtype(sc.kv_cache_dtype))
+        if sc.kv_cache_dtype in ("auto", None):
+            self.kv_dtype = self.dtype
+        elif sc.kv_cache_dtype in _FP8_NAMES:
+            self.kv_dtype = torch.float8_e4m3fn
+        else:
+            self.kv_dtype = resolve_dtype(sc.kv_cache_dtype)
         self.device = params["embed"].device
         self.state: PagedKVState = create_paged_state(
             model_config, sc.n_blocks, sc.block_size, sc.batch_capacity,
@@ -193,6 +219,22 @@ class ContinuousBatcher:
         self._meta_dirty = True
         self._sampler_dirty = True
         self._sampler_dev = None
+        # speculative quanta run when asked for and the model has them
+        self._spec = (sc.speculative == "ngram"
+                      and getattr(model, "decode_paged_spec_steps", None) is not None)
+        # speculative telemetry: emitted tokens against verify forwards (mean
+        # accepted drafts per verify = emitted / verifies - 1)
+        self.spec_emitted = 0
+        self.spec_verifies = 0
+        # auto-off policy state (SchedulerConfig.spec_auto_off)
+        self._spec_disabled = False
+        self._spec_win_emitted = 0
+        self._spec_win_verifies = 0
+        self._spec_low_windows = 0
+        self._plain_since_probe = 0
+        # True while the current window was opened by a re-probe: a low probe
+        # window disables after ONE window (its draft context is warm)
+        self._spec_probing = False
         # host mirrors of device state
         self._tables = np.zeros((sc.batch_capacity, sc.max_blocks_per_seq),
                                 np.int32)
@@ -582,7 +624,152 @@ class ContinuousBatcher:
             self._sampler_dirty = False
         return self._sampler_dev
 
+    def _spec_eligible(self) -> bool:
+        """Whether this quantum speculates: speculation is on and rows are
+        live, unless the auto-off policy has fallen back to plain quanta;
+        then every spec_probe_every-th call re-opens one probe window."""
+        if not self._spec or not self.running:
+            return False
+        if self._spec_disabled:
+            self._plain_since_probe += 1
+            if self._plain_since_probe >= max(1, self.sc.spec_probe_every):
+                self._spec_disabled = False
+                self._plain_since_probe = 0
+                self._spec_win_emitted = 0
+                self._spec_win_verifies = 0
+                self._spec_probing = True
+                log.info("speculation re-probe after %d plain quanta",
+                         self.sc.spec_probe_every)
+                return True
+            return False
+        return True
+
+    def _spec_policy_update(self, emitted: int, verifies: int) -> None:
+        """Feeds one quantum's telemetry into the auto-off window. A cold
+        start needs two consecutive low windows to disable (the first has
+        the least context to draft from); a re-probe window needs one."""
+        if not self.sc.spec_auto_off:
+            return
+        self._spec_win_emitted += emitted
+        self._spec_win_verifies += verifies
+        if self._spec_win_verifies < max(1, self.sc.spec_window):
+            return
+        accept = self._spec_win_emitted / self._spec_win_verifies - 1.0
+        self._spec_win_emitted = 0
+        self._spec_win_verifies = 0
+        probing, self._spec_probing = self._spec_probing, False
+        if accept < self.sc.spec_min_acceptance:
+            self._spec_low_windows += 1
+            if self._spec_low_windows < 2 and not probing:
+                return
+            self._spec_disabled = True
+            self._spec_low_windows = 0
+            self._plain_since_probe = 0
+            log.info("speculation auto-off: acceptance %.2f < %.2f over %d verifies "
+                     "(re-probe every %d quanta)", accept, self.sc.spec_min_acceptance,
+                     self.sc.spec_window, self.sc.spec_probe_every)
+        else:
+            self._spec_low_windows = 0
+
+    def _all_greedy(self) -> bool:
+        rows = list(self.running.keys())
+        return bool(np.all(self._temps[rows] == 0.0))
+
+    @property
+    def spec_acceptance(self) -> float:
+        """Mean accepted drafts per verify forward (0 before any); a
+        verify reads the weights once, so a row's speedup is about
+        1 + spec_acceptance."""
+        if not self.spec_verifies:
+            return 0.0
+        return self.spec_emitted / self.spec_verifies - 1.0
+
+    def _decode_spec(self) -> List[TokenEvent]:
+        """One speculative quantum: R rounds of (gamma + 1)-token verify
+        (causal_lm.decode_paged_spec_steps). A row may write R * (gamma + 1)
+        slots; a row without that much owned storage emits up to its safe
+        count and finishes by length, as in the plain quantum. The quantum's
+        tokens, counts and next inputs come back in one fetch."""
+        events: List[TokenEvent] = []
+        sc = self.sc
+        gamma = max(1, sc.spec_draft_len)
+        S = gamma + 1
+        n_rounds = max(1, sc.decode_quantum // S)
+        worst = n_rounds * S
+        safe = self._ensure_blocks(worst)
+        for row, m in list(safe.items()):
+            if m <= 0:
+                req = self.running[row]
+                req.finished = True
+                req.finish_reason = "length"
+                events.append(TokenEvent(req.request_id, None, True, "length"))
+                self.release(req)
+                safe.pop(row)
+        if not self.running:
+            return events
+        self._sync_state_meta()
+        # each row's draft context: prompt + generated, the current input last
+        C = max(sc.spec_ctx, 2 * worst + sc.spec_ngram + 2)
+        B = sc.batch_capacity
+        ctx = np.zeros((B, C), np.int32)
+        clen = np.zeros(B, np.int32)
+        for row, req in self.running.items():
+            toks = (req.prompt_ids + req.generated)[-C:]
+            ctx[row, : len(toks)] = toks
+            clen[row] = len(toks)
+        sampler = None if self._all_greedy() else self._sampler_params_dev()
+        packed = _decode_quantum_spec(
+            self.model.decode_paged_spec_steps, self.params, self.cfg, self.state,
+            self._put(self._tokens), self._put(ctx), self._put(clen), sampler, self._gen,
+            n_rounds=n_rounds, gamma=gamma, ngram=max(1, sc.spec_ngram),
+            attn_impl=sc.attn_impl)
+        flat = self._finish_fetch(self._start_fetch(packed))
+        n_tok = n_rounds * B * S
+        toks_h = flat[:n_tok].reshape(n_rounds, B, S)
+        counts_h = flat[n_tok : n_tok + n_rounds * B].reshape(n_rounds, B)
+        cur_h = flat[n_tok + n_rounds * B :]
+        for row, req in list(self.running.items()):
+            budget = safe.get(row, 0)
+            emitted = 0
+            for r in range(n_rounds):
+                if req.finished:
+                    break
+                for i in range(int(counts_h[r, row])):
+                    if req.finished:
+                        break
+                    if emitted >= budget:
+                        # the device wrote past this row's owned blocks (the
+                        # scatter clamps to the table's last entry): finish it
+                        req.finished = True
+                        req.finish_reason = "length"
+                        events.append(TokenEvent(req.request_id, None, True, "length"))
+                        self.release(req)
+                        break
+                    tok = int(toks_h[r, row, i])
+                    self._tokens[row] = tok
+                    events.extend(self._emit(req, tok))
+                    emitted += 1
+            if not req.finished:
+                self._lengths[row] += int(counts_h[:, row].sum())
+                self._tokens[row] = int(cur_h[row])
+        n_emitted, n_verifies = int(counts_h.sum()), n_rounds * len(safe)
+        self.spec_emitted += n_emitted
+        self.spec_verifies += n_verifies
+        self._spec_policy_update(n_emitted, n_verifies)
+        # host lengths re-derived from the device counts: re-upload next time
+        self._meta_dirty = True
+        return events
+
     def _decode(self) -> List[TokenEvent]:
+        if self._spec_eligible():
+            # the pipelined plain quantum is read first: the spec quantum
+            # drafts from the host's view of every row's context
+            events = self._drain_inflight()
+            if not self.running:
+                return events
+            events.extend(self._decode_spec())
+            self._tokens_dev = None
+            return events
         events: List[TokenEvent] = []
         n_steps = max(1, self.sc.decode_quantum)
         safe = self._ensure_blocks(n_steps)
@@ -804,3 +991,18 @@ def _decode_quantum(decode_paged_steps, params, cfg, state: PagedKVState,
             return sample_batched(lg, *sampler, generator)
     return decode_paged_steps(params, cfg, tokens, state, n_steps, sample_fn,
                               attn_impl=attn_impl)
+
+
+def _decode_quantum_spec(decode_paged_spec_steps, params, cfg, state: PagedKVState,
+                         tokens: torch.Tensor, ctx: torch.Tensor, clen: torch.Tensor,
+                         sampler, generator, *, n_rounds: int, gamma: int, ngram: int,
+                         attn_impl: str) -> torch.Tensor:
+    """One speculative quantum (causal_lm.decode_paged_spec_steps): greedy
+    prefix acceptance when `sampler` is None (every row greedy), exact
+    rejection sampling per row otherwise. Its tokens [R, B, S], counts
+    [R, B] and next inputs [B] are packed into one int32 tensor, so that
+    the host reads them with a single fetch."""
+    toks, counts, cur = decode_paged_spec_steps(
+        params, cfg, tokens, state, ctx, clen, n_rounds, gamma, ngram,
+        attn_impl=attn_impl, sampler=sampler, generator=generator)
+    return torch.cat([toks.reshape(-1), counts.reshape(-1), cur.reshape(-1)]).to(torch.int32)

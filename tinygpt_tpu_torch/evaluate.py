@@ -12,8 +12,9 @@ and every token after the first is counted exactly once.
 
 On the card each window's forward takes the kernel route (K1 over the
 window; K5a or K5b for the quantized layer matmuls, K3 or K4 for the
-head); on the CPU, or with `--impl plain`, the plain versions. The fp8
-KV cache is not ported yet (ROADMAP.md queue 1, item 7).
+head); on the CPU, or with `--impl plain`, the plain versions.
+`kv_dtype=torch.float8_e4m3fn` (`--kv-cache-dtype fp8`) stores each
+window's KV cache in e4m3: the quality check of the fp8 KV cache.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def window_nll(
     window: int = 512,
     stride: int = 256,
     attn_impl: str = "kernel",
-    kv_dtype: Optional[torch.dtype] = None,  # None: the params' compute dtype
+    kv_dtype: Optional[torch.dtype] = None,  # None: the params' compute dtype;
+                                             # float8_e4m3fn: the fp8 KV cache
 ) -> tuple:
     """Returns (total_nll, n_scored_tokens) over the token stream."""
     ids = np.asarray(token_ids, dtype=np.int64)
@@ -55,10 +57,6 @@ def window_nll(
         # K1 reads the cache in q's dtype; the JAX package's fp32 cache
         # holds the same values, since k and v are computed in this dtype
         kv_dtype = params["embed"].dtype
-    if torch.tensor([], dtype=kv_dtype).element_size() < 2:
-        raise NotImplementedError(
-            "the fp8 KV cache is not ported to tinygpt_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 7)")
     window = min(window, cfg.context_size, n)
     stride = min(stride, window)
 
@@ -137,6 +135,8 @@ def main(argv: Optional[list] = None) -> int:
                          "--awq-calib, not on the eval file)")
     ap.add_argument("--awq-calib", default=None, metavar="TEXT_FILE",
                     help="calibration text for --awq (default: built-in)")
+    ap.add_argument("--kv-cache-dtype", default="auto", choices=["auto", "fp8"],
+                    help="KV cache storage: the compute dtype, or fp8 (e4m3)")
     args = ap.parse_args(argv)
 
     ctx = load_model_dir(args.model, dtype=args.dtype, device=args.device)
@@ -153,7 +153,8 @@ def main(argv: Optional[list] = None) -> int:
              len(ids), args.window, args.stride)
     ppl = perplexity(ctx.model, ctx.model_config, params, ids,
                      window=args.window, stride=args.stride,
-                     attn_impl=args.impl)
+                     attn_impl=args.impl,
+                     kv_dtype=torch.float8_e4m3fn if args.kv_cache_dtype == "fp8" else None)
     print(f"perplexity: {ppl:.4f} over {len(ids)} tokens")
     return 0
 

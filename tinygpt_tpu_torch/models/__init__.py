@@ -1,5 +1,5 @@
 """Model registry: model_type → (load_params, init_params, forward,
-decode_steps, decode_paged_steps).
+decode_steps, decode_paged_steps, decode_paged_spec_steps).
 
 Counterpart of tinygpt_tpu/models/__init__.py. llama / qwen2 / qwen3 /
 mistral share the generic CausalLM (they differ only by config deltas).
@@ -33,6 +33,7 @@ def get_model(model_type: str):
         forward=mod.forward,
         decode_steps=mod.decode_steps,
         decode_paged_steps=mod.decode_paged_steps,
+        decode_paged_spec_steps=mod.decode_paged_spec_steps,
     )
 
 

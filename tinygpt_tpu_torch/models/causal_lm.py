@@ -37,9 +37,17 @@ version of every kernel instead.
 `decode_paged_steps` is the continuous batcher's decode quantum over the
 paged KV pool (engine/paged_kv.py): the same layer loop as decode_steps,
 with attention through the block tables (K8, ops/paged_attention.py).
+`decode_paged_spec_steps` is its speculative quantum: rounds of n-gram
+drafting and an S-position verify forward (attention through K10), with
+greedy prefix acceptance or exact rejection sampling.
 
-Not ported yet, each raising NotImplementedError: the fp8 KV cache
-(ROADMAP queue 1 item 7) and MoE (item 12).
+The KV cache and the pools may be fp8 (torch.float8_e4m3fn): K/V are cast
+once as they are written (engine/kv_cache.kv_cast), the in-flight buffers
+of the chunked loops stay bf16 until the merge or scatter, and attention
+decodes the e4m3 slots (K1, K2, K8 and K10 each take them).
+
+Not ported yet, raising NotImplementedError: MoE (ROADMAP queue 1,
+item 12).
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tinygpt_tpu_torch.engine.kv_cache import KVCache
+from tinygpt_tpu_torch.engine.kv_cache import KVCache, kv_cast
 from tinygpt_tpu_torch.engine.paged_kv import PagedKVState
 from tinygpt_tpu_torch.hf.config import ModelConfig
 from tinygpt_tpu_torch.ops.attention import (
@@ -61,6 +69,8 @@ from tinygpt_tpu_torch.ops.attention_kernels import flash_decode_frozen
 from tinygpt_tpu_torch.ops.paged_attention import (
     paged_decode_frozen,
     paged_decode_frozen_plain,
+    paged_decode_spec,
+    paged_decode_spec_plain,
 )
 from tinygpt_tpu_torch.ops import quant_kernels as qk
 from tinygpt_tpu_torch.ops.norms import rms_norm
@@ -74,6 +84,7 @@ from tinygpt_tpu_torch.ops.rope import (
     compute_rope_freqs,
     gather_rope,
 )
+from tinygpt_tpu_torch.ops.sampling import NEG_INF, masked_logits_batched
 
 
 def _not_ported(what: str, item: int):
@@ -343,8 +354,8 @@ def decoder_layer_step(
     impl = _impl(attn_impl)
     S = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
-    k_cache[:, :, slot : slot + S] = k.transpose(1, 2)
-    v_cache[:, :, slot : slot + S] = v.transpose(1, 2)
+    k_cache[:, :, slot : slot + S] = kv_cast(k.transpose(1, 2), k_cache.dtype)
+    v_cache[:, :, slot : slot + S] = kv_cast(v.transpose(1, 2), v_cache.dtype)
     attn = attention_with_cache(
         q, k_cache, v_cache, q_pos=positions, kv_pos=kv_pos, kv_valid=valid,
         slot=slot, sliding_window=cfg.sliding_window, kernel=impl,
@@ -378,8 +389,6 @@ def forward(
     cache, which was updated in place)."""
     _check_supported(cfg, params)
     impl = _impl(attn_impl)
-    if cache.k.element_size() < 2:
-        raise _not_ported("the fp8 KV cache", 7)
     S = input_ids.shape[1]
     slot = cache.length
     if slot + S > cache.max_len:
@@ -564,8 +573,6 @@ def decode_steps(
     Returns (toks [n_steps, B] int32 — the tokens sampled AFTER each
     input — and the advanced cache)."""
     _check_supported(cfg, params)
-    if cache.k.element_size() < 2:
-        raise _not_ported("the fp8 KV cache", 7)
     B = tok0.shape[0]
     L, D, Nk = cfg.num_hidden_layers, cfg.head_dim, cfg.num_kv_heads
     slot0 = cache.length
@@ -573,7 +580,8 @@ def decode_steps(
         raise ValueError(f"{n_steps} steps at slot {slot0} overflow a cache "
                          f"of {cache.max_len} slots")
     dev = cache.k.device
-    infl_k = torch.zeros((L, B, Nk, n_steps, D), dtype=cache.k.dtype, device=dev)
+    infl_k = torch.zeros((L, B, Nk, n_steps, D), dtype=_infl_dtype(cache.k.dtype),
+                         device=dev)
     infl_v = torch.zeros_like(infl_k)
     toks = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
     tok = tok0.to(torch.int32)
@@ -587,8 +595,8 @@ def decode_steps(
 
     # merge the chunk into the cache once
     end = slot0 + n_steps
-    cache.k[:, :, :, slot0:end] = infl_k
-    cache.v[:, :, :, slot0:end] = infl_v
+    cache.k[:, :, :, slot0:end] = kv_cast(infl_k, cache.k.dtype)
+    cache.v[:, :, :, slot0:end] = kv_cast(infl_v, cache.v.dtype)
     cache.kv_pos[:, slot0:end] = pos0.to(torch.int32) + torch.arange(
         n_steps, dtype=torch.int32, device=dev)
     cache.valid[:, slot0:end] = True
@@ -620,8 +628,6 @@ def decode_paged_steps(
     [n_steps, B] int32."""
     _check_supported(cfg, params)
     impl = _impl(attn_impl)
-    if state.k_pool.element_size() < 2:
-        raise _not_ported("the fp8 KV pool", 7)
     B = tok0.shape[0]
     L, D, Nk = cfg.num_hidden_layers, cfg.head_dim, cfg.num_kv_heads
     window = cfg.sliding_window
@@ -631,7 +637,8 @@ def decode_paged_steps(
     lengths0 = state.lengths
     act = active.to(torch.int32)
     attend_fn = paged_decode_frozen if impl == "kernel" else paged_decode_frozen_plain
-    infl_k = torch.zeros((L, B, Nk, n_steps, D), dtype=state.k_pool.dtype, device=dev)
+    infl_k = torch.zeros((L, B, Nk, n_steps, D), dtype=_infl_dtype(state.k_pool.dtype),
+                         device=dev)
     infl_v = torch.zeros_like(infl_k)
     toks = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
     tok = tok0.to(torch.int32)
@@ -655,14 +662,244 @@ def decode_paged_steps(
     # to the null block.
     steps = torch.arange(n_steps, dtype=torch.int32, device=dev)
     slot_t = lengths0[None, :] + steps[:, None] * act[None, :]          # [N, B]
-    rows = torch.arange(B, device=dev)[None, :].expand(n_steps, B)
-    blk = tables[rows, (slot_t // bs).clamp(max=MB - 1).long()]
-    blk = torch.where(active[None, :], blk, 0).reshape(-1).long()
-    off = (slot_t % bs).reshape(-1).long()
-    # the indexed dims go to the front: pool[:, blk, :, off, :] is [N*B, L, Nk, D]
-    state.k_pool[:, blk, :, off, :] = infl_k.permute(3, 1, 0, 2, 4).reshape(
-        n_steps * B, L, Nk, D)
-    state.v_pool[:, blk, :, off, :] = infl_v.permute(3, 1, 0, 2, 4).reshape(
-        n_steps * B, L, Nk, D)
+    keep = active[None, :].expand(n_steps, B)
+    _scatter_slots(state, slot_t, keep, infl_k.permute(3, 1, 0, 2, 4),
+                   infl_v.permute(3, 1, 0, 2, 4))
     state.lengths = lengths0 + n_steps * act
     return toks
+
+
+def _infl_dtype(kv_dtype: torch.dtype) -> torch.dtype:
+    """The in-flight K/V buffers' dtype: the cache's, or bf16 beside an fp8
+    cache (the JAX package's choice: the newest tokens keep bf16 until the
+    merge or scatter)."""
+    return torch.bfloat16 if kv_dtype == torch.float8_e4m3fn else kv_dtype
+
+
+def _scatter_slots(state: PagedKVState, slot: torch.Tensor, keep: torch.Tensor,
+                   infl_k: torch.Tensor, infl_v: torch.Tensor) -> None:
+    """Writes in-flight K/V into their pool slots in place: entry i of the
+    flattened `slot` [..., B] (row b's slot index) takes infl_k / infl_v
+    [..., B, L, Nk, D] (the same leading dims); entries not kept write to
+    the null block 0. A slot past the table takes its last entry (the JAX
+    gather clamps so)."""
+    bs, MB = state.block_size, state.max_blocks
+    B = slot.shape[-1]
+    rows = torch.arange(B, device=slot.device).expand(slot.shape)
+    blk = state.block_tables[rows, (slot // bs).clamp(0, MB - 1).long()]
+    blk = torch.where(keep, blk, 0).reshape(-1).long()
+    off = (slot % bs).reshape(-1).long()
+    L, Nk, D = infl_k.shape[-3:]
+    # the indexed dims go to the front: pool[:, blk, :, off, :] is [n, L, Nk, D]
+    for pool, vals in ((state.k_pool, infl_k), (state.v_pool, infl_v)):
+        pool[:, blk, :, off, :] = kv_cast(vals.reshape(-1, L, Nk, D), pool.dtype)
+
+
+# -- n-gram speculation ------------------------------------------------------------
+
+
+def ngram_draft_batched(ctx: torch.Tensor, clen: torch.Tensor, cur: torch.Tensor,
+                        ngram: int, gamma: int) -> torch.Tensor:
+    """Prompt-lookup drafting on the device, per row: the most recent
+    EARLIER window of ctx [B, C] equal to the row's last `ngram` tokens
+    (of its clen [B] real ones) gives the next `gamma` tokens after it; a
+    row without a match, or past its context's end, drafts `cur` [B].
+    Returns [B, gamma] int32; nothing is read on the host."""
+    B, C = ctx.shape
+    W = C - ngram + 1
+    dev = ctx.device
+    idx = (clen[:, None] - ngram + torch.arange(ngram, device=dev)[None, :]).clamp(0, C - 1)
+    tail = ctx.gather(1, idx.long())                                   # [B, ngram]
+    match = torch.ones((B, W), dtype=torch.bool, device=dev)
+    for j in range(ngram):
+        match &= ctx[:, j : W + j] == tail[:, j : j + 1]
+    iota = torch.arange(W, device=dev)[None, :]
+    match &= iota <= (clen[:, None] - ngram - 1)
+    i_star = torch.where(match, iota, -1).amax(dim=1)                  # [B]
+    p = i_star[:, None] + ngram + torch.arange(gamma, device=dev)[None, :]
+    avail = (i_star >= 0)[:, None] & (p < clen[:, None])
+    vals = ctx.gather(1, p.clamp(0, C - 1).long())
+    return torch.where(avail, vals, cur[:, None]).to(torch.int32)
+
+
+def spec_accept(logits: torch.Tensor, draft: torch.Tensor, sampler=None,
+                generator: Optional[torch.Generator] = None,
+                greedy_rows: Optional[torch.Tensor] = None):
+    """Acceptance of one verify round. logits [B, S, V] fp32 at the S =
+    gamma + 1 verify positions, draft [B, gamma]. Returns (m [B] accepted
+    drafts, nxt [B] the next input, emit [B, S] the round's tokens, of
+    which the first m + 1 are emitted).
+
+    sampler None: greedy prefix acceptance of the argmax predictions.
+    Else (temps, topks, topps, minps) [B]: speculative rejection sampling
+    against the point-mass draft. Draft d at a position whose processed
+    distribution is p (ops/sampling.masked_logits_batched) is accepted with
+    probability p(d); the first rejected position emits a sample of p with
+    d's mass removed, so that every emitted token is an exact sample of p
+    (Leviathan et al.); full acceptance emits a bonus sample of the last
+    position's p. Rows in greedy_rows (default: temperature <= 0) accept by
+    argmax prefix. The draws come from `generator` (torch.rand and
+    torch.multinomial), not from the JAX package's bits."""
+    B, S, V = logits.shape
+    gamma = S - 1
+    dev = logits.device
+    preds = logits.argmax(dim=-1).to(torch.int32)                      # [B, S]
+    greedy_ok = preds[:, :gamma] == draft
+    if sampler is None:
+        # int32 as in JAX (an integer sum promotes to int64): the kernels'
+        # slot tensors are derived from it
+        m = torch.cumprod(greedy_ok.to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
+        nxt = preds.gather(1, m.clamp(0, gamma)[:, None].long())[:, 0]
+        return m, nxt, preds
+    temps, topks, topps, minps = sampler
+    if greedy_rows is None:
+        greedy_rows = temps <= 0
+    ml = masked_logits_batched(
+        logits.reshape(B * S, V), temps.repeat_interleave(S), topks.repeat_interleave(S),
+        topps.repeat_interleave(S), minps.repeat_interleave(S)).reshape(B, S, V)
+    p_draft = torch.softmax(ml[:, :gamma], dim=-1).gather(
+        -1, draft[..., None].long())[..., 0]                         # [B, gamma]
+    u = torch.rand((B, gamma), generator=generator, device=dev)
+    ok = torch.where(greedy_rows[:, None], greedy_ok, u < p_draft)
+    m = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
+    mc = m.clamp(0, gamma)[:, None].long()
+    ml_m = ml.gather(1, mc[..., None].expand(B, 1, V))[:, 0]           # [B, V]
+    d_m = draft.gather(1, m.clamp(0, gamma - 1)[:, None].long())       # [B, 1]
+    vocab = torch.arange(V, device=dev)[None, :]
+    ml_res = torch.where((m < gamma)[:, None] & (vocab == d_m), NEG_INF, ml_m)
+    nxt_s = torch.multinomial(torch.softmax(ml_res, dim=-1), 1,
+                              generator=generator)[:, 0].to(torch.int32)
+    nxt = torch.where(greedy_rows, preds.gather(1, mc)[:, 0], nxt_s)
+    iota_s = torch.arange(S, device=dev)[None, :]
+    pad_draft = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+    emit_s = torch.where(iota_s < m[:, None], pad_draft, nxt[:, None])
+    emit = torch.where(greedy_rows[:, None], preds, emit_s)
+    return m, nxt, emit.to(torch.int32)
+
+
+def _verify_forward(params: Dict, cfg: ModelConfig, ids: torch.Tensor,
+                    positions: torch.Tensor, infl_k: torch.Tensor, infl_v: torch.Tensor,
+                    base: int, attend, impl: str) -> torch.Tensor:
+    """Logits [B, S, V] of the S verify positions per row: every layer
+    writes the round's K/V into the in-flight buffers at slots base ..
+    base + S - 1, then attends through attend(l, q [B, S, Nq, D]). Layer
+    matmuls run unfused at B * S rows (K5b / K5a for quantized stacks), as
+    the JAX verify forward does."""
+    S = ids.shape[1]
+    rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], positions)
+    x = params["embed"][ids.long()]                                    # [B, S, H]
+    for l in range(cfg.num_hidden_layers):
+        lp = _layer(params, l)
+        q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
+        infl_k[l, :, :, base : base + S] = k.transpose(1, 2)
+        infl_v[l, :, :, base : base + S] = v.transpose(1, 2)
+        attn = attend(l, q.contiguous())
+        x = _out_and_mlp(lp, x, attn, cfg, l, impl)
+    return _logits(params, x, cfg, impl)
+
+
+def decode_paged_spec_steps(
+    params: Dict,
+    cfg: ModelConfig,
+    tok0: torch.Tensor,        # [B] int32 current input token per row
+    state: PagedKVState,       # frozen pools, updated in place at the end
+    ctx_tokens: torch.Tensor,  # [B, C] int32 prompt + generated, cur last
+    ctx_lens: torch.Tensor,    # [B] int32
+    n_rounds: int,
+    gamma: int,                # draft length; S = gamma + 1 verify positions
+    ngram: int,
+    attn_impl: str = "kernel",
+    sampler=None,              # None = greedy; else (temps, topks, topps, minps) [B]
+    generator: Optional[torch.Generator] = None,  # with a sampler
+):
+    """n_rounds of n-gram speculative verification for the continuous
+    batcher (the JAX decode_paged_spec_steps, as an eager loop over rounds
+    and layers): per round each row drafts gamma tokens from its own
+    context (ngram_draft_batched), one S-position verify forward runs
+    against the FROZEN pools plus the accepted in-flight slots (K10,
+    ops/paged_attention.paged_decode_spec), and spec_accept takes the
+    matched prefix (greedy rows) or rejection-samples (sampled rows). One
+    scatter at the end writes every ACCEPTED slot; rejected slots are never
+    made valid and never written. A verify forward reads the weights once
+    for S positions, so a row's throughput multiplies by (1 + its mean
+    accepted drafts).
+
+    Positions, q_slots, the acceptance counts and the validity stay device
+    tensors: no round reads a device value on the host (only the round's
+    base slot r * S and the layer are host ints). Sliding windows are
+    exact: verify positions carry their prospective pool slots and accepted
+    in-flight entries theirs, and the merge masks in slot space.
+
+    Returns (toks [R, B, S], counts [R, B] emitted per round, cur [B] next
+    input per row), all int32 on the device; `state` is advanced in place
+    (pools and lengths)."""
+    _check_supported(cfg, params)
+    impl = _impl(attn_impl)
+    if sampler is not None and generator is None:
+        raise ValueError("rejection sampling needs a torch.Generator")
+    B = tok0.shape[0]
+    S = gamma + 1
+    N = n_rounds * S
+    L, D, Nk = cfg.num_hidden_layers, cfg.head_dim, cfg.num_kv_heads
+    window = cfg.sliding_window
+    dev = state.k_pool.device
+    tables, starts, active = state.block_tables, state.starts, state.active
+    lengths0 = state.lengths
+    act = active.to(torch.int32)
+    attend_fn = paged_decode_spec if impl == "kernel" else paged_decode_spec_plain
+    infl_k = torch.zeros((L, B, Nk, N, D), dtype=_infl_dtype(state.k_pool.dtype),
+                         device=dev)
+    infl_v = torch.zeros_like(infl_k)
+    valid = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    infl_slots = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    acc = torch.zeros((B,), dtype=torch.int32, device=dev)
+    cur = tok0.to(torch.int32)
+    ctx, clen = ctx_tokens.to(torch.int32), ctx_lens.to(torch.int32)
+    C = ctx.shape[1]
+    iota_s = torch.arange(S, dtype=torch.int32, device=dev)
+    iota_n = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+    iota_c = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+    toks, counts = [], []
+    for r in range(n_rounds):
+        base = r * S
+        draft = ngram_draft_batched(ctx, clen, cur, ngram, gamma)      # [B, gamma]
+        ids = torch.cat([cur[:, None], draft], dim=1)                  # [B, S]
+        positions = (lengths0 - starts + acc)[:, None] + iota_s[None, :]
+        # the pool slot each verify position will occupy (window masks)
+        q_slots = (lengths0 + acc)[:, None] + iota_s[None, :]
+
+        def attend(l, q, base=base, q_slots=q_slots):
+            return attend_fn(q, state.k_pool, state.v_pool, tables, lengths0, starts,
+                             infl_k[l], infl_v[l], valid, l, base, D ** -0.5,
+                             window, q_slots, infl_slots)
+
+        logits = _verify_forward(params, cfg, ids, positions, infl_k, infl_v, base,
+                                 attend, impl)
+        m, cur, emit = spec_accept(logits, draft, sampler, generator)
+        # this round's slots 0..m become valid, with their pool slots
+        accepted = (iota_n >= base) & (iota_n - base <= m[:, None]) & (iota_n < base + S)
+        valid = valid | accepted
+        infl_slots = torch.where(accepted, (lengths0 + acc)[:, None] + iota_n - base,
+                                 infl_slots)
+        # append the emitted tokens emit[:, :m+1] to each row's context
+        d = iota_c - clen[:, None]
+        ctx = torch.where((d >= 0) & (d <= m[:, None]),
+                          emit.gather(1, d.clamp(0, S - 1).long()), ctx)
+        emitted = (m + 1) * act
+        acc = acc + emitted
+        clen = clen + emitted
+        toks.append(emit)
+        counts.append(m + 1)
+    counts = torch.stack(counts) * act[None, :]                        # [R, B]
+    # round r's slot i goes to pool slot lengths0 + A_r + i, A_r the tokens
+    # emitted before round r; slots past the round's count are not kept
+    A = torch.cumsum(counts, dim=0) - counts
+    slot = lengths0[None, None, :] + A[:, None, :] + iota_s[None, :, None]   # [R, S, B]
+    keep = (iota_s[None, :, None] < counts[:, None, :]) & active[None, None, :]
+
+    def by_slot(x):  # [L, B, Nk, R*S, D] -> [R, S, B, L, Nk, D]
+        return x.reshape(L, B, Nk, n_rounds, S, D).permute(3, 4, 1, 0, 2, 5)
+
+    _scatter_slots(state, slot, keep, by_slot(infl_k), by_slot(infl_v))
+    state.lengths = lengths0 + acc
+    return torch.stack(toks), counts.to(torch.int32), cur

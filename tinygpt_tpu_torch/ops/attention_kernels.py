@@ -10,6 +10,12 @@ indices: with left padding every token of a row shares one pad offset, so
 (logical kv_pos <= logical q_pos) <=> (kv slot <= q slot). The only mask
 inputs are a per-slot validity byte and the slot of the first query row.
 
+The cache is of q's dtype, or fp8 (torch.float8_e4m3fn, the fp8 KV cache):
+then q and the output keep their dtype, the kernels decode the e4m3 slots
+to fp32, and the decode kernel's in-flight K/V are bf16, as the JAX package
+keeps the newest tokens before they are merged into an fp8 cache
+(``kv_operands``).
+
 Each wrapper dispatches on the device of its tensors: on the CPU it runs
 its plain PyTorch version (``*_plain``), on a CUDA device it launches the
 kernel or raises. It never falls back from one to the other. Every launch
@@ -31,13 +37,15 @@ NEG_INF = -1e30
 LAUNCHES: Counter = Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+E4M3 = torch.float8_e4m3fn
+_E4M3_CODE = 3  # tg::kE4M3 (csrc/attention_common.cuh): a cache type only
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8  # query heads per KV head handled by flash_decode_frozen
 
 # C signatures (csrc/*.cu): pointers, ints, scale, trailing ints, stream
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PREFILL_ARGS = [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P]
-_DECODE_ARGS = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
+_PREFILL_ARGS = [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P]
+_DECODE_ARGS = [_P] * 7 + [_I] * 10 + [_F, _I, _P]
 
 
 def reset_launches() -> None:
@@ -46,6 +54,19 @@ def reset_launches() -> None:
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def kv_operands(name: str, q: torch.Tensor, cache: torch.Tensor):
+    """(the kernel's dtype code of the cache, the in-flight K/V dtype) for
+    a cache beside queries q: a cache of q's dtype with in-flight K/V of
+    q's dtype, or an e4m3 cache with bf16 in-flight K/V. Any other pair
+    raises."""
+    if cache.dtype == q.dtype:
+        return _DTYPE_CODE.get(q.dtype, -1), q.dtype
+    if cache.dtype == E4M3:
+        return _E4M3_CODE, torch.bfloat16
+    raise TypeError(f"{name}: a cache of {cache.dtype} beside q of {q.dtype} "
+                    f"(the cache takes q's dtype or float8_e4m3fn)")
 
 
 def _check_cuda_operands(name: str, dtype_ref: torch.Tensor, *tensors) -> None:
@@ -137,9 +158,10 @@ def flash_prefill(
     if not 0 <= q_slot <= T - S:
         raise ValueError(f"flash_prefill: rows at slots {q_slot}..{q_slot + S}"
                          f" do not fit a cache of {T} slots")
+    kv_code, _ = kv_operands("flash_prefill", q, k_cache)
     _check_cuda_operands(
-        "flash_prefill", q, ("q", q, None), ("k_cache", k_cache, (q.dtype,)),
-        ("v_cache", v_cache, (q.dtype,)),
+        "flash_prefill", q, ("q", q, None), ("k_cache", k_cache, (k_cache.dtype,)),
+        ("v_cache", v_cache, (k_cache.dtype,)),
         ("valid", valid, (torch.bool, torch.uint8)))
     from tinygpt_tpu_torch.ops import cuda_build
 
@@ -150,7 +172,7 @@ def flash_prefill(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(valid), _ptr(out),
-                 B, Nq, Nk, S, T, D, _DTYPE_CODE[q.dtype], float(scale),
+                 B, Nq, Nk, S, T, D, _DTYPE_CODE[q.dtype], kv_code, float(scale),
                  int(q_slot), window, ctypes.c_void_p(stream))
     cuda_build.check("flash_prefill.cu", err, "flash_prefill")
     LAUNCHES["flash_prefill"] += 1
@@ -235,11 +257,12 @@ def flash_decode_frozen(
     if not 0 <= l < L or not 0 <= step < N:
         raise ValueError(f"flash_decode_frozen: layer {l} of {L} / step {step}"
                          f" of {N} out of range")
+    kv_code, infl_dtype = kv_operands("flash_decode_frozen", q, k_stack)
     _check_cuda_operands(
         "flash_decode_frozen", q, ("q", q, None),
-        ("k_stack", k_stack, (q.dtype,)), ("v_stack", v_stack, (q.dtype,)),
+        ("k_stack", k_stack, (k_stack.dtype,)), ("v_stack", v_stack, (k_stack.dtype,)),
         ("mask", mask, (torch.bool, torch.uint8)),
-        ("k_infl", k_infl, (q.dtype,)), ("v_infl", v_infl, (q.dtype,)))
+        ("k_infl", k_infl, (infl_dtype,)), ("v_infl", v_infl, (infl_dtype,)))
     from tinygpt_tpu_torch.ops import cuda_build
 
     fn = cuda_build.function("flash_decode_frozen.cu",
@@ -250,7 +273,7 @@ def flash_decode_frozen(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_ptr(q), _ptr(k_stack), _ptr(v_stack), _ptr(mask),
                  _ptr(k_infl), _ptr(v_infl), _ptr(out),
-                 B, Nq, Nk, T, N, D, _DTYPE_CODE[q.dtype], int(l), int(step),
+                 B, Nq, Nk, T, N, D, _DTYPE_CODE[q.dtype], kv_code, int(l), int(step),
                  float(scale), win, ctypes.c_void_p(stream))
     cuda_build.check("flash_decode_frozen.cu", err, "flash_decode_frozen")
     LAUNCHES["flash_decode_frozen"] += 1

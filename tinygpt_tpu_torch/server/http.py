@@ -10,10 +10,12 @@ paged KV pool (server/api.BatchedInferenceWorker).
     python -m tinygpt_tpu_torch.server --model DIR [--quantization int8|int4]
 
 The engine runs on the card (ServerConfig.device="cuda") unless asked for
-the CPU; int4 runs AWQ by default (--awq-calib FILE, --no-awq). Not
+the CPU; int4 runs AWQ by default (--awq-calib FILE, --no-awq).
+--speculative runs the batcher's n-gram speculative quanta (greedy
+requests verify exactly, sampled ones by exact rejection sampling). Not
 ported yet, each raising NotImplementedError: the sequential worker
-(scheduler="sequential", ROADMAP.md queue 1 item 5), device meshes (item
-13) and speculative quanta (item 10).
+(scheduler="sequential", ROADMAP.md queue 1 item 5) and device meshes
+(item 13).
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ class ServerConfig:
     awq: Optional[bool] = None  # None = auto: on for int4
     awq_calib_path: Optional[str] = None  # None = the built-in corpus
     mesh_shape: Optional[tuple] = None  # (dp, sp, tp); not ported
-    speculative: bool = False  # n-gram speculative quanta; not ported
+    speculative: bool = False  # n-gram speculative quanta (greedy rows verify
+    # by argmax prefix, sampled rows by exact rejection sampling)
     # "continuous" = paged continuous batching; "sequential" = the
     # one-request-at-a-time worker (not ported)
     scheduler: str = "continuous"
@@ -356,7 +359,9 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: max prompt tokens per step")
     ap.add_argument("--speculative", action="store_true",
-                    help="n-gram speculative decode quanta (not ported)")
+                    help="n-gram speculative decode quanta (greedy requests "
+                         "verify exactly, sampled ones via exact rejection "
+                         "sampling; pays off on repetitive text)")
     args = ap.parse_args(argv)
 
     server = TinyGPTServer(ServerConfig(
