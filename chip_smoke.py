@@ -19,7 +19,12 @@ Phases, in order:
            128 and 64, 4 and 1 query heads per KV head, ragged rows, dead
            table entries, inactive rows, a window) and times it beside its
            bound and scaled_dot_product_attention on the same rows gathered
-           dense;
+           dense; then the same for the single-layer paged decode (K9) at
+           the GPT-2 serving shape (12/12 heads, D 64, rows up to 1,023
+           slots, inactive rows, starts > 0; bf16, fp16, fp32 and e4m3
+           pools) and the Mistral-7B shape with windows 8 and 24; then K2,
+           K8 and K9 at 16 query heads per KV head (Llama-3.1-405B's 128/8)
+           and K10 at 72 and 80 verify rows per KV head;
   spec_kernels  the same for the speculative-verify kernel (K10) at the
            serving shape (16 rows, 5 verify positions, bf16, fp32 and e4m3
            pools, a binding window), with SDPA on the gathered K/V and an
@@ -57,6 +62,15 @@ Phases, in order:
            the bf16-dequantized weight as the library yardstick;
   model8   the same shape in int8 (group 128): K5a and K3 in the prefill
            and in every decode step (the unfused route), the same checks;
+  gpt2     GPT-2 124M at full width (12 layers, 12 heads of 64, vocab
+           50,257, random weights): the model phase's batch and chunks
+           through K1 and K2, kernel route against plain route in fp32 and
+           bf16, then int8 (group 128, K5a) and int4 (group 64, K5b);
+  gpt2_serve  the continuous batcher on those bf16 params under the serve
+           phase's traffic, once with the frozen quantum (K8) and once with
+           the stepwise one (forward_paged, K9): tok/s, TTFT, a quantum's
+           wall and device time, exact launch counts, and the two runs'
+           streams (identical at 12 layers in fp32);
   engine   writes a 2-layer Mistral-width model dir with a generated
            Metaspace-BPE tokenizer and runs GPTEngine.generate_sync on it,
            in bf16, with quantization="int4", awq=False, with "int8", with
@@ -66,7 +80,10 @@ Phases, in order:
            an fp8 KV cache, kernel route against plain route;
   server   serves that model dir over HTTP in-process (TinyGPTServer on
            127.0.0.1): four concurrent clients, completions plain and SSE,
-           chat completions and /health.
+           chat completions and /health;
+  gpt2_engine, gpt2_server  the engine (generate_sync, batch-1
+           speculation) and the server on a 2-layer GPT-2 dir with the
+           generated tokenizer.
 
 Every phase must pass; the script exits non-zero at the first failure.
 Its last lines are the seconds each phase took, the card's name and power
@@ -129,6 +146,12 @@ AWQ_FOLD_TOL_BF16 = 1.2
 # amplifies one-ulp differences layer after layer (0.27 at the prefill's
 # last position on an H100), so only a coarse bound holds.
 MODEL_LOGIT_TOL = {"float32": 1e-3, "bfloat16": 0.6}
+# the same measure for GPT-2 124M's routes in bf16 (gpt2 phase): its tied
+# head's logits have a std of about 0.55 (wte ~ N(0, 0.02^2) over 768
+# unit-variance features), so the Mistral limit would be a typical logit.
+# An H100 read 0.031 (bf16), 0.039 (int8) and 0.031 (int4), the same in two
+# runs; the limit leaves 2.5x room over the largest
+GPT2_LOGIT_TOL_BF16 = 0.1
 # int4 and int8 kernels against their plain versions, max abs error
 # relative to the largest output: both dequantize the same bytes exactly in
 # fp32 and sum in fp32 in another order (the tensor-core paths split fp32
@@ -150,6 +173,7 @@ REPLACES = {
     "mlp_fused_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:1304",
     "paged_decode_frozen": "tinygpt_tpu/ops/paged_attention.py:436",
     "paged_decode_spec": "tinygpt_tpu/ops/paged_attention.py:681",
+    "paged_decode": "tinygpt_tpu/ops/paged_attention.py:192",
     "matmul_dequant_int8": "tinygpt_tpu/ops/quant_kernels.py:208",
     "matmul_dequant_int8_stacked": "tinygpt_tpu/ops/quant_kernels.py:481",
 }
@@ -164,6 +188,7 @@ SOURCES = {
     "matmul_dequant_int8": "tinygpt_tpu_torch/csrc/int8_matmul.cu",
     "matmul_dequant_int8_stacked": "tinygpt_tpu_torch/csrc/int8_matmul.cu",
     "paged_decode_spec": "tinygpt_tpu_torch/csrc/paged_decode_spec.cu",
+    "paged_decode": "tinygpt_tpu_torch/csrc/paged_decode.cu",
 }
 # the serving phase: the JAX package's serving leg
 # (benches/flagship_bench.py:396-535) at the Mistral-7B shape in int4
@@ -174,6 +199,17 @@ SERVE = dict(n_requests=16, prompt_len=512, max_new=256, gap_s=0.25, capacity=16
 # with n-gram speculation (the batcher's defaults: 4 drafts, 3-grams), on
 # prompts that repeat one random span of SPEC_SPAN tokens
 SPEC = dict(span=64, draft_len=4, ngram=3, fp32_new=64)
+# GPT-2 124M (the reference's own model, SURVEY.md), not cut
+GPT2_124M = {
+    "model_type": "gpt2",
+    "vocab_size": 50257,
+    "n_embd": 768,
+    "n_layer": 12,
+    "n_head": 12,
+    "n_positions": 1024,
+}
+# the gpt2_serve phase's fp32 check: requests, new tokens each
+GPT2_FP32_SERVE = dict(n_requests=6, max_new=32)
 
 
 DEVICE = "cuda"
@@ -215,6 +251,17 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         if us:
             return us / iters / 1e3
     log("[time] torch.profiler saw no device time three times: CUDA events instead")
+    return _events_ms(fn, iters, warmup=0)
+
+
+def _events_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms of one fn() call between CUDA events around `iters`
+    back-to-back calls (after `warmup` calls): gaps between launches
+    count."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -872,12 +919,24 @@ def phase_int8_kernels(table: dict) -> None:
         nl = min(Ls, LIB_LAYERS)
         ws = [qk.dequant_fp32(data[l], scales[l], G).to(torch.bfloat16) for l in range(nl)]
         t_lib = _time_layers(lambda l: torch.matmul(xb, ws[l]), nl, 3 * LIB_LAYERS)
+        # the profiler's device time can come back below the least time the
+        # bf16 weight's bytes need; CUDA events then time the same loop (an
+        # upper bound: it includes the host's gaps between launches)
+        lib_b = bound_ms(_nbytes(xb, ws[0]) + M * OUT * 2, 2.0 * M * IN * OUT,
+                         "bfloat16")[0]
+        if t_lib < lib_b:
+            lw = iter(range(10 ** 9))
+            t_ev = _events_ms(lambda: torch.matmul(xb, ws[next(lw) % nl]), 3 * LIB_LAYERS)
+            log(f"[int8] cuBLAS {label}: profiler device time {t_lib:.4f} ms is below the "
+                f"{lib_b:.4f} ms its bf16 weight needs; CUDA events over the same loop "
+                f"{t_ev:.4f} ms, kept as its time")
+            t_lib = t_ev
         del ws
         nbytes = _nbytes(xb, data[0], scales[0]) + M * OUT * 2
         b_ms, b_by = bound_ms(nbytes, 2.0 * M * IN * OUT, "bfloat16")
         log(f"[int8] {name} {label}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
             f"{t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}) cuBLAS on "
-            f"the bf16-dequantized weight {t_lib:.4f} ms")
+            f"the bf16-dequantized weight {t_lib:.4f} ms (its own bound {lib_b:.4f} ms)")
         rows.setdefault(name, []).append((weight, t_k, t_p, b_ms, b_by, t_lib, err, tol))
     del stacks
     torch.cuda.empty_cache()
@@ -990,12 +1049,15 @@ def _sdpa_paged(q, kp, vp, tables, lens, starts, ki, vi, l, step, scale, window)
 
 
 def _paged_tol(dname, want) -> float:
-    """K8's limit against its plain version: both round one fp32 result to
-    the output dtype, so they differ by at most one ulp of an output; in
-    bf16 that is at most 2^-7 of the largest output (under 4e-3 at the
-    serve shape, whose outputs stay below 0.5), never more than TOL."""
+    """A paged kernel's limit against its plain version: both round one
+    fp32 result to the output dtype, so they differ by at most one ulp of
+    an output; in bf16 that is at most 2^-7 of the largest output (under
+    4e-3 at the serve shape, whose outputs stay below 0.5), never more than
+    TOL; in fp16 2^-10 of it; 1e-4 in fp32."""
     if dname == "bfloat16":
         return min(TOL[dname], 2.0 ** -7 * want.float().abs().max().item())
+    if dname == "float16":
+        return 2.0 ** -10 * want.float().abs().max().item()
     return TOL[dname]
 
 
@@ -1094,6 +1156,8 @@ def phase_paged_kernels(table: dict) -> None:
     for dname, err in sorted(worst.items()):
         log(f"[paged] paged_decode_frozen {dname}: worst max_abs_err over all cases "
             f"{err:.3g} (tol at most {TOL[dname]}; bf16: 2^-7 of the largest output)")
+    _paged_decode_k9(table)
+    _wide_groups()
 
 
 # -- speculative-verify kernel (K10) -------------------------------------------------
@@ -1104,7 +1168,7 @@ SPEC_S = 5
 SPEC_LENGTHS = tuple(64 + 56 * i for i in range(16))   # 64 .. 904 slots
 
 
-def _spec_kernel_case(L, Nq, Nk, D, lengths, inactive, dtype, e4m3, rnd, seed):
+def _spec_kernel_case(L, Nq, Nk, D, lengths, inactive, dtype, e4m3, rnd, seed, S=SPEC_S):
     """Inputs of one paged_decode_spec call at round `rnd` of rnd + 1: the
     K8 case's pools and tables (e4m3 pools beside bf16 in-flight K/V),
     q [B, S, Nq, D], earlier rounds' slots accepted at random, each row's
@@ -1114,7 +1178,6 @@ def _spec_kernel_case(L, Nq, Nk, D, lengths, inactive, dtype, e4m3, rnd, seed):
 
     from tinygpt_tpu_torch.engine.kv_cache import kv_cast
 
-    S = SPEC_S
     N = (rnd + 1) * S
     q1, kp, vp, tables, lens, starts, _, _ = _paged_case(L, Nq, Nk, D, lengths, inactive,
                                                          dtype, seed)
@@ -1306,6 +1369,231 @@ def phase_spec_kernels(table: dict) -> None:
             raise PhaseError(f"e4m3 cast: the card's bytes differ from the CPU's ({dt})")
 
 
+# -- the single-layer paged decode (K9) and wider head groups ---------------------
+
+# the gpt2_serve phase's K9 shape: 16 rows of GPT-2 124M's heads (12 of 64)
+# over the serving pool (block 64, 16 blocks a row, 257 blocks); rows of
+# mixed lengths up to 1,023 slots, two inactive (one released at length 0,
+# one with a stale length over a zero table), two starting past slot 0
+K9_LENGTHS = (1023, 1, 64, 0, 65, 512, 700, 333, 1000, 900, 128, 257, 768, 40, 999, 600)
+K9_INACTIVE = {3: 0, 9: 900}
+K9_STARTS = {4: 5, 7: 17}
+
+
+def _k9_case(L, Nq, Nk, D, dtype, seed):
+    """Inputs of one paged_decode call (the stacked pools, of which a call
+    takes layer l): K8's case at K9_LENGTHS, with K9_STARTS."""
+    import torch
+
+    lens = [K9_INACTIVE.get(b, n) for b, n in enumerate(K9_LENGTHS)]
+    q, kp, vp, tables, lengths, starts, _, _ = _paged_case(L, Nq, Nk, D, lens, K9_INACTIVE,
+                                                           dtype, seed)
+    for b, st in K9_STARTS.items():
+        starts[b] = st
+    return q, kp, vp, tables, lengths, starts.to(torch.int32)
+
+
+def _k9_cost(q, Nk, tables, lengths, starts, window, pool_size):
+    """(bytes, flops) one K9 call's data needs: K and V, at the pool's
+    element size, of each distinct pool slot (block, offset) that a row
+    sees (starts <= t < lengths, within the table and the window), read
+    once: an inactive row's stale length over its zero table sees block
+    0's slots again, so they count once; q, the output, tables, lengths
+    and starts; 4*D operations per visible (row, query head, slot)."""
+    B, Nq, D = q.shape
+    bs = PAGED["bs"]
+    cap = tables.shape[1] * bs
+    pool_slots, seen = set(), 0
+    for row, n, st in zip(tables.tolist(), lengths.tolist(), starts.tolist()):
+        lo = max(st, n - window) if window else st
+        ts = range(max(lo, 0), min(n, cap))
+        pool_slots.update((row[t // bs], t % bs) for t in ts)
+        seen += len(ts)
+    nbytes = (2 * q.numel() * q.element_size() + 2 * len(pool_slots) * Nk * D * pool_size
+              + 4 * B * (tables.shape[1] + 2))
+    return nbytes, 4.0 * D * Nq * seen
+
+
+def _sdpa_k9(q, kp, vp, tables, lens, starts, scale, window):
+    """scaled_dot_product_attention on the same rows, K/V gathered dense
+    and the mask built OUTSIDE the timed call (timing yardstick only)."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    k = pa.paged_gather_dense(kp, tables).to(q.dtype)
+    v = pa.paged_gather_dense(vp, tables).to(q.dtype)
+    t = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = (t < lens[:, None]) & (t >= starts[:, None])
+    if window:
+        mask = mask & (t > lens[:, None] - 1 - window)
+    return _sdpa(q[:, :, None, :], k, v, mask[:, None, None, :], scale)
+
+
+def _paged_decode_k9(table: dict) -> None:
+    """K9 against its plain version on the card: the GPT-2 serving shape
+    (bf16 main-path row, walking all 12 layers of a 257-block pool; fp16,
+    fp32, and e4m3 pools beside bf16 queries) and the Mistral-7B shape
+    (32/8 heads, D 128) with windows 8 and 24; the first and last layer.
+    Times kernel, plain version and SDPA (K/V gathered beforehand) beside
+    the bound."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    L2, H = GPT2_124M["n_layer"], GPT2_124M["n_head"]
+    D2 = GPT2_124M["n_embd"] // H
+    bf16 = torch.bfloat16
+    # (label, L, Nq, Nk, D, window, dtype, e4m3 pools, is_main_path, timed)
+    cases = [
+        ("GPT-2 serving shape", L2, H, H, D2, None, bf16, False, True, True),
+        ("GPT-2 serving shape", L2, H, H, D2, None, bf16, True, False, True),
+        ("GPT-2 serving shape", 2, H, H, D2, None, torch.float16, False, False, False),
+        ("GPT-2 serving shape", 2, H, H, D2, None, torch.float32, False, False, True),
+        ("Mistral-7B shape w8", 2, 32, 8, 128, 8, bf16, False, False, False),
+        ("Mistral-7B shape w24", 2, 32, 8, 128, 24, torch.float32, False, False, False),
+        ("Mistral-7B shape w24", 4, 32, 8, 128, 24, bf16, True, False, False),
+        ("Mistral-7B shape", 4, 32, 8, 128, None, bf16, False, False, True),
+    ]
+    worst = 0.0
+    for i, (label, Lc, nq, nk, d, window, dtype, e4m3, main, timed) in enumerate(cases):
+        dname = str(dtype).replace("torch.", "")
+        q, kp, vp, tables, lens, starts = _k9_case(Lc, nq, nk, d, dtype, seed=400 + i)
+        if e4m3:
+            kp, vp = kv_cast(kp, E4M3), kv_cast(vp, E4M3)
+        for l in sorted({0, Lc - 1}):
+            args = (q, kp[l], vp[l], tables, lens, starts, d ** -0.5, window)
+            got = pa.paged_decode(*args)
+            want = pa.paged_decode_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = _paged_tol(dname, want)
+            worst = max(worst, err / tol)
+            if not (math.isfinite(err) and err <= tol):
+                raise PhaseError(f"paged_decode {label} l={l} {dname}"
+                                 f"{' e4m3' if e4m3 else ''}: error {err} > {tol}")
+        nbytes, flops = _k9_cost(q, nk, tables, lens, starts, window,
+                                 1 if e4m3 else q.element_size())
+        b_ms, b_by = bound_ms(nbytes, flops, dname)
+        what = (f"[paged] paged_decode {label} D={d} G={nq // nk} {dname}"
+                f"{' e4m3 pools' if e4m3 else ''}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        if not timed:
+            log(f"{what} ok")
+            continue
+        layers = iter(range(10 ** 9))
+
+        def walk():  # cold K/V, as a decode step reads its layers in turn
+            lw = next(layers) % Lc
+            return pa.paged_decode(q, kp[lw], vp[lw], tables, lens, starts, d ** -0.5,
+                                   window)
+
+        t_k = cuda_time_ms(walk, iters=4 * Lc)
+        t_p = cuda_time_ms(lambda: pa.paged_decode_plain(*args), iters=10)
+        t_l = cuda_time_ms(_sdpa_k9(*args), iters=20)
+        log(f"{what} kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa (K/V gathered dense "
+            f"beforehand) {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+        if main:
+            table["paged_decode"] = dict(
+                name="paged_decode", route="cuda", source=SOURCES["paged_decode"],
+                replaces=REPLACES["paged_decode"], launches=0, max_abs_err=err, tol=tol,
+                ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+        elif e4m3:
+            E4M3_ROWS["paged_decode"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                             max_abs_err=err)
+        del q, kp, vp
+        torch.cuda.empty_cache()
+    log(f"[paged] paged_decode: worst max_abs_err over all cases {worst:.3g} of its "
+        f"tolerance (one ulp of the largest output in bf16 and fp16, 1e-4 in fp32)")
+
+
+def _wide_groups() -> None:
+    """The shapes the kernels took no more before this slice, checked
+    against their plain versions and timed beside their bounds: K2, K8 and
+    K9 at 16 query heads per KV head (Llama-3.1-405B's 128 over 8, D 128;
+    two blocks of 8 heads per KV head), K10 at 72 (G 8, 9 verify
+    positions) and 80 (G 16, 5 positions) query rows per KV head (two row
+    groups of 64)."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    bf16 = torch.bfloat16
+    Nq, Nk, D, Lc = 128, 8, 128, 4
+    scale = D ** -0.5
+    # K2 at the model phase's cache shape (4 left-padded rows, T 1024)
+    q, ks, vs, mask, ki, vi, step, _ = _decode_case(Lc, 4, Nq, Nk, D, 1024, 32,
+                                                     (0, 37, 211, 600), 900, 31, None, bf16,
+                                                     seed=500)
+    for l in (0, Lc - 1):
+        args = (q, ks, vs, mask, ki, vi, l, step, scale, None)
+        got, want = ak.flash_decode_frozen(*args), ak.flash_decode_frozen_plain(*args)
+        torch.cuda.synchronize()
+        err, tol = (got.float() - want.float()).abs().max().item(), _paged_tol("bfloat16", want)
+        if not (math.isfinite(err) and err <= tol):
+            raise PhaseError(f"flash_decode_frozen G=16 l={l}: error {err} > {tol}")
+    layers = iter(range(10 ** 9))
+    t_k = cuda_time_ms(lambda: ak.flash_decode_frozen(q, ks, vs, mask, ki, vi,
+                                                      next(layers) % Lc, step, scale),
+                       iters=4 * Lc)
+    b_ms, b_by = bound_ms(*_decode_cost(q, mask, ki, step, None), "bfloat16")
+    log(f"[paged] flash_decode_frozen G=16 (128/8 heads, D 128, T 1024, 4 rows) bf16: "
+        f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms bound {b_ms:.4f} ms "
+        f"({b_by})")
+    del q, ks, vs, ki, vi
+    # K8 and K9 on the serve phase's pool at 16 query heads per KV head
+    lens = list(PAGED_LENGTHS)
+    q, kp, vp, tables, lengths, starts, ki, vi = _paged_case(Lc, Nq, Nk, D, lens, {}, bf16,
+                                                             seed=501)
+    step = PAGED["N"] - 1
+    for name, kern, plain, call, cost in (
+            ("paged_decode_frozen", pa.paged_decode_frozen, pa.paged_decode_frozen_plain,
+             lambda l: (q, kp, vp, tables, lengths, starts, ki, vi, l, step, scale, None),
+             _paged_cost(q, Nk, lens, step, None)),
+            ("paged_decode", pa.paged_decode, pa.paged_decode_plain,
+             lambda l: (q, kp[l], vp[l], tables, lengths, starts, scale, None),
+             _k9_cost(q, Nk, tables, lengths, starts, None, 2))):
+        for l in (0, Lc - 1):
+            got, want = kern(*call(l)), plain(*call(l))
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = _paged_tol("bfloat16", want)
+            if not (math.isfinite(err) and err <= tol):
+                raise PhaseError(f"{name} G=16 l={l}: error {err} > {tol}")
+        layers = iter(range(10 ** 9))
+        t_k = cuda_time_ms(lambda: kern(*call(next(layers) % Lc)), iters=4 * Lc)
+        b_ms, b_by = bound_ms(*cost, "bfloat16")
+        log(f"[paged] {name} G=16 (128/8 heads, D 128, the serve phase's 16 rows) bf16: "
+            f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms bound {b_ms:.4f} ms "
+            f"({b_by})")
+    del q, kp, vp, ki, vi
+    torch.cuda.empty_cache()
+    # K10 past 64 rows per KV head
+    for nq, S in ((64, 9), (128, 5)):
+        lens_c = [0 if b == 3 else n for b, n in enumerate(SPEC_LENGTHS)]
+        args, base, q_slots, infl_slots = _spec_kernel_case(
+            Lc, nq, Nk, D, lens_c, {3: 0}, bf16, False, 0, seed=502 + nq, S=S)
+        for l in (0, Lc - 1):
+            call = (*args, l, base, scale, None, q_slots, infl_slots)
+            got, want = pa.paged_decode_spec(*call), pa.paged_decode_spec_plain(*call)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = _paged_tol("bfloat16", want)
+            if not (math.isfinite(err) and err <= tol):
+                raise PhaseError(f"paged_decode_spec S*G={S * nq // Nk} l={l}: error {err} "
+                                 f"> {tol}")
+        layers = iter(range(10 ** 9))
+        t_k = cuda_time_ms(lambda: pa.paged_decode_spec(
+            *args, next(layers) % Lc, base, scale, None, q_slots, infl_slots), iters=4 * Lc)
+        b_ms, b_by = bound_ms(*_spec_cost(args, base, q_slots, infl_slots, None), "bfloat16")
+        log(f"[paged] paged_decode_spec S*G={S * nq // Nk} (G {nq // Nk}, S {S}, D 128, 16 "
+            f"rows) bf16: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        del args
+        torch.cuda.empty_cache()
+
+
 def main_path_shapes() -> dict:
     """Shapes the model phase gives each kernel (the engine's cache length
     rule: the bucketed prompt plus every decode chunk)."""
@@ -1339,19 +1627,22 @@ def _left_padded_batch(S, lens, vocab, seed):
 
 
 def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS,
-               kv_dtype=None):
+               kv_dtype=None, model=None):
     """Prefill + n_chunks greedy decode chunks on one attention route, the
     KV cache in kv_dtype (default: the params' dtype).
 
     With `force` (the tokens [1 + n_chunks*chunk, B] of another run) every step
     is fed force's token instead of its own argmax, so two routes see the
-    same inputs at every position. Returns (the logits of every sampled
-    position [1 + n_chunks*chunk, B, V], the tokens fed on [1 + n_chunks*chunk, B],
+    same inputs at every position. `model` is the family's module (default
+    models.causal_lm). Returns (the logits of every sampled position
+    [1 + n_chunks*chunk, B, V], the tokens fed on [1 + n_chunks*chunk, B],
     prefill ms, decode ms/step)."""
     import torch
 
     from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
-    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.models import causal_lm, params_dtype
+
+    model = model or causal_lm
 
     ids, positions, valid = batch
     B = ids.shape[0]
@@ -1364,20 +1655,20 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS,
         fed.append(tok.to(torch.int32))
         return fed[-1]
 
-    cache = create_kv_cache(cfg, B, T, dtype=kv_dtype or params["embed"].dtype,
+    cache = create_kv_cache(cfg, B, T, dtype=kv_dtype or params_dtype(params),
                             device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = causal_lm.forward(params, cfg, ids, cache, positions, valid,
-                                      last_only=True, attn_impl=attn_impl)
+    logits, cache = model.forward(params, cfg, ids, cache, positions, valid,
+                                  last_only=True, attn_impl=attn_impl)
     tok = pick(logits[:, -1])
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
     for c in range(n_chunks):
         pos0 = (lens + c * DECODE_CHUNK)[:, None]
-        chunk, cache = causal_lm.decode_steps(params, cfg, tok, cache, pos0,
-                                              DECODE_CHUNK, pick, attn_impl)
+        chunk, cache = model.decode_steps(params, cfg, tok, cache, pos0,
+                                          DECODE_CHUNK, pick, attn_impl)
         tok = chunk[-1]
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
@@ -1400,7 +1691,8 @@ def host_launch_us(n: int = 2000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None) -> None:
+def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
+                    model=None, tag: str = "[profile]") -> None:
     """Device time by kernel over PROFILE_STEPS decode steps of the kernel
     route (torch.profiler), against their wall time: where a step's time
     goes, and how much of it the device sits idle. The profiler's own cost
@@ -1410,21 +1702,22 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None) -
     from torch.profiler import ProfilerActivity, profile
 
     from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
-    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.models import causal_lm, params_dtype
 
+    model = model or causal_lm
     ids, positions, valid = batch
     lens = valid.sum(dim=1).to(torch.int32)
-    cache = create_kv_cache(cfg, ids.shape[0], T, dtype=kv_dtype or params["embed"].dtype,
+    cache = create_kv_cache(cfg, ids.shape[0], T, dtype=kv_dtype or params_dtype(params),
                             device=DEVICE)
-    logits, cache = causal_lm.forward(params, cfg, ids, cache, positions, valid,
-                                      last_only=True)
+    logits, cache = model.forward(params, cfg, ids, cache, positions, valid,
+                                  last_only=True)
     tok = logits[:, -1].argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     n = PROFILE_STEPS
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        causal_lm.decode_steps(params, cfg, tok, cache, lens[:, None], n,
-                               lambda lg: lg.argmax(-1))
+        model.decode_steps(params, cfg, tok, cache, lens[:, None], n,
+                           lambda lg: lg.argmax(-1))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, memcpy/memset); the CPU-side ops
@@ -1434,8 +1727,8 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None) -
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(us for us, _, _ in kernels)
     if not busy_us:
-        log("[profile] decode steps: device time not measured (the profiler saw "
-            "no device activity)")
+        log(f"{tag} decode steps: device time not measured (the profiler saw "
+            f"no device activity)")
         return
     groups = {"flash_decode_frozen": 0.0, "int4 (K6, K7)": 0.0, "int8 (K5a, K3)": 0.0,
               "GEMM (cuBLAS)": 0.0, "other": 0.0}
@@ -1451,17 +1744,17 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None) -
         else:
             groups["other"] += us
     launches = sum(c for _, c, _ in kernels)
-    log(f"[profile] {label}: {n} decode steps under the profiler: wall {wall_us / n / 1e3:.3f} "
+    log(f"{tag} {label}: {n} decode steps under the profiler: wall {wall_us / n / 1e3:.3f} "
         f"ms/step, device busy {busy_us / n / 1e3:.3f} ms/step "
         f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% "
         f"idle), {launches // n} device launches/step; by group (ms/step): "
         + ", ".join(f"{k} {v / n / 1e3:.3f}" for k, v in groups.items()))
     for us, count, key in sorted(kernels, reverse=True)[:8]:
-        log(f"[profile]   {us / n / 1e3:8.4f} ms/step  {count // n:4d} launches/step  "
+        log(f"{tag}   {us / n / 1e3:8.4f} ms/step  {count // n:4d} launches/step  "
             f"{key[:90]}")
 
 
-def _check_routes(label, kern, plain, tol):
+def _check_routes(label, kern, plain, tol, tag="[model]"):
     """Kernel route (fed the plain route's greedy tokens) vs plain route:
     the logits of every sampled position within `tol` (max abs), and the
     greedy choice equal at every position but a near-tie, where the plain
@@ -1472,7 +1765,7 @@ def _check_routes(label, kern, plain, tol):
     err_all = (lg_k - lg_p).abs().amax(dim=-1)             # [n_tok, B]
     err = err_all.max().item()
     rel = ((lg_k[0] - lg_p[0]).norm() / lg_p[0].norm()).item()
-    log(f"[model] {label}: logits kernel vs plain (same inputs at every position), "
+    log(f"{tag} {label}: logits kernel vs plain (same inputs at every position), "
         f"max_abs_err {err:.4g} over {n_tok} positions x {B} rows (tol {tol}); "
         f"prefill last position {err_all[0].max().item():.4g}, relative L2 {rel:.3g}, "
         f"logits std {lg_p[0].std().item():.3g}")
@@ -1483,7 +1776,7 @@ def _check_routes(label, kern, plain, tol):
     differ = lg_k.argmax(dim=-1) != lg_p.argmax(dim=-1)
     near_tie = 2 * tol
     bad = differ & (gap >= near_tie)
-    log(f"[model] {label}: greedy choice differs at {int(differ.sum())} of "
+    log(f"{tag} {label}: greedy choice differs at {int(differ.sum())} of "
         f"{n_tok * B} positions, {int(bad.sum())} of them outside a near-tie "
         f"(top-2 gap < {near_tie}, found at {int((gap < near_tie).sum())} positions)")
     if bad.any():
@@ -1829,34 +2122,48 @@ def phase_awq(params) -> None:
 # -- serving -------------------------------------------------------------------
 
 
-def _serving_model(counts):
-    """The model entry the batcher drives, counting admissions (one dense
-    forward each), plain decode steps and speculative verify rounds."""
+def _serving_model(counts, model=None, stepwise=False):
+    """The model entry the batcher drives (`model`: the family's module,
+    default models.causal_lm), counting admissions (one dense forward
+    each), decode steps and speculative verify rounds. With `stepwise` the
+    namespace has forward_paged and no decode_paged_steps: the batcher then
+    runs its stepwise quantum (K9)."""
     from types import SimpleNamespace
 
     from tinygpt_tpu_torch.models import causal_lm
 
+    model = model or causal_lm
+
     def forward(*args, **kw):
         counts["admissions"] += 1
-        return causal_lm.forward(*args, **kw)
+        return model.forward(*args, **kw)
+
+    def forward_paged(*args, **kw):
+        counts["steps"] += 1
+        return model.forward_paged(*args, **kw)
 
     def decode_paged_steps(params, cfg, tok0, state, n_steps, sample_fn,
                            attn_impl="kernel"):
         counts["steps"] += n_steps
-        return causal_lm.decode_paged_steps(params, cfg, tok0, state, n_steps,
-                                            sample_fn, attn_impl=attn_impl)
+        return model.decode_paged_steps(params, cfg, tok0, state, n_steps,
+                                        sample_fn, attn_impl=attn_impl)
 
     def decode_paged_spec_steps(params, cfg, tok0, state, ctx, clen, n_rounds, *args,
                                 **kw):
         counts["rounds"] += n_rounds
-        return causal_lm.decode_paged_spec_steps(params, cfg, tok0, state, ctx, clen,
-                                                 n_rounds, *args, **kw)
+        return model.decode_paged_spec_steps(params, cfg, tok0, state, ctx, clen,
+                                             n_rounds, *args, **kw)
 
-    return SimpleNamespace(forward=forward, decode_paged_steps=decode_paged_steps,
-                           decode_paged_spec_steps=decode_paged_spec_steps)
+    if stepwise:
+        return SimpleNamespace(forward=forward, forward_paged=forward_paged)
+    ns = SimpleNamespace(forward=forward, decode_paged_steps=decode_paged_steps)
+    if hasattr(model, "decode_paged_spec_steps"):
+        ns.decode_paged_spec_steps = decode_paged_spec_steps
+    return ns
 
 
-def _serving_batcher(params, cfg, counts, dtype="bfloat16", attn_impl="kernel", **kw):
+def _serving_batcher(params, cfg, counts, dtype="bfloat16", attn_impl="kernel", model=None,
+                     stepwise=False, **kw):
     """The serving leg's scheduler: capacity 16, block 64, 257 blocks, 16
     blocks a row, bucket 64, whole-prompt admission, prefix cache on,
     quantum 8, pipelined; `kw` adds SchedulerConfig fields (speculation)."""
@@ -1864,7 +2171,7 @@ def _serving_batcher(params, cfg, counts, dtype="bfloat16", attn_impl="kernel", 
 
     s = SERVE
     return ContinuousBatcher(
-        _serving_model(counts), cfg, params, eos_ids=set(),
+        _serving_model(counts, model, stepwise), cfg, params, eos_ids=set(),
         config=SchedulerConfig(
             batch_capacity=s["capacity"], block_size=s["block"],
             n_blocks=s["n_blocks"], max_blocks_per_seq=s["max_blocks"],
@@ -2252,6 +2559,322 @@ def phase_spec_serve(table: dict, params) -> None:
     torch.cuda.empty_cache()
 
 
+# -- GPT-2 ---------------------------------------------------------------------
+
+
+def _gpt2_quant_kernels(qparams, bits, Ms) -> None:
+    """K5a (int8) or K5b (int4) against its plain version on GPT-2 124M's
+    own quantized layer stacks (qkv 768->2304, o 768->768, fc 768->3072,
+    proj 3072->768) at the path's row counts Ms (a decode step's and the
+    prefill's), bf16 and fp32 activations, the first and the last layer;
+    each within QUANT_TOL of its largest output, as in the int8 and int4
+    phases."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    name = f"matmul_dequant_int{bits}_stacked"
+    kern, plain = getattr(qk, name), getattr(qk, name + "_plain")
+    worst = 0.0
+    for key in ("qkv_w", "o_w", "fc_w", "proj_w"):
+        w = qparams["layers"][key]
+        L = w.data.shape[0]
+        for M in Ms:
+            gx = torch.Generator(device=DEVICE).manual_seed(M)
+            x32 = torch.randn((M, w.in_dim), generator=gx, device=DEVICE)
+            for dt in (torch.bfloat16, torch.float32):
+                x, dname = x32.to(dt), str(dt).replace("torch.", "")
+                for l in (0, L - 1):
+                    got = kern(x, w.data, w.scales, l, w.group_size)
+                    want = plain(x, w.data, w.scales, l, w.group_size)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = QUANT_TOL[dname] * want.float().abs().max().item()
+                    worst = max(worst, err / tol)
+                    if not (math.isfinite(err) and err <= tol):
+                        raise PhaseError(f"gpt2 {name} {key} M={M} {w.in_dim}->{w.out_dim} "
+                                         f"l={l} {dname}: max_abs_err {err} > {tol}")
+    log(f"[gpt2] {name} on GPT-2's qkv, o, fc and proj stacks (group {w.group_size}) at "
+        f"M = {', '.join(map(str, Ms))}, bf16 and fp32, first and last layer: worst "
+        f"max_abs_err {worst:.3g} of its tolerance (one bf16 ulp of the largest output, "
+        f"1e-4 of it in fp32)")
+
+
+def phase_gpt2(table: dict):
+    """GPT-2 124M at full width (12 layers, 12 heads of 64, MLP 3,072, vocab
+    50,257, n_positions 1,024, tied head; random weights, seed 0) on the
+    model phase's batch (4 left-padded prompts of 512/400/300/128 tokens,
+    two greedy chunks of 32): prefill through K1 and decode through K2,
+    kernel route against plain route, first in fp32 (free-running greedy
+    tokens identical), then in bf16 with exact launch counts, the decode
+    step under the profiler; then int8 (group 128) and int4 (group 64)
+    layer weights through K5a and K5b (the head stays a float matmul),
+    each kernel first held against its plain version on GPT-2's own
+    stacks.
+    Returns the bf16 params (gpt2_serve serves them)."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import gpt2
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops.quant import quantize_params
+
+    mp = main_path_shapes()
+    S, T = mp["prefill"]["S"], mp["prefill"]["T"]
+    cfg = parse_model_config(GPT2_124M)
+    L, B = cfg.num_hidden_layers, len(PROMPT_LENS)
+    n = N_CHUNKS * DECODE_CHUNK
+    batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
+    with torch.inference_mode():
+        p32 = gpt2.init_params(cfg, seed=0, dtype=torch.float32, device=DEVICE)
+        plain = _run_route(p32, cfg, batch, T, "plain", model=gpt2)
+        kern = _run_route(p32, cfg, batch, T, "kernel", force=plain[1], model=gpt2)
+        _check_routes(f"fp32, {L} layers", kern, plain, MODEL_LOGIT_TOL["float32"],
+                      tag="[gpt2]")
+        if not torch.equal(_run_route(p32, cfg, batch, T, "kernel", model=gpt2)[1], plain[1]):
+            raise PhaseError("gpt2 fp32: free-running greedy tokens of the kernel route "
+                             "differ from the plain route's")
+        log(f"[gpt2] fp32, {L} layers: free-running greedy tokens identical on both routes")
+        del p32
+
+        params = gpt2.init_params(cfg, seed=0, dtype=torch.bfloat16, device=DEVICE)
+        n_bytes = sum(_nbytes(t) for t in [params["wte"], params["wpe"],
+                                           *params["layers"].values()])
+        _run_route(params, cfg, batch, T, "kernel", model=gpt2)   # warm-up
+        plain = _run_route(params, cfg, batch, T, "plain", model=gpt2)
+        forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1], model=gpt2)
+        ak.reset_launches()                                       # the GPT-2 path's run
+        kern = _run_route(params, cfg, batch, T, "kernel", model=gpt2)
+        launches = dict(ak.LAUNCHES)
+        _profile_decode(params, cfg, batch, T, label=f"GPT-2 124M bf16, batch {B}",
+                        model=gpt2, tag="[gpt2]")
+    want = {"flash_prefill": L, "flash_decode_frozen": L * n}
+    log(f"[gpt2] launches {launches} (want {want}: L per prefill, L per decode step)")
+    if launches != want:
+        raise PhaseError(f"gpt2: kernel launches {launches} != {want}")
+    _check_routes(f"bf16, {L} layers", forced, plain, GPT2_LOGIT_TOL_BF16, tag="[gpt2]")
+    # a decode step reads every layer's weights, the tied head (wte) and the
+    # K/V cache; wpe rows are negligible
+    step_bytes = (n_bytes - _nbytes(params["wpe"])
+                  + 2 * L * B * cfg.num_kv_heads * T * cfg.head_dim * 2)
+    log(f"[gpt2] GPT-2 124M bf16 ({n_bytes / 1e6:.1f} MB of params), kernel route: prefill "
+        f"{kern[2]:.2f} ms ({B}x{S} tokens), decode {kern[3]:.3f} ms/step, "
+        f"{B * 1e3 / kern[3]:.1f} tok/s at batch {B}; plain route: prefill {plain[2]:.2f} ms, "
+        f"decode {plain[3]:.3f} ms/step; bound of a step ({step_bytes / 1e6:.1f} MB read "
+        f"once) {step_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+    for bits, group in ((8, INT8_GROUP), (4, INT4_GROUP)):
+        name = f"matmul_dequant_int{bits}_stacked"
+        with torch.inference_mode():
+            q = quantize_params(params, bits=bits, group_size=group)
+            _gpt2_quant_kernels(q, bits, (B, B * S))
+            plain = _run_route(q, cfg, batch, T, "plain", model=gpt2)
+            _run_route(q, cfg, batch, T, "kernel", force=plain[1], model=gpt2)  # warm-up
+            ak.reset_launches()
+            kern = _run_route(q, cfg, batch, T, "kernel", force=plain[1], model=gpt2)
+            launches = dict(ak.LAUNCHES)
+            del q
+        want = {"flash_prefill": L, "flash_decode_frozen": L * n, name: 4 * L * (1 + n)}
+        log(f"[gpt2] int{bits} (group {group}) launches {launches} (want {want}: K5"
+            f"{'a' if bits == 8 else 'b'} {4 * L} per prefill and per decode step)")
+        if launches != want:
+            raise PhaseError(f"gpt2 int{bits}: kernel launches {launches} != {want}")
+        _check_routes(f"int{bits}, bf16, {L} layers", kern, plain, GPT2_LOGIT_TOL_BF16,
+                      tag="[gpt2]")
+        log(f"[gpt2] int{bits} kernel route: prefill {kern[2]:.2f} ms, decode "
+            f"{kern[3]:.3f} ms/step; plain route: prefill {plain[2]:.2f} ms, decode "
+            f"{plain[3]:.3f} ms/step")
+    torch.cuda.empty_cache()
+    return params
+
+
+def _profile_quantum(batcher, params, cfg, prompt, tag, kernel):
+    """Fills every row of `batcher` (requests of the serving prompt length),
+    then runs one quantum of its selected kind (frozen or stepwise) on its
+    state under torch.profiler: (wall ms/step, device busy ms/step, `kernel`
+    ms/step, device launches/step), or None when the profiler saw no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinygpt_tpu_torch.engine.scheduler import Request
+
+    s = SERVE
+    for i in range(s["capacity"]):
+        batcher.add_request(Request(request_id=1000 + i, prompt_ids=prompt(s["prompt_len"]),
+                                    max_new_tokens=s["profile_new"]))
+    while batcher.waiting or batcher.n_running < s["capacity"]:
+        batcher.step()
+    batcher._drain_inflight()
+    Q = s["quantum"]
+    batcher._ensure_blocks(Q)
+    batcher._sync_state_meta()
+    tok = torch.tensor(batcher._tokens, device=DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batcher._decode_fn(params, cfg, batcher.state, tok, batcher._sampler_params_dev(),
+                           batcher._gen, n_steps=Q, all_greedy=True, attn_impl="kernel")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(us for us, _, _ in kernels)
+    if not busy:
+        log(f"{tag} one quantum: device time not measured (the profiler saw no device "
+            f"activity)")
+        return None
+    k_us = sum(us for us, _, key in kernels
+               if kernel in key and (kernel != "paged_decode" or "frozen" not in key
+                                     and "spec" not in key))
+    for us, count, key in sorted(kernels, reverse=True)[:6]:
+        log(f"{tag}   {us / Q / 1e3:8.4f} ms/step  {count // Q:4d} launches/step  {key[:90]}")
+    return (wall_us / Q / 1e3, busy / Q / 1e3, k_us / Q / 1e3,
+            sum(c for _, c, _ in kernels) // Q)
+
+
+def phase_gpt2_serve(table: dict, params) -> None:
+    """The continuous batcher on GPT-2 124M's bf16 params under the serve
+    phase's traffic (capacity 16, block 64, 257 blocks, quantum 8,
+    pipelined, prefix cache on; 16 requests of 512 random tokens, 256
+    greedy new tokens each, one every 0.25 s): once with the frozen quantum
+    (decode_paged_steps, K8) and once with the stepwise one (the namespace
+    without decode_paged_steps: forward_paged, K9, 12 launches a step),
+    each with exact launch counts and one quantum at 16 live rows under the
+    profiler. The two runs' greedy streams are counted equal (bf16: the two
+    attention kernels sum in other orders, so a near-tie may part two
+    streams); at 12 layers in fp32 they must be identical."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import gpt2
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    s = SERVE
+    cfg = parse_model_config(GPT2_124M)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return [int(x) for x in rng.integers(3, V, n)]
+
+    warm = prompt(s["prompt_len"])
+    prompts = [prompt(s["prompt_len"]) for _ in range(s["n_requests"])]
+    streams = {}
+    with torch.inference_mode():
+        for quantum, kname in (("frozen", "paged_decode_frozen"), ("stepwise", "paged_decode")):
+            counts = Counter()
+            b = _serving_batcher(params, cfg, counts, model=gpt2,
+                                 stepwise=quantum == "stepwise")
+            _drive(b, [warm], s["warm_new"])
+            torch.cuda.synchronize()
+            counts.clear()
+            ak.reset_launches()                               # this quantum's run
+            run = _drive(b, prompts, s["max_new"], s["gap_s"])
+            torch.cuda.synchronize()
+            launches = dict(ak.LAUNCHES)
+            m = _serving_metrics(run)
+            steps, adm = counts["steps"], counts["admissions"]
+            n_out = sorted(len(v) for v in run["streams"].values())
+            log(f"[gpt2_serve] {quantum} quantum: {s['n_requests']} requests of "
+                f"{s['prompt_len']} random tokens, {s['max_new']} new each, one every "
+                f"{s['gap_s']} s: TTFT p50 {m['ttft_p50_s']:.4f} s p95 {m['ttft_p95_s']:.4f} s; "
+                f"{run['toks']} tokens in {m['wall_s']:.3f} s = {m['tok_s']:.2f} tok/s whole "
+                f"run, {m['steady_tok_s']:.2f} tok/s steady; {steps} decode steps, {adm} "
+                f"admissions")
+            if n_out != [s["max_new"]] * s["n_requests"]:
+                raise PhaseError(f"gpt2_serve {quantum}: tokens per request {n_out}")
+            want = {kname: L * steps, "flash_prefill": L * adm}
+            log(f"[gpt2_serve] {quantum} launches {launches} (want {want}: per decode step "
+                f"{L} of {kname}; per admission K1 {L})")
+            if adm != s["n_requests"] or launches != want:
+                raise PhaseError(f"gpt2_serve {quantum}: launches {launches} != {want}")
+            if quantum == "stepwise":
+                table["paged_decode"]["launches"] = launches["paged_decode"]
+            streams[quantum] = run["streams"]
+            prof = _profile_quantum(b, params, cfg, prompt, "[gpt2_serve]", kname)
+            if prof:
+                wall, busy, k_ms, n_launch = prof
+                log(f"[gpt2_serve] {quantum} quantum of {s['quantum']} steps at "
+                    f"{s['capacity']} live rows under the profiler: wall {wall:.3f} ms/step, "
+                    f"device busy {busy:.3f} ms/step ({100 * busy / wall:.1f}% busy), "
+                    f"{n_launch} device launches/step, {kname} {k_ms:.4f} ms/step")
+            del b
+            torch.cuda.empty_cache()
+        same = sum(streams["frozen"][i] == streams["stepwise"][i] for i in streams["frozen"])
+        log(f"[gpt2_serve] bf16: greedy streams of the frozen and the stepwise quantum "
+            f"identical in {same} of {s['n_requests']} requests (K8 and K9 sum in other "
+            f"orders, so a near-tie may part two streams)")
+
+        # 12 layers in fp32: the two quanta's streams must be identical
+        p32 = gpt2.init_params(cfg, seed=0, dtype=torch.float32, device=DEVICE)
+        f = GPT2_FP32_SERVE
+        short = [prompt(s["prompt_len"] * k // 8) for k in (8, 5, 1, 3, 6, 2)][: f["n_requests"]]
+        got = {}
+        for quantum in ("frozen", "stepwise"):
+            b = _serving_batcher(p32, cfg, Counter(), dtype="float32", model=gpt2,
+                                 stepwise=quantum == "stepwise")
+            got[quantum] = _drive(b, short, f["max_new"])["streams"]
+            del b
+        same = sum(got["frozen"][i] == got["stepwise"][i] for i in got["frozen"])
+        log(f"[gpt2_serve] fp32, {L} layers: greedy streams of {len(short)} requests "
+            f"({f['max_new']} new each) identical on the frozen and stepwise quanta in "
+            f"{same} of {len(short)}")
+        if same != len(short) or sorted(map(len, got["frozen"].values())) != [
+                f["max_new"]] * len(short):
+            raise PhaseError(f"gpt2_serve fp32: streams differ: {got}")
+        del p32
+    torch.cuda.empty_cache()
+
+
+def _write_gpt2_dir(d: str) -> None:
+    """A GPT-2 124M-width model dir, 2 layers, random bf16 weights under HF
+    names and the generated Metaspace-BPE tokenizer (which covers the first
+    36,858 ids; an id past it decodes to nothing)."""
+    import torch
+
+    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
+
+    write_random_model_dir(d, dict(GPT2_124M, n_layer=2), seed=3, dtype=torch.bfloat16,
+                           device=DEVICE)
+
+
+def phase_gpt2_engine(d: str) -> None:
+    """GPTEngine on the GPT-2 dir `d` in bf16 (generate_sync of 4 prompts,
+    K1 and K2), then batch-1 n-gram speculation against the chunked loop."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    max_tokens = 32
+    prompts = ["The meaning of life is", "Once upon a time,",
+               "In a shocking finding, scientists discovered",
+               "The best way to learn programming is"]
+    t0 = time.perf_counter()
+    eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE))
+    eng.prepare()
+    t_load = time.perf_counter() - t0
+    ak.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate_sync(prompts)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = dict(ak.LAUNCHES)
+    del eng
+    n = [len(o.token_ids) for o in outs]
+    log(f"[gpt2_engine] GPT-2 width, 2 layers, bf16: prepare() {t_load:.1f} s; generate_sync of "
+        f"{len(prompts)} prompts: {sum(n)} tokens in {t_gen * 1e3:.0f} ms; launches {launches}")
+    if n != [max_tokens] * len(prompts) or not (launches.get("flash_prefill")
+                                                and launches.get("flash_decode_frozen")):
+        raise PhaseError(f"gpt2 engine: {n} tokens, launches {launches}")
+    _engine_spec(d)
+
+
 def _write_model_dir(d: str) -> None:
     """A model dir of Mistral-7B widths, 2 layers, random bf16 weights and
     the generated Metaspace-BPE tokenizer (the engine and server phases)."""
@@ -2626,6 +3249,10 @@ def main() -> int:
         timed("int8", phase_int8_kernels, table)
         timed("model8", phase_model_quant, table, 8)
         torch.cuda.empty_cache()
+        gparams = timed("gpt2", phase_gpt2, table)
+        timed("gpt2_serve", phase_gpt2_serve, table, gparams)
+        del gparams
+        torch.cuda.empty_cache()
         from tinygpt_tpu_torch.ops import cuda_build
 
         cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2635,6 +3262,13 @@ def main() -> int:
             timed("engine", phase_engine, d)
             timed("evaluate", phase_evaluate, d)
             timed("server", phase_server, d)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        d = tempfile.mkdtemp(prefix="smoke_gpt2_", dir=cuda_build.BUILD_DIR)
+        try:
+            timed("gpt2 dir", _write_gpt2_dir, d)
+            timed("gpt2_engine", phase_gpt2_engine, d)
+            timed("gpt2_server", phase_server, d)
         finally:
             shutil.rmtree(d, ignore_errors=True)
     except PhaseError as e:

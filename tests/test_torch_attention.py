@@ -208,3 +208,60 @@ def test_cpu_calls_do_not_count_as_launches():
     k = torch.randn(1, 1, 8, 64)
     tak.flash_prefill(q, k, k, torch.ones(1, 8, dtype=torch.bool), 0.125)
     assert sum(tak.LAUNCHES.values()) == 0
+
+
+# -- shapes the kernels take, checked at start ------------------------------------
+
+
+def _cfg(Nq, Nk, D, model_type="llama"):
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+
+    return parse_model_config(dict(
+        model_type=model_type, vocab_size=101, hidden_size=Nq * D, intermediate_size=128,
+        num_hidden_layers=1, num_attention_heads=Nq, num_key_value_heads=Nk,
+        max_position_embeddings=64, head_dim=D))
+
+
+@pytest.mark.parametrize("Nq,Nk,D", [(128, 8, 128),   # Llama-3.1-405B's heads: G = 16
+                                     (64, 8, 128),    # G = 8 (8 drafts: S * G = 72)
+                                     (12, 12, 64),    # GPT-2's
+                                     (32, 8, 64)])
+def test_check_kernel_shapes_accepts_what_the_kernels_take(Nq, Nk, D):
+    """A pure function of the config: it decides without a card."""
+    tak.check_kernel_shapes(_cfg(Nq, Nk, D), "cuda")
+
+
+@pytest.mark.parametrize("Nq,Nk,D,match", [(4, 2, 96, "head dim 96"),
+                                           (34, 2, 64, "17 query heads per KV head"),
+                                           (6, 4, 64, "6 query heads over 4")])
+def test_check_kernel_shapes_rejects_on_the_card_only(Nq, Nk, D, match):
+    cfg = _cfg(Nq, Nk, D)
+    with pytest.raises(ValueError, match=match):
+        tak.check_kernel_shapes(cfg, torch.device("cuda"))
+    tak.check_kernel_shapes(cfg, "cpu")  # the plain versions take any shape
+
+
+def test_prepare_and_the_batcher_check_shapes_at_start(tmp_path, monkeypatch):
+    """GPTEngine.prepare() refuses a head dim of 96 for the card before it
+    loads a weight (so without a card here), and ContinuousBatcher's
+    constructor checks its config on its params' device."""
+    from tinygpt_tpu_torch.engine import scheduler
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+    from tinygpt_tpu_torch.models import get_model
+    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
+
+    d = write_random_model_dir(str(tmp_path / "d96"), dict(
+        model_type="llama", vocab_size=300, hidden_size=192, intermediate_size=64,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=2,
+        max_position_embeddings=64), dtype=torch.float32)
+    with pytest.raises(ValueError, match="head dim 96"):
+        GPTEngine(GPTConfig(model_dir=d, device="cuda")).prepare()
+    eng = GPTEngine(GPTConfig(model_dir=d, device="cpu", dtype="float32"))
+    eng.prepare()  # the CPU takes it
+    seen = []
+    monkeypatch.setattr(scheduler, "check_kernel_shapes",
+                        lambda cfg, dev: seen.append((cfg.head_dim, torch.device(dev))))
+    cfg = eng.ctx.model_config
+    scheduler.ContinuousBatcher(get_model("llama"), cfg, eng.ctx.params, eos_ids=set(),
+                                config=scheduler.SchedulerConfig(dtype="float32"))
+    assert seen == [(96, torch.device("cpu"))]

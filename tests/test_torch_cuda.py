@@ -7,8 +7,9 @@ the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 The cases reach the edges that chip_smoke.py's main-path shapes do not:
-one query row, caches that end inside a tile, 1 to 8 query heads per KV
-head, windows narrower than a tile, query rows that see no slot, and every
+one query row, caches that end inside a tile, 1 to 16 query heads per KV
+head (more than 8 split over blocks), more than 64 verify rows per KV
+head (K10), windows narrower than a tile, query rows that see no slot, and every
 dtype the kernels take, e4m3 caches and pools included (decoded exactly,
 so the same tolerances hold). Both sides compute in fp32 from the same inputs
 in another order, then round the output once: tolerance 1e-4 in fp32,
@@ -85,6 +86,8 @@ DECODE_CASES = [
     (64, torch.float16, 6, 2, 2, 300, 32, (0, 200), 290, 31, 50),    # G = 3
     (128, torch.float32, 10, 2, 2, 130, 32, (3, 0), 129, 0, 3),      # G = 5, window < step
     (128, torch.bfloat16, 8, 1, 4, 300, 16, (0, 100), 300, 15, 20),  # G = 8
+    (128, torch.bfloat16, 128, 8, 2, 200, 8, (0, 77), 150, 7, None),  # G = 16: 2 blocks a head
+    (64, torch.float32, 24, 2, 2, 100, 4, (5, 0), 90, 3, 30),        # G = 12: 2 blocks of 6
 ]
 
 
@@ -130,7 +133,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                          valid, 0.1)
     with pytest.raises(ValueError, match="do not fit"):
         ak.flash_prefill(q, k, k, valid, 0.1, q_slot=1)
-    qd = torch.zeros(1, 32, 64, device=dev)
+    qd = torch.zeros(1, 34, 64, device=dev)  # 17 query heads per KV head
     ks = torch.zeros(1, 1, 2, 8, 64, device=dev)
     ki = torch.zeros(1, 2, 4, 64, device=dev)
     with pytest.raises(ValueError, match="at most"):
@@ -376,6 +379,9 @@ PAGED_CASES = [
      True),
     (128, torch.float32, 2, 2, 16, 4, 20, 6, (60, 33, 1000), (0, 0, 0), (2,), (0, 5),
      40, False),                                          # stale length > MB * bs
+    (128, torch.bfloat16, 16, 8, 64, 4, 40, 4, (200, 37, 129), (0, 0, 3), (), (0, 3),
+     None, True),                                         # G = 16 (Llama-3.1-405B)
+    (64, torch.float16, 10, 1, 16, 6, 20, 4, (90, 17), (2, 0), (), (1,), 33, True),  # G = 10
 ]
 
 
@@ -755,6 +761,12 @@ SPEC_CASES = [
      None, True),                                          # 64 rows a KV head
     (128, torch.float32, False, 3, 4, 2, 16, 4, 20, 2, 1, (60, 33, 1000), (0, 0, 0),
      (2,), 7, False),                                      # a stale length > MB * bs
+    (128, torch.bfloat16, False, 8, 9, 2, 64, 4, 20, 1, 0, (130, 64, 250), (0, 0, 0), (),
+     None, True),                                          # S * G = 72: 2 row groups
+    (128, torch.bfloat16, True, 16, 5, 2, 64, 4, 20, 2, 1, (130, 64, 200), (0, 0, 0), (),
+     100, False),                                          # S * G = 80, e4m3, a window
+    (64, torch.float32, False, 12, 12, 1, 16, 8, 40, 1, 0, (40, 100), (0, 7), (), 20,
+     True),                                                # S * G = 144: 3 row groups
 ]
 
 
@@ -820,8 +832,8 @@ def test_paged_decode_spec_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         pa.paged_decode_spec(*args, 2, base, 0.1)
     with pytest.raises(ValueError, match="q_slots"):
         pa.paged_decode_spec(*args, 0, base, 0.1, 20)
-    with pytest.raises(ValueError, match="at most"):
-        pa.paged_decode_spec(q.repeat(1, 1, 33, 1), kp, vp, tables, lens, sts, ki, vi,
+    with pytest.raises(ValueError, match="query heads over"):
+        pa.paged_decode_spec(q[:, :, :3].contiguous(), kp, vp, tables, lens, sts, ki, vi,
                              valid, 0, base, 0.1)
     with pytest.raises(TypeError, match="dtype"):
         pa.paged_decode_spec(q, kp, vp, tables, lens, sts, ki, vi, valid.int(), 0, base,
@@ -915,3 +927,109 @@ def test_fp8_engine_and_spec_on_the_card(dev, tmp_path):
     torch.cuda.synchronize()
     assert ak.LAUNCHES["flash_prefill"] > 0 and ak.LAUNCHES["flash_decode_frozen"] > 0
     assert all(len(o.token_ids) == 16 for o in out)
+
+
+# -- K9: the single-layer paged decode (forward_paged) ----------------------------
+
+K9_CASES = [
+    # (D, dtype, G, Nk, bs, MB, n_blocks, lengths, starts, inactive, window, poison)
+    (64, torch.bfloat16, 1, 12, 64, 16, 257,             # the GPT-2 serving shape
+     tuple(64 * i + 1 + 37 * (i % 3) for i in range(16)), (0,) * 16, (3, 9), None, False),
+    (128, torch.float32, 4, 8, 64, 16, 257,
+     tuple(512 + 17 * i for i in range(16)), (0,) * 16, (), 24, True),
+    (64, torch.float32, 1, 4, 16, 8, 40, (1, 17, 100, 128), (0, 5, 20, 0), (), 8, True),
+    (128, torch.float16, 8, 1, 32, 4, 9, (33, 64, 0), (0, 0, 0), (), None, True),
+    (64, torch.bfloat16, 3, 2, 64, 3, 10, (190, 64, 65), (0, 0, 10), (), 3, True),
+    (128, torch.bfloat16, 16, 8, 64, 4, 40, (200, 37, 129), (0, 0, 3), (), None, True),
+    (128, torch.float32, 2, 2, 16, 4, 20, (60, 33, 1000), (0, 0, 0), (2,), 40, False),
+]
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+@pytest.mark.parametrize("e4m3", [False, True])
+def test_paged_decode_kernel_matches_plain(dev, case, e4m3):
+    """K9 on one layer's pool (a view of the stack) against its plain
+    version: ragged rows, starts, dead entries over a NaN block 0 (poison),
+    inactive rows, windows, 1 to 16 query heads per KV head, e4m3 pools
+    beside queries of every dtype (decoded exactly: the same tolerance)."""
+    D, dtype, G, Nk, bs, MB, n_blocks, lengths, starts, inactive, window, poison = case
+    q, kp, vp, tables, lens, sts, _, _ = _paged_case(
+        dev, D, dtype, G, Nk, bs, MB, n_blocks, 1, lengths, starts, inactive, poison)
+    if e4m3:
+        kp, vp = _e4m3(kp.float()), _e4m3(vp.float())
+    for l in range(kp.shape[0]):
+        args = (q, kp[l], vp[l], tables, lens, sts, D ** -0.5, window)
+        ak.reset_launches()
+        got = pa.paged_decode(*args)
+        assert ak.LAUNCHES["paged_decode"] == 1
+        want = pa.paged_decode_plain(*args)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(want).all())
+        assert _max_err(got, want) <= _paged_tol(dtype, want), f"layer {l}"
+
+
+def test_paged_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q, kp, vp, tables, lens, sts, _, _ = _paged_case(
+        dev, 64, torch.float32, 2, 2, 16, 4, 9, 1, (20, 5), (0, 0), (), False)
+    with pytest.raises(ValueError, match="do not fit"):
+        pa.paged_decode(q, kp, vp, tables, lens, sts, 0.1)  # the stack, not a layer
+    with pytest.raises(ValueError, match="at most"):
+        pa.paged_decode(q.repeat(1, 9, 1), kp[0], vp[0], tables, lens, sts, 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        pa.paged_decode(q, kp[0], vp[0], tables, lens.long(), sts, 0.1)
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        pa.paged_decode(q, kp[0].half(), vp[0].half(), tables, lens, sts, 0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_decode(torch.zeros(2, 4, 96, device=dev), torch.zeros(9, 2, 16, 96,
+                        device=dev), torch.zeros(9, 2, 16, 96, device=dev), tables, lens,
+                        sts, 0.1)
+
+
+def _gpt2_cfg():
+    return parse_model_config(dict(model_type="gpt2", vocab_size=211, n_embd=256,
+                                   n_layer=2, n_head=4, n_positions=96))
+
+
+def test_gpt2_on_the_card_matches_the_cpu(dev):
+    """GPT-2 (2 layers, 4 heads of 64, fp32): the prefill logits (K1), two
+    frozen decode chunks (K2) and forward_paged steps (K9) on the card
+    against the same params through the plain versions on the CPU."""
+    from tinygpt_tpu_torch.engine.paged_kv import PagedKVState
+    from tinygpt_tpu_torch.models import gpt2
+
+    cfg = _gpt2_cfg()
+    params = gpt2.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    pcard = {k: v.to(dev) if isinstance(v, torch.Tensor) else
+             {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(3, cfg.vocab_size, (2, 24), generator=gen, dtype=torch.int32)
+    pos = torch.arange(24, dtype=torch.int32)[None].expand(2, 24).contiguous()
+    pools = torch.randn(2, 2, 12, 4, 16, 64, generator=gen)
+    outs = {}
+    for where, p, impl in (("cpu", params, "plain"), (dev, pcard, "kernel")):
+        cache = create_kv_cache(cfg, 2, 40, dtype=torch.float32, device=where)
+        lg, cache = gpt2.forward(p, cfg, ids.to(where), cache, pos.to(where),
+                                 torch.ones(2, 24, dtype=torch.bool, device=where),
+                                 attn_impl=impl)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        toks, cache = gpt2.decode_steps(p, cfg, tok, cache, pos[:, -1:].to(where) + 1, 8,
+                                        lambda x: x.argmax(-1), attn_impl=impl)
+        st = PagedKVState(
+            k_pool=pools[0].clone().to(where), v_pool=pools[1].clone().to(where),
+            block_tables=torch.tensor([[1, 2, 3, 4, 5, 6], [7, 8, 0, 0, 0, 0]],
+                                      dtype=torch.int32, device=where),
+            lengths=torch.tensor([94, 20], dtype=torch.int32, device=where),
+            starts=torch.tensor([0, 2], dtype=torch.int32, device=where),
+            active=torch.tensor([True, True], device=where))
+        ak.reset_launches()
+        paged = [gpt2.forward_paged(p, cfg, toks[i], st, attn_impl=impl)[0]
+                 for i in range(4)]
+        if impl == "kernel":
+            torch.cuda.synchronize()
+            assert ak.LAUNCHES["paged_decode"] == 4 * cfg.num_hidden_layers
+        outs[impl] = (lg.cpu(), toks.cpu(), torch.stack(paged).cpu(), st.k_pool.cpu())
+    (lg_c, toks_c, pg_c, kp_c), (lg_k, toks_k, pg_k, kp_k) = outs["plain"], outs["kernel"]
+    assert (lg_k - lg_c).abs().max().item() <= 1e-4
+    assert torch.equal(toks_k, toks_c)
+    assert (pg_k - pg_c).abs().max().item() <= 1e-4
+    assert (kp_k - kp_c).abs().max().item() <= 1e-4

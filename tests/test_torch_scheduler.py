@@ -493,9 +493,11 @@ def test_speculation_and_fp8_pools_match_jax(kw):
 
 
 def test_model_without_paged_quantum_raises():
+    """A model with neither decode quantum (decode_paged_steps for the
+    frozen one, forward_paged for the stepwise one) is refused at start."""
     _, _, cfg, params = _models("llama")
     model = dataclasses.make_dataclass("M", [("forward", object)])(forward=None)
-    with pytest.raises(NotImplementedError, match="K9"):
+    with pytest.raises(ValueError, match="forward_paged"):
         ContinuousBatcher(model, cfg, params, eos_ids=set(),
                           config=SchedulerConfig(**SC))
 

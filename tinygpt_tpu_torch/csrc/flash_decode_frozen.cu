@@ -22,7 +22,8 @@
 // hides; the groups' partial softmax states are merged once through shared
 // memory. With B = 4 and Nk = 8 that is 32 blocks on 132 SMs: correct, but it
 // leaves most SMs idle (a split over T with a second merge pass is the next
-// step).
+// step). A KV head with more than 8 query heads is split over G / GT blocks
+// of GT heads each (tg::group_tile).
 
 #include "attention_common.cuh"
 
@@ -39,39 +40,41 @@ struct Shape {
   static constexpr int NG = NTHREADS / LPR;    // slot groups per block
 };
 
-template <typename T, int D, int G>
+template <typename T, int D, int GT>
 constexpr size_t smem_bytes() {
   constexpr int NG = Shape<T, D>::NG;
-  return sizeof(float) * (NG * G * D + 2 * NG * G);  // acc, m, l of every group
+  return sizeof(float) * (NG * GT * D + 2 * NG * GT);  // acc, m, l of every group
 }
 
-template <typename T, typename C, int D, int G>
+template <typename T, typename C, int D, int GT>
 __global__ void __launch_bounds__(NTHREADS)
     flash_decode_frozen_kernel(const T* __restrict__ q, const C* __restrict__ k_stack,
                                const C* __restrict__ v_stack, const uint8_t* __restrict__ mask,
                                const typename tg::Inflight<T, C>::type* __restrict__ k_infl,
                                const typename tg::Inflight<T, C>::type* __restrict__ v_infl,
-                               T* __restrict__ out, int B, int Nk, int Tlen, int N, int layer,
-                               int step, float scale, int window) {
+                               T* __restrict__ out, int B, int Nk, int G, int Tlen, int N,
+                               int layer, int step, float scale, int window) {
   using TI = typename tg::Inflight<T, C>::type;
   constexpr int VEC = Shape<T, D>::VEC;
   constexpr int LPR = Shape<T, D>::LPR;
   constexpr int NG = Shape<T, D>::NG;
-  constexpr int U = G <= 4 ? 4 : 2;  // slots in flight per group
+  constexpr int U = GT <= 4 ? 4 : 2;  // slots in flight per group
   constexpr bool SAME = std::is_same<C, TI>::value;
 
-  const int kvh = blockIdx.x;
+  const int n_tiles = G / GT;  // blocks of this KV head
+  const int kvh = blockIdx.x / n_tiles;
+  const int h0 = kvh * G + (blockIdx.x % n_tiles) * GT;  // the block's first query head
   const int b = blockIdx.y;
   const int grp = threadIdx.x / LPR;
   const int lane = threadIdx.x % LPR;
   const int d0 = lane * VEC;
   const int Nq = Nk * G;
 
-  // this lane's slice of the G query rows, pre-scaled
-  float qr[G][VEC];
+  // this lane's slice of the GT query rows, pre-scaled
+  float qr[GT][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    tg::raw_to_float<T, VEC>(tg::load_raw<T, VEC>(q + ((size_t)b * Nq + kvh * G + g) * D + d0),
+  for (int g = 0; g < GT; ++g) {
+    tg::raw_to_float<T, VEC>(tg::load_raw<T, VEC>(q + ((size_t)b * Nq + h0 + g) * D + d0),
                              qr[g]);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qr[g][e] *= scale;
@@ -84,9 +87,9 @@ __global__ void __launch_bounds__(NTHREADS)
   const TI* vi = v_infl + row * N * D;
   const uint8_t* mk = mask + (size_t)b * Tlen;
 
-  float m[G], l[G], acc[G][VEC];
+  float m[GT], l[GT], acc[GT][VEC];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GT; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -123,7 +126,7 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
 
-    float s[U][G];
+    float s[U][GT];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kv[VEC];
@@ -133,7 +136,7 @@ __global__ void __launch_bounds__(NTHREADS)
         tg::raw_to_float<TI, VEC>(kr[u], kv);
       }
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GT; ++g) {
         float acc_s = 0.f;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc_s = fmaf(qr[g][e], kv[e], acc_s);
@@ -146,7 +149,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
 
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GT; ++g) {
       float mx = m[g];
 #pragma unroll
       for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
@@ -166,7 +169,7 @@ __global__ void __launch_bounds__(NTHREADS)
         tg::raw_to_float<TI, VEC>(vr[u], vv);
       }
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < GT; ++g) {
         const float p = expf(s[u][g] - m[g]);
         l[g] += p;
 #pragma unroll
@@ -177,61 +180,38 @@ __global__ void __launch_bounds__(NTHREADS)
 
   // merge the NG groups' partial states
   extern __shared__ float smem[];
-  float* sacc = smem;              // [NG][G][D]
-  float* sm = sacc + NG * G * D;   // [NG][G]
-  float* sl = sm + NG * G;         // [NG][G]
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) sacc[(grp * G + g) * D + d0 + e] = acc[g][e];
-    if (lane == 0) {
-      sm[grp * G + g] = m[g];
-      sl[grp * G + g] = l[g];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += NTHREADS) {
-    const int g = i / D;
-    const int d = i % D;
-    float M = NEG_INF;
-    for (int n = 0; n < NG; ++n) M = fmaxf(M, sm[n * G + g]);
-    float L = 0.f, O = 0.f;
-    for (int n = 0; n < NG; ++n) {
-      const float w = expf(sm[n * G + g] - M);
-      L = fmaf(sl[n * G + g], w, L);
-      O = fmaf(sacc[(n * G + g) * D + d], w, O);
-    }
-    out[((size_t)b * Nq + kvh * G + g) * D + d] = tg::from_float<T>(L > 0.f ? O / L : 0.f);
-  }
+  tg::merge_groups<T, D, GT, NG, VEC, NTHREADS>(m, l, acc, grp, lane,
+                                               out + ((size_t)b * Nq + h0) * D, smem);
 }
 
 struct Args {
   const void *q, *k_stack, *v_stack, *mask, *k_infl, *v_infl;
   void* out;
-  int B, Nk, T, N, layer, step, window;
+  int B, Nk, G, T, N, layer, step, window;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, typename C, int D, int G>
+template <typename T, typename C, int D, int GT>
 cudaError_t launch(const Args& a) {
   using TI = typename tg::Inflight<T, C>::type;
-  constexpr size_t smem = smem_bytes<T, D, G>();
+  constexpr size_t smem = smem_bytes<T, D, GT>();
   static const cudaError_t attr =
-      tg::allow_smem(flash_decode_frozen_kernel<T, C, D, G>, smem);
+      tg::allow_smem(flash_decode_frozen_kernel<T, C, D, GT>, smem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid(a.Nk, a.B);
-  flash_decode_frozen_kernel<T, C, D, G><<<grid, NTHREADS, smem, a.stream>>>(
+  dim3 grid(a.Nk * (a.G / GT), a.B);
+  flash_decode_frozen_kernel<T, C, D, GT><<<grid, NTHREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const C*>(a.k_stack),
       static_cast<const C*>(a.v_stack), static_cast<const uint8_t*>(a.mask),
       static_cast<const TI*>(a.k_infl), static_cast<const TI*>(a.v_infl),
-      static_cast<T*>(a.out), a.B, a.Nk, a.T, a.N, a.layer, a.step, a.scale, a.window);
+      static_cast<T*>(a.out), a.B, a.Nk, a.G, a.T, a.N, a.layer, a.step, a.scale, a.window);
   return cudaGetLastError();
 }
 
+// one instantiation per query heads a block holds (tg::group_tile)
 template <typename T, typename C, int D>
-cudaError_t launch_g(int G, const Args& a) {
-  switch (G) {
+cudaError_t launch_g(const Args& a) {
+  switch (tg::group_tile(a.G)) {
     case 1: return launch<T, C, D, 1>(a);
     case 2: return launch<T, C, D, 2>(a);
     case 3: return launch<T, C, D, 3>(a);
@@ -245,17 +225,17 @@ cudaError_t launch_g(int G, const Args& a) {
 }
 
 template <typename T, typename C>
-cudaError_t launch_d(int D, int G, const Args& a) {
-  if (D == 64) return launch_g<T, C, 64>(G, a);
-  if (D == 128) return launch_g<T, C, 128>(G, a);
+cudaError_t launch_d(int D, const Args& a) {
+  if (D == 64) return launch_g<T, C, 64>(a);
+  if (D == 128) return launch_g<T, C, 128>(a);
   return cudaErrorInvalidValue;
 }
 
 // the cache is of q's type, or e4m3
 template <typename T>
-cudaError_t launch_c(int kv_dtype, int dtype, int D, int G, const Args& a) {
-  if (kv_dtype == dtype) return launch_d<T, T>(D, G, a);
-  if (kv_dtype == tg::kE4M3) return launch_d<T, tg::e4m3>(D, G, a);
+cudaError_t launch_c(int kv_dtype, int dtype, int D, const Args& a) {
+  if (kv_dtype == dtype) return launch_d<T, T>(D, a);
+  if (kv_dtype == tg::kE4M3) return launch_d<T, tg::e4m3>(D, a);
   return cudaErrorInvalidValue;
 }
 
@@ -274,14 +254,13 @@ int tg_flash_decode_frozen(const void* q, const void* k_stack, const void* v_sta
                            int B, int Nq, int Nk, int T, int N, int D, int dtype, int kv_dtype,
                            int layer, int step, float scale, int window, void* stream) {
   if (Nk <= 0 || Nq % Nk != 0) return cudaErrorInvalidValue;
-  const Args a{q,  k_stack, v_stack, mask,  k_infl, v_infl, out,
-               B,  Nk,      T,       N,     layer,  step,   window,
-               scale, static_cast<cudaStream_t>(stream)};
-  const int G = Nq / Nk;
+  const Args a{q, k_stack, v_stack, mask,  k_infl, v_infl, out,   B,
+               Nk, Nq / Nk, T,       N,     layer,  step,   window, scale,
+               static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case tg::kF32: return launch_c<float>(kv_dtype, dtype, D, G, a);
-    case tg::kF16: return launch_c<__half>(kv_dtype, dtype, D, G, a);
-    case tg::kBF16: return launch_c<__nv_bfloat16>(kv_dtype, dtype, D, G, a);
+    case tg::kF32: return launch_c<float>(kv_dtype, dtype, D, a);
+    case tg::kF16: return launch_c<__half>(kv_dtype, dtype, D, a);
+    case tg::kBF16: return launch_c<__nv_bfloat16>(kv_dtype, dtype, D, a);
   }
   return cudaErrorInvalidValue;
 }

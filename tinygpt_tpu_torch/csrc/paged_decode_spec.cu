@@ -31,6 +31,9 @@
 // holds RPT rows x 4 slots of scores and RPT rows x D/16 columns of the
 // output (fp32 FMA; tensor cores are a later step). Slots past the ranges are
 // staged as zeros, so nothing undefined is ever multiplied by a masked zero.
+// A KV head with more than 64 query rows (S * G = 72 at 8 drafts and G = 8)
+// is split over ceil(R / 64) blocks of 64 rows each (the grid's third
+// dimension), each walking the same slots.
 
 #include "attention_common.cuh"
 
@@ -91,13 +94,14 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int r0 = blockIdx.z * RM;  // the block's first query row
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   const int R = S * G;
   const int Nq = Nk * G;
 
-  // the R query rows of this KV head, s-major (row r: position r / G, head
-  // kvh * G + r % G), pre-scaled; rows past R are zeros
+  // query rows r0 .. r0 + RM - 1 of this KV head's R, s-major (row r:
+  // position r / G, head kvh * G + r % G), pre-scaled; rows past R are zeros
   {
     constexpr int VEC = tg::Vec<T>::N;
     constexpr int VPR = D / VEC;
@@ -105,8 +109,8 @@ __global__ void __launch_bounds__(NTHREADS)
       const int r = i / VPR;
       const int c = (i % VPR) * VEC;
       float f[VEC];
-      if (r < R) {
-        const int s = r / G, g = r % G;
+      if (r0 + r < R) {
+        const int s = (r0 + r) / G, g = (r0 + r) % G;
         tg::raw_to_float<T, VEC>(
             tg::load_raw<T, VEC>(q + (((size_t)b * S + s) * Nq + kvh * G + g) * D + c), f);
       } else {
@@ -117,8 +121,9 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int e = 0; e < VEC; ++e) qs[r * (D + 1) + c + e] = f[e] * scale;
     }
     for (int r = threadIdx.x; r < RM; r += NTHREADS) {
-      rpos[r] = r < R ? r / G : -1;
-      rslot[r] = (r < R && window > 0) ? q_slots[(size_t)b * S + r / G] : 0;
+      const int rr = r0 + r;
+      rpos[r] = rr < R ? rr / G : -1;
+      rslot[r] = (rr < R && window > 0) ? q_slots[(size_t)b * S + rr / G] : 0;
     }
   }
 
@@ -307,7 +312,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i;
+    const int r = r0 + ty * RPT + i;
     if (r >= R) continue;
     const int s = r / G, g = r % G;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
@@ -324,7 +329,8 @@ cudaError_t launch(const Args& a, int G) {
   static const cudaError_t attr =
       tg::allow_smem(paged_decode_spec_kernel<T, C, D, RPT>, smem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid(a.Nk, a.B);
+  constexpr int RM = 16 * RPT;
+  dim3 grid(a.Nk, a.B, (a.S * G + RM - 1) / RM);
   paged_decode_spec_kernel<T, C, D, RPT><<<grid, NTHREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const C*>(a.k_pools),
       static_cast<const C*>(a.v_pools), a.tables, a.lengths0, a.starts,
@@ -334,9 +340,11 @@ cudaError_t launch(const Args& a, int G) {
   return cudaGetLastError();
 }
 
+// rows a thread holds: a block takes all R = S * G rows up to 64, else 64
 template <typename T, typename C, int D>
 cudaError_t launch_r(int G, const Args& a) {
-  switch ((a.S * G + 15) / 16) {
+  const int rpt = (a.S * G + 15) / 16;
+  switch (rpt < 4 ? rpt : 4) {
     case 1: return launch<T, C, D, 1>(a, G);
     case 2: return launch<T, C, D, 2>(a, G);
     case 3: return launch<T, C, D, 3>(a, G);
@@ -371,8 +379,8 @@ extern "C" {
 // or base <= j <= base + s. With window > 0, q_slots [B, S] and infl_slots
 // [B, N] (int32) give the pool slots the window masks; otherwise they may be
 // null. q and out are of `dtype`, the pools of `kv_dtype` (= dtype, or kE4M3
-// with bf16 in-flight K/V). S * Nq / Nk must be at most 64. Returns the
-// cudaError_t of the launch (0 on success).
+// with bf16 in-flight K/V). Returns the cudaError_t of the launch (0 on
+// success).
 int tg_paged_decode_spec(const void* q, const void* k_pools, const void* v_pools,
                          const void* tables, const void* lengths0, const void* starts,
                          const void* k_infl, const void* v_infl, const void* infl_valid,

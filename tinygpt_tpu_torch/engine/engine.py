@@ -2,14 +2,18 @@
 
 Counterpart of tinygpt_tpu/engine/engine.py for batch inference:
 prepare() (model-dir load, EOS collection from generation_config falling
-back to the tokenizer, generation-config sampler defaults), reconfigure(),
+back to the tokenizer, generation-config sampler defaults unless
+use_generation_defaults=False), reconfigure(),
 left-pad/truncate batch encoding into length buckets, and generate_sync:
 one prefill, then chunks of `decode_chunk` frozen-cache decode steps
 (causal_lm.decode_steps) with the EOS check on the host between chunks —
 the only point where the loop waits for the device.
 
-On the card every attention call goes through the Hopper kernels
-(ops/attention_kernels.py), and with quantization="int8" or "int4" every
+Every family of the registry runs, GPT-2 included. On the card every
+attention call goes through the Hopper kernels (ops/attention_kernels.py;
+prepare() refuses at once a model whose attention shape they do not take,
+ops/attention_kernels.check_kernel_shapes), and with quantization="int8"
+or "int4" every
 weight matmul through the dequant-matmul kernels (ops/quant_kernels.py);
 given device="cpu" the same calls run their plain PyTorch versions.
 quantization="int4" runs AWQ by default, as the JAX engine does: prepare()
@@ -37,7 +41,9 @@ import numpy as np
 import torch
 
 from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
+from tinygpt_tpu_torch.hf.config import load_model_config
 from tinygpt_tpu_torch.hf.loader import GPTContext, load_model_dir, resolve_dtype
+from tinygpt_tpu_torch.ops.attention_kernels import check_kernel_shapes
 from tinygpt_tpu_torch.ops.awq import (
     awq_policy,
     awq_quantize_params,
@@ -60,8 +66,10 @@ class FinishReason(Enum):
 
 @dataclass
 class GPTConfig:
-    """Engine configuration (the JAX GPTConfig's fields; those of features
-    not ported yet must keep their defaults)."""
+    """Engine configuration: the JAX GPTConfig's fields, except those of
+    streaming (stream_chunk, stream_pace; ROADMAP.md queue 1, item 5) and
+    of pipeline parallelism (pp_microbatches, item 13), not ported yet.
+    mesh_shape must keep its default (item 13)."""
 
     model_dir: str
     dtype: str = "bfloat16"
@@ -96,6 +104,9 @@ class GPTConfig:
     spec_ngram: int = 3
     # not ported yet (ROADMAP.md queue 1, item 13): must stay None
     mesh_shape: Optional[tuple] = None
+    # adopt generation_config.json sampling defaults (do_sample +
+    # temperature/top_k/top_p/min_p) when no sampler knob was set here
+    use_generation_defaults: bool = True
 
 
 @dataclass
@@ -193,6 +204,8 @@ class GPTEngine:
         cfg = self.config
         _check_ported(cfg)
         self._device = torch.device(cfg.device)
+        # a shape the kernels do not take fails here, before any weight loads
+        check_kernel_shapes(load_model_config(cfg.model_dir), self._device)
         self.ctx = load_model_dir(cfg.model_dir, dtype=cfg.dtype,
                                   device=self._device)
         if cfg.quantization:
@@ -203,9 +216,10 @@ class GPTEngine:
         self._generator.manual_seed(cfg.seed)
         self._collect_eos_ids()
         gen = self.ctx.generation_config
-        # generation_config.json's sampling defaults apply when no
-        # sampler knob was set here
-        if gen is not None and gen.do_sample and cfg.sampler == SamplerConfig():
+        # generation_config.json's sampling defaults apply when asked for
+        # and no sampler knob was set here
+        if (cfg.use_generation_defaults and gen is not None and gen.do_sample
+                and cfg.sampler == SamplerConfig()):
             cfg.sampler = SamplerConfig(
                 temperature=gen.temperature, top_k=gen.top_k,
                 top_p=gen.top_p, min_p=gen.min_p,

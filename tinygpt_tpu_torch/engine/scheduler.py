@@ -25,9 +25,16 @@ sampling. The auto-off policy falls back to plain quanta while the
 measured acceptance does not pay for the wider verify, and re-probes.
 The pools may be fp8 (kv_cache_dtype="fp8").
 
+The decode quantum is the frozen one (_decode_quantum_frozen over the
+model's decode_paged_steps, attention through K8) for every family that
+has it, GPT-2 included; a model namespace without it runs the stepwise
+quantum (_decode_quantum: n_steps whole forward_paged steps, each layer
+writing its K/V into the pool before attention through K9), as the JAX
+batcher selects them.
+
 The JAX package's jitted programs are plain functions here
-(_admit_program, _admit_chunk_program, _decode_quantum,
-_decode_quantum_spec), run eagerly.
+(_admit_program, _admit_chunk_program, _decode_quantum_frozen,
+_decode_quantum, _decode_quantum_spec), run eagerly.
 Two rules keep the host from waiting on the card between quanta: every
 upload is a fresh pinned copy sent with non_blocking (a blocking copy
 from pageable memory would synchronise the stream, and a pinned buffer
@@ -35,13 +42,13 @@ that the host mutates afterwards could be read after the mutation), and
 a quantum's tokens come back through a pinned buffer and an event, so
 that reading quantum k does not wait for quantum k+1, already issued.
 
-Not ported yet, each raising NotImplementedError: device meshes
-(mesh_shape, ROADMAP.md queue 1 item 13) and a model without
-decode_paged_steps (GPT-2, whose paged step needs K9, item 9).
+Not ported yet, raising NotImplementedError: device meshes (mesh_shape,
+ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import math
 from dataclasses import dataclass, field
@@ -60,6 +67,8 @@ from tinygpt_tpu_torch.engine.paged_kv import (
 )
 from tinygpt_tpu_torch.hf.config import ModelConfig
 from tinygpt_tpu_torch.hf.loader import resolve_dtype
+from tinygpt_tpu_torch.models import params_device
+from tinygpt_tpu_torch.ops.attention_kernels import check_kernel_shapes
 from tinygpt_tpu_torch.ops.sampling import SamplerConfig, sample_batched
 from tinygpt_tpu_torch.utils.logging import get_logger
 
@@ -186,11 +195,15 @@ class ContinuousBatcher:
             raise _not_ported("SchedulerConfig.mesh_shape (sharded serving)", 13)
         if sc.speculative not in (None, "ngram"):
             raise ValueError(f"unknown speculative mode {sc.speculative!r}")
-        if getattr(model, "decode_paged_steps", None) is None:
-            raise _not_ported(
-                f"{model_config.model_type} serving (a model without "
-                f"decode_paged_steps runs forward_paged, kernel K9 "
-                f"paged_decode; it comes with GPT-2)", 9)
+        # the frozen quantum where the model has one, else the stepwise one
+        if getattr(model, "decode_paged_steps", None) is not None:
+            self._decode_fn = functools.partial(_decode_quantum_frozen,
+                                                model.decode_paged_steps)
+        elif getattr(model, "forward_paged", None) is not None:
+            self._decode_fn = functools.partial(_decode_quantum, model.forward_paged)
+        else:
+            raise ValueError(f"{model_config.model_type}: the batcher needs the "
+                             f"model's decode_paged_steps or forward_paged")
         self.dtype = resolve_dtype(sc.dtype)
         if sc.kv_cache_dtype in ("auto", None):
             self.kv_dtype = self.dtype
@@ -198,7 +211,8 @@ class ContinuousBatcher:
             self.kv_dtype = torch.float8_e4m3fn
         else:
             self.kv_dtype = resolve_dtype(sc.kv_cache_dtype)
-        self.device = params["embed"].device
+        self.device = params_device(params)
+        check_kernel_shapes(model_config, self.device)
         self.state: PagedKVState = create_paged_state(
             model_config, sc.n_blocks, sc.block_size, sc.batch_capacity,
             sc.max_blocks_per_seq, dtype=self.kv_dtype, device=self.device,
@@ -801,10 +815,10 @@ class ContinuousBatcher:
         # chained input tokens stay ON THE DEVICE between pipelined quanta
         tok_in = (self._tokens_dev if self._tokens_dev is not None
                   else self._put(self._tokens))
-        toks_seq = _decode_quantum(
-            self.model.decode_paged_steps, self.params, self.cfg, self.state,
-            tok_in, self._sampler_params_dev(), self._gen, n_steps=n_steps,
-            all_greedy=all_greedy, attn_impl=self.sc.attn_impl,
+        toks_seq = self._decode_fn(
+            self.params, self.cfg, self.state, tok_in, self._sampler_params_dev(),
+            self._gen, n_steps=n_steps, all_greedy=all_greedy,
+            attn_impl=self.sc.attn_impl,
         )
         self._lengths[self._active] += n_steps
         snapshot = {row: (self.running[row], safe.get(row, 0))
@@ -977,20 +991,41 @@ def _scatter_prefill(state: PagedKVState, k_dense: torch.Tensor,
     state.v_pool[:, blocks] = to_blocks(v_dense)
 
 
-def _decode_quantum(decode_paged_steps, params, cfg, state: PagedKVState,
+def _sample_fn(all_greedy: bool, sampler, generator):
+    """logits [B, V] -> tokens [B] int32: all-greedy quanta sample by
+    argmax alone (the per-row sampler sorts [B, V] each step)."""
+    if all_greedy:
+        return lambda lg: torch.argmax(lg, dim=-1).to(torch.int32)
+    return lambda lg: sample_batched(lg, *sampler, generator)
+
+
+def _decode_quantum_frozen(decode_paged_steps, params, cfg, state: PagedKVState,
+                           tokens: torch.Tensor, sampler, generator, *, n_steps: int,
+                           all_greedy: bool, attn_impl: str) -> torch.Tensor:
+    """One frozen-pool decode quantum (the model's decode_paged_steps: the
+    pools stay frozen, one scatter at the end). Returns the tokens
+    [n_steps, B] on the device."""
+    return decode_paged_steps(params, cfg, tokens, state, n_steps,
+                              _sample_fn(all_greedy, sampler, generator),
+                              attn_impl=attn_impl)
+
+
+def _decode_quantum(forward_paged, params, cfg, state: PagedKVState,
                     tokens: torch.Tensor, sampler, generator, *, n_steps: int,
                     all_greedy: bool, attn_impl: str) -> torch.Tensor:
-    """One frozen-pool decode quantum (causal_lm.decode_paged_steps);
-    all-greedy quanta sample by argmax alone (the per-row sampler sorts
-    [B, V] each step). Returns the tokens [n_steps, B] on the device."""
-    if all_greedy:
-        def sample_fn(lg):
-            return torch.argmax(lg, dim=-1).to(torch.int32)
-    else:
-        def sample_fn(lg):
-            return sample_batched(lg, *sampler, generator)
-    return decode_paged_steps(params, cfg, tokens, state, n_steps, sample_fn,
-                              attn_impl=attn_impl)
+    """n_steps whole decode steps through the model's forward_paged (each
+    layer writes the step's K/V into the pool before attention, K9), for a
+    model without decode_paged_steps. Advances `state` exactly as the
+    frozen quantum does. Returns the tokens [n_steps, B] on the device."""
+    sample_fn = _sample_fn(all_greedy, sampler, generator)
+    toks = torch.empty((n_steps, tokens.shape[0]), dtype=torch.int32,
+                       device=tokens.device)
+    tok = tokens.to(torch.int32)
+    for step in range(n_steps):
+        logits, state = forward_paged(params, cfg, tok, state, attn_impl=attn_impl)
+        tok = sample_fn(logits)
+        toks[step] = tok
+    return toks
 
 
 def _decode_quantum_spec(decode_paged_spec_steps, params, cfg, state: PagedKVState,

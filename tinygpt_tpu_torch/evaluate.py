@@ -31,6 +31,7 @@ from tinygpt_tpu_torch.engine.engine import quantize_loaded
 from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
 from tinygpt_tpu_torch.hf.config import ModelConfig
 from tinygpt_tpu_torch.hf.loader import load_model_dir
+from tinygpt_tpu_torch.models import params_device, params_dtype
 from tinygpt_tpu_torch.utils.logging import get_logger
 
 log = get_logger("evaluate")
@@ -52,11 +53,11 @@ def window_nll(
     n = len(ids)
     if n < 2:
         raise ValueError("need at least 2 tokens to score")
-    dev = params["embed"].device
+    dev = params_device(params)
     if kv_dtype is None:
         # K1 reads the cache in q's dtype; the JAX package's fp32 cache
         # holds the same values, since k and v are computed in this dtype
-        kv_dtype = params["embed"].dtype
+        kv_dtype = params_dtype(params)
     window = min(window, cfg.context_size, n)
     stride = min(stride, window)
 

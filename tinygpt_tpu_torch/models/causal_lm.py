@@ -37,9 +37,18 @@ version of every kernel instead.
 `decode_paged_steps` is the continuous batcher's decode quantum over the
 paged KV pool (engine/paged_kv.py): the same layer loop as decode_steps,
 with attention through the block tables (K8, ops/paged_attention.py).
-`decode_paged_spec_steps` is its speculative quantum: rounds of n-gram
-drafting and an S-position verify forward (attention through K10), with
-greedy prefix acceptance or exact rejection sampling.
+`forward_paged` is one whole decode step over the pool, each layer
+writing its K/V into the pool before attention (K9): the batcher's
+stepwise quantum. `decode_paged_spec_steps` is its speculative quantum:
+rounds of n-gram drafting and an S-position verify forward (attention
+through K10), with greedy prefix acceptance or exact rejection sampling.
+
+The three one-token loops (decode_steps, decode_paged_steps,
+forward_paged) are shared with GPT-2 (models/gpt2.py): run_decode_steps,
+run_decode_paged_steps and run_forward_paged take the family's token
+function, decode_token(params, cfg, tok, pos, put_kv, attend, impl) ->
+logits [B, 1, V], which hands each layer's new K/V to put_kv and attends
+through attend.
 
 The KV cache and the pools may be fp8 (torch.float8_e4m3fn): K/V are cast
 once as they are written (engine/kv_cache.kv_cast), the in-flight buffers
@@ -67,6 +76,7 @@ from tinygpt_tpu_torch.ops.attention import (
 )
 from tinygpt_tpu_torch.ops.attention_kernels import flash_decode_frozen
 from tinygpt_tpu_torch.ops.paged_attention import (
+    paged_decode,
     paged_decode_frozen,
     paged_decode_frozen_plain,
     paged_decode_spec,
@@ -495,12 +505,11 @@ def _logits_fused(params: Dict, x2: torch.Tensor, cfg: ModelConfig,
     return logits[:, None, : cfg.vocab_size].float()
 
 
-def _decode_token(params, cfg, tok, pos, infl_k, infl_v, step, attend,
-                  impl: str):
-    """Logits [B, 1, V] of one decode step: every layer writes this step's
-    K/V into the in-flight buffers at `step`, then attends through
-    attend(l, q [B, 1, Nq, D]) -> [B, 1, Nq, D]. int4 params take the
-    fused route (K6, K7), int8 params the unfused one (K5a, K3)."""
+def _decode_token(params, cfg, tok, pos, put_kv, attend, impl: str):
+    """Logits [B, 1, V] of one decode step of the llama family: every layer
+    hands this step's K/V [B, Nk, D] to put_kv(l, k, v), then attends
+    through attend(l, q [B, 1, Nq, D]) -> [B, 1, Nq, D]. int4 params take
+    the fused route (K6, K7), int8 params the unfused one (K5a, K3)."""
     B = tok.shape[0]
     fused = _int4_fused(params)
     rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], pos)
@@ -512,8 +521,7 @@ def _decode_token(params, cfg, tok, pos, infl_k, infl_v, step, attend,
                                  rope_s[:, 0, 0], l, impl)
         else:
             q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
-        infl_k[l, :, :, step] = k[:, 0]
-        infl_v[l, :, :, step] = v[:, 0]
+        put_kv(l, k[:, 0], v[:, 0])
         attn = attend(l, q)
         if fused:
             x = _out_and_mlp_fused(params, x[:, 0], attn, cfg, l, impl)[:, None]
@@ -524,7 +532,16 @@ def _decode_token(params, cfg, tok, pos, infl_k, infl_v, step, attend,
     return _logits(params, x.reshape(B, 1, -1), cfg, impl)
 
 
-def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
+def _put_inflight(infl_k: torch.Tensor, infl_v: torch.Tensor, step: int):
+    """put_kv of the frozen loops: layer l's K/V [B, Nk, D] go to the
+    in-flight buffers [L, B, Nk, N, D] at `step`."""
+    def put(l, k, v):
+        infl_k[l, :, :, step] = k
+        infl_v[l, :, :, step] = v
+    return put
+
+
+def _decode_one(decode_token, params, cfg, tok, pos, cache, infl_k, infl_v, step,
                 attn_impl):
     """Logits [B, 1, V] of one decode step over the frozen cache; writes
     this step's K/V into the in-flight buffers at `step`."""
@@ -540,7 +557,7 @@ def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
     def attend(l, q):
         if impl == "kernel":
             return flash_decode_frozen(
-                q[:, 0], cache.k, cache.v, mask_f, infl_k[l], infl_v[l], l,
+                q[:, 0].contiguous(), cache.k, cache.v, mask_f, infl_k[l], infl_v[l], l,
                 step, scale=D ** -0.5, window=window,
             )[:, None]
         return sdpa_decode_frozen(
@@ -548,8 +565,8 @@ def _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v, step,
             infl_k[l], infl_v[l], step, pos, sliding_window=window,
         )
 
-    return _decode_token(params, cfg, tok, pos, infl_k, infl_v, step, attend,
-                         impl)
+    return decode_token(params, cfg, tok, pos, _put_inflight(infl_k, infl_v, step),
+                        attend, impl)
 
 
 def decode_steps(
@@ -573,6 +590,15 @@ def decode_steps(
     Returns (toks [n_steps, B] int32 — the tokens sampled AFTER each
     input — and the advanced cache)."""
     _check_supported(cfg, params)
+    return run_decode_steps(_decode_token, params, cfg, tok0, cache, pos0, n_steps,
+                            sample_fn, attn_impl)
+
+
+def run_decode_steps(decode_token, params: Dict, cfg: ModelConfig, tok0: torch.Tensor,
+                     cache: KVCache, pos0: torch.Tensor, n_steps: int,
+                     sample_fn: Callable[[torch.Tensor], torch.Tensor],
+                     attn_impl: str = "kernel") -> Tuple[torch.Tensor, KVCache]:
+    """decode_steps of a family whose one-token step is `decode_token`."""
     B = tok0.shape[0]
     L, D, Nk = cfg.num_hidden_layers, cfg.head_dim, cfg.num_kv_heads
     slot0 = cache.length
@@ -587,8 +613,8 @@ def decode_steps(
     tok = tok0.to(torch.int32)
     pos = pos0.to(torch.int32)
     for step in range(n_steps):
-        logits = _decode_one(params, cfg, tok, pos, cache, infl_k, infl_v,
-                             step, attn_impl)
+        logits = _decode_one(decode_token, params, cfg, tok, pos, cache, infl_k,
+                             infl_v, step, attn_impl)
         tok = sample_fn(logits[:, -1, :]).to(torch.int32)
         toks[step] = tok
         pos = pos + 1
@@ -627,6 +653,16 @@ def decode_paged_steps(
     n_steps * active) and returns the tokens sampled after each input,
     [n_steps, B] int32."""
     _check_supported(cfg, params)
+    return run_decode_paged_steps(_decode_token, params, cfg, tok0, state, n_steps,
+                                  sample_fn, attn_impl)
+
+
+def run_decode_paged_steps(decode_token, params: Dict, cfg: ModelConfig,
+                           tok0: torch.Tensor, state: PagedKVState, n_steps: int,
+                           sample_fn: Callable[[torch.Tensor], torch.Tensor],
+                           attn_impl: str = "kernel") -> torch.Tensor:
+    """decode_paged_steps of a family whose one-token step is
+    `decode_token`."""
     impl = _impl(attn_impl)
     B = tok0.shape[0]
     L, D, Nk = cfg.num_hidden_layers, cfg.head_dim, cfg.num_kv_heads
@@ -647,12 +683,12 @@ def decode_paged_steps(
         pos = (lengths0 + step * act - starts)[:, None]
 
         def attend(l, q, step=step):
-            return attend_fn(q[:, 0], state.k_pool, state.v_pool, tables, lengths0,
-                             starts, infl_k[l], infl_v[l], l, step,
+            return attend_fn(q[:, 0].contiguous(), state.k_pool, state.v_pool, tables,
+                             lengths0, starts, infl_k[l], infl_v[l], l, step,
                              scale=D ** -0.5, window=window)[:, None]
 
-        logits = _decode_token(params, cfg, tok, pos, infl_k, infl_v, step,
-                               attend, impl)
+        logits = decode_token(params, cfg, tok, pos, _put_inflight(infl_k, infl_v, step),
+                              attend, impl)
         tok = sample_fn(logits[:, -1, :]).to(torch.int32)
         toks[step] = tok
 
@@ -667,6 +703,61 @@ def decode_paged_steps(
                    infl_v.permute(3, 1, 0, 2, 4))
     state.lengths = lengths0 + n_steps * act
     return toks
+
+
+def forward_paged(
+    params: Dict,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,  # [B] int32 one decode token per row
+    state: PagedKVState,
+    attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, PagedKVState]:
+    """One decode step over the paged pool (the JAX forward_paged): row b's
+    token goes to slot lengths[b] of its block table, at logical position
+    lengths[b] - starts[b]; every layer writes its K/V into the pool, then
+    attends over the row's slots through K9 (paged_decode, with the
+    model's sliding window). Inactive rows write into the null block 0 and
+    keep their length; their outputs are discarded by the batcher. The
+    batcher's stepwise quantum runs it for a model without
+    decode_paged_steps. Returns (fp32 logits [B, V], and `state`, updated
+    in place: pools, and lengths advanced for active rows)."""
+    _check_supported(cfg, params)
+    return run_forward_paged(_decode_token, params, cfg, input_ids, state, attn_impl)
+
+
+def run_forward_paged(decode_token, params: Dict, cfg: ModelConfig,
+                      input_ids: torch.Tensor, state: PagedKVState,
+                      attn_impl: str = "kernel") -> Tuple[torch.Tensor, PagedKVState]:
+    """forward_paged of a family whose one-token step is `decode_token`.
+    The row's K/V are cast for the pool (kv_cast) and written on the same
+    stream as the K9 launch that reads them."""
+    impl = _impl(attn_impl)
+    B = input_ids.shape[0]
+    D = cfg.head_dim
+    bs, MB = state.block_size, state.max_blocks
+    lengths, starts, tables, active = (state.lengths, state.starts, state.block_tables,
+                                       state.active)
+    pos = (lengths - starts)[:, None]                                # [B, 1] logical
+    rows = torch.arange(B, device=lengths.device)
+    # a slot past the table takes its last entry (the JAX gather clamps so);
+    # inactive rows write to the null block
+    blk = tables[rows, (lengths // bs).clamp(0, MB - 1).long()]
+    blk = torch.where(active, blk, 0).long()
+    off = (lengths % bs).long()
+    new_lengths = torch.where(active, lengths + 1, lengths)
+
+    def put_kv(l, k, v):  # [B, Nk, D] into each row's (block, offset)
+        state.k_pool[l, blk, :, off] = kv_cast(k, state.k_pool.dtype)
+        state.v_pool[l, blk, :, off] = kv_cast(v, state.v_pool.dtype)
+
+    def attend(l, q):
+        return paged_decode(q[:, 0].contiguous(), state.k_pool[l], state.v_pool[l], tables,
+                            new_lengths, starts, D ** -0.5, cfg.sliding_window,
+                            kernel=impl)[:, None]
+
+    logits = decode_token(params, cfg, input_ids.to(torch.int32), pos, put_kv, attend, impl)
+    state.lengths = new_lengths
+    return logits[:, 0], state
 
 
 def _infl_dtype(kv_dtype: torch.dtype) -> torch.dtype:

@@ -40,7 +40,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 E4M3 = torch.float8_e4m3fn
 _E4M3_CODE = 3  # tg::kE4M3 (csrc/attention_common.cuh): a cache type only
 _HEAD_DIMS = (64, 128)
-_MAX_GROUP = 8  # query heads per KV head handled by flash_decode_frozen
+_MAX_GROUP = 16  # query heads per KV head the decode kernels (K2, K8, K9) take
 
 # C signatures (csrc/*.cu): pointers, ints, scale, trailing ints, stream
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -67,6 +67,29 @@ def kv_operands(name: str, q: torch.Tensor, cache: torch.Tensor):
         return _E4M3_CODE, torch.bfloat16
     raise TypeError(f"{name}: a cache of {cache.dtype} beside q of {q.dtype} "
                     f"(the cache takes q's dtype or float8_e4m3fn)")
+
+
+def check_kernel_shapes(cfg, device) -> None:
+    """Raises ValueError, before any weight is used, for a model whose
+    attention shapes no kernel on the card takes: a head dim other than 64
+    and 128 (K1, K2, K8, K9 and K10 each take those two, the head dims of
+    every published config of the six families), query heads that are not
+    a multiple of the KV heads, or more than _MAX_GROUP query heads per KV
+    head (K2, K8, K9). The engine and the batcher call it at start, so
+    that such a model fails there and not in its first decode step. On
+    the CPU the plain versions take any shape: nothing is checked."""
+    if torch.device(device).type != "cuda":
+        return
+    D, Nq, Nk = cfg.head_dim, cfg.num_attention_heads, cfg.num_kv_heads
+    name = cfg.model_type
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D}: the attention kernels (K1, K2, K8, "
+                         f"K9, K10) take head dims {_HEAD_DIMS}")
+    if Nk <= 0 or Nq % Nk:
+        raise ValueError(f"{name}: {Nq} query heads over {Nk} KV heads")
+    if Nq // Nk > _MAX_GROUP:
+        raise ValueError(f"{name}: {Nq // Nk} query heads per KV head: the decode "
+                         f"kernels (K2, K8, K9) take at most {_MAX_GROUP}")
 
 
 def _check_cuda_operands(name: str, dtype_ref: torch.Tensor, *tensors) -> None:

@@ -1,6 +1,7 @@
 """Normalization ops (fp32 accumulation, cast back to input dtype).
 
-Counterpart of tinygpt_tpu/ops/norms.py. `layer_norm` comes with GPT-2.
+Counterpart of tinygpt_tpu/ops/norms.py: rms_norm (the llama family) and
+layer_norm (GPT-2).
 """
 
 from __future__ import annotations
@@ -13,3 +14,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim: fp32 statistics (population variance),
+    cast back to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)

@@ -1,29 +1,33 @@
 """Paged decode attention over the block pool: the kernels of the
 continuous batcher's quanta and their plain versions.
 
-Counterpart of tinygpt_tpu/ops/paged_attention.py, for the two kernels
-that the batcher's decode quanta run, written in CUDA C++ for sm_90a and
-bound with ctypes (``ops/cuda_build.py``):
+Counterpart of tinygpt_tpu/ops/paged_attention.py, for its three kernels,
+written in CUDA C++ for sm_90a and bound with ctypes
+(``ops/cuda_build.py``):
 
+  * K9, paged_decode_tpu (``csrc/paged_decode.cu``): one query position
+    per row over ONE layer's pool [n_blocks, Nk, bs, D], the row's own K/V
+    already written into it; the stepwise decode step (forward_paged) of
+    the batcher's stepwise quantum, selected by the dispatcher
+    paged_decode;
   * K8, paged_decode_frozen_tpu (``csrc/paged_decode_frozen.cu``): one
-    query position per row, the plain decode quantum;
+    query position per row, the frozen decode quantum (decode_paged_steps,
+    every family, GPT-2 included);
   * K10, paged_decode_spec_tpu (``csrc/paged_decode_spec.cu``): S verify
     positions per row, the speculative quantum.
 
-During a quantum the pools stay FROZEN: each step's (or round's) K/V go
-to a small in-flight buffer [B, Nk, N, D] per layer, and attention merges
-the pool slots of each row (through its block table) with the in-flight
-slots in one online softmax. The kernels read the STACKED
-[L, n_blocks, Nk, bs, D] pools at layer `l` by pointer offset. Pools are of
-q's dtype, or fp8 (torch.float8_e4m3fn) beside bf16 in-flight K/V.
+During a frozen quantum the pools stay FROZEN: each step's (or round's)
+K/V go to a small in-flight buffer [B, Nk, N, D] per layer, and attention
+merges the pool slots of each row (through its block table) with the
+in-flight slots in one online softmax. K8 and K10 read the STACKED
+[L, n_blocks, Nk, bs, D] pools at layer `l` by pointer offset; K9 takes a
+layer's pool, a view of the stack. Pools are of q's dtype, or fp8
+(torch.float8_e4m3fn) beside bf16 in-flight K/V.
 
 Each wrapper dispatches on the device of its tensors: on the CPU it runs
 the plain version, on a CUDA device it launches the kernel or raises; it
 never falls back from one to the other. Every launch adds one to
 ``LAUNCHES[name]`` (the counter of ``ops/attention_kernels.py``).
-
-Not ported yet: the single-layer paged decode K9 (with GPT-2, ROADMAP.md
-queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -45,12 +49,13 @@ from tinygpt_tpu_torch.ops.attention_kernels import (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: csrc/paged_decode_frozen.cu (9 pointers, 12 ints, scale,
-# window, stream) and csrc/paged_decode_spec.cu (12 pointers, 13 ints,
-# scale, window, stream)
+# C signatures: csrc/paged_decode.cu (7 pointers, 9 ints, scale, window,
+# stream), csrc/paged_decode_frozen.cu (9 pointers, 12 ints, scale, window,
+# stream) and csrc/paged_decode_spec.cu (12 pointers, 13 ints, scale,
+# window, stream)
+_DECODE_ARGS = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
 _FROZEN_ARGS = [_P] * 9 + [_I] * 12 + [_F, _I, _P]
 _SPEC_ARGS = [_P] * 12 + [_I] * 13 + [_F, _I, _P]
-_MAX_SPEC_ROWS = 64  # S * Nq / Nk query rows a K10 block holds
 _I32 = (torch.int32,)
 
 
@@ -59,6 +64,116 @@ def paged_gather_dense(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.
     g = pool[block_tables.long()]  # [B, MB, Nk, bs, D]
     B, MB, Nk, bs, D = g.shape
     return g.permute(0, 2, 1, 3, 4).reshape(B, Nk, MB * bs, D)
+
+
+# -- the single-layer paged decode (K9) ----------------------------------------
+
+
+def paged_decode_plain(
+    q: torch.Tensor,             # [B, Nq, D]
+    k_pool: torch.Tensor,        # [n_blocks, Nk, bs, D] ONE layer's pool
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int32
+    lengths: torch.Tensor,       # [B] int32 slots used per row (incl. current)
+    starts: torch.Tensor,        # [B] int32 first real slot
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of paged_decode (the JAX paged_decode_xla):
+    gather the table into a dense view, then one fp32 softmax over the
+    visible slots starts <= t < lengths (and t > lengths - 1 - window: the
+    query sits at slot lengths - 1). Masked slots enter by select, never as
+    0 * value, so whatever a dead table entry's block holds never reaches
+    the output; a row that sees nothing gives zeros (the JAX oracle's
+    softmax gives the uniform mean there)."""
+    B, Nq, D = q.shape
+    Nk = k_pool.shape[1]
+    G = Nq // Nk
+    k = paged_gather_dense(k_pool, block_tables).float()     # [B, Nk, T, D]
+    v = paged_gather_dense(v_pool, block_tables).float()
+    t = torch.arange(k.shape[2], device=q.device)[None, :]
+    lengths = lengths.to(q.device)[:, None]
+    mask = (t < lengths) & (t >= starts.to(q.device)[:, None])          # [B, T]
+    if sliding_window is not None:
+        mask = mask & (t > lengths - 1 - sliding_window)
+    v = torch.where(mask[:, None, :, None], v, 0.0)
+    s = torch.einsum("bkgd,bktd->bkgt", q.float().reshape(B, Nk, G, D), k) * scale
+    out = _masked_softmax_av(s, mask[:, None, None, :], v)
+    return out.reshape(B, Nq, D).to(q.dtype)
+
+
+def paged_decode_cuda(
+    q: torch.Tensor,             # [B, Nq, D] — one query position per row
+    k_pool: torch.Tensor,        # [n_blocks, Nk, bs, D] one layer's pool
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, MB] int32
+    lengths: torch.Tensor,       # [B] int32
+    starts: torch.Tensor,        # [B] int32
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """K9 (the counterpart of paged_decode_tpu): decode attention over one
+    layer's pool through the block tables. A layer of the stacked pools is
+    passed as the view k_pools[l], which the kernel reads in place.
+    Returns [B, Nq, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, starts,
+                                  scale, sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode: no kernel for device {q.device}")
+    B, Nq, D = q.shape
+    if k_pool.dim() != 4 or k_pool.shape[3] != D or v_pool.shape != k_pool.shape:
+        raise ValueError(f"paged_decode: pools {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not fit q {tuple(q.shape)} (one "
+                         f"layer's [n_blocks, Nk, bs, D])")
+    n_blocks, Nk, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"paged_decode: head dim {D} not in {_HEAD_DIMS}")
+    if Nk == 0 or Nq % Nk or Nq // Nk > _MAX_GROUP:
+        raise ValueError(f"paged_decode: {Nq} query heads over {Nk} KV heads "
+                         f"(at most {_MAX_GROUP} per KV head)")
+    if block_tables.shape != (B, MB) or lengths.shape != (B,) or starts.shape != (B,):
+        raise ValueError(f"paged_decode: tables {tuple(block_tables.shape)}, lengths "
+                         f"{tuple(lengths.shape)}, starts {tuple(starts.shape)} do not "
+                         f"fit {B} rows")
+    kv_code, _ = kv_operands("paged_decode", q, k_pool)
+    _check_cuda_operands(
+        "paged_decode", q, ("q", q, None),
+        ("k_pool", k_pool, (k_pool.dtype,)), ("v_pool", v_pool, (k_pool.dtype,)),
+        ("block_tables", block_tables, _I32), ("lengths", lengths, _I32),
+        ("starts", starts, _I32))
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("paged_decode.cu", "tg_paged_decode", _DECODE_ARGS)
+    out = torch.empty_like(q)
+    win = int(sliding_window) if sliding_window else 0
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(block_tables), _ptr(lengths),
+                 _ptr(starts), _ptr(out), B, Nq, Nk, n_blocks, bs, MB, D,
+                 _DTYPE_CODE[q.dtype], kv_code, float(scale), win, ctypes.c_void_p(stream))
+    cuda_build.check("paged_decode.cu", err, "paged_decode")
+    LAUNCHES["paged_decode"] += 1
+    return out
+
+
+def paged_decode(q, k_pool, v_pool, block_tables, lengths, starts, scale,
+                 sliding_window: Optional[int] = None,
+                 kernel: str = "kernel") -> torch.Tensor:
+    """The dispatcher of the JAX paged_decode: K9 (paged_decode_cuda, whose
+    CPU tensors take the plain version) under kernel="kernel", the plain
+    version under "plain"."""
+    if kernel == "kernel":
+        fn = paged_decode_cuda
+    elif kernel == "plain":
+        fn = paged_decode_plain
+    else:
+        raise ValueError(f"unknown attention route {kernel!r}")
+    return fn(q, k_pool, v_pool, block_tables, lengths, starts, scale, sliding_window)
+
+
+# -- the frozen-pool decode quantum (K8) ---------------------------------------
 
 
 def paged_decode_frozen_plain(
@@ -296,9 +411,8 @@ def paged_decode_spec(
     if k_infl.shape != (B, Nk, N, D) or v_infl.shape != k_infl.shape:
         raise ValueError(f"paged_decode_spec: in-flight {tuple(k_infl.shape)} / "
                          f"{tuple(v_infl.shape)} != {(B, Nk, N, D)}")
-    if Nk == 0 or Nq % Nk or S * (Nq // Nk) > _MAX_SPEC_ROWS:
-        raise ValueError(f"paged_decode_spec: {S} positions x {Nq} query heads over "
-                         f"{Nk} KV heads (at most {_MAX_SPEC_ROWS} rows per KV head)")
+    if Nk == 0 or Nq % Nk:
+        raise ValueError(f"paged_decode_spec: {Nq} query heads over {Nk} KV heads")
     if (block_tables.shape != (B, MB) or lengths0.shape != (B,) or starts.shape != (B,)
             or infl_valid.shape != (B, N)):
         raise ValueError(f"paged_decode_spec: tables {tuple(block_tables.shape)}, "

@@ -195,8 +195,9 @@ def matmul_dequant_stacked(x: torch.Tensor, qt: QuantizedTensor, l: int,
 
 # -- whole-model quantization --------------------------------------------------
 
-# stacked per-layer matmul weights ([L, in, out]) that are quantized
-_QUANT_KEYS = {"qkv_w", "o_w", "gate_up_w", "down_w"}
+# stacked per-layer matmul weights ([L, in, out]) that are quantized: the
+# llama family's and GPT-2's (qkv_w, o_w, fc_w, proj_w)
+_QUANT_KEYS = {"qkv_w", "o_w", "gate_up_w", "down_w", "fc_w", "proj_w"}
 HEAD_PAD_MULTIPLE = 2048
 
 
@@ -214,21 +215,23 @@ def pad_head_out(w: torch.Tensor) -> torch.Tensor:
 def quantize_params(params: Dict, bits: int = 8,
                     group_size: Optional[int] = 128,
                     quantize_lm_head: bool = True) -> Dict:
-    """Weight-only quantization of a params dict (causal_lm layout). Norms,
-    biases, embeddings and rope tables stay in float. With tied embeddings
-    the head becomes a quantized TRANSPOSED copy of the embedding table;
-    the float table stays for the embedding gather. quantize_lm_head=False
-    leaves the head as it is (None when tied)."""
+    """Weight-only quantization of a params dict (causal_lm or gpt2
+    layout). Norms, biases, embeddings and rope tables stay in float. With
+    tied embeddings (an `embed` table and no lm_head) the head becomes a
+    quantized TRANSPOSED copy of the embedding table; the float table stays
+    for the embedding gather. GPT-2's tied head (x @ wte.T) stays in float,
+    as in the JAX package. quantize_lm_head=False leaves the head as it is
+    (None when tied)."""
     out = dict(params)
     layers = dict(params["layers"])
     for key, w in layers.items():
         if key in _QUANT_KEYS:
             layers[key] = quantize_weight(w, bits=bits, group_size=group_size)
     out["layers"] = layers
-    if quantize_lm_head:
-        head = params.get("lm_head")
-        if head is None:
-            head = params["embed"].T
+    head = params.get("lm_head")
+    if head is None and "embed" in params:
+        head = params["embed"].T
+    if quantize_lm_head and head is not None:
         out["lm_head"] = quantize_weight(pad_head_out(head), bits=bits,
                                          group_size=group_size)
     return out

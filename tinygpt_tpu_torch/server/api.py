@@ -81,7 +81,7 @@ class BatchedInferenceWorker:
         sc = scheduler_config or SchedulerConfig(
             dtype=engine.config.dtype, attn_impl=engine._attn_impl,
         )
-        # raises for a model without decode_paged_steps (GPT-2, K9)
+        # raises for a model without decode_paged_steps or forward_paged
         self.batcher = ContinuousBatcher(
             ctx.model, ctx.model_config, ctx.params,
             eos_ids=engine._eos_ids, config=sc,

@@ -4,7 +4,8 @@
 with byte fallback) `tokenizer.json` / `tokenizer_config.json` generated
 in code: no tokenizer asset and no `regex` package is needed.
 `write_random_model_dir` adds a config.json and random safetensors
-weights in HF layout, so `GPTEngine.prepare()` can load the dir.
+weights in HF layout (a llama-family or a GPT-2 config), so
+`GPTEngine.prepare()` can load the dir.
 """
 
 from __future__ import annotations
@@ -90,11 +91,15 @@ def write_metaspace_tokenizer(model_dir: str, vocab_size: int) -> None:
 def random_hf_weights(hf_config: dict, seed: int = 0,
                       dtype: torch.dtype = torch.bfloat16,
                       device="cpu") -> Dict[str, torch.Tensor]:
-    """Random weights under HF names ([out, in] projections), N(0, 0.02²)
-    with unit norms, for a llama-family config.json dict. The lm_head row
-    of EOS is zero, so a random model never stops early under greedy
-    decoding (its logit is 0, far below the maximum over the vocab)."""
+    """Random weights under HF names, N(0, 0.02²) with unit norms, for a
+    config.json dict: a llama family's ([out, in] projections) or GPT-2's
+    (under `transformer.`, Conv1D weights [in, out], biases N(0, 0.02²)
+    too). The head row of EOS (lm_head's, or GPT-2's tied wte row) is
+    zero, so a random model never stops early under greedy decoding (its
+    logit is 0, far below the maximum over the vocab)."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    if hf_config.get("model_type") == "gpt2":
+        return _gpt2_weights(hf_config, gen, dtype, device)
     H = hf_config["hidden_size"]
     I = hf_config["intermediate_size"]
     V = hf_config["vocab_size"]
@@ -125,6 +130,39 @@ def random_hf_weights(hf_config: dict, seed: int = 0,
             p + "mlp.gate_proj.weight": w(I, H),
             p + "mlp.up_proj.weight": w(I, H),
             p + "mlp.down_proj.weight": w(H, I),
+        })
+    return out
+
+
+def _gpt2_weights(hf_config: dict, gen: torch.Generator, dtype: torch.dtype,
+                  device) -> Dict[str, torch.Tensor]:
+    H = hf_config["n_embd"]
+    I = hf_config.get("n_inner") or 4 * H
+    V, P = hf_config["vocab_size"], hf_config["n_positions"]
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    wte = w(V, H)
+    wte[EOS_ID] = 0
+    t = "transformer."
+    out = {t + "wte.weight": wte, t + "wpe.weight": w(P, H),
+           t + "ln_f.weight": ones(H), t + "ln_f.bias": zeros(H)}
+    for i in range(hf_config["n_layer"]):
+        p = f"{t}h.{i}."
+        out.update({
+            p + "ln_1.weight": ones(H), p + "ln_1.bias": zeros(H),
+            p + "attn.c_attn.weight": w(H, 3 * H), p + "attn.c_attn.bias": w(3 * H),
+            p + "attn.c_proj.weight": w(H, H), p + "attn.c_proj.bias": w(H),
+            p + "ln_2.weight": ones(H), p + "ln_2.bias": zeros(H),
+            p + "mlp.c_fc.weight": w(H, I), p + "mlp.c_fc.bias": w(I),
+            p + "mlp.c_proj.weight": w(I, H), p + "mlp.c_proj.bias": w(H),
         })
     return out
 
