@@ -83,6 +83,27 @@ Phases, in order:
            chat completions and /health;
   gpt2_engine, gpt2_server  the engine (generate_sync, batch-1
            speculation) and the server on a 2-layer GPT-2 dir with the
+           generated tokenizer;
+  moe_kernels  holds the gathered-expert kernels (K12 bf16, K11a int8,
+           K11b int4) against their plain versions at the Mixtral-8x7B
+           matrices (2-layer stacks, called at layer 1; 8, 32 and 160 rows;
+           bf16 and fp32 activations) and times each beside its bound (the
+           distinct routed experts' bytes), the plain version and torch.bmm
+           on the gathered weights; beside K12, the dense moe_mlp;
+  mixtral4 Mixtral-8x7B at full width and depth in int4 (group 128), built
+           layer by layer on the card: fp32 at 2 layers, then the model
+           phase's batch and chunks (K1, K5b, K4 in the prefill; K2, K5b,
+           K11b, K4 every step), kernel route against plain route, exact
+           launch counts, the profiled step and its bound from the run's
+           routing;
+  mixtral_serve  the continuous batcher on those params: 8 requests of 512
+           tokens, 64 new each, on the frozen (K8) and the stepwise (K9)
+           quantum, K11b in every step;
+  mixtral8, mixtral_bf16  the same in int8 (K11a; 32 layers, group 128) and
+           in bf16 (K12; cut to 8 layers, and fp32 at 2 layers);
+  mixtral_engine, mixtral_server  GPTEngine (bf16; int4 with AWQ by
+           default, group 128), the evaluator (int4, kernel against plain
+           route) and the server on a 2-layer Mixtral-width dir with the
            generated tokenizer.
 
 Every phase must pass; the script exits non-zero at the first failure.
@@ -176,6 +197,9 @@ REPLACES = {
     "paged_decode": "tinygpt_tpu/ops/paged_attention.py:192",
     "matmul_dequant_int8": "tinygpt_tpu/ops/quant_kernels.py:208",
     "matmul_dequant_int8_stacked": "tinygpt_tpu/ops/quant_kernels.py:481",
+    "moe_gather_matmul": "tinygpt_tpu/ops/moe_kernels.py:98",
+    "moe_gather_matmul_int8": "tinygpt_tpu/ops/moe_kernels.py:229",
+    "moe_gather_matmul_int4": "tinygpt_tpu/ops/moe_kernels.py:313",
 }
 SOURCES = {
     "flash_prefill": "tinygpt_tpu_torch/csrc/flash_prefill.cu",
@@ -189,6 +213,9 @@ SOURCES = {
     "matmul_dequant_int8_stacked": "tinygpt_tpu_torch/csrc/int8_matmul.cu",
     "paged_decode_spec": "tinygpt_tpu_torch/csrc/paged_decode_spec.cu",
     "paged_decode": "tinygpt_tpu_torch/csrc/paged_decode.cu",
+    "moe_gather_matmul": "tinygpt_tpu_torch/csrc/moe_gather_matmul.cu",
+    "moe_gather_matmul_int8": "tinygpt_tpu_torch/csrc/moe_gather_matmul.cu",
+    "moe_gather_matmul_int4": "tinygpt_tpu_torch/csrc/moe_gather_matmul.cu",
 }
 # the serving phase: the JAX package's serving leg
 # (benches/flagship_bench.py:396-535) at the Mistral-7B shape in int4
@@ -210,6 +237,42 @@ GPT2_124M = {
 }
 # the gpt2_serve phase's fp32 check: requests, new tokens each
 GPT2_FP32_SERVE = dict(n_requests=6, max_new=32)
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1, config.json): Mistral's attention
+# (32/8 heads of 128, no sliding window), 8 experts of MLP 14336, 2 a token,
+# an untied head. Random weights from a seed; depth cut as MIXTRAL_LAYERS says
+MIXTRAL_8X7B = {
+    "model_type": "mixtral",
+    "vocab_size": 32000,
+    "hidden_size": 4096,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "intermediate_size": 14336,
+    "num_local_experts": 8,
+    "num_experts_per_tok": 2,
+    "max_position_embeddings": 32768,
+    "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False,
+}
+# layers of each mixtral phase: the experts are 1.41 B parameters a layer, so
+# bf16 (90 GB at 32 layers) runs cut to 8 layers (24 GB); int4 (about 25 GB)
+# and int8 (about 48 GB, after the int4 params are freed) run all 32
+MIXTRAL_LAYERS = {4: 32, 8: 32, None: 8}
+MOE_GROUP = 128  # the JAX engine's group of int4 and int8 MoE models
+# kernel route vs plain route at full width (mixtral phases), max abs error of
+# the logits (std 1.28) at every sampled position on forced tokens, the plain
+# route's routing replayed in the kernel route (_Routing), by the phase's
+# weights: fp32 at 2 layers as MODEL_LOGIT_TOL; in bf16 an H100 read 0.828
+# (int4, 32 layers), 0.911 (int8, 32 layers) and 0.169 (bf16, 8 layers); the
+# limits leave 2.2x to 3x room
+MIXTRAL_LOGIT_TOL = {4: 2.0, 8: 2.0, None: 0.5}
+# the moe_kernels phase: rows of a call (4 tokens x 2 experts, 16 serving
+# rows x 2, a verify of 16 rows x 5 positions x 2), the stacks' layers
+MOE_ROWS = (8, 32, 160)
+MOE_STACK_LAYERS = 2
+# the mixtral4 phase's serving leg: the serve phase's scheduler, 8 requests
+MIXTRAL_SERVE = dict(n_requests=8, prompt_len=512, max_new=64, gap_s=0.25)
 
 
 DEVICE = "cuda"
@@ -1730,13 +1793,15 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
         log(f"{tag} decode steps: device time not measured (the profiler saw "
             f"no device activity)")
         return
-    groups = {"flash_decode_frozen": 0.0, "int4 (K6, K7)": 0.0, "int8 (K5a, K3)": 0.0,
-              "GEMM (cuBLAS)": 0.0, "other": 0.0}
+    groups = {"flash_decode_frozen": 0.0, "gathered experts (K12, K11a, K11b)": 0.0,
+              "int4 (K4-K7)": 0.0, "int8 (K5a, K3)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
     for us, _, key in kernels:
         if "flash_decode_frozen" in key:
             groups["flash_decode_frozen"] += us
+        elif "moe_gather" in key:
+            groups["gathered experts (K12, K11a, K11b)"] += us
         elif "int4" in key:
-            groups["int4 (K6, K7)"] += us
+            groups["int4 (K4-K7)"] += us
         elif "int8" in key:
             groups["int8 (K5a, K3)"] += us
         elif any(w in key.lower() for w in ("gemm", "nvjet", "cutlass", "gemv")):
@@ -2875,6 +2940,576 @@ def phase_gpt2_engine(d: str) -> None:
     _engine_spec(d)
 
 
+# -- mixtral: the gathered-expert kernels (K12, K11a, K11b) and the MoE paths ---------
+
+
+MOE_NAMES = {None: "moe_gather_matmul", 8: "moe_gather_matmul_int8",
+             4: "moe_gather_matmul_int4"}
+
+
+def _moe_stacks(bits, L, seed):
+    """Random Mixtral-8x7B expert stacks on the card, L layers: gate_up [L,
+    8, 4096, 28672] and down [L, 8, 14336, 4096] in bf16 (bits None), or
+    quantized at MOE_GROUP (QuantizedTensor)."""
+    import torch
+
+    from tinygpt_tpu_torch.ops.quant import _quantize_moe_stacked
+
+    c = MIXTRAL_8X7B
+    H, I, E = c["hidden_size"], c["intermediate_size"], c["num_local_experts"]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = {}
+    for key, (IN, OUT) in (("gate_up", (H, 2 * I)), ("down", (I, H))):
+        w = torch.empty((L, E, IN, OUT), dtype=torch.bfloat16, device=DEVICE)
+        for l in range(L):
+            for e in range(E):
+                w[l, e] = torch.randn((IN, OUT), generator=g, device=DEVICE) * 0.02
+        out[key] = w if bits is None else _quantize_moe_stacked(w, bits, MOE_GROUP)
+        del w
+    return out
+
+
+def _moe_args(w):
+    """The weight arguments of a gathered kernel for a stack: (w,) or
+    (data, scales), and the trailing group argument."""
+    if hasattr(w, "bits"):
+        return (w.data, w.scales), (w.group_size,)
+    return (w,), ()
+
+
+def _moe_cost(w, l, idx, x, OUT):
+    """(bytes, operations) of one gathered call: x read and out written
+    once, and each DISTINCT expert that idx names read once (its data and
+    scales of layer l)."""
+    wargs, _ = _moe_args(w)
+    per_expert = sum(t[l, 0].numel() * t.element_size() for t in wargs)
+    n_e = len(set(idx.tolist()))
+    R, IN = x.shape
+    return (_nbytes(x) + R * OUT * x.element_size() + n_e * per_expert,
+            2.0 * R * IN * OUT)
+
+
+def _moe_library(x, w, l, idx, OUT):
+    """torch.bmm over W[l][idx], gathered (and dequantized) to bf16 before
+    the timed call: (ms, why). None where the gathered weights would take
+    more than 16 GB."""
+    import torch
+
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor, dequantize
+
+    R, IN = x.shape
+    if R * IN * OUT * 2 > 16e9:
+        return None, f"not measured: the gathered bf16 weights would take " \
+                     f"{R * IN * OUT * 2 / 1e9:.1f} GB"
+    ids = idx.long()
+    if isinstance(w, QuantizedTensor):
+        wg = dequantize(QuantizedTensor(w.data[l][ids], w.scales[l][ids], w.bits,
+                                        w.group_size, w.in_dim), torch.bfloat16)
+    else:
+        wg = w[l][ids]
+    xb = x[:, None, :]
+    call = lambda: torch.bmm(xb, wg)[:, 0]  # noqa: E731
+    t = cuda_time_ms(call, iters=5, warmup=1)
+    b = bound_ms(_nbytes(wg, x) + R * OUT * 2, 2.0 * R * IN * OUT, "bfloat16")[0]
+    why = "torch.bmm on the gathered bf16 weights"
+    if t < b:   # the profiler can lose cuBLAS's time (PERF.md): CUDA events instead
+        t = _events_ms(call, 5, warmup=1)
+        why += " (CUDA events: the profiler's time was below its bf16 bound)"
+    del wg
+    return t, why
+
+
+def phase_moe_kernels(table: dict) -> None:
+    """K12, K11a and K11b against their plain versions on the card at the
+    Mixtral-8x7B matrices (gate_up 4096 -> 28672, down 14336 -> 4096) of a
+    2-layer stack, called at layer 1: R = 8 (4 tokens x 2 experts), 32 (16
+    serving rows) and 160 (a verify of 16 rows x 5 positions) rows, expert
+    ids from a seeded generator with repeats and one unused expert, bf16 and
+    fp32 activations (QUANT_TOL). Times the bf16 calls beside their bound
+    (the bytes of the distinct experts the ids name, x and out), the plain
+    version and torch.bmm on the gathered weights; beside K12, the dense
+    moe_mlp (every expert on every token) and the gathered MLP at 4 and 16
+    tokens. A table row is the mean of the main path's shape, R = 8 (gate_up
+    and down alike)."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops import moe_kernels as mk
+
+    cfg = parse_model_config(dict(MIXTRAL_8X7B, num_hidden_layers=MOE_STACK_LAYERS))
+    E, H = cfg.num_local_experts, cfg.hidden_size
+    kernels = {None: (mk.moe_gather_matmul, mk.moe_gather_matmul_plain),
+               8: (mk.moe_gather_matmul_int8, mk.moe_gather_matmul_int8_plain),
+               4: (mk.moe_gather_matmul_int4, mk.moe_gather_matmul_int4_plain)}
+    l = MOE_STACK_LAYERS - 1
+    rows, worst = {}, {}
+    for bits in (None, 8, 4):
+        name = MOE_NAMES[bits]
+        stacks = _moe_stacks(bits, MOE_STACK_LAYERS, seed=21)
+        kern, plain = kernels[bits]
+        for key, w in stacks.items():
+            wargs, extra = _moe_args(w)
+            OUT = wargs[0].shape[-1]
+            for R in MOE_ROWS:
+                g = torch.Generator().manual_seed(R)
+                idx = torch.randint(0, E - 1, (R,), generator=g, dtype=torch.int32)
+                idx = idx.to(DEVICE)           # expert E - 1 unused, repeats
+                IN = wargs[0].shape[2] * (2 if bits == 4 else 1)
+                xs = {dt: (torch.randn((R, IN), generator=g) * 0.5).to(dt).to(DEVICE)
+                      for dt in (torch.float32, torch.bfloat16)}
+                for dt, x in xs.items():
+                    got = kern(x, *wargs, l, idx, *extra)
+                    want = plain(x, *wargs, l, idx, *extra)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    dname = str(dt).replace("torch.", "")
+                    tol = QUANT_TOL[dname] * want.float().abs().max().item()
+                    worst[(name, dname)] = max(worst.get((name, dname), 0.0),
+                                               err / max(tol, 1e-30))
+                    if not (math.isfinite(err) and err <= tol):
+                        raise PhaseError(f"{name} {key} R={R} {dname}: max_abs_err {err} "
+                                         f"> {tol}")
+                x = xs[torch.bfloat16]
+                call = lambda: kern(x, *wargs, l, idx, *extra)  # noqa: E731
+                t_k = cuda_time_ms(call, iters=10)
+                t_p = cuda_time_ms(lambda: plain(x, *wargs, l, idx, *extra), iters=2,
+                                   warmup=1)
+                nbytes, ops = _moe_cost(w, l, idx, x, OUT)
+                b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+                if t_k < b_ms:   # the profiler lost device time (PERF.md): CUDA events
+                    log(f"[moe_kernels] {name} {key} R={R}: profiler device time {t_k:.4f} "
+                        f"ms is below the bound; CUDA events over the same loop kept")
+                    t_k = _events_ms(call, 10)
+                t_lib, why = _moe_library(x, w, l, idx, OUT)
+                n_e = len(set(idx.tolist()))
+                log(f"[moe_kernels] {name} {key} R={R} {IN}->{OUT} ({n_e} distinct experts): "
+                    f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms plain "
+                    f"{t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB) "
+                    f"library " + (f"{t_lib:.4f} ms" if t_lib is not None else "-")
+                    + f" [{why}]")
+                rows.setdefault(name, []).append(
+                    (1 if R == MOE_ROWS[0] else 0, t_k, t_p, b_ms, b_by, t_lib, err, tol))
+        if bits is None:   # the dense formulation beside K12 on the same layer
+            gen = torch.Generator(device=DEVICE).manual_seed(3)
+            router = (torch.randn((H, E), generator=gen, device=DEVICE) * 0.02).to(
+                torch.bfloat16)
+            lp = {"router_w": router, "moe_gate_up_w": stacks["gate_up"][l],
+                  "moe_down_w": stacks["down"][l]}
+            for R in MOE_ROWS[:2]:
+                h = torch.randn((R // 2, 1, H), generator=gen, device=DEVICE).to(
+                    torch.bfloat16)
+                t_dense = cuda_time_ms(lambda: causal_lm.moe_mlp(h, lp, cfg, impl="dense"),
+                                       iters=5)
+                t_gath = cuda_time_ms(lambda: mk.moe_mlp_gathered(
+                    h, router, stacks["gate_up"], stacks["down"], l, cfg), iters=10)
+                log(f"[moe_kernels] bf16 MLP of {R // 2} tokens (R = {R}): dense moe_mlp "
+                    f"(every expert on every token) {t_dense:.4f} ms, the gathered MLP "
+                    f"(K12 twice, routing and the slot sum) {t_gath:.4f} ms")
+        del stacks
+        torch.cuda.empty_cache()
+    for (name, dname), r in sorted(worst.items()):
+        log(f"[moe_kernels] {name} {dname}: worst max_abs_err over all cases {r:.3g} of "
+            f"its tolerance")
+    _mix_rows(table, rows)
+
+
+def _mixtral_params(cfg, bits, seed=0):
+    """Random Mixtral params on the card: bf16 through init_params (bits
+    None), else built one layer (and one expert) at a time: each matrix is
+    drawn in bf16 from a seeded generator and quantized at MOE_GROUP with
+    the port's quantize_weight into preallocated stacks, so that the bf16
+    stacks of a full-depth model (90 GB) never exist."""
+    import torch
+
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor, pad_head_out, quantize_weight
+
+    if bits is None:
+        return causal_lm.init_params(cfg, seed=seed, dtype=torch.bfloat16, device=DEVICE)
+    L, E, V, H = (cfg.num_hidden_layers, cfg.num_local_experts, cfg.vocab_size,
+                  cfg.hidden_size)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+
+    shapes = causal_lm._layer_shapes(cfg)
+    layers = {k: torch.ones((L, *shapes[k]), dtype=torch.bfloat16, device=DEVICE)
+              for k in ("input_ln", "post_ln")}
+    layers["router_w"] = torch.empty((L, *shapes["router_w"]), dtype=torch.bfloat16,
+                                     device=DEVICE)
+
+    def put(key, at, lead, m):
+        qt = quantize_weight(m, bits=bits, group_size=MOE_GROUP)
+        if key not in layers:
+            layers[key] = QuantizedTensor(
+                torch.empty(lead + tuple(qt.data.shape), dtype=torch.int8, device=DEVICE),
+                torch.empty(lead + tuple(qt.scales.shape), dtype=torch.float32,
+                            device=DEVICE), qt.bits, qt.group_size, qt.in_dim)
+        layers[key].data[at] = qt.data
+        layers[key].scales[at] = qt.scales
+
+    for l in range(L):
+        for key in ("qkv_w", "o_w"):
+            put(key, l, (L,), w(*shapes[key]))
+        layers["router_w"][l] = w(*shapes["router_w"])
+        for key in ("moe_gate_up_w", "moe_down_w"):
+            for e in range(E):
+                put(key, (l, e), (L, E), w(*shapes[key][1:]))
+    cos, sin = causal_lm._rope_tables(cfg, DEVICE)
+    return {"embed": w(V, H), "layers": layers,
+            "final_ln": torch.ones((H,), dtype=torch.bfloat16, device=DEVICE),
+            "lm_head": quantize_weight(pad_head_out(w(H, V)), bits=bits,
+                                       group_size=MOE_GROUP),
+            "rope_cos": cos, "rope_sin": sin}
+
+
+def _mixtral_step_bytes(params, cfg, T, idx_seen):
+    """Bytes a decode step must read, from the run's own routing: every
+    weight but the experts' (the lm_head, qkv, o, router, norms), the
+    distinct experts each layer's rows were routed to (idx_seen: the
+    expert ids of every gathered MLP call, layer by layer, step by step),
+    and the K/V cache. Returns (mean bytes a step, the experts' share, the
+    mean distinct experts a layer)."""
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor
+
+    L = cfg.num_hidden_layers
+    lay = params["layers"]
+    moe = ("moe_gate_up_w", "moe_down_w")
+
+    def size(v):
+        if isinstance(v, QuantizedTensor):
+            return _nbytes(v.data, v.scales)
+        return _nbytes(v)
+
+    other = sum(size(v) for k, v in lay.items() if k not in moe) + size(params["lm_head"])
+    per_expert = sum(size(lay[k]) for k in moe) // (L * cfg.num_local_experts)
+    distinct = [len(set(i.flatten().tolist())) for i in idx_seen]
+    steps = len(distinct) // L
+    expert_bytes = sum(distinct) * per_expert / steps
+    B = idx_seen[0].shape[0]
+    kv = 2 * L * B * cfg.num_kv_heads * T * cfg.head_dim * 2
+    return other + expert_bytes + kv, expert_bytes, sum(distinct) / len(distinct)
+
+
+class _Routing:
+    """Scaffolding around the MoE routing of a run (ops/moe_kernels.moe_route,
+    which the prefill's moe_mlp and every step's gathered MLP call, layer by
+    layer): "record" keeps each call's expert ids; "replay" gives each call
+    the ids recorded at the same place of another run, with its weights
+    renormalized from this run's router probabilities, and counts the
+    decisions of real tokens (`valid`: the prefill's [B * S] token
+    validity; a pad row's attention differs between the routes by design)
+    whose own top-k would have picked other experts. With
+    the plain route's routing replayed, the kernel route differs from it
+    only by the kernels' arithmetic: a decision that flips at a near-tie of
+    the router (bf16 rounds the two routes' activations apart) would
+    otherwise send a token through other experts and part the two routes."""
+
+    def __init__(self, mode: str, recorded=None, valid=None):
+        self.mode, self.seen, self.valid = mode, [], valid
+        self.recorded, self.flips, self.decisions = recorded, 0, 0
+
+    def __enter__(self):
+        import torch
+
+        from tinygpt_tpu_torch.models import causal_lm
+        from tinygpt_tpu_torch.ops import moe_kernels as mk
+
+        self.real = mk.moe_route
+
+        def route(h2, router_w, k):
+            w, idx = self.real(h2, router_w, k)
+            if self.mode == "replay":
+                want = self.recorded[len(self.seen)]
+                same = (want.sort(dim=-1).values == idx.sort(dim=-1).values).all(dim=-1)
+                real = (self.valid if same.shape == self.valid.shape
+                        else torch.ones_like(same))
+                self.flips += int((~same & real).sum())
+                self.decisions += int(real.sum())
+                probs = torch.softmax(h2.float() @ router_w.float(), dim=-1)
+                w = probs.gather(-1, want)
+                w, idx = w / w.sum(dim=-1, keepdim=True), want
+            self.seen.append(idx)
+            return w, idx
+
+        self.patched = (mk, causal_lm)
+        for m in self.patched:
+            m.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.patched:
+            m.moe_route = self.real
+
+
+def _mixtral_want(bits, L, n, prefills=1, attn="flash_decode_frozen"):
+    """Launches of `prefills` prefills and n decode steps of a mixtral: K1
+    in the prefill; per decode step the attention kernel and two gathered
+    matmuls a layer; int4 / int8 add K5b / K5a for qkv and o (prefill and
+    decode) and K4 / K3 for the head."""
+    want = {"flash_prefill": L * prefills, attn: L * n, MOE_NAMES[bits]: 2 * L * n}
+    if bits is not None:
+        stacked = "matmul_dequant_int4_stacked" if bits == 4 else "matmul_dequant_int8_stacked"
+        head = "matmul_dequant_int4" if bits == 4 else "matmul_dequant_int8"
+        want.update({stacked: 2 * L * (prefills + n), head: prefills + n})
+    return want
+
+
+def phase_mixtral(table: dict, bits):
+    """Mixtral-8x7B at full width on the card, in int4 (bits 4: K11b),
+    int8 (8: K11a) or bf16 (None: K12), MIXTRAL_LAYERS deep: first the same
+    quantization in fp32 at 2 layers (int4, bf16), kernel route against
+    plain route within MODEL_LOGIT_TOL["float32"] and identical
+    free-running tokens; then the main path: a prefill of 4 left-padded
+    prompts and two greedy chunks of 32 steps, the kernel route against the
+    plain route on forced tokens with the plain route's routing replayed
+    (MIXTRAL_LOGIT_TOL) and, not checked, with each route's own routing;
+    exact launch counts, the decode step under the profiler, and the step's
+    bound from the run's own routing. Returns the params (the int4 ones
+    serve next)."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    tag = f"[mixtral{'_bf16' if bits is None else bits}]"
+    label = "bf16" if bits is None else f"int{bits}"
+    mp = main_path_shapes()
+    S, T = mp["prefill"]["S"], mp["prefill"]["T"]
+    B = len(PROMPT_LENS)
+    with torch.inference_mode():
+        if bits != 8:
+            cfg2 = parse_model_config(dict(MIXTRAL_8X7B, num_hidden_layers=2))
+            p2 = _mixtral_params(cfg2, bits, seed=1)
+            p2 = _to_fp32(p2)
+            batch = _left_padded_batch(S, PROMPT_LENS, cfg2.vocab_size, seed=1)
+            plain = _run_route(p2, cfg2, batch, T, "plain", n_chunks=1)
+            kern = _run_route(p2, cfg2, batch, T, "kernel", force=plain[1], n_chunks=1)
+            _check_routes(f"{label} weights, fp32, 2 layers", kern, plain,
+                          MODEL_LOGIT_TOL["float32"], tag)
+            if not torch.equal(_run_route(p2, cfg2, batch, T, "kernel", n_chunks=1)[1],
+                               plain[1]):
+                raise PhaseError(f"{tag} fp32, 2 layers: free-running greedy tokens of the "
+                                 f"kernel route differ from the plain route's")
+            log(f"{tag} {label} weights, fp32, 2 layers: free-running greedy tokens "
+                f"identical on both routes")
+            del p2
+            torch.cuda.empty_cache()
+
+        cfg = parse_model_config(dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS[bits]))
+        L = cfg.num_hidden_layers
+        t0 = time.perf_counter()
+        params = _mixtral_params(cfg, bits, seed=0)
+        torch.cuda.synchronize()
+        log(f"{tag} Mixtral-8x7B, {L} layers, {label}"
+            + ("" if bits is None else f" (group {MOE_GROUP})")
+            + f" built on the card in {time.perf_counter() - t0:.1f} s: "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
+        _run_route(params, cfg, batch, T, "kernel", n_chunks=1)      # warm-up
+        with _Routing("record") as rec:
+            plain = _run_route(params, cfg, batch, T, "plain")
+        with _Routing("replay", rec.seen, valid=batch[2].reshape(-1)) as rep:
+            forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1])
+        free = _run_route(params, cfg, batch, T, "kernel", force=plain[1])
+        ak.reset_launches()                                           # the main path's run
+        kern = _run_route(params, cfg, batch, T, "kernel")
+        launches = dict(ak.LAUNCHES)
+        _profile_decode(params, cfg, batch, T, label=label, tag=tag)
+    n = N_CHUNKS * DECODE_CHUNK
+    want = _mixtral_want(bits, L, n)
+    log(f"{tag} launches {launches} (want {want})")
+    if launches != want:
+        raise PhaseError(f"{tag} kernel launches {launches} != {want}")
+    table[MOE_NAMES[bits]]["launches"] = launches[MOE_NAMES[bits]]
+    _check_routes(f"{label}, bf16, {L} layers, the plain route's routing replayed", forced,
+                  plain, MIXTRAL_LOGIT_TOL[bits], tag)
+    err = (free[0] - plain[0]).abs().max().item()
+    rel = ((free[0] - plain[0]).norm() / plain[0].norm()).item()
+    log(f"{tag} {label}, bf16, {L} layers, each route routing by its own top-k (forced "
+        f"tokens): {rep.flips} of {rep.decisions} token decisions of the kernel route would "
+        f"pick other experts than the plain route did; logits max_abs_err {err:.4g}, "
+        f"relative L2 {rel:.3g} (not a check: a flipped decision changes a token's "
+        f"experts)")
+    same = int((kern[1] == plain[1]).all(dim=0).sum())
+    decode_ids = rep.seen[L:]                      # the prefill's L calls come first
+    step_bytes, expert_bytes, distinct = _mixtral_step_bytes(params, cfg, T, decode_ids)
+    pre_ms, dec_ms = kern[2:]
+    log(f"{tag} {label}, {L} layers: free-running greedy tokens of the two routes identical "
+        f"over all {kern[1].shape[0]} positions in {same} of {B} rows")
+    log(f"{tag} kernel route: prefill {pre_ms:.2f} ms ({B}x{S} tokens), decode "
+        f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B} (host: "
+        f"{host_launch_us():.2f} us a tiny launch); plain route: prefill {plain[2]:.2f} ms, "
+        f"decode {plain[3]:.3f} ms/step; {distinct:.2f} distinct experts a layer on this "
+        f"run's routing: a step reads {step_bytes / 1e9:.3f} GB (experts "
+        f"{expert_bytes / 1e9:.3f}), bound {step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    return params
+
+
+def _to_fp32(params):
+    """Float params in fp32 (quantized stacks as they are)."""
+    import torch
+
+    def conv(v):
+        return v.float() if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+
+    out = {k: conv(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: conv(v) for k, v in params["layers"].items()}
+    return out
+
+
+def phase_mixtral_serve(table: dict, params) -> None:
+    """The continuous batcher on the full-depth int4 Mixtral params:
+    capacity 16, block 64, 257 blocks, quantum 8, pipelined, prefix cache
+    on; 8 requests of 512 random tokens, 64 greedy new tokens each, one
+    every 0.25 s; once on the frozen quantum (K8 and K11b every step) and
+    once on the stepwise one (K9 and K11b): tok/s, TTFT, exact launch
+    counts, and one quantum at 16 live rows under the profiler."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    s, m = SERVE, MIXTRAL_SERVE
+    cfg = parse_model_config(dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS[4]))
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return [int(x) for x in rng.integers(3, V, n)]
+
+    warm = prompt(m["prompt_len"])
+    prompts = [prompt(m["prompt_len"]) for _ in range(m["n_requests"])]
+    with torch.inference_mode():
+        for quantum, kname in (("frozen", "paged_decode_frozen"), ("stepwise", "paged_decode")):
+            counts = Counter()
+            b = _serving_batcher(params, cfg, counts, stepwise=quantum == "stepwise")
+            _drive(b, [warm], s["quantum"])
+            torch.cuda.synchronize()
+            counts.clear()
+            ak.reset_launches()                               # this quantum's run
+            run = _drive(b, prompts, m["max_new"], m["gap_s"])
+            torch.cuda.synchronize()
+            launches = dict(ak.LAUNCHES)
+            met = _serving_metrics(run)
+            steps, adm = counts["steps"], counts["admissions"]
+            n_out = sorted(len(v) for v in run["streams"].values())
+            log(f"[mixtral_serve] int4, {quantum} quantum: {m['n_requests']} requests of "
+                f"{m['prompt_len']} random tokens, {m['max_new']} new each, one every "
+                f"{m['gap_s']} s: TTFT p50 {met['ttft_p50_s']:.4f} s p95 "
+                f"{met['ttft_p95_s']:.4f} s; {run['toks']} tokens in {met['wall_s']:.3f} s = "
+                f"{met['tok_s']:.2f} tok/s whole run, {met['steady_tok_s']:.2f} tok/s steady; "
+                f"{steps} decode steps, {adm} admissions")
+            if n_out != [m["max_new"]] * m["n_requests"]:
+                raise PhaseError(f"mixtral_serve {quantum}: tokens per request {n_out}")
+            want = _mixtral_want(4, L, steps, prefills=adm, attn=kname)
+            log(f"[mixtral_serve] {quantum} launches {launches} (want {want})")
+            if adm != m["n_requests"] or launches != want:
+                raise PhaseError(f"mixtral_serve {quantum}: launches {launches} != {want}")
+            prof = _profile_quantum(b, params, cfg, prompt, "[mixtral_serve]",
+                                    "moe_gather")
+            if prof:
+                wall, busy, k_ms, n_launch = prof
+                log(f"[mixtral_serve] {quantum} quantum of {s['quantum']} steps at "
+                    f"{s['capacity']} live rows under the profiler: wall {wall:.3f} ms/step, "
+                    f"device busy {busy:.3f} ms/step ({100 * busy / wall:.1f}% busy), "
+                    f"{n_launch} device launches/step, K11b {k_ms:.4f} ms/step")
+            del b
+            torch.cuda.empty_cache()
+
+
+def _write_mixtral_dir(d: str) -> None:
+    """A Mixtral-8x7B-width model dir, 2 layers, random bf16 weights under
+    HF names (block_sparse_moe) and the generated Metaspace-BPE tokenizer."""
+    import torch
+
+    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
+
+    t0 = time.perf_counter()
+    write_random_model_dir(d, dict(MIXTRAL_8X7B, num_hidden_layers=2), seed=4,
+                           dtype=torch.bfloat16, device=DEVICE)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"[mixtral_engine] model dir {size / 1e9:.2f} GB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_mixtral_engine(d: str) -> None:
+    """GPTEngine on the mixtral dir `d`: in bf16 (K12) and with
+    quantization="int4", which runs AWQ by default (the MoE folds; group
+    128) before quantizing (K5b, K4, K11b); then the evaluator with int4
+    weights on the kernel route against the plain route."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tinygpt_tpu_torch import evaluate
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine, resolve_quant_group
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    max_tokens = 32
+    prompts = ["The meaning of life is", "Once upon a time,",
+               "In a shocking finding, scientists discovered",
+               "The best way to learn programming is"]
+    group = resolve_quant_group(4, None, moe=True)
+    runs = {"bf16": ({}, ("flash_prefill", "flash_decode_frozen", "moe_gather_matmul")),
+            "int4 (AWQ by default, group 128)": (
+                dict(quantization="int4"),
+                ("flash_prefill", "flash_decode_frozen", "matmul_dequant_int4",
+                 "matmul_dequant_int4_stacked", "moe_gather_matmul_int4"))}
+    for label, (kw, kernels) in runs.items():
+        t0 = time.perf_counter()
+        eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE, **kw))
+        eng.prepare()
+        t_load = time.perf_counter() - t0
+        if kw:
+            qt = eng.ctx.params["layers"]["moe_gate_up_w"]
+            if (qt.bits, qt.group_size) != (4, group):
+                raise PhaseError(f"mixtral engine {label}: experts int{qt.bits} group "
+                                 f"{qt.group_size}")
+        ak.reset_launches()
+        t0 = time.perf_counter()
+        outs = eng.generate_sync(prompts)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(ak.LAUNCHES)
+        del eng
+        torch.cuda.empty_cache()
+        n = [len(o.token_ids) for o in outs]
+        log(f"[mixtral_engine] {label}: prepare() {t_load:.1f} s; generate_sync of "
+            f"{len(prompts)} prompts: {sum(n)} tokens in {t_gen * 1e3:.0f} ms; launches "
+            f"{launches}; first output {outs[0].text[:40]!r}")
+        missing = [k for k in kernels if not launches.get(k)]
+        if n != [max_tokens] * len(prompts) or missing:
+            raise PhaseError(f"mixtral engine {label}: {n} tokens, {missing} never launched")
+
+    path = os.path.join(d, "eval.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(EVAL_TEXT)
+    ppl = {}
+    for impl in ("kernel", "plain"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = evaluate.main(["--model", d, "--text", path, "--window", "512",
+                                "--stride", "256", "--max-tokens", "1024", "--device",
+                                DEVICE, "--quantization", "int4", "--no-awq", "--impl",
+                                impl])
+        mt = re.search(r"perplexity: ([0-9.]+) over (\d+) tokens", out.getvalue())
+        if rc != 0 or mt is None:
+            raise PhaseError(f"mixtral evaluate {impl}: rc {rc}, {out.getvalue()!r}")
+        ppl[impl] = float(mt.group(1))
+    rel = abs(ppl["kernel"] - ppl["plain"]) / ppl["plain"]
+    log(f"[mixtral_engine] evaluator, int4: perplexity {ppl['kernel']:.4f} (kernel route), "
+        f"{ppl['plain']:.4f} (plain), relative difference {rel:.3g} (tol {EVAL_PPL_RTOL})")
+    if not rel <= EVAL_PPL_RTOL:
+        raise PhaseError(f"mixtral evaluate: perplexities {ppl} differ by {rel}")
+
+
 def _write_model_dir(d: str) -> None:
     """A model dir of Mistral-7B widths, 2 layers, random bf16 weights and
     the generated Metaspace-BPE tokenizer (the engine and server phases)."""
@@ -3253,6 +3888,15 @@ def main() -> int:
         timed("gpt2_serve", phase_gpt2_serve, table, gparams)
         del gparams
         torch.cuda.empty_cache()
+        timed("moe_kernels", phase_moe_kernels, table)
+        params4 = timed("mixtral4", phase_mixtral, table, 4)
+        timed("mixtral_serve", phase_mixtral_serve, table, params4)
+        del params4
+        torch.cuda.empty_cache()
+        timed("mixtral8", phase_mixtral, table, 8)
+        torch.cuda.empty_cache()
+        timed("mixtral_bf16", phase_mixtral, table, None)
+        torch.cuda.empty_cache()
         from tinygpt_tpu_torch.ops import cuda_build
 
         cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -3269,6 +3913,13 @@ def main() -> int:
             timed("gpt2 dir", _write_gpt2_dir, d)
             timed("gpt2_engine", phase_gpt2_engine, d)
             timed("gpt2_server", phase_server, d)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        d = tempfile.mkdtemp(prefix="smoke_mixtral_", dir=cuda_build.BUILD_DIR)
+        try:
+            timed("mixtral dir", _write_mixtral_dir, d)
+            timed("mixtral_engine", phase_mixtral_engine, d)
+            timed("mixtral_server", phase_server, d)
         finally:
             shutil.rmtree(d, ignore_errors=True)
     except PhaseError as e:

@@ -1,8 +1,10 @@
 """The port's AWQ (tinygpt_tpu_torch.ops.awq) against the JAX package's
 (tinygpt_tpu.ops.awq), on the CPU, in fp32, on the same numpy-seeded
 params: tiny llama (tied head), qwen2 (qkv bias), qwen3 (qk-norm, head
-dim 32) and mistral (sliding window), each with salient channels in its
-norms so that the search moves away from plain round-to-nearest.
+dim 32), mistral (sliding window) and mixtral (the MoE folds; its alpha
+search and quantized bytes at int4 are in tests/test_torch_moe_model.py),
+each with salient channels in its norms so that the search moves away
+from plain round-to-nearest.
 
 Tolerances, measured on these models: the calibration statistics agree
 to 1e-6 relative (the same fp32 prefill in another summation order), the
@@ -42,8 +44,11 @@ CONFIGS = {
     "qwen2": dict(_BASE, model_type="qwen2"),
     "qwen3": dict(_BASE, model_type="qwen3", head_dim=32),
     "mistral": dict(_BASE, model_type="mistral", sliding_window=4),
+    "mixtral": dict(_BASE, model_type="mixtral", num_local_experts=4,   # MoE folds
+                    num_experts_per_tok=2),
 }
 FAMILIES = list(CONFIGS)
+DENSE = [f for f in FAMILIES if f != "mixtral"]   # the tests of the dense MLP's keys
 STACKS = (("qkv_w", "qkv_in"), ("o_w", "o_in"), ("gate_up_w", "gate_up_in"),
           ("down_w", "down_in"))
 
@@ -107,7 +112,7 @@ def _alpha_index(m, s, kv_share=None):
 
 
 @pytest.mark.parametrize("bits,group", [(4, 16), (8, 32)])
-@pytest.mark.parametrize("fam", FAMILIES)
+@pytest.mark.parametrize("fam", DENSE)
 def test_search_picks_the_same_alpha_as_jax(fam, bits, group):
     jcfg, jp, cfg, tp, _ = _models(fam)
     stats = _jax_stats(fam)
@@ -209,7 +214,7 @@ def test_kv_share_grouping():
 
 
 @pytest.mark.parametrize("bits,group", [(4, 16), (8, 32)])
-@pytest.mark.parametrize("fam", FAMILIES)
+@pytest.mark.parametrize("fam", DENSE)
 def test_awq_quantize_params_matches_jax(fam, bits, group):
     """Calibrate → fold → quantize end to end: the same bytes and scales."""
     jcfg, jp, cfg, tp, calib = _models(fam)
@@ -266,9 +271,12 @@ def test_awq_policy_matches_jax():
 
 
 def test_moe_layout_raises():
+    """The MoE layout is folded (mixtral runs every test above); a layout
+    that mixes a router into the dense MLP's keys, neither the one nor the
+    other, raises."""
     _, _, cfg, tp, calib = _models("llama")
     moe = dict(tp, layers=dict(tp["layers"], router_w=torch.zeros(2, 64, 4)))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="neither the dense MLP"):
         awq.awq_quantize_params(moe, cfg, calib)
 
 

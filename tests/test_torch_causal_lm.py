@@ -7,7 +7,11 @@ plain versions on the CPU) and "plain" (the position-masked oracles).
 Logit tolerance 1e-4 (fp32, a few layers, another summation order), as
 tests/test_models.py uses for the JAX decode path. Greedy tokens must be
 equal up to the first step where they differ, and that step must be a
-near-tie: its top-2 logit gap below 1e-3, ten times the logit tolerance."""
+near-tie: its top-2 logit gap below 1e-3, ten times the logit tolerance.
+
+mixtral (4 experts, top 2) runs moe_mlp in the forward and the gathered
+MLP (K12's plain version on the CPU) in every decode step; the JAX
+package's CPU decode runs its dense moe_mlp: the same fp32 function."""
 
 import functools
 
@@ -42,6 +46,8 @@ CONFIGS = {
     "qwen2": dict(_BASE, model_type="qwen2"),               # qkv bias
     "qwen3": dict(_BASE, model_type="qwen3", head_dim=32),  # qk-norm, head_dim
     "mistral": dict(_BASE, model_type="mistral", sliding_window=4),
+    "mixtral": dict(_BASE, model_type="mixtral", num_local_experts=4,   # MoE MLP
+                    num_experts_per_tok=2),
 }
 FAMILIES = list(CONFIGS)
 ROUTES = ["kernel", "plain"]
@@ -205,14 +211,13 @@ def test_load_params_matches_jax(hf_dirs, fam, dtype):
 
 @pytest.mark.parametrize("model_type", ["gpt2", "mixtral"])
 def test_families_not_ported_raise(model_type):
-    """mixtral (the MoE MLP, ROADMAP item 12) raises; gpt2 is ported and
-    returns every entry point of the JAX registry's namespace."""
-    if model_type == "gpt2":
-        ns = get_model(model_type)
-        for name in ("load_params", "init_params", "forward", "decode_steps",
-                     "decode_paged_steps", "forward_paged"):
-            assert callable(getattr(ns, name)), name
-        assert not hasattr(ns, "decode_paged_spec_steps")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(model_type)
+    """No family of the JAX registry is left unported: gpt2 and mixtral
+    (the MoE MLP) return every entry point of the JAX registry's namespace,
+    mixtral the speculative quantum too (as the JAX package: not gpt2)."""
+    ns = get_model(model_type)
+    for name in ("load_params", "init_params", "forward", "decode_steps",
+                 "decode_paged_steps", "forward_paged"):
+        assert callable(getattr(ns, name)), name
+    assert hasattr(ns, "decode_paged_spec_steps") == (model_type == "mixtral")
+    if model_type == "mixtral":
+        assert ns.forward is causal_lm.forward

@@ -1033,3 +1033,203 @@ def test_gpt2_on_the_card_matches_the_cpu(dev):
     assert torch.equal(toks_k, toks_c)
     assert (pg_k - pg_c).abs().max().item() <= 1e-4
     assert (kp_k - kp_c).abs().max().item() <= 1e-4
+
+
+# -- gathered-expert matmuls (K12, K11a, K11b) and mixtral -------------------------
+#
+# The Mixtral-8x7B matrices at two layers (called at layer 1: the layer and
+# expert offsets), R = 8, 32 and 160 rows with repeated ids and an unused
+# expert, and small shapes at the edges: a float stack whose rows end inside
+# a step, an int4 stack row-padded at quantize time, one expert taking more
+# rows than a block's group of 8, fp32 stacks, experts with enough column
+# tiles to run without a cluster split. Tolerances as K3 to K7
+# (QTOL): the same exact dequantization, summed in another order.
+
+from tinygpt_tpu_torch.ops import moe_kernels as mk  # noqa: E402
+from tinygpt_tpu_torch.ops.quant import _quantize_moe_stacked  # noqa: E402
+
+MOE_KERNELS = {"float": (mk.moe_gather_matmul, mk.moe_gather_matmul_plain),
+               8: (mk.moe_gather_matmul_int8, mk.moe_gather_matmul_int8_plain),
+               4: (mk.moe_gather_matmul_int4, mk.moe_gather_matmul_int4_plain)}
+MOE_NAMES = {"float": "moe_gather_matmul", 8: "moe_gather_matmul_int8",
+             4: "moe_gather_matmul_int4"}
+
+
+def _moe_stack(kind, L, E, IN, OUT, group, dev, wdtype=torch.bfloat16, seed=0):
+    """A random expert stack on the card: (weight args before l, the group
+    or None)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((L, E, IN, OUT), generator=gen, device=dev) * 0.02
+    if kind == "float":
+        return (w.to(wdtype),), None
+    qt = _quantize_moe_stacked(w, kind, group)
+    assert qt.bits == kind
+    return (qt.data, qt.scales), qt.group_size
+
+
+def _moe_ids(R, E, seed):
+    """Expert ids with repeats and expert E - 1 unused."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, E - 1, (R,), generator=g, dtype=torch.int32)
+
+
+MOE_FULL = [  # (kind, IN, OUT): the Mixtral-8x7B gate_up and down
+    (k, i, o) for k in ("float", 8, 4) for i, o in ((4096, 28672), (14336, 4096))]
+
+
+@pytest.mark.parametrize("kind,IN,OUT", MOE_FULL)
+def test_moe_gather_kernels_at_mixtral_widths_match_plain(dev, kind, IN, OUT):
+    stack, group = _moe_stack(kind, 2, 8, IN, OUT, 128, dev)
+    kern, plain = MOE_KERNELS[kind]
+    extra = () if group is None else (group,)
+    for R in (8, 32, 160):
+        idx = _moe_ids(R, 8, R).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _randn(torch.Generator().manual_seed(R), R, IN, dtype=dtype, dev=dev)
+            ak.reset_launches()
+            got = kern(x, *stack, 1, idx, *extra)
+            assert ak.LAUNCHES[MOE_NAMES[kind]] == 1
+            want = plain(x, *stack, 1, idx, *extra)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (R, OUT)
+            _qclose(got, want, dtype, f"{MOE_NAMES[kind]} R={R} {dtype}")
+
+
+MOE_EDGES = [
+    # (kind, L, E, IN, OUT, group, R, ids, wdtype)
+    ("float", 2, 3, 72, 40, None, 5, None, torch.bfloat16),   # rows end inside a step
+    ("float", 2, 4, 256, 264, None, 33, None, torch.float32),  # fp32 stack
+    ("float", 1, 2, 64, 8, None, 1, None, torch.bfloat16),     # one row
+    (8, 2, 4, 80, 136, 16, 5, None, None),                     # IN 80: uneven row split
+    (8, 2, 2, 256, 64, 64, 40, [1] * 40, None),                # 40 rows, one expert
+    (4, 2, 3, 128, 256, 32, 7, None, None),                    # row-padded to 256
+    (4, 2, 4, 896, 512, 128, 12, None, None),                  # 896 -> 1024
+    (4, 1, 8, 512, 1024, 64, 16, [7, -3, 12, 0] * 4, None),    # ids clamped
+    ("float", 1, 64, 64, 2304, None, 33, None, torch.bfloat16),  # many column tiles:
+    (4, 1, 66, 256, 2048, 64, 12, None, None),                 # no cluster split
+]
+
+
+@pytest.mark.parametrize("case", MOE_EDGES)
+def test_moe_gather_kernels_at_the_edges_match_plain(dev, case):
+    kind, L, E, IN, OUT, group, R, ids, wdtype = case
+    stack, g = _moe_stack(kind, L, E, IN, OUT, group, dev, wdtype or torch.bfloat16, seed=3)
+    kern, plain = MOE_KERNELS[kind]
+    extra = () if g is None else (g,)
+    idx = (_moe_ids(R, E, 5) if ids is None else torch.tensor(ids, dtype=torch.int32)).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn(torch.Generator().manual_seed(6), R, IN, dtype=dtype, dev=dev)
+        for l in range(L):
+            got = kern(x, *stack, l, idx, *extra)
+            want = plain(x, *stack, l, idx, *extra)
+            torch.cuda.synchronize()
+            _qclose(got, want, dtype, f"{case} layer {l} {dtype}")
+
+
+def test_moe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    """No fallback: CPU ids beside card weights, an fp16 activation, int64
+    ids, a bad layer, group or scale dtype, and x wider than the stack
+    raise."""
+    (data, scales), g = _moe_stack(4, 2, 4, 256, 128, 64, dev)
+    (w,), _ = _moe_stack("float", 2, 4, 256, 128, None, dev)
+    x = _randn(torch.Generator().manual_seed(1), 4, 256, dtype=torch.bfloat16, dev=dev)
+    idx = torch.tensor([0, 1, 1, 3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="expected"):
+        mk.moe_gather_matmul_int4(x, data, scales, 0, idx.cpu(), g)
+    with pytest.raises(TypeError, match="dtype"):
+        mk.moe_gather_matmul(x.half(), w, 0, idx)
+    with pytest.raises(TypeError, match="int32"):
+        mk.moe_gather_matmul(x, w, 0, idx.long())
+    with pytest.raises(TypeError, match="stack"):
+        mk.moe_gather_matmul(x, w.half(), 0, idx)
+    with pytest.raises(ValueError, match="layer"):
+        mk.moe_gather_matmul_int4(x, data, scales, 2, idx, g)
+    with pytest.raises(ValueError, match="group"):
+        mk.moe_gather_matmul_int4(x, data, scales, 0, idx, 24)
+    with pytest.raises(TypeError, match="scales"):
+        mk.moe_gather_matmul_int4(x, data, scales.half(), 0, idx, g)
+    with pytest.raises(ValueError, match="columns"):
+        mk.moe_gather_matmul_int4(torch.cat([x, x], 1), data, scales, 0, idx, g)
+    with pytest.raises(ValueError, match="columns"):
+        mk.moe_gather_matmul(x[:, :128].contiguous(), w, 0, idx)
+
+
+def _mixtral_cfg():
+    return parse_model_config(dict(model_type="mixtral", vocab_size=211, hidden_size=256,
+                                   intermediate_size=512, num_hidden_layers=2,
+                                   num_attention_heads=4, num_key_value_heads=2,
+                                   num_local_experts=4, num_experts_per_tok=2,
+                                   max_position_embeddings=96))
+
+
+@pytest.mark.parametrize("weights", ["float32", "bfloat16", "int4"])
+def test_mixtral_on_the_card_matches_the_cpu(dev, weights):
+    """A tiny mixtral (4 experts, top 2, H = 256 so int4 stays int4): the
+    prefill logits, two frozen decode chunks (K12 on float stacks, K11b on
+    int4 ones, in every layer of every step) and forward_paged steps on the
+    card against the same params through the plain versions on the CPU.
+    fp32 and int4 in fp32: logits within 1e-4, identical tokens; bf16: the
+    prefill logits within 0.05 (bf16 rounds at other places), the decode
+    fed the CPU's tokens."""
+    from tinygpt_tpu_torch.engine.paged_kv import PagedKVState
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor, quantize_params
+
+    cfg = _mixtral_cfg()
+    dtype = torch.bfloat16 if weights == "bfloat16" else torch.float32
+    params = causal_lm.init_params(cfg, seed=0, dtype=dtype, device="cpu")
+    if weights == "int4":
+        params = quantize_params(params, bits=4, group_size=64)
+        assert params["layers"]["moe_gate_up_w"].bits == 4
+
+    def to(v, where):
+        if isinstance(v, QuantizedTensor):
+            return QuantizedTensor(v.data.to(where), v.scales.to(where), v.bits,
+                                   v.group_size, v.in_dim)
+        return v if v is None else v.to(where)
+
+    pcard = {k: {n: to(t, dev) for n, t in v.items()} if k == "layers" else to(v, dev)
+             for k, v in params.items()}
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(3, cfg.vocab_size, (3, 24), generator=gen, dtype=torch.int32)
+    pos = torch.arange(24, dtype=torch.int32)[None].expand(3, 24).contiguous()
+    pools = torch.randn(2, 2, 12, 2, 16, 64, generator=gen).to(dtype)
+    outs, fed = {}, None
+    moe = "moe_gather_matmul_int4" if weights == "int4" else "moe_gather_matmul"
+    for where, p, impl in (("cpu", params, "plain"), (dev, pcard, "kernel")):
+        cache = create_kv_cache(cfg, 3, 48, dtype=dtype, device=where)
+        lg, cache = causal_lm.forward(p, cfg, ids.to(where), cache, pos.to(where),
+                                      torch.ones(3, 24, dtype=torch.bool, device=where),
+                                      attn_impl=impl)
+        seen = []
+
+        def pick(x, where=where):
+            seen.append(x.float().cpu())
+            tok = x.argmax(-1) if fed is None else fed[len(seen) - 1].to(where)
+            return tok.to(torch.int32)
+
+        ak.reset_launches()
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        for c in range(2):
+            toks, cache = causal_lm.decode_steps(p, cfg, tok, cache,
+                                                 pos[:, -1:].to(where) + 1 + 8 * c, 8, pick,
+                                                 attn_impl=impl)
+            tok = toks[-1]
+        if impl == "kernel":
+            torch.cuda.synchronize()
+            assert ak.LAUNCHES[moe] == 2 * 16 * cfg.num_hidden_layers   # gate_up, down
+        fed = torch.stack([s.argmax(-1) for s in seen]) if fed is None else fed
+        st = PagedKVState(
+            k_pool=pools[0].clone().to(where), v_pool=pools[1].clone().to(where),
+            block_tables=torch.tensor([[1, 2, 3, 4, 5, 6], [7, 8, 0, 0, 0, 0]],
+                                      dtype=torch.int32, device=where),
+            lengths=torch.tensor([70, 20], dtype=torch.int32, device=where),
+            starts=torch.tensor([0, 2], dtype=torch.int32, device=where),
+            active=torch.tensor([True, True], device=where))
+        paged = [causal_lm.forward_paged(p, cfg, fed[i, :2].to(torch.int32).to(where), st,
+                                         attn_impl=impl)[0] for i in range(3)]
+        outs[impl] = (lg.float().cpu(), torch.stack(seen), torch.stack(paged).float().cpu())
+    (lg_c, dec_c, pg_c), (lg_k, dec_k, pg_k) = outs["plain"], outs["kernel"]
+    tol = 0.05 if weights == "bfloat16" else 1e-4
+    assert (lg_k - lg_c).abs().max().item() <= tol
+    assert (dec_k - dec_c).abs().max().item() <= tol
+    assert (pg_k - pg_c).abs().max().item() <= tol

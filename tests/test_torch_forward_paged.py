@@ -85,7 +85,7 @@ def assert_paged_steps_agree(seen, tstate, jstate, active):
                                    np.asarray(getattr(jstate, name))[:, 1:], **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("fam", ["llama", "mistral"])
+@pytest.mark.parametrize("fam", ["llama", "mistral", "mixtral"])
 @pytest.mark.parametrize("impl", ["kernel", "plain"])
 def test_forward_paged_matches_jax(fam, impl):
     """Three steps on forced tokens: rows of ragged lengths (mistral's
@@ -134,7 +134,7 @@ def stepwise(ns):
                               if k != "decode_paged_steps"})
 
 
-@pytest.mark.parametrize("fam", ["llama", "mistral"])
+@pytest.mark.parametrize("fam", ["llama", "mistral", "mixtral"])
 def test_stepwise_quantum_streams_match_jax_and_frozen(fam):
     """Staggered requests, more than the 3 rows: the port's stepwise
     quantum against the JAX batcher's (the same namespace) and against the

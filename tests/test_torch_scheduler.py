@@ -59,6 +59,8 @@ _BASE = dict(vocab_size=101, hidden_size=64, intermediate_size=128,
 CONFIGS = {
     "llama": dict(_BASE, model_type="llama", tie_word_embeddings=True),
     "mistral": dict(_BASE, model_type="mistral", sliding_window=8),
+    "mixtral": dict(_BASE, model_type="mixtral", num_local_experts=4,   # MoE MLP
+                    num_experts_per_tok=2),
 }
 SC = dict(block_size=16, prefill_bucket=16, dtype="float32")
 
@@ -216,7 +218,7 @@ def _paged_state(cfg, seed, lengths, active, MB=4, n_blocks=24, bs=16, B=None):
 
 
 @pytest.mark.parametrize("fam,int4", [("llama", False), ("mistral", False),
-                                      ("llama", True)])
+                                      ("llama", True), ("mixtral", False)])
 @pytest.mark.parametrize("impl", ["kernel", "plain"])
 def test_decode_paged_steps_matches_jax(fam, int4, impl):
     """One quantum of 5 steps on forced tokens, rows of ragged lengths and
@@ -263,7 +265,7 @@ def test_decode_paged_steps_matches_jax(fam, int4, impl):
 # -- the batcher against the JAX batcher ----------------------------------------
 
 
-@pytest.mark.parametrize("fam", ["llama", "mistral"])
+@pytest.mark.parametrize("fam", ["llama", "mistral", "mixtral"])
 def test_batcher_streams_match_jax(fam):
     """Staggered requests, more than the 3 rows, one sharing a prefix
     block with another: the port's greedy streams against the JAX

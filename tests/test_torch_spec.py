@@ -310,7 +310,7 @@ def _repetitive_prompts(seed, vocab=101):
             [int(x) for x in rng.integers(3, vocab, 9)], phrase * 2]
 
 
-@pytest.mark.parametrize("fam", ["llama", "mistral"])
+@pytest.mark.parametrize("fam", ["llama", "mistral", "mixtral"])
 def test_spec_batcher_matches_jax_and_plain(fam):
     """tests/test_paged.py:383 on the port: the speculative batcher's greedy
     streams equal the JAX speculative batcher's and the port's own plain

@@ -85,7 +85,7 @@ class GPTConfig:
     device: Any = "cuda"
     # weight-only quantization: None | "int8" | "int4"
     quantization: Optional[str] = None
-    # None = auto (resolve_quant_group): 64 for int4, 128 for int8
+    # None = auto (resolve_quant_group): 64 for int4 (128 for MoE), 128 for int8
     quant_group_size: Optional[int] = None
     # AWQ activation-aware scaling before quantization (ops/awq.py). None =
     # auto: on for int4, off for int8; False forces plain round-to-nearest
@@ -125,12 +125,13 @@ def _round_up(x: int, m: int) -> int:
 _FP8_NAMES = ("fp8", "float8_e4m3", "e4m3")
 
 
-def resolve_quant_group(bits: int, group: Optional[int]) -> int:
-    """Default quant group size, as the JAX engine chooses it for dense
-    models: an explicit group wins; int4 takes 64, int8 128."""
+def resolve_quant_group(bits: int, group: Optional[int], moe: bool = False) -> int:
+    """Default quant group size, as the JAX engine chooses it: an explicit
+    group wins; int4 takes 64 for a dense-MLP model and 128 for a MoE one
+    (the JAX package's perplexity gates chose both), int8 128."""
     if group is not None:
         return group
-    return 64 if bits == 4 else 128
+    return 64 if bits == 4 and not moe else 128
 
 
 def ngram_draft(context: Sequence[int], n: int, k: int) -> List[int]:
@@ -170,7 +171,8 @@ def quantize_loaded(ctx: GPTContext, quantization: str,
     `calib_path` or the built-in corpus, fold, quantize) where awq_policy
     says so, else round-to-nearest. Shared with the evaluator."""
     bits = {"int8": 8, "int4": 4}[quantization]
-    group = resolve_quant_group(bits, group_size)
+    group = resolve_quant_group(bits, group_size,
+                                moe="moe_gate_up_w" in ctx.params["layers"])
     awq_on, awq_layout = awq_policy(awq, bits, ctx.params["layers"])
     if awq_on and awq_layout:
         calib = default_calib_ids(ctx.tokenizer, calib_tokens, path=calib_path)

@@ -1,11 +1,12 @@
 """Model registry: model_type → namespace of the family's entry points.
 
 Counterpart of tinygpt_tpu/models/__init__.py. llama / qwen2 / qwen3 /
-mistral share the generic CausalLM (they differ only by config deltas);
-gpt2 is its own module. Every namespace has load_params, init_params,
-forward, forward_paged, decode_steps and decode_paged_steps, and
+mistral / mixtral share the generic CausalLM (they differ only by config
+deltas; mixtral's MLP is a routed mixture of experts); gpt2 is its own
+module. Every namespace has load_params, init_params, forward,
+forward_paged, decode_steps and decode_paged_steps, and
 decode_paged_spec_steps where the family has it (not gpt2, as in the JAX
-package). mixtral (ROADMAP.md queue 1, item 12) is not ported yet.
+package).
 """
 
 from types import SimpleNamespace
@@ -19,16 +20,12 @@ _FAMILY = {
     "qwen2": causal_lm,
     "qwen3": causal_lm,
     "mistral": causal_lm,
+    "mixtral": causal_lm,
     "gpt2": gpt2,
 }
-_NOT_PORTED = {"mixtral": 12}
 
 
 def get_model(model_type: str):
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not yet ported to tinygpt_tpu_torch "
-            f"(ROADMAP.md queue 1, item {_NOT_PORTED[model_type]})")
     mod = _FAMILY.get(model_type)
     if mod is None:
         raise ValueError(f"unsupported model_type {model_type!r}")

@@ -1,10 +1,12 @@
-"""Generic CausalLM for the HF-Llama family (llama / qwen2 / qwen3 / mistral).
+"""Generic CausalLM for the HF-Llama family (llama / qwen2 / qwen3 /
+mistral / mixtral).
 
 Counterpart of tinygpt_tpu/models/causal_lm.py: embed → N pre-norm decoder
 layers (fused QKV matmul, RoPE, GQA attention over the KV cache, fused
-gate-up SwiGLU) → RMSNorm → lm_head, with tied embeddings, qkv bias
-(qwen2), per-head q/k RMSNorm (qwen3), explicit head_dim (qwen3), Llama-3
-rope scaling and sliding-window masking (mistral).
+gate-up SwiGLU, or mixtral's routed mixture of SwiGLU experts) → RMSNorm →
+lm_head, with tied embeddings, qkv bias (qwen2), per-head q/k RMSNorm
+(qwen3), explicit head_dim (qwen3), Llama-3 rope scaling and
+sliding-window masking (mistral).
 
 Params are a plain dict with the JAX package's layout, so the two can be
 held against each other key by key: layers STACKED along a leading [L]
@@ -14,7 +16,9 @@ axis, weights as [in, out], q/k/v and gate/up fused at load:
     rope_cos / rope_sin [P, D] fp32;
     layers: input_ln [L, H], qkv_w [L, H, (Nq+2Nk)·D], qkv_b (qwen2),
             q_norm / k_norm [L, D] (qwen3), o_w [L, Nq·D, H], post_ln,
-            gate_up_w [L, H, 2I], down_w [L, I, H].
+            gate_up_w [L, H, 2I], down_w [L, I, H]; mixtral instead
+            router_w [L, H, E], moe_gate_up_w [L, E, H, 2I],
+            moe_down_w [L, E, I, H].
 
 PyTorch runs eagerly, so the JAX layer scan is a Python loop over layers
 and the chunked decode a Python loop over steps. Attention goes through
@@ -55,8 +59,18 @@ once as they are written (engine/kv_cache.kv_cast), the in-flight buffers
 of the chunked loops stay bf16 until the merge or scatter, and attention
 decodes the e4m3 slots (K1, K2, K8 and K10 each take them).
 
-Not ported yet, raising NotImplementedError: MoE (ROADMAP queue 1,
-item 12).
+The MoE MLP (mixtral, HF semantics: full softmax over the router logits,
+top-k, renormalized): `forward` and the verify forward of the speculative
+quantum run `moe_mlp` on layer l's experts, dequantized to bf16 when
+quantized, as the JAX package does (dense below 32 tokens, else routed:
+tokens sorted by expert, one torch.matmul per expert's group). The
+one-token step (decode_steps, decode_paged_steps, forward_paged) runs
+ops/moe_kernels.moe_mlp_gathered on the whole expert stacks at layer l:
+K12 for bf16 stacks, K11a for int8, K11b for int4, on the card for all
+three dtypes (the JAX package sends bf16 stacks to the dense formulation at
+decode, after a TPU measurement that does not carry over). Quantized
+mixtral params take the unfused route (no gate_up_w): K5b / K5a for qkv
+and o, K4 / K3 for the head.
 """
 
 from __future__ import annotations
@@ -83,9 +97,11 @@ from tinygpt_tpu_torch.ops.paged_attention import (
     paged_decode_spec_plain,
 )
 from tinygpt_tpu_torch.ops import quant_kernels as qk
+from tinygpt_tpu_torch.ops.moe_kernels import moe_mlp_gathered, moe_route
 from tinygpt_tpu_torch.ops.norms import rms_norm
 from tinygpt_tpu_torch.ops.quant import (
     QuantizedTensor,
+    dequantize,
     matmul_dequant,
     matmul_dequant_stacked,
 )
@@ -97,36 +113,30 @@ from tinygpt_tpu_torch.ops.rope import (
 from tinygpt_tpu_torch.ops.sampling import NEG_INF, masked_logits_batched
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to tinygpt_tpu_torch yet "
-        f"(ROADMAP.md queue 1, item {item})")
-
-
-def _check_supported(cfg: ModelConfig, params: Optional[Dict] = None) -> None:
-    if cfg.num_local_experts:
-        raise _not_ported("the MoE MLP (mixtral)", 12)
-    if params is not None:
-        weights = dict(params["layers"], lm_head=params.get("lm_head"))
-        for k, v in weights.items():
-            if isinstance(v, QuantizedTensor) and v.bits not in (8, 4):
-                raise ValueError(f"int{v.bits} weight {k!r}: int8 or int4 only")
-            if not (v is None or isinstance(v, (torch.Tensor, QuantizedTensor))):
-                raise _not_ported(f"weight {k!r} of type {type(v).__name__}", 6)
+def _check_weights(params: Dict) -> None:
+    """Every layer weight and the head: a tensor, or int8 / int4."""
+    weights = dict(params["layers"], lm_head=params.get("lm_head"))
+    for k, v in weights.items():
+        if isinstance(v, QuantizedTensor) and v.bits not in (8, 4):
+            raise ValueError(f"int{v.bits} weight {k!r}: int8 or int4 only")
+        if not (v is None or isinstance(v, (torch.Tensor, QuantizedTensor))):
+            raise TypeError(f"weight {k!r} of type {type(v).__name__}")
 
 
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     D = cfg.head_dim
     Nq, Nk = cfg.num_attention_heads, cfg.num_kv_heads
-    H, I = cfg.hidden_size, cfg.intermediate_size
+    H, I, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_local_experts
     shapes = {
         "input_ln": (H,),
         "qkv_w": (H, (Nq + 2 * Nk) * D),
         "o_w": (Nq * D, H),
         "post_ln": (H,),
-        "gate_up_w": (H, 2 * I),
-        "down_w": (I, H),
     }
+    if E:  # mixtral: router and stacked experts
+        shapes.update(router_w=(H, E), moe_gate_up_w=(E, H, 2 * I), moe_down_w=(E, I, H))
+    else:
+        shapes.update(gate_up_w=(H, 2 * I), down_w=(I, H))
     if cfg.qkv_bias or cfg.attention_bias:
         shapes["qkv_b"] = ((Nq + 2 * Nk) * D,)
     if cfg.qk_norm:
@@ -149,11 +159,12 @@ def load_params(
     """Map HF safetensors names into the stacked-layer params dict.
 
     HF names: model.embed_tokens, model.layers.{i}.self_attn.{q,k,v,o}_proj,
-    .mlp.{gate,up,down}_proj, .input_layernorm, .post_attention_layernorm,
-    model.norm, lm_head. Each tensor is uploaded as its raw bytes and
-    transposed, fused and cast on the device, one layer at a time."""
-    _check_supported(cfg)
-    L = cfg.num_hidden_layers
+    .mlp.{gate,up,down}_proj (mixtral: .block_sparse_moe.gate and
+    .block_sparse_moe.experts.{e}.w1 / w3 / w2, fused as gate || up per
+    expert), .input_layernorm, .post_attention_layernorm, model.norm,
+    lm_head. Each tensor is uploaded as its raw bytes and transposed, fused
+    and cast on the device, one layer at a time."""
+    L, E = cfg.num_hidden_layers, cfg.num_local_experts
     has_bias = bool(cfg.qkv_bias or cfg.attention_bias)
 
     def g(name: str) -> torch.Tensor:
@@ -171,10 +182,19 @@ def load_params(
             [g(a + f"{n}_proj.weight").T for n in "qkv"], dim=1)
         layers["o_w"][i] = g(a + "o_proj.weight").T
         layers["post_ln"][i] = g(p + "post_attention_layernorm.weight")
-        layers["gate_up_w"][i] = torch.cat(
-            [g(p + "mlp.gate_proj.weight").T, g(p + "mlp.up_proj.weight").T],
-            dim=1)
-        layers["down_w"][i] = g(p + "mlp.down_proj.weight").T
+        if E:
+            m = p + "block_sparse_moe."
+            layers["router_w"][i] = g(m + "gate.weight").T
+            for e in range(E):
+                x = f"{m}experts.{e}."
+                layers["moe_gate_up_w"][i, e] = torch.cat(
+                    [g(x + "w1.weight").T, g(x + "w3.weight").T], dim=1)
+                layers["moe_down_w"][i, e] = g(x + "w2.weight").T
+        else:
+            layers["gate_up_w"][i] = torch.cat(
+                [g(p + "mlp.gate_proj.weight").T, g(p + "mlp.up_proj.weight").T],
+                dim=1)
+            layers["down_w"][i] = g(p + "mlp.down_proj.weight").T
         if has_bias:
             layers["qkv_b"][i] = torch.cat(
                 [g(a + f"{n}_proj.bias") for n in "qkv"])
@@ -207,9 +227,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Any = "cuda") -> Dict:
     """Random params in the final (fused, [in, out]) layout, drawn on the
     device from a torch.Generator seeded with `seed` (N(0, 0.02²) weights,
-    unit norms). Each layer is drawn on its own, so a full-size model
-    never holds more than one layer in fp32."""
-    _check_supported(cfg)
+    unit norms). Each layer (and each expert of a layer) is drawn on its
+    own, so a full-size model never holds more than one layer's matrix in
+    fp32."""
     L, H, V = cfg.num_hidden_layers, cfg.hidden_size, cfg.vocab_size
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -224,7 +244,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         else:
             layers[k] = torch.empty((L, *s), dtype=dtype, device=device)
             for i in range(L):
-                layers[k][i] = w(*s)
+                if k.startswith("moe_"):
+                    for e in range(s[0]):
+                        layers[k][i, e] = w(*s[1:])
+                else:
+                    layers[k][i] = w(*s)
     cos, sin = _rope_tables(cfg, device)
     return {
         "embed": w(V, H),
@@ -315,13 +339,109 @@ def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, rope_c, rope_s,
     return q, k, v
 
 
+# -- the MoE MLP (mixtral) ---------------------------------------------------------
+
+_MOE_STACKS = ("moe_gate_up_w", "moe_down_w")
+
+
+def _moe_layer_params(lp: Dict, l: int) -> Dict:
+    """Layer l's MoE weights for moe_mlp: the expert stacks' [E, in, out]
+    slices; a quantized stack dequantized to bf16, as the JAX package
+    does, with its quantize-time pad rows sliced away (gate_up's rows are
+    down's out, down's rows half gate_up's out)."""
+    def layer(w):
+        if isinstance(w, QuantizedTensor):
+            return dequantize(QuantizedTensor(w.data[l], w.scales[l], w.bits,
+                                              w.group_size, w.in_dim))
+        return w[l]
+
+    gu, dn = (layer(lp[k]) for k in _MOE_STACKS)
+    return {"router_w": lp["router_w"], "moe_gate_up_w": gu[:, : dn.shape[-1]],
+            "moe_down_w": dn[:, : gu.shape[-1] // 2]}
+
+
+def moe_mlp(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
+            impl: str = "auto") -> torch.Tensor:
+    """Mixtral block-sparse MoE MLP, HF semantics (ops/moe_kernels.moe_route:
+    full softmax over the fp32 router logits, top-k, renormalized), the
+    JAX moe_mlp. h [B, S, H] post-norm; lp: router_w [H, E], moe_gate_up_w
+    [E, H, 2I], moe_down_w [E, I, H] (weights of another dtype are cast to
+    h's, as JAX promotes them). Two formulations of the same sum:
+
+    * "dense": every expert's SwiGLU on every token, weighted by a mostly
+      zero routing coefficient, in chunks of 256 tokens;
+    * "routed": tokens sorted by expert, each expert's contiguous group
+      through its own matmuls (_moe_ffn_routed);
+    * "auto": routed at B * S >= 32 tokens, else dense.
+    Returns [B, S, H] in h's dtype."""
+    k, E = cfg.num_experts_per_tok, cfg.num_local_experts
+    B, S, H = h.shape
+    T = B * S
+    if impl == "auto":
+        impl = "routed" if T >= 32 else "dense"
+    if impl not in ("dense", "routed"):
+        raise ValueError(f"unknown MoE formulation {impl!r}")
+    w_top, idx = moe_route(h.reshape(T, H), lp["router_w"], k)     # [T, k]
+    gw, dw = (lp[n].to(h.dtype) for n in _MOE_STACKS)
+    if impl == "routed":
+        return _moe_ffn_routed(h, w_top, idx, gw, dw)
+    # the per-expert coefficient map [T, E], zero off the top k
+    we = torch.zeros((T, E), dtype=torch.float32, device=h.device).scatter_add_(
+        1, idx, w_top)
+    hf = h.reshape(T, H)
+    C = min(T, 256)   # bounds the [C, E, 2I] activation
+    out = torch.empty_like(hf)
+    for c0 in range(0, T, C):
+        ht, wt = hf[c0 : c0 + C], we[c0 : c0 + C]
+        gate, up = torch.einsum("ch,eho->ceo", ht, gw).chunk(2, dim=-1)
+        act = F.silu(gate.float()).to(up.dtype) * up
+        out[c0 : c0 + C] = torch.einsum("ce,cei,eih->ch", wt.to(ht.dtype), act, dw)
+    return out.reshape(B, S, H)
+
+
+def _moe_ffn_routed(h: torch.Tensor, w_top: torch.Tensor, idx: torch.Tensor,
+                    gw: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """The routed expert FFN (the JAX _moe_ffn_routed): (token, choice)
+    pairs stably sorted by expert id, each expert's SwiGLU over its
+    contiguous group by torch.matmul (in place of lax.ragged_dot), and the
+    weighted outputs summed back per token in slot order, which is
+    deterministic. Reads the group sizes on the host. h [B, S, H]; w_top /
+    idx [T, k]; gw [E, H, 2I]; dw [E, I, H]."""
+    B, S, H = h.shape
+    T, k = idx.shape
+    eid = idx.reshape(T * k)
+    order = torch.sort(eid, stable=True).indices
+    x_s = h.reshape(T, H)[order // k]                              # [T*k, H]
+    counts = torch.bincount(eid, minlength=gw.shape[0]).tolist()
+    o = torch.empty((T * k, dw.shape[-1]), dtype=h.dtype, device=h.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n:
+            xe = x_s[start : start + n]
+            gate, up = (xe @ gw[e]).chunk(2, dim=-1)
+            o[start : start + n] = (F.silu(gate.float()).to(up.dtype) * up) @ dw[e]
+            start += n
+    o_tok = torch.empty_like(o)
+    o_tok[order] = o                                               # back to (token, slot)
+    out = (o_tok.float() * w_top.reshape(T * k, 1)).reshape(T, k, H).sum(dim=1)
+    return out.to(h.dtype).reshape(B, S, H)
+
+
 def _out_and_mlp(lp: Dict, x: torch.Tensor, attn: torch.Tensor,
-                 cfg: ModelConfig, l: int = 0, impl: str = "kernel") -> torch.Tensor:
+                 cfg: ModelConfig, l: int = 0, impl: str = "kernel",
+                 gathered: bool = False) -> torch.Tensor:
     """Output projection + residual, then the post-norm SwiGLU MLP +
-    residual. attn [B, S, Nq, D]."""
+    residual. attn [B, S, Nq, D]. A MoE layer runs moe_mlp on layer l's
+    experts, or with `gathered` (the one-token step) moe_mlp_gathered on
+    the whole stacks at layer l (K12 / K11a / K11b)."""
     B, S = x.shape[0], x.shape[1]
     x = x + _mm(lp, "o_w", attn.reshape(B, S, -1), l, impl)
     h = rms_norm(x, lp["post_ln"], cfg.rms_norm_eps)
+    if "router_w" in lp:
+        if gathered:
+            return x + moe_mlp_gathered(h, lp["router_w"], lp["moe_gate_up_w"],
+                                        lp["moe_down_w"], l, cfg, impl)
+        return x + moe_mlp(h, _moe_layer_params(lp, l), cfg)
     gate, up = _mm(lp, "gate_up_w", h, l, impl).chunk(2, dim=-1)
     act = F.silu(gate.float()).to(up.dtype) * up
     return x + _mm(lp, "down_w", act, l, impl)
@@ -374,9 +494,9 @@ def decoder_layer_step(
 
 
 def _layer(params: Dict, l: int) -> Dict:
-    """Layer l's weights: float stacks sliced, quantized stacks whole (the
-    kernels take the layer as an offset)."""
-    return {k: v if isinstance(v, QuantizedTensor) else v[l]
+    """Layer l's weights: float stacks sliced, quantized stacks and MoE
+    expert stacks whole (the kernels take the layer as an offset)."""
+    return {k: v if isinstance(v, QuantizedTensor) or k in _MOE_STACKS else v[l]
             for k, v in params["layers"].items()}
 
 
@@ -397,7 +517,7 @@ def forward(
 
     Returns (fp32 logits [B, S, V], or [B, 1, V] if last_only, and the
     cache, which was updated in place)."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     impl = _impl(attn_impl)
     S = input_ids.shape[1]
     slot = cache.length
@@ -509,7 +629,8 @@ def _decode_token(params, cfg, tok, pos, put_kv, attend, impl: str):
     """Logits [B, 1, V] of one decode step of the llama family: every layer
     hands this step's K/V [B, Nk, D] to put_kv(l, k, v), then attends
     through attend(l, q [B, 1, Nq, D]) -> [B, 1, Nq, D]. int4 params take
-    the fused route (K6, K7), int8 params the unfused one (K5a, K3)."""
+    the fused route (K6, K7), int8 params the unfused one (K5a, K3); a MoE
+    layer runs the gathered-expert kernels (K12, K11a, K11b)."""
     B = tok.shape[0]
     fused = _int4_fused(params)
     rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], pos)
@@ -526,7 +647,7 @@ def _decode_token(params, cfg, tok, pos, put_kv, attend, impl: str):
         if fused:
             x = _out_and_mlp_fused(params, x[:, 0], attn, cfg, l, impl)[:, None]
         else:
-            x = _out_and_mlp(lp, x, attn, cfg, l, impl)
+            x = _out_and_mlp(lp, x, attn, cfg, l, impl, gathered=True)
     if fused:
         return _logits_fused(params, x[:, 0], cfg, impl)
     return _logits(params, x.reshape(B, 1, -1), cfg, impl)
@@ -589,7 +710,7 @@ def decode_steps(
 
     Returns (toks [n_steps, B] int32 — the tokens sampled AFTER each
     input — and the advanced cache)."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     return run_decode_steps(_decode_token, params, cfg, tok0, cache, pos0, n_steps,
                             sample_fn, attn_impl)
 
@@ -652,7 +773,7 @@ def decode_paged_steps(
     Updates `state` in place (pools, and lengths advanced by
     n_steps * active) and returns the tokens sampled after each input,
     [n_steps, B] int32."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     return run_decode_paged_steps(_decode_token, params, cfg, tok0, state, n_steps,
                                   sample_fn, attn_impl)
 
@@ -721,7 +842,7 @@ def forward_paged(
     batcher's stepwise quantum runs it for a model without
     decode_paged_steps. Returns (fp32 logits [B, V], and `state`, updated
     in place: pools, and lengths advanced for active rows)."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     return run_forward_paged(_decode_token, params, cfg, input_ids, state, attn_impl)
 
 
@@ -924,7 +1045,7 @@ def decode_paged_spec_steps(
     Returns (toks [R, B, S], counts [R, B] emitted per round, cur [B] next
     input per row), all int32 on the device; `state` is advanced in place
     (pools and lengths)."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     impl = _impl(attn_impl)
     if sampler is not None and generator is None:
         raise ValueError("rejection sampling needs a torch.Generator")

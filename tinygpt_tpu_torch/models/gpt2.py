@@ -42,7 +42,7 @@ from tinygpt_tpu_torch.engine.kv_cache import KVCache, kv_cast
 from tinygpt_tpu_torch.engine.paged_kv import PagedKVState
 from tinygpt_tpu_torch.hf.config import ModelConfig
 from tinygpt_tpu_torch.models.causal_lm import (
-    _check_supported,
+    _check_weights,
     _impl,
     _layer,
     _mm,
@@ -193,7 +193,7 @@ def forward(
     """One forward step (prefill S > 1 or decode S = 1) at slot
     cache.length, attention through K1. Returns (fp32 logits [B, S, V],
     or [B, 1, V] if last_only, and the cache, updated in place)."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     impl = _impl(attn_impl)
     S = input_ids.shape[1]
     slot = cache.length
@@ -246,7 +246,7 @@ def decode_steps(
     """n_steps decode steps with the dense cache FROZEN (causal_lm's
     decode_steps, attention through K2). Returns (toks [n_steps, B] int32,
     the cache advanced in place)."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     return run_decode_steps(_decode_token, params, cfg, tok0, cache, pos0, n_steps,
                             sample_fn, attn_impl)
 
@@ -263,7 +263,7 @@ def decode_paged_steps(
     """The batcher's frozen decode quantum (causal_lm's decode_paged_steps,
     attention through K8). Returns the tokens [n_steps, B] int32; `state`
     is advanced in place."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     return run_decode_paged_steps(_decode_token, params, cfg, tok0, state, n_steps,
                                   sample_fn, attn_impl)
 
@@ -278,5 +278,5 @@ def forward_paged(
     """One decode step over the paged pool (causal_lm's forward_paged,
     attention through K9). Returns (fp32 logits [B, V], `state` updated in
     place)."""
-    _check_supported(cfg, params)
+    _check_weights(params)
     return run_forward_paged(_decode_token, params, cfg, input_ids, state, attn_impl)

@@ -29,8 +29,15 @@ Fold map (per layer):
                                             of each kv group for GQA)
   lm_head rows  * s  <-> final_ln    / s
 
-The MoE folds (router and expert stacks, search_scales_shared) are not
-ported yet (ROADMAP.md queue 1, item 12): a MoE layout raises.
+MoE (mixtral) fold map: post_ln feeds the router as well as every expert,
+so the expert-input scale is one vector shared by the experts of a layer
+(search_scales_shared) and is counter-folded into the router too (the
+router logits stay the same):
+  moe_gate_up_w[e] rows * s  <-> post_ln / s, router_w rows * s
+  moe_down_w[e] rows * s_e   <-> expert e's up columns / s_e
+                                 (per expert: act_e feeds only expert e)
+Expert e's down statistics are its activation's second moments weighted by
+the routing mass each token gives it.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tinygpt_tpu_torch.ops.moe_kernels import moe_route
 from tinygpt_tpu_torch.ops.norms import rms_norm
 from tinygpt_tpu_torch.ops.quant import group_quant, quantize_params
 from tinygpt_tpu_torch.ops.rope import apply_rope_gathered, gather_rope
@@ -50,13 +58,21 @@ from tinygpt_tpu_torch.ops.rope import apply_rope_gathered, gather_rope
 ALPHA_GRID = (0.0, 0.25, 0.5, 0.75, 1.0)
 
 _MOE_KEYS = ("router_w", "moe_gate_up_w", "moe_down_w")
+_DENSE_MLP = ("gate_up_w", "down_w")
 
 
-def _check_dense(cfg, layers) -> None:
-    if getattr(cfg, "num_local_experts", 0) or any(k in layers for k in _MOE_KEYS):
-        raise NotImplementedError(
-            "AWQ on the MoE layout is not ported to tinygpt_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 12)")
+def _check_layout(layers) -> bool:
+    """True for the MoE layout (router and both expert stacks, no dense
+    MLP), False for the dense one; a mix of the two raises."""
+    moe = [k in layers for k in _MOE_KEYS]
+    dense = [k in layers for k in _DENSE_MLP]
+    if all(moe) and not any(dense):
+        return True
+    if all(dense) and not any(moe):
+        return False
+    held = sorted(k for k in _MOE_KEYS + _DENSE_MLP if k in layers)
+    raise ValueError(f"AWQ: the layers hold {held}: neither the dense MLP {_DENSE_MLP} "
+                     f"nor the MoE layout {_MOE_KEYS}")
 
 
 # -- calibration: per-channel activation second moments ------------------------
@@ -75,13 +91,18 @@ def collect_act_stats(params: Dict, cfg, input_ids) -> Dict[str, torch.Tensor]:
     quantized-matmul input, on the params' device:
 
       qkv_in     [L, H]      o_in    [L, Nq*D]
-      gate_up_in [L, H]      down_in [L, I]
+      gate_up_in [L, H]      down_in [L, I]   (MoE: [L, E, I])
       head_in    [H]
 
     Call it on FLOAT params (before quantize_params). The layer math
-    mirrors causal_lm's decoder layer, one layer at a time."""
+    mirrors causal_lm's decoder layer, one layer at a time. A MoE layer's
+    gate_up_in is shared by its experts (the router and every expert read
+    h); its down_in is per expert, the routing-mass-weighted second moment
+    of the expert's activation over the tokens (every expert's SwiGLU runs
+    on every token, one expert at a time, as the JAX package's dense
+    formulation)."""
     layers = params["layers"]
-    _check_dense(cfg, layers)
+    is_moe = _check_layout(layers)
     dev = params["embed"].device
     ids = torch.as_tensor(np.asarray(input_ids), device=dev).long()
     B, S = ids.shape
@@ -127,6 +148,11 @@ def collect_act_stats(params: Dict, cfg, input_ids) -> Dict[str, torch.Tensor]:
         x = x + attn @ lp["o_w"].float()
         h = rms_norm(x, lp["post_ln"], eps)
         stats["gate_up_in"].append(_second_moment(h))
+        if is_moe:
+            st_down, out = _moe_stats(h.reshape(B * S, -1), lp, cfg)
+            stats["down_in"].append(st_down)
+            x = x + out.reshape(x.shape)
+            continue
         gate, up = (h @ lp["gate_up_w"].float()).chunk(2, dim=-1)
         act = F.silu(gate) * up
         stats["down_in"].append(_second_moment(act))
@@ -134,6 +160,24 @@ def collect_act_stats(params: Dict, cfg, input_ids) -> Dict[str, torch.Tensor]:
     out = {k: torch.stack(v) for k, v in stats.items()}
     out["head_in"] = _second_moment(rms_norm(x, params["final_ln"], eps))
     return out
+
+
+def _moe_stats(h: torch.Tensor, lp: Dict, cfg):
+    """One MoE layer over tokens h [T, H] in fp32: (down_in [E, I], the
+    layer's MLP output [T, H])."""
+    E = cfg.num_local_experts
+    w_top, idx = moe_route(h, lp["router_w"], cfg.num_experts_per_tok)
+    we = torch.zeros((h.shape[0], E), dtype=torch.float32, device=h.device).scatter_add_(
+        1, idx, w_top)                                             # [T, E] routing mass
+    out = torch.zeros_like(h)
+    m_acc = []
+    for e in range(E):
+        gate, up = (h @ lp["moe_gate_up_w"][e].float()).chunk(2, dim=-1)
+        act = F.silu(gate) * up                                    # [T, I]
+        out += we[:, e : e + 1] * (act @ lp["moe_down_w"][e].float())
+        m_acc.append(we[:, e] @ (act * act))
+    st_down = torch.stack(m_acc) / we.sum(dim=0).clamp(min=1e-6)[:, None]
+    return st_down, out
 
 
 # -- alpha grid search ---------------------------------------------------------
@@ -197,6 +241,40 @@ def search_scales(
     return out
 
 
+@torch.inference_mode()
+def search_scales_shared(
+    w: torch.Tensor,       # [L, E, in, out] stacked expert weights
+    m: torch.Tensor,       # [L, in] shared activation second moments
+    bits: int,
+    group_size: int,
+) -> torch.Tensor:
+    """The alpha grid search for ONE scale vector shared by the E experts
+    of a layer (the MoE gate_up fold: the scale is counter-folded into
+    post_ln and the router, which every expert shares): the error is the
+    sum over the experts of search_scales' proxy, one expert in fp32 at a
+    time. Returns s [L, in] in fp32."""
+    in_dim = w.shape[-2]
+    g = min(group_size, in_dim)
+    if bits == 4:
+        g = min(g, in_dim // 2)
+    out = torch.empty((w.shape[0], in_dim), dtype=torch.float32, device=w.device)
+    for l in range(w.shape[0]):
+        m2 = m[l].float()
+        best, best_err = None, None
+        for alpha in ALPHA_GRID:
+            s = _scales_from_alpha(m2, alpha)
+            errs = []
+            for e in range(w.shape[1]):
+                wf = w[l, e].float()
+                d = _qdq(wf * s[:, None], bits, g) / s[:, None] - wf
+                errs.append(torch.sum(m2 * torch.sum(d * d, dim=-1)))
+            err = torch.stack(errs).sum()
+            if best_err is None or err < best_err:
+                best, best_err = s, err
+        out[l] = best
+    return out
+
+
 # -- exact-identity folding ----------------------------------------------------
 
 
@@ -209,7 +287,7 @@ def apply_awq(params: Dict, cfg, stats: Dict[str, torch.Tensor], bits: int = 4,
     as they are. Tied-embedding models get an explicit scaled `lm_head`
     (= embed.T * s), so the embedding gather keeps the unscaled table."""
     layers = params["layers"]
-    _check_dense(cfg, layers)
+    is_moe = _check_layout(layers)
     D = cfg.head_dim
     Nq, Nk = cfg.num_attention_heads, cfg.num_kv_heads
     q_dim, v0 = Nq * D, (Nq + Nk) * D   # v columns of qkv start at v0
@@ -219,12 +297,21 @@ def apply_awq(params: Dict, cfg, stats: Dict[str, torch.Tensor], bits: int = 4,
     s_qkv = search_scales(layers["qkv_w"], stats["qkv_in"], bits, group_size)
     s_o = search_scales(layers["o_w"], stats["o_in"], bits, group_size,
                         kv_share=(Nk, rep, D))
-    s_gu = search_scales(layers["gate_up_w"], stats["gate_up_in"], bits, group_size)
-    s_down = search_scales(layers["down_w"], stats["down_in"], bits, group_size)
+    if is_moe:
+        # one expert-input scale a layer, shared; per-expert down scales
+        s_gu = search_scales_shared(layers["moe_gate_up_w"], stats["gate_up_in"], bits,
+                                    group_size)                     # [L, H]
+        L, E, I, Hd = layers["moe_down_w"].shape
+        s_down = search_scales(layers["moe_down_w"].reshape(L * E, I, Hd),
+                               stats["down_in"].reshape(L * E, I), bits,
+                               group_size).reshape(L, E, I)
+    else:
+        s_gu = search_scales(layers["gate_up_w"], stats["gate_up_in"], bits, group_size)
+        s_down = search_scales(layers["down_w"], stats["down_in"], bits, group_size)
     s_kv = s_o.reshape(-1, Nq, D)[:, ::rep].reshape(-1, Nk * D)   # [L, Nk*D]
 
     new = dict(layers)
-    for k in ("qkv_w", "input_ln", "o_w", "gate_up_w", "post_ln", "down_w", "qkv_b"):
+    for k in ("qkv_w", "input_ln", "o_w", "post_ln", "qkv_b") + _DENSE_MLP + _MOE_KEYS:
         if k in layers:
             new[k] = torch.empty_like(layers[k])
     for l in range(cfg.num_hidden_layers):   # one layer in fp32 at a time
@@ -239,12 +326,23 @@ def apply_awq(params: Dict, cfg, stats: Dict[str, torch.Tensor], bits: int = 4,
             b = layers["qkv_b"][l].float()   # (the input itself when fp32)
             new["qkv_b"][l] = torch.cat([b[:v0], b[v0:] / skv]).to(dt)
         new["o_w"][l] = (layers["o_w"][l].float() * so[:, None]).to(dt)
+        new["post_ln"][l] = (layers["post_ln"][l].float() / sg).to(dt)
+        if is_moe:
+            # post_ln / sg feeds the router too: its rows scale up by sg
+            new["router_w"][l] = (layers["router_w"][l].float() * sg[:, None]).to(dt)
+            for e in range(sd.shape[0]):   # one expert in fp32 at a time
+                gu = layers["moe_gate_up_w"][l, e].float() * sg[:, None]
+                half = gu.shape[-1] // 2
+                gu[:, half:] = gu[:, half:] / sd[e][None, :]
+                new["moe_gate_up_w"][l, e] = gu.to(dt)
+                new["moe_down_w"][l, e] = (layers["moe_down_w"][l, e].float()
+                                           * sd[e][:, None]).to(dt)
+            continue
         # mlp folds: post_ln <-> gate_up rows; up columns <-> down rows
         gu = layers["gate_up_w"][l].float() * sg[:, None]
         half = gu.shape[-1] // 2
         gu[:, half:] = gu[:, half:] / sd[None, :]
         new["gate_up_w"][l] = gu.to(dt)
-        new["post_ln"][l] = (layers["post_ln"][l].float() / sg).to(dt)
         new["down_w"][l] = (layers["down_w"][l].float() * sd[:, None]).to(dt)
     out = dict(params, layers=new)
 
@@ -305,8 +403,8 @@ def awq_policy(awq_flag, bits: int, layers) -> tuple:
     """The single decision point for 'does AWQ apply here': returns
     (awq_on, layout_ok). awq_flag None = auto (on for int4, the JAX
     engine's default); the layout needs the causal_lm keys, dense-MLP or
-    MoE (the MoE fold itself is not ported yet and raises). Shared by the
-    engine and the evaluator so the two never quantize differently."""
+    MoE. Shared by the engine and the evaluator so the two never quantize
+    differently."""
     on = awq_flag if awq_flag is not None else bits == 4
     dense = all(k in layers for k in ("qkv_w", "gate_up_w", "down_w"))
     moe = all(k in layers for k in ("qkv_w",) + _MOE_KEYS)

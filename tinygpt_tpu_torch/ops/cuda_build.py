@@ -28,7 +28,8 @@ BUILD_DIR = PKG_DIR / "_build"
 
 SOURCES = ("flash_prefill.cu", "flash_decode_frozen.cu", "int4_matmul.cu",
            "int4_fused.cu", "int4_mlp.cu", "paged_decode_frozen.cu",
-           "int8_matmul.cu", "paged_decode_spec.cu", "paged_decode.cu")
+           "int8_matmul.cu", "paged_decode_spec.cu", "paged_decode.cu",
+           "moe_gather_matmul.cu")
 HEADERS = ("attention_common.cuh", "int4_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

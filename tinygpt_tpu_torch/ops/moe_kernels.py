@@ -1,0 +1,263 @@
+"""Hopper gathered-expert matmuls for the MoE decode step, each beside its
+plain version, and the routed MoE MLP that runs them.
+
+Counterparts of the TPU kernels in tinygpt_tpu/ops/moe_kernels.py, written
+in CUDA C++ for sm_90a (``csrc/moe_gather_matmul.cu``, one library with
+three entry points) and bound with ctypes (ops/cuda_build.py):
+
+  moe_gather_matmul       K12   bf16 (or fp32) expert stacks [L, E, IN, OUT]
+  moe_gather_matmul_int8  K11a  int8 [L, E, IN, OUT], fp32 scales
+                                [L, E, IN/group, OUT]
+  moe_gather_matmul_int4  K11b  packed int4 [L, E, IN/2, OUT] (biased,
+                                half-split nibbles), the same scales
+
+Each computes out[r] = x[r] @ W[l, idx[r]] for x [R, IN] (bf16 or fp32) and
+idx [R] int32, in x's dtype: any R, any expert ids (repeats included; ids
+outside [0, E) are clamped). The layer and the expert are pointer offsets
+into the stack. The int4 stack may be row-padded at quantize time
+(quant.quantize_weight): x then keeps its unpadded width and the pad reads
+as zeros, as the JAX wrapper pads x.
+
+Each wrapper dispatches on the device of its tensors: on the CPU it runs
+its plain PyTorch version (``*_plain``: the routed experts dequantized
+exactly in fp32, products in fp32, one rounding at the end), on a CUDA
+device it launches its kernel or raises. It never falls back from one to
+the other. Every launch adds one to ``LAUNCHES[name]`` (the counter shared
+with ops/attention_kernels.py).
+
+``moe_mlp_gathered`` is the routed Mixtral MLP of one decode step (the JAX
+moe_mlp_gathered): fp32 router logits, full softmax, top-k, renormalized
+weights, slot-major repeated rows, two gathered matmuls, silu(gate) * up
+in fp32 cast back, and the weighted slot sum in fp32. ``moe_route`` is its
+routing, shared with models/causal_lm.moe_mlp and the AWQ statistics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tinygpt_tpu_torch.ops.attention_kernels import LAUNCHES, _ptr
+from tinygpt_tpu_torch.ops.quant import QuantizedTensor, pad_x_to
+from tinygpt_tpu_torch.ops.quant_kernels import (
+    _DTYPE_CODE,
+    _check_operands,
+    _stream,
+    dequant_fp32,
+    unpack_int4,
+)
+
+_SOURCE = "moe_gather_matmul.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+# -- routing -------------------------------------------------------------------
+
+
+def moe_route(h2: torch.Tensor, router_w: torch.Tensor,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF Mixtral routing of tokens h2 [T, H] by router_w [H, E]: fp32
+    logits, full softmax, the top k, renormalized. Returns (weights [T, k]
+    fp32, expert ids [T, k] int64). Equal probabilities rank by the lower
+    expert id first, as lax.top_k ranks them (a stable descending sort)."""
+    probs = torch.softmax(h2.float() @ router_w.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w_top = vals[..., :k]
+    return w_top / w_top.sum(dim=-1, keepdim=True), idx[..., :k]
+
+
+# -- plain versions -------------------------------------------------------------
+
+
+def _gathered_plain(x: torch.Tensor, idx: torch.Tensor, E: int,
+                    weight: Callable[[int], torch.Tensor]) -> torch.Tensor:
+    """out[r] = x[r] @ weight(idx[r]) in fp32, one rounding to x's dtype;
+    weight(e) is expert e's fp32 [IN, OUT]. Each routed expert is
+    dequantized once."""
+    ids = idx.long().clamp(0, E - 1)
+    xf = x.float()
+    out = None
+    for e in torch.unique(ids).tolist():
+        rows = (ids == e).nonzero()[:, 0]
+        we = weight(e)
+        if out is None:
+            out = torch.zeros((x.shape[0], we.shape[1]), dtype=torch.float32,
+                              device=x.device)
+        out[rows] = xf[rows] @ we
+    return out.to(x.dtype)
+
+
+def moe_gather_matmul_plain(x, w, l: int, idx) -> torch.Tensor:
+    """Plain version of moe_gather_matmul: x [R, IN] @ w[l, idx[r]]."""
+    return _gathered_plain(x, idx, w.shape[1], lambda e: w[l, e].float())
+
+
+def moe_gather_matmul_int8_plain(x, data, scales, l: int, idx, group: int) -> torch.Tensor:
+    """Plain version of moe_gather_matmul_int8."""
+    return _gathered_plain(x, idx, data.shape[1],
+                           lambda e: dequant_fp32(data[l, e], scales[l, e], group))
+
+
+def moe_gather_matmul_int4_plain(x, data, scales, l: int, idx, group: int) -> torch.Tensor:
+    """Plain version of moe_gather_matmul_int4: x is zero-padded to a
+    row-padded stack's IN, whose pad rows are zeros."""
+    x = pad_x_to(x, 2 * data.shape[2])
+    return _gathered_plain(x, idx, data.shape[1],
+                           lambda e: dequant_fp32(unpack_int4(data[l, e]), scales[l, e], group))
+
+
+# -- the kernels ---------------------------------------------------------------
+
+
+def _check(name: str, x: torch.Tensor, data: torch.Tensor, scales, idx: torch.Tensor,
+           l: int, group: int, bits: int) -> Tuple[int, int, int]:
+    """Operand checks shared by the three wrappers; returns (E, stored rows,
+    OUT). The kernels read 8 columns of a row at a time (OUT % 8 == 0) and,
+    quantized, 16 rows inside one group (group % 16 == 0, rows % group ==
+    0)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: activations of dtype {x.dtype} not supported "
+                        f"(float32, bfloat16)")
+    want_w = tuple(_DTYPE_CODE) if bits == 16 else (torch.int8,)
+    if data.dtype not in want_w or (scales is not None and scales.dtype != torch.float32):
+        raise TypeError(f"{name}: want a stack of {want_w}"
+                        + ("" if scales is None else " and float32 scales")
+                        + f", got {data.dtype}"
+                        + ("" if scales is None else f" / {scales.dtype}"))
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{name}: expert ids must be int32, got {idx.dtype}")
+    if x.ndim != 2 or data.ndim != 4 or idx.shape != (x.shape[0],):
+        raise ValueError(f"{name}: want x [R, IN], a stack [L, E, rows, OUT] and idx "
+                         f"[R], got {tuple(x.shape)} / {tuple(data.shape)} / "
+                         f"{tuple(idx.shape)}")
+    L, E, rows, out = data.shape
+    IN = 2 * rows if bits == 4 else rows
+    if x.shape[0] == 0 or out % 8:
+        raise ValueError(f"{name}: {x.shape[0]} rows and OUT {out}; want rows > 0 and "
+                         f"OUT % 8 == 0")
+    if (x.shape[1] > IN) if bits == 4 else (x.shape[1] != IN):
+        raise ValueError(f"{name}: x has {x.shape[1]} columns for a stack of IN {IN}")
+    if scales is not None:
+        if group <= 0 or group % 16 or rows % group:
+            raise ValueError(f"{name}: group {group} and {rows} stored rows need "
+                             f"group % 16 == 0 and rows % group == 0")
+        if scales.shape != (L, E, IN // group, out):
+            raise ValueError(f"{name}: scales {tuple(scales.shape)} != "
+                             f"{(L, E, IN // group, out)}")
+    if not 0 <= l < L:
+        raise ValueError(f"{name}: layer {l} of {L}")
+    _check_operands(name, x.device, ("x", x, None), ("data", data, None),
+                    ("scales", scales, None), ("idx", idx, None))
+    return E, rows, out
+
+
+def _launch(name: str, symbol: str, argtypes, x, idx, out_cols, tensors, ints, *codes):
+    """Launches `symbol`: (x, tensors..., idx, out, ints..., x's dtype code,
+    codes..., stream)."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function(_SOURCE, symbol, argtypes)
+    out = torch.empty((x.shape[0], out_cols), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), *(_ptr(t) for t in tensors), _ptr(idx), _ptr(out), *ints,
+                 _DTYPE_CODE[x.dtype], *codes, _stream(x.device))
+    cuda_build.check(_SOURCE, err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def moe_gather_matmul(
+    x: torch.Tensor,    # [R, IN] bf16/fp32, one row per (token, expert slot)
+    w: torch.Tensor,    # [L, E, IN, OUT] bf16 (or fp32) expert stack
+    l: int,             # layer
+    idx: torch.Tensor,  # [R] int32 expert of each row
+) -> torch.Tensor:
+    """out[r] = x[r] @ w[l, idx[r]] (K12)."""
+    if x.device.type == "cpu":
+        return moe_gather_matmul_plain(x, w, l, idx)
+    name = "moe_gather_matmul"
+    E, rows, out = _check(name, x, w, None, idx, l, 0, 16)
+    return _launch(name, "tg_moe_gather_float", [_P] * 4 + [_I] * 7 + [_P], x, idx, out,
+                   (w,), (x.shape[0], rows, out, E, int(l)), _DTYPE_CODE[w.dtype])
+
+
+def moe_gather_matmul_int8(
+    x: torch.Tensor,       # [R, IN]
+    data: torch.Tensor,    # [L, E, IN, OUT] int8
+    scales: torch.Tensor,  # [L, E, IN/group, OUT] fp32
+    l: int,
+    idx: torch.Tensor,     # [R] int32
+    group: int,
+) -> torch.Tensor:
+    """out[r] = x[r] @ dequant(data[l, idx[r]]) for an int8 stack (K11a)."""
+    if x.device.type == "cpu":
+        return moe_gather_matmul_int8_plain(x, data, scales, l, idx, group)
+    name = "moe_gather_matmul_int8"
+    E, rows, out = _check(name, x, data, scales, idx, l, group, 8)
+    return _launch(name, "tg_moe_gather_int8", [_P] * 5 + [_I] * 7 + [_P], x, idx, out,
+                   (data, scales), (x.shape[0], rows, out, E, group, int(l)))
+
+
+def moe_gather_matmul_int4(
+    x: torch.Tensor,       # [R, in_x], in_x <= IN (a row-padded stack's pad is zeros)
+    data: torch.Tensor,    # [L, E, IN/2, OUT] packed int4
+    scales: torch.Tensor,  # [L, E, IN/group, OUT] fp32
+    l: int,
+    idx: torch.Tensor,     # [R] int32
+    group: int,
+) -> torch.Tensor:
+    """out[r] = x[r] @ dequant(data[l, idx[r]]) for a packed int4 stack
+    (K11b)."""
+    if x.device.type == "cpu":
+        return moe_gather_matmul_int4_plain(x, data, scales, l, idx, group)
+    name = "moe_gather_matmul_int4"
+    E, rows, out = _check(name, x, data, scales, idx, l, group, 4)
+    return _launch(name, "tg_moe_gather_int4", [_P] * 5 + [_I] * 8 + [_P], x, idx, out,
+                   (data, scales), (x.shape[0], x.shape[1], 2 * rows, out, E, group, int(l)))
+
+
+# -- the routed MLP ------------------------------------------------------------------
+
+
+def _gmm(x: torch.Tensor, w, l: int, idx: torch.Tensor, impl: str) -> torch.Tensor:
+    """x @ w[l, idx[r]] through K11b / K11a (quantized stacks) or K12, or
+    their plain versions under impl="plain"."""
+    x = x.contiguous()
+    if isinstance(w, QuantizedTensor):
+        fn = {(4, "kernel"): moe_gather_matmul_int4, (4, "plain"): moe_gather_matmul_int4_plain,
+              (8, "kernel"): moe_gather_matmul_int8,
+              (8, "plain"): moe_gather_matmul_int8_plain}[(w.bits, impl)]
+        return fn(x, w.data, w.scales, l, idx, w.group_size)
+    fn = moe_gather_matmul if impl == "kernel" else moe_gather_matmul_plain
+    return fn(x, w, l, idx)
+
+
+def moe_mlp_gathered(
+    h: torch.Tensor,    # [B, 1, H] or [B, H] post-norm activations
+    router_w: torch.Tensor,  # [H, E] this layer's router
+    gate_up_w,          # [L, E, H, 2I] stack (tensor or QuantizedTensor)
+    down_w,             # [L, E, I, H] stack
+    l: int,             # layer
+    cfg,
+    impl: str = "kernel",  # "kernel" | "plain"
+) -> torch.Tensor:
+    """The routed Mixtral MLP of a decode step: routing (moe_route), the
+    B * k slot-major rows through two gathered matmuls (only the routed
+    experts' bytes are read), silu(gate) * up in fp32 cast back, and the
+    routing-weighted slot sum in fp32. Returns h's shape and dtype."""
+    lead, H = h.shape[:-1], h.shape[-1]
+    h2 = h.reshape(-1, H)
+    B, k = h2.shape[0], cfg.num_experts_per_tok
+    w_top, idx = moe_route(h2, router_w, k)
+    xr = h2.repeat_interleave(k, dim=0)                  # [B*k, H] slot-major
+    ids = idx.reshape(-1).to(torch.int32)
+    gate, up = _gmm(xr, gate_up_w, l, ids, impl).chunk(2, dim=-1)
+    act = F.silu(gate.float()).to(up.dtype) * up
+    down = _gmm(act, down_w, l, ids, impl)               # [B*k, H]
+    out = (w_top.reshape(-1, 1) * down.float()).reshape(B, k, H).sum(dim=1)
+    return out.to(h.dtype).reshape(*lead, H)

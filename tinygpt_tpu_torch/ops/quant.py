@@ -10,7 +10,8 @@ byte. Weights are stored [in, out]; quantization groups run along `in`
   scales fp32  [in/group, out]
   dequant: w[i, o] = q[i, o] * scales[i // group, o]
 
-Stacked layer weights carry a leading [L] axis on both arrays. The
+Stacked layer weights carry a leading [L] axis on both arrays, MoE
+expert stacks [L, E] (ops/moe_kernels.py runs them). The
 matmuls run the Hopper kernels of ops/quant_kernels.py (int8: K3, K5a;
 int4: K4, K5b) on a CUDA tensor, or their plain versions (on a CPU
 tensor, or when the caller asks for the plain route).
@@ -25,6 +26,9 @@ import torch
 
 from tinygpt_tpu_torch.ops import quant_kernels as qk
 from tinygpt_tpu_torch.ops.quant_kernels import dequant_fp32, unpack_int4
+from tinygpt_tpu_torch.utils.logging import get_logger
+
+log = get_logger("quant")
 
 
 class QuantizedTensor:
@@ -198,7 +202,22 @@ def matmul_dequant_stacked(x: torch.Tensor, qt: QuantizedTensor, l: int,
 # stacked per-layer matmul weights ([L, in, out]) that are quantized: the
 # llama family's and GPT-2's (qkv_w, o_w, fc_w, proj_w)
 _QUANT_KEYS = {"qkv_w", "o_w", "gate_up_w", "down_w", "fc_w", "proj_w"}
+# MoE expert stacks ([L, E, in, out]): quantized over the flattened
+# [L*E, in, out] form (groups run along `in`, so expert by expert) and
+# reshaped back, so the gathered kernels index (layer, expert)
+_QUANT_MOE_KEYS = {"moe_gate_up_w", "moe_down_w"}
 HEAD_PAD_MULTIPLE = 2048
+
+
+def _quantize_moe_stacked(w: torch.Tensor, bits: int,
+                          group_size: Optional[int]) -> QuantizedTensor:
+    L, E, in_dim, out_dim = w.shape
+    qt = quantize_weight(w.reshape(L * E, in_dim, out_dim), bits=bits,
+                         group_size=group_size)
+    # qt.in_dim, not the caller's: a row-padded int4 stack reports its pad
+    return QuantizedTensor(qt.data.reshape(L, E, -1, out_dim),
+                           qt.scales.reshape(L, E, -1, out_dim), qt.bits,
+                           qt.group_size, qt.in_dim)
 
 
 def pad_head_out(w: torch.Tensor) -> torch.Tensor:
@@ -221,12 +240,26 @@ def quantize_params(params: Dict, bits: int = 8,
     quantized TRANSPOSED copy of the embedding table; the float table stays
     for the embedding gather. GPT-2's tied head (x @ wte.T) stays in float,
     as in the JAX package. quantize_lm_head=False leaves the head as it is
-    (None when tied)."""
+    (None when tied).
+
+    MoE expert stacks (moe_gate_up_w, moe_down_w) quantize expert by
+    expert into [L, E, rows, out] stacks. At int4, an expert stack whose
+    contraction dim has (in/2) % 128 != 0 is quantized at int8 instead, as
+    the JAX package does (its gathered int4 kernel takes no row padding
+    there), so that the same params quantize to the same bytes in both
+    packages."""
     out = dict(params)
     layers = dict(params["layers"])
     for key, w in layers.items():
         if key in _QUANT_KEYS:
             layers[key] = quantize_weight(w, bits=bits, group_size=group_size)
+        elif key in _QUANT_MOE_KEYS:
+            moe_bits = 8 if bits == 4 and (w.shape[-2] // 2) % 128 else bits
+            if moe_bits != bits:
+                log.warning("MoE expert stack %s: contraction dim %d is not a multiple "
+                            "of 256, quantized at int8 (as the JAX package does)",
+                            key, w.shape[-2])
+            layers[key] = _quantize_moe_stacked(w, moe_bits, group_size)
     out["layers"] = layers
     head = params.get("lm_head")
     if head is None and "embed" in params:

@@ -4,7 +4,7 @@
 with byte fallback) `tokenizer.json` / `tokenizer_config.json` generated
 in code: no tokenizer asset and no `regex` package is needed.
 `write_random_model_dir` adds a config.json and random safetensors
-weights in HF layout (a llama-family or a GPT-2 config), so
+weights in HF layout (a llama-family, mixtral or GPT-2 config), so
 `GPTEngine.prepare()` can load the dir.
 """
 
@@ -92,9 +92,10 @@ def random_hf_weights(hf_config: dict, seed: int = 0,
                       dtype: torch.dtype = torch.bfloat16,
                       device="cpu") -> Dict[str, torch.Tensor]:
     """Random weights under HF names, N(0, 0.02²) with unit norms, for a
-    config.json dict: a llama family's ([out, in] projections) or GPT-2's
-    (under `transformer.`, Conv1D weights [in, out], biases N(0, 0.02²)
-    too). The head row of EOS (lm_head's, or GPT-2's tied wte row) is
+    config.json dict: a llama family's ([out, in] projections; mixtral's
+    MLP as block_sparse_moe.gate and block_sparse_moe.experts.{e}.w1 / w2 /
+    w3) or GPT-2's (under `transformer.`, Conv1D weights [in, out], biases
+    N(0, 0.02²) too). The head row of EOS (lm_head's, or GPT-2's tied wte row) is
     zero, so a random model never stops early under greedy decoding (its
     logit is 0, far below the maximum over the vocab)."""
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -127,10 +128,20 @@ def random_hf_weights(hf_config: dict, seed: int = 0,
             p + "self_attn.k_proj.weight": w(Nk * D, H),
             p + "self_attn.v_proj.weight": w(Nk * D, H),
             p + "self_attn.o_proj.weight": w(H, Nq * D),
-            p + "mlp.gate_proj.weight": w(I, H),
-            p + "mlp.up_proj.weight": w(I, H),
-            p + "mlp.down_proj.weight": w(H, I),
         })
+        mixtral = hf_config.get("model_type") == "mixtral"
+        E = hf_config.get("num_local_experts", 8) if mixtral else 0
+        if E:
+            m = p + "block_sparse_moe."
+            out[m + "gate.weight"] = w(E, H)
+            for e in range(E):
+                x = f"{m}experts.{e}."
+                out.update({x + "w1.weight": w(I, H), x + "w3.weight": w(I, H),
+                            x + "w2.weight": w(H, I)})
+        else:
+            out.update({p + "mlp.gate_proj.weight": w(I, H),
+                        p + "mlp.up_proj.weight": w(I, H),
+                        p + "mlp.down_proj.weight": w(H, I)})
     return out
 
 
