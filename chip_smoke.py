@@ -104,7 +104,26 @@ Phases, in order:
   mixtral_engine, mixtral_server  GPTEngine (bf16; int4 with AWQ by
            default, group 128), the evaluator (int4, kernel against plain
            route) and the server on a 2-layer Mixtral-width dir with the
-           generated tokenizer.
+           generated tokenizer;
+  server_sequential  the server phase once more with scheduler="sequential"
+           (one request at a time through GPTEngine.generate_async);
+  k13      holds the one-layer decode kernel (K13, flash_decode) against its
+           plain version on the card at the model phase's per-token shape
+           (batch 4, 32/8 heads of 128, 576 slots; bf16 and e4m3), and in
+           fp32, fp16, head dim 64, 1 to 16 query heads per KV head, windows
+           and a row that sees no slot; timed beside its bound, the plain
+           version and scaled_dot_product_attention;
+  stream   writes a full-width Mistral-7B dir (32 layers, 14.5 GB of random
+           bf16 weights) and streams one prompt through
+           GPTEngine.generate_async at batch 1, in bf16 and in int4 (the
+           engine's AWQ default): stream_chunk 1 (the per-token route,
+           decode_step, K13) and 8 (K2), paced and not, beside generate_sync
+           at the same chunk: time to the first text, inter-callback p50 and
+           p95, wall times, exact launch counts (32 K13 launches a token),
+           the device's busy share and launches a token under the profiler,
+           the per-token route held to the chunked one (logits, near-ties)
+           and, in bf16, the model phase's batch through the per-token
+           route against the plain route (K13's main-path launches).
 
 Every phase must pass; the script exits non-zero at the first failure.
 Its last lines are the seconds each phase took, the card's name and power
@@ -122,6 +141,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -188,6 +208,7 @@ PROFILE_STEPS = 8  # decode steps traced by torch.profiler (model phase)
 REPLACES = {
     "flash_prefill": "tinygpt_tpu/ops/attention_kernels.py:179",
     "flash_decode_frozen": "tinygpt_tpu/ops/attention_kernels.py:431",
+    "flash_decode": "tinygpt_tpu/ops/attention_kernels.py:470",
     "matmul_dequant_int4": "tinygpt_tpu/ops/quant_kernels.py:327",
     "matmul_dequant_int4_stacked": "tinygpt_tpu/ops/quant_kernels.py:636",
     "matmul_dequant_int4_stacked_fused": "tinygpt_tpu/ops/quant_kernels.py:984",
@@ -204,6 +225,7 @@ REPLACES = {
 SOURCES = {
     "flash_prefill": "tinygpt_tpu_torch/csrc/flash_prefill.cu",
     "flash_decode_frozen": "tinygpt_tpu_torch/csrc/flash_decode_frozen.cu",
+    "flash_decode": "tinygpt_tpu_torch/csrc/flash_decode.cu",
     "matmul_dequant_int4": "tinygpt_tpu_torch/csrc/int4_matmul.cu",
     "matmul_dequant_int4_stacked": "tinygpt_tpu_torch/csrc/int4_matmul.cu",
     "matmul_dequant_int4_stacked_fused": "tinygpt_tpu_torch/csrc/int4_fused.cu",
@@ -273,6 +295,14 @@ MOE_ROWS = (8, 32, 160)
 MOE_STACK_LAYERS = 2
 # the mixtral4 phase's serving leg: the serve phase's scheduler, 8 requests
 MIXTRAL_SERVE = dict(n_requests=8, prompt_len=512, max_new=64, gap_s=0.25)
+# the stream phase: GPTEngine.generate_async on a full-width Mistral-7B dir
+# at batch 1 (bf16, then int4 with AWQ by default), max_tokens tokens at
+# stream_chunk 1 (the per-token route, K13) and 8 (K2)
+STREAM = dict(max_tokens=1 + N_CHUNKS * DECODE_CHUNK, chunks=(1, 8), rounds=4)
+STREAM_PROMPT = ("The printing press changed how knowledge moved through Europe. Before it, "
+                 "a book was copied by hand, one page at a time, and a library of a few "
+                 "hundred volumes was a fortune. Within fifty years of the first presses, "
+                 "millions of books were in print, and")
 
 
 DEVICE = "cuda"
@@ -1690,9 +1720,12 @@ def _left_padded_batch(S, lens, vocab, seed):
 
 
 def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS,
-               kv_dtype=None, model=None):
-    """Prefill + n_chunks greedy decode chunks on one attention route, the
-    KV cache in kv_dtype (default: the params' dtype).
+               kv_dtype=None, model=None, per_token=False, chunk=None):
+    """Prefill + n_chunks greedy decode chunks of `chunk` steps (default
+    DECODE_CHUNK) on one attention route, the KV cache in kv_dtype (default: the params' dtype);
+    with per_token the same steps one decode_step each (the streaming
+    engine's per-token route, attention through K13) instead of
+    decode_steps chunks.
 
     With `force` (the tokens [1 + n_chunks*chunk, B] of another run) every step
     is fed force's token instead of its own argmax, so two routes see the
@@ -1706,6 +1739,7 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS,
     from tinygpt_tpu_torch.models import causal_lm, params_dtype
 
     model = model or causal_lm
+    chunk = chunk or DECODE_CHUNK
 
     ids, positions, valid = batch
     B = ids.shape[0]
@@ -1729,14 +1763,20 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS,
     t_prefill = time.perf_counter() - t0
     t0 = time.perf_counter()
     for c in range(n_chunks):
-        pos0 = (lens + c * DECODE_CHUNK)[:, None]
-        chunk, cache = model.decode_steps(params, cfg, tok, cache, pos0,
-                                          DECODE_CHUNK, pick, attn_impl)
-        tok = chunk[-1]
+        pos0 = (lens + c * chunk)[:, None]
+        if per_token:
+            for i in range(chunk):
+                logits, cache = model.decode_step(params, cfg, tok, cache, pos0 + i,
+                                                  attn_impl)
+                tok = pick(logits[:, -1])
+            continue
+        toks, cache = model.decode_steps(params, cfg, tok, cache, pos0, chunk, pick,
+                                         attn_impl)
+        tok = toks[-1]
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     return (torch.stack(seen), torch.stack(fed), t_prefill * 1e3,
-            t_decode * 1e3 / (n_chunks * DECODE_CHUNK))
+            t_decode * 1e3 / (n_chunks * chunk))
 
 
 def host_launch_us(n: int = 2000) -> float:
@@ -1755,11 +1795,14 @@ def host_launch_us(n: int = 2000) -> float:
 
 
 def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
-                    model=None, tag: str = "[profile]") -> None:
+                    model=None, tag: str = "[profile]", per_token: bool = False) -> dict:
     """Device time by kernel over PROFILE_STEPS decode steps of the kernel
     route (torch.profiler), against their wall time: where a step's time
     goes, and how much of it the device sits idle. The profiler's own cost
-    lengthens the wall time, so the idle share is an upper bound."""
+    lengthens the wall time, so the idle share is an upper bound. With
+    per_token the steps are decode_step calls (K13), else one decode_steps
+    chunk. Returns wall and busy ms a step and device launches a step
+    (empty when the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1779,8 +1822,14 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
     n = PROFILE_STEPS
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode_steps(params, cfg, tok, cache, lens[:, None], n,
-                           lambda lg: lg.argmax(-1))
+        if per_token:
+            for i in range(n):
+                logits, cache = model.decode_step(params, cfg, tok, cache,
+                                                  lens[:, None] + i)
+                tok = logits[:, -1].argmax(-1).to(torch.int32)
+        else:
+            model.decode_steps(params, cfg, tok, cache, lens[:, None], n,
+                               lambda lg: lg.argmax(-1))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, memcpy/memset); the CPU-side ops
@@ -1792,12 +1841,15 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
     if not busy_us:
         log(f"{tag} decode steps: device time not measured (the profiler saw "
             f"no device activity)")
-        return
-    groups = {"flash_decode_frozen": 0.0, "gathered experts (K12, K11a, K11b)": 0.0,
+        return {}
+    groups = {"flash_decode_frozen": 0.0, "flash_decode (K13)": 0.0,
+              "gathered experts (K12, K11a, K11b)": 0.0,
               "int4 (K4-K7)": 0.0, "int8 (K5a, K3)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
     for us, _, key in kernels:
         if "flash_decode_frozen" in key:
             groups["flash_decode_frozen"] += us
+        elif "flash_decode_kernel" in key:
+            groups["flash_decode (K13)"] += us
         elif "moe_gather" in key:
             groups["gathered experts (K12, K11a, K11b)"] += us
         elif "int4" in key:
@@ -1817,6 +1869,8 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
     for us, count, key in sorted(kernels, reverse=True)[:8]:
         log(f"{tag}   {us / n / 1e3:8.4f} ms/step  {count // n:4d} launches/step  "
             f"{key[:90]}")
+    return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
+            "launches": launches / n}
 
 
 def _check_routes(label, kern, plain, tol, tag="[model]"):
@@ -3744,12 +3798,15 @@ def phase_evaluate(d: str) -> None:
         raise PhaseError(f"evaluate: the fp8 KV cache moves the perplexity by {rel}")
 
 
-def phase_server(d: str) -> None:
+def phase_server(d: str, scheduler: str = "continuous") -> None:
     """TinyGPTServer on the model dir `d` (bf16, on the card), in-process on
     127.0.0.1 and a free port, with a chat template passed in: four
     concurrent clients send a completion, a streamed (SSE) completion, a
     chat completion and a health check; every answer must be a 200 with
-    text and the usage counts. The server is shut down at the end."""
+    text and the usage counts. The server is shut down at the end.
+    scheduler="continuous" serves through the continuous batcher (K8 in
+    its quanta), "sequential" one request at a time through
+    GPTEngine.generate_async (K2 at the default stream_chunk of 8)."""
     import concurrent.futures
     import threading
     import urllib.request
@@ -3763,7 +3820,7 @@ def phase_server(d: str) -> None:
     t0 = time.perf_counter()
     srv = TinyGPTServer(ServerConfig(model_dir=d, host="127.0.0.1", port=0,
                                      max_tokens=max_tokens, chat_template=CHATML_TEMPLATE,
-                                     device=DEVICE))
+                                     device=DEVICE, scheduler=scheduler))
     srv.prepare()
     srv._httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(srv))
     url = f"http://127.0.0.1:{srv._httpd.server_address[1]}"
@@ -3829,12 +3886,355 @@ def phase_server(d: str) -> None:
                           and usage["prompt_tokens"] > 0 and usage["total_tokens"]
                           == usage["prompt_tokens"] + usage["completion_tokens"]):
             raise PhaseError(f"server: {name} usage {usage}")
-    log(f"[server] 4 concurrent requests answered in {t_req:.2f} s; launches {launches}; "
-        f"server shut down ({'stopped' if not thread.is_alive() else 'STILL RUNNING'})")
-    if thread.is_alive() or not (launches.get("paged_decode_frozen")
-                                 and launches.get("flash_prefill")):
-        raise PhaseError(f"server: launches {launches}, thread alive "
+    log(f"[server] {scheduler}: 4 concurrent requests answered in {t_req:.2f} s; "
+        f"worker {type(srv.worker).__name__}; launches {launches}; server shut down "
+        f"({'stopped' if not thread.is_alive() else 'STILL RUNNING'})")
+    decode = "paged_decode_frozen" if scheduler == "continuous" else "flash_decode_frozen"
+    if thread.is_alive() or not (launches.get(decode) and launches.get("flash_prefill")):
+        raise PhaseError(f"server ({scheduler}): launches {launches}, thread alive "
                          f"{thread.is_alive()}")
+
+
+# -- K13 and streaming ---------------------------------------------------------
+
+
+def _k13_case(L, B, Nq, Nk, D, T, pads, length, window, dtype, seed):
+    """Inputs of flash_decode calls over an [L, ...] stack of one-layer
+    caches (a call takes layer l's views): row b holds pads[b] pad slots,
+    then real tokens up to slot `length`; the query is the token at slot
+    length - 1, its mask valid & causal & window as decode_step folds it."""
+    import torch
+
+    from tinygpt_tpu_torch.ops.attention import decode_mask
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    dev = DEVICE
+    ks = torch.randn(L, B, Nk, T, D, generator=g, device=dev).to(dtype)
+    vs = torch.randn(L, B, Nk, T, D, generator=g, device=dev).to(dtype)
+    q = torch.randn(B, Nq, D, generator=g, device=dev).to(dtype)
+    slots = torch.arange(T, device=dev)[None, :]
+    pad = torch.tensor(pads, device=dev)[:, None]
+    valid = (slots >= pad) & (slots < length)
+    kv_pos = (slots - pad).clamp(min=0)
+    mask = decode_mask(kv_pos, valid, (length - 1 - pad).clamp(min=0), window)
+    return q, ks, vs, mask.contiguous()
+
+
+def _k13_cost(q, mask, Nk, kv_size=None):
+    """(bytes, flops): q and the output, the visible slots' K and V
+    (kv_size bytes an element, default q's), the mask bytes."""
+    B, Nq, D = q.shape
+    visible = int(mask.sum())
+    isz = q.element_size()
+    nbytes = 2 * q.numel() * isz + 2 * visible * Nk * D * (kv_size or isz) + mask.numel()
+    return nbytes, 4.0 * D * visible * Nq
+
+
+def _k13_cycle(q, ks, vs, mask):
+    """A flash_decode call on the next layer of the stacks at each call, as
+    a decode step walks them: the stacks exceed the 50 MB L2 cache, so each
+    call reads cold K/V."""
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    layers = iter(range(10 ** 9))
+
+    def call():
+        l = next(layers) % ks.shape[0]
+        return ak.flash_decode(q, ks[l], vs[l], mask, q.shape[-1] ** -0.5)
+
+    return call
+
+
+def phase_k13_kernels(table: dict) -> None:
+    """flash_decode (K13) against its plain version on the card: the main
+    path's shape (the model phase's batch at its last per-token step:
+    B = 4, 32/8 heads of 128, T = 576, bf16) timed over the 32 layers'
+    caches in turn (cold in L2, as a step reads them) beside its bound, the
+    plain version and scaled_dot_product_attention; then fp32, fp16, head
+    dim 64, 1, 3, 4 and 16 query heads per KV head, windows, a row that sees
+    no slot, and the e4m3 branch at the main path's shape."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    mp = main_path_shapes()["decode"]
+    B = len(PROMPT_LENS)
+    # (label, L, Nq, Nk, D, T, pads, length, window, dtype, is_main_path)
+    cases = [
+        ("main path", 32, 32, 8, 128, mp["T"], mp["pads"], mp["T"], None, torch.bfloat16,
+         True),
+        ("T1024 w300", 2, 32, 8, 128, 1024, (0, 37, 211, 600), 900, 300, torch.bfloat16,
+         False),
+        ("T1024 w300", 2, 32, 8, 128, 1024, (0, 37, 211, 600), 900, 300, torch.float32,
+         False),
+        ("T700 G=4", 2, 32, 8, 128, 700, (0, 9, 650, 1), 650, None, torch.float16, False),
+        ("T1024 D64 w20", 2, 32, 8, 64, 1024, (0, 37, 211, 600), 777, 20, torch.float32,
+         False),
+        ("GPT-2 heads G=1", 2, 12, 12, 64, 300, (0, 100, 299, 5), 300, None,
+         torch.bfloat16, False),
+        ("G=3, a row sees nothing", 2, 24, 8, 64, 100, (0, 3, 100, 50), 100, None,
+         torch.bfloat16, False),
+        ("G=16", 2, 128, 8, 128, 576, mp["pads"], 576, None, torch.bfloat16, False),
+        ("G=16 w64", 2, 128, 8, 128, 300, (0, 17, 200, 9), 290, 64, torch.float32, False),
+    ]
+    worst = {}
+    for i, (label, L, Nq, Nk, D, T, pads, length, window, dtype, main) in enumerate(cases):
+        dname = str(dtype).replace("torch.", "")
+        q, ks, vs, mask = _k13_case(L, B, Nq, Nk, D, T, pads, length, window, dtype,
+                                    seed=300 + i)
+        err, tol = 0.0, 0.0
+        for l in sorted({0, L - 1}):
+            got = ak.flash_decode(q, ks[l], vs[l], mask, D ** -0.5)
+            want = ak.flash_decode_plain(q, ks[l], vs[l], mask, D ** -0.5)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            t = _paged_tol(dname, want)
+            if not (math.isfinite(e) and e <= t):
+                raise PhaseError(f"flash_decode {label} l={l} {dname}: error {e} > {t}")
+            for b in range(B):  # a row that sees no slot gives zeros
+                if not mask[b].any() and got[b].any():
+                    raise PhaseError(f"flash_decode {label}: row {b} sees no slot "
+                                     f"and is not zero")
+            err, tol = max(err, e), max(tol, t)
+        worst[dname] = max(err / tol, worst.get(dname, 0.0))
+        t_k = cuda_time_ms(_k13_cycle(q, ks, vs, mask), iters=4 * L)
+        t_p = cuda_time_ms(lambda: ak.flash_decode_plain(q, ks[L - 1], vs[L - 1], mask,
+                                                         D ** -0.5), iters=10)
+        t_l = cuda_time_ms(_sdpa(q[:, :, None, :], ks[L - 1], vs[L - 1],
+                                 mask[:, None, None, :], D ** -0.5), iters=20)
+        nbytes, flops = _k13_cost(q, mask, Nk)
+        b_ms, b_by = bound_ms(nbytes, flops, dname)
+        log(f"[k13] flash_decode {label} B={B} Nq={Nq} Nk={Nk} D={D} T={T} {dname}: "
+            f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+            f"sdpa {t_l:.4f} ms bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB) ok")
+        if main:
+            table["flash_decode"] = dict(
+                name="flash_decode", route="cuda", source=SOURCES["flash_decode"],
+                replaces=REPLACES["flash_decode"], launches=0, max_abs_err=err, tol=tol,
+                ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+            # the e4m3 branch at the main path's shape (bf16 queries)
+            ks8, vs8 = kv_cast(ks, E4M3), kv_cast(vs, E4M3)
+            del ks, vs
+            _e4m3_row("flash_decode", "[k13]", "main path", _k13_cycle(q, ks8, vs8, mask),
+                      lambda: ak.flash_decode_plain(q, ks8[L - 1], vs8[L - 1], mask,
+                                                    D ** -0.5),
+                      _k13_cost(q, mask, Nk, kv_size=1), iters=(4 * L, 10),
+                      check=lambda: (ak.flash_decode(q, ks8[L - 1], vs8[L - 1], mask,
+                                                     D ** -0.5),
+                                     ak.flash_decode_plain(q, ks8[L - 1], vs8[L - 1], mask,
+                                                           D ** -0.5)))
+            del ks8, vs8
+        torch.cuda.empty_cache()
+    log("[k13] worst error over the cases as a share of its limit: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+    # the stream's shape (batch 1, a 192-slot cache, 100 prompt slots and 8
+    # decoded): K13 beside K2 over the same visible slots, 32 layers in turn
+    L, T, P, N = 32, 192, 100, 8
+    q, ks, vs, mask = _k13_case(L, 1, 32, 8, 128, T, (T - 64 - P,), T - 64 + N, None,
+                                torch.bfloat16, seed=399)
+    ki = torch.randn(1, 8, N, 128, device=DEVICE).to(torch.bfloat16)
+    frozen = mask.clone()
+    frozen[:, T - 64:] = False
+    layers = iter(range(10 ** 9))
+    t_k2 = cuda_time_ms(lambda: ak.flash_decode_frozen(
+        q, ks, vs, frozen, ki, ki, next(layers) % L, N - 1, 128 ** -0.5), iters=4 * L)
+    t_k13 = cuda_time_ms(_k13_cycle(q, ks, vs, mask), iters=4 * L)
+    log(f"[k13] batch 1 (the stream's shape, {int(mask.sum())} visible slots of {T}): "
+        f"flash_decode {t_k13:.4f} ms, flash_decode_frozen over the same slots "
+        f"{t_k2:.4f} ms")
+
+
+def _write_full_model_dir(d: str) -> None:
+    """A model dir of the Mistral-7B shape at all 32 layers (about 14.5 GB of
+    random bf16 weights) and the generated Metaspace-BPE tokenizer."""
+    import torch
+
+    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
+
+    t0 = time.perf_counter()
+    write_random_model_dir(d, MISTRAL_7B, seed=3, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.empty_cache()
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"[stream] full-width model dir {size / 1e9:.2f} GB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(p / 100 * len(xs)) - 1))] if xs else 0.0
+
+
+def _stream_once(eng, chunk, pace):
+    """One generate_async of STREAM_PROMPT at stream_chunk `chunk`: its
+    output, wall seconds, time to the first text chunk and the gaps
+    between text callbacks (the final flush excluded)."""
+    eng.config.stream_chunk, eng.config.stream_pace = chunk, pace
+    times = []
+    t0 = time.perf_counter()
+    out = eng.generate_async(STREAM_PROMPT, lambda c, done: done or (
+        times.append(time.perf_counter()) or True))
+    wall = time.perf_counter() - t0
+    gaps = [b - a for a, b in zip(times, times[1:])]
+    return out, wall, (times[0] - t0 if times else float("nan")), gaps
+
+
+def _sync_once(eng, chunk):
+    eng.config.decode_chunk = chunk
+    t0 = time.perf_counter()
+    out = eng.generate_sync([STREAM_PROMPT])[0]
+    return out, time.perf_counter() - t0
+
+
+def _stream_engine(d: str, label: str, kw: dict, table: dict) -> None:
+    """The stream runs of one engine on the full-width dir `d` (bf16, or
+    int4 from the engine's own quantization): route check at batch 1 (and
+    at the model phase's batch 4 in bf16, whose per-token run sets K13's
+    launches in the kernel table), the device's busy share and launches a
+    token, then streams at stream_chunk 1 and 8, paced and not, beside
+    generate_sync at the same chunk, with exact launch counts."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    n_tok = STREAM["max_tokens"]
+    t0 = time.perf_counter()
+    eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=n_tok, device=DEVICE, **kw))
+    eng.prepare()
+    log(f"[stream] {label}: prepare() {time.perf_counter() - t0:.1f} s")
+    ctx = eng.ctx
+    cfg, params, L = ctx.model_config, ctx.params, ctx.model_config.num_hidden_layers
+    with torch.inference_mode():
+        if label == "bf16":
+            # the model phase's batch through the per-token route: K13's
+            # launches on the main path, and the route held to the plain one
+            S, T = max(PROMPT_LENS), main_path_shapes()["decode"]["T"]
+            batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
+            plain = _run_route(params, cfg, batch, T, "plain")
+            forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1],
+                                per_token=True)
+            _check_routes(f"batch {len(PROMPT_LENS)}, per-token route (K13) against the "
+                          f"plain route", forced, plain, MODEL_LOGIT_TOL["bfloat16"],
+                          tag="[stream]")
+            ak.reset_launches()                          # the per-token main path
+            kern = _run_route(params, cfg, batch, T, "kernel", per_token=True)
+            launches = dict(ak.LAUNCHES)
+            want = {"flash_prefill": L, "flash_decode": L * N_CHUNKS * DECODE_CHUNK}
+            log(f"[stream] batch {len(PROMPT_LENS)} per-token route: decode "
+                f"{kern[3]:.3f} ms/step; launches {launches} (want {want})")
+            if launches != want:
+                raise PhaseError(f"per-token route launched {launches} != {want}")
+            table["flash_decode"]["launches"] = launches["flash_decode"]
+        # batch 1: the stream's prompt, per-token (K13) against chunked (K2)
+        ids, positions, valid, _, _ = eng._encode_batch([STREAM_PROMPT])
+        batch1 = tuple(torch.from_numpy(a).to(DEVICE) for a in (ids, positions, valid))
+        c8 = STREAM["chunks"][-1]
+        n8 = (n_tok - 1) // c8
+        T1 = ids.shape[1] + n8 * c8                     # the engine's cache at chunk 8
+        chunked = _run_route(params, cfg, batch1, T1, "kernel", n_chunks=n8, chunk=c8)
+        per_tok = _run_route(params, cfg, batch1, T1, "kernel", force=chunked[1],
+                             n_chunks=n8, chunk=c8, per_token=True)
+        _check_routes(f"{label}, batch 1: per-token route (K13) against the chunked "
+                      f"route (K2)", per_tok, chunked, MODEL_LOGIT_TOL["bfloat16"],
+                      tag="[stream]")
+        prof = {}
+        for per_token in (True, False):
+            prof[per_token] = _profile_decode(
+                params, cfg, batch1, T1, label=f"{label}, batch 1, "
+                f"{'per-token route' if per_token else 'a chunk of 8'}",
+                tag="[stream]", per_token=per_token)
+    route_toks = chunked[1][:, 0].tolist()
+    _sync_once(eng, 8)                                     # warm-up
+    _stream_once(eng, 1, False)
+    runs = {}
+    kinds = [("sync", 8, None), ("stream", 8, True), ("stream", 8, False), ("sync", 1, None),
+             ("stream", 1, False)]
+    # the host's time varies by 10 % to 20 % from run to run: every kind
+    # runs STREAM["rounds"] times, in turns, the order reversed every round
+    for r in range(STREAM["rounds"]):
+        for kind, chunk, pace in (kinds if r % 2 == 0 else kinds[::-1]):
+            ak.reset_launches()
+            if kind == "sync":
+                out, wall = _sync_once(eng, chunk)
+                ttft, gaps = float("nan"), []
+            else:
+                out, wall, ttft, gaps = _stream_once(eng, chunk, pace)
+            torch.cuda.synchronize()
+            launches = dict(ak.LAUNCHES)
+            runs.setdefault((kind, chunk, pace), []).append((out, wall, ttft, gaps))
+            n = len(out.token_ids)
+            if n != n_tok:
+                raise PhaseError(f"{label} {kind} chunk {chunk}: {n} tokens, want {n_tok}")
+            attn = "flash_decode" if chunk == 1 else "flash_decode_frozen"
+            other = "flash_decode_frozen" if chunk == 1 else "flash_decode"
+            if (launches.get(attn) != L * (n_tok - 1) or launches.get(other)
+                    or launches.get("flash_prefill") != L):
+                raise PhaseError(f"{label} {kind} chunk {chunk}: launches {launches}, want "
+                                 f"{attn} {L * (n_tok - 1)} ({L} a token), flash_prefill {L}")
+            if "quantization" in kw and not all(launches.get(k) for k in (
+                    "matmul_dequant_int4_stacked", "matmul_dequant_int4_stacked_fused",
+                    "mlp_fused_int4_stacked")):
+                raise PhaseError(f"{label} {kind} chunk {chunk}: launches {launches}")
+            if r == 0:
+                log(f"[stream] {label}, chunk {chunk}, {kind}"
+                    f"{'' if kind == 'sync' else ', paced' if pace else ', unpaced'}: "
+                    f"launches {launches}")
+    for (kind, chunk, pace), rs in runs.items():
+        walls = [x[1] * 1e3 for x in rs]
+        what = (f"generate_sync" if kind == "sync" else
+                f"generate_async, {'paced' if pace else 'unpaced'}")
+        gaps = [g for x in rs for g in x[3]]
+        itl = (f"; first text median {statistics.median(x[2] for x in rs) * 1e3:.1f} ms, "
+               f"inter-callback p50 {_pct(gaps, 50) * 1e3:.2f} ms p95 "
+               f"{_pct(gaps, 95) * 1e3:.2f} ms ({len(gaps)} gaps)" if kind == "stream" else "")
+        log(f"[stream] {label}, chunk {chunk}, {what}: {n_tok} tokens, wall median "
+            f"{statistics.median(walls):.1f} ms ({statistics.median(walls) / n_tok:.2f} ms a "
+            f"token; runs {', '.join(f'{w:.1f}' for w in walls)}){itl}")
+    # tokens: the same route exactly; the two routes up to a near-tie (the
+    # route check above holds every choice the two routes part at)
+    for chunk in STREAM["chunks"]:
+        toks = {k: [r[0].token_ids for r in v] for k, v in runs.items() if k[1] == chunk}
+        ref = toks[("sync", chunk, None)][0]
+        if any(t != ref for ts in toks.values() for t in ts):
+            raise PhaseError(f"{label} chunk {chunk}: stream and generate_sync tokens "
+                             f"differ on the same route: {toks}")
+    t1, t8 = runs[("sync", 1, None)][0][0].token_ids, runs[("sync", 8, None)][0][0].token_ids
+    part = next((i for i, (a, b) in enumerate(zip(t1, t8)) if a != b), None)
+    log(f"[stream] {label}: chunk 1 and chunk 8 tokens "
+        + ("identical" if part is None else f"part at position {part}")
+        + f" of {n_tok}; chunk 8 equals the route check's chunked tokens: "
+        + str(t8 == route_toks[:n_tok]))
+    if t8 != route_toks[:n_tok]:
+        raise PhaseError(f"{label}: the engine's chunk-8 tokens differ from the chunked "
+                         f"route's at the same prompt")
+    sync8 = statistics.median(r[1] for r in runs[("sync", 8, None)])
+    paced8 = statistics.median(r[1] for r in runs[("stream", 8, True)])
+    p = prof.get(True, {})
+    log(f"[stream] {label} summary: paced stream at chunk 8 {paced8 * 1e3:.1f} ms against "
+        f"generate_sync {sync8 * 1e3:.1f} ms (ratio of the medians {paced8 / sync8:.4f}, "
+        f"{STREAM['rounds']} runs each); per-token route "
+        + (f"{p['busy_ms']:.3f} busy ms in {p['wall_ms']:.3f} wall ms a token "
+           f"({100 * p['busy_ms'] / p['wall_ms']:.1f}% busy), {p['launches']:.0f} device "
+           f"launches a token" if p else "device time not measured"))
+    del eng, ctx, params
+    torch.cuda.empty_cache()
+
+
+def phase_stream(table: dict) -> None:
+    """Streaming at the Mistral-7B shape, not cut (32 layers, batch 1):
+    writes the full-width dir under the build directory, then
+    _stream_engine in bf16 and in int4 (the engine's AWQ default)."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="smoke_stream_", dir=cuda_build.BUILD_DIR)
+    try:
+        _write_full_model_dir(d)
+        _stream_engine(d, "bf16", {}, table)
+        _stream_engine(d, "int4", dict(quantization="int4"), table)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def main() -> int:
@@ -3906,6 +4306,7 @@ def main() -> int:
             timed("engine", phase_engine, d)
             timed("evaluate", phase_evaluate, d)
             timed("server", phase_server, d)
+            timed("server_sequential", phase_server, d, "sequential")
         finally:
             shutil.rmtree(d, ignore_errors=True)
         d = tempfile.mkdtemp(prefix="smoke_gpt2_", dir=cuda_build.BUILD_DIR)
@@ -3922,6 +4323,9 @@ def main() -> int:
             timed("mixtral_server", phase_server, d)
         finally:
             shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+        timed("k13", phase_k13_kernels, table)
+        timed("stream", phase_stream, table)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

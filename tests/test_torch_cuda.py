@@ -1233,3 +1233,146 @@ def test_mixtral_on_the_card_matches_the_cpu(dev, weights):
     assert (lg_k - lg_c).abs().max().item() <= tol
     assert (dec_k - dec_c).abs().max().item() <= tol
     assert (pg_k - pg_c).abs().max().item() <= tol
+
+
+# -- the one-layer decode kernel (K13) and the streaming engine -------------------
+#
+# flash_decode against its plain version, the tolerances above (one ulp of an
+# output below 2; e4m3 caches decode exactly, outputs of e4m3 values x4
+# reach ~8); then decode_step and GPTEngine.generate_async on the card
+# against the CPU.
+
+K13_CASES = [
+    # (D, dtype, Nq, Nk, T, pads, length, window)
+    (64, torch.float32, 4, 4, 1, (0,), 1, None),                # G = 1, T = 1
+    (128, torch.bfloat16, 32, 8, 576, (0, 112, 212, 384), 576, None),  # the main path's
+    (128, torch.bfloat16, 8, 4, 37, (0, 9, 37), 30, None),      # a row sees no slot
+    (64, torch.float16, 6, 2, 300, (0, 200), 290, 50),          # G = 3, window
+    (128, torch.float32, 10, 2, 130, (3, 0), 129, 3),           # G = 5, narrow window
+    (128, torch.bfloat16, 128, 8, 200, (0, 77), 150, None),     # G = 16: 2 blocks a head
+    (64, torch.float32, 24, 2, 100, (5, 0), 90, 30),            # G = 12: 2 blocks of 6
+]
+
+
+def _k13_inputs(dev, case, seed, e4m3=False):
+    D, dtype, Nq, Nk, T, pads, length, window = case
+    gen = torch.Generator().manual_seed(seed)
+    B = len(pads)
+    if e4m3:
+        k = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+        v = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+    else:
+        k = _randn(gen, B, Nk, T, D, dtype=dtype, dev=dev)
+        v = _randn(gen, B, Nk, T, D, dtype=dtype, dev=dev)
+    q = _randn(gen, B, Nq, D, dtype=dtype, dev=dev)
+    slots = torch.arange(T, device=dev)[None, :]
+    pad = torch.tensor(pads, device=dev)[:, None]
+    valid = (slots >= pad) & (slots < length)
+    kv_pos = (slots - pad).clamp(min=0)
+    pos = (length - 1 - pad).clamp(min=0)
+    mask = valid & (kv_pos <= pos)
+    if window:
+        mask &= kv_pos > pos - window
+    return q, k, v, mask, D ** -0.5
+
+
+@pytest.mark.parametrize("e4m3", [False, True])
+@pytest.mark.parametrize("case", K13_CASES)
+def test_flash_decode_kernel_matches_plain(dev, case, e4m3):
+    q, k, v, mask, scale = _k13_inputs(dev, case, 20, e4m3)
+    ak.reset_launches()
+    got = ak.flash_decode(q, k, v, mask, scale)
+    assert ak.LAUNCHES["flash_decode"] == 1
+    want = ak.flash_decode_plain(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= TOL[q.dtype] * (4 if e4m3 else 1)
+    for b in range(q.shape[0]):  # a row that sees no slot gives zeros
+        if not mask[b].any():
+            assert not got[b].any()
+    got_u8 = ak.flash_decode(q, k, v, mask.to(torch.uint8), scale)
+    assert torch.equal(got_u8, got)
+
+
+def test_flash_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    k = torch.zeros(1, 2, 8, 64, device=dev)
+    mask = torch.ones(1, 8, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ak.flash_decode(torch.zeros(1, 4, 96, device=dev), torch.zeros(1, 2, 8, 96, device=dev),
+                        torch.zeros(1, 2, 8, 96, device=dev), mask, 0.1)
+    with pytest.raises(ValueError, match="at most"):
+        ak.flash_decode(torch.zeros(1, 34, 64, device=dev), k, k, mask, 0.1)
+    with pytest.raises(ValueError, match="mask"):
+        ak.flash_decode(torch.zeros(1, 4, 64, device=dev), k, k, mask[:, :7], 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        ak.flash_decode(torch.zeros(1, 4, 64, device=dev), k.half(), k.half(), mask, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.flash_decode(torch.zeros(1, 4, 64, device=dev),
+                        k.transpose(2, 3).contiguous().transpose(2, 3), k, mask, 0.1)
+
+
+def test_decode_step_on_the_card_matches_the_cpu(dev):
+    """A 2-layer fp32 model with a window: two left-padded rows, a prefill
+    and eight decode_step calls through K1 and K13 on the card against the
+    plain versions on the CPU (logits within 1e-4, same greedy tokens)."""
+    cfg = parse_model_config(dict(
+        model_type="mistral", vocab_size=211, hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, max_position_embeddings=256, sliding_window=9))
+    params = causal_lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    S, lens, n = 24, (24, 13), 8
+    ids = torch.randint(3, cfg.vocab_size, (len(lens), S), generator=gen)
+    pad = torch.tensor([S - x for x in lens])[:, None]
+    valid = torch.arange(S)[None, :] >= pad
+    positions = torch.where(valid, torch.arange(S)[None, :] - pad, 0).to(torch.int32)
+
+    def run(device):
+        p = {k: v.to(device) if isinstance(v, torch.Tensor) else
+             ({m: t.to(device) for m, t in v.items()} if isinstance(v, dict) else v)
+             for k, v in params.items()}
+        cache = create_kv_cache(cfg, len(lens), S + n, dtype=torch.float32, device=device)
+        lg, cache = causal_lm.forward(p, cfg, ids.to(device), cache, positions.to(device),
+                                      valid.to(device), last_only=True)
+        out = [lg[:, -1].cpu()]
+        for i in range(n):
+            tok = out[-1].argmax(-1).to(torch.int32).to(device)
+            pos = torch.tensor(lens, device=device)[:, None] + i
+            lg, cache = causal_lm.decode_step(p, cfg, tok, cache, pos)
+            out.append(lg[:, -1].cpu())
+        return torch.stack(out)
+
+    want = run("cpu")
+    ak.reset_launches()
+    got = run(dev)
+    assert dict(ak.LAUNCHES) == {"flash_prefill": 2, "flash_decode": 2 * n}
+    assert _max_err(got, want) <= 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("quantization", [None, "int4"])
+def test_generate_async_on_the_card_matches_the_cpu(dev, tmp_path, quantization):
+    """GPTEngine.generate_async on the card at stream_chunk 1 (decode_step,
+    K13 once a layer a token) and 8 (K2), paced and not, in fp32 (int4:
+    the fused route, K6 and K7): the CPU's greedy tokens and text, and
+    generate_sync's on the card."""
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+
+    d = _model_dir(tmp_path, _TINY_DIR_CFG)
+    kw = dict(model_dir=d, dtype="float32", max_tokens=17, prefill_bucket=16,
+              quantization=quantization, awq=False if quantization else None)
+    prompt = "the quick brown fox jumps over the lazy dog"
+    cpu = GPTEngine(GPTConfig(device="cpu", **kw))
+    cpu.prepare()
+    want = cpu.generate_sync([prompt])[0]
+    for chunk, pace in ((1, False), (8, True), (8, False)):
+        eng = GPTEngine(GPTConfig(device="cuda", stream_chunk=chunk, stream_pace=pace,
+                                  decode_chunk=chunk, **kw))
+        eng.prepare()
+        chunks = []
+        ak.reset_launches()
+        out = eng.generate_async(prompt, lambda c, done: (chunks.append(c), True)[1])
+        torch.cuda.synchronize()
+        attn = "flash_decode" if chunk == 1 else "flash_decode_frozen"
+        assert ak.LAUNCHES[attn] == 2 * 16 and ak.LAUNCHES["flash_prefill"] == 2
+        assert out.token_ids == want.token_ids == eng.generate_sync([prompt])[0].token_ids
+        assert "".join(chunks) == want.text

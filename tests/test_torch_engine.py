@@ -105,9 +105,17 @@ def test_fp8_cache_and_speculation_match_jax(model_dir, kw):
     assert all(len(g.token_ids) == ENGINE_KW["max_tokens"] for g in got)
 
 
-def test_generate_async_not_ported(engines):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engines[1].generate_async("hi", lambda chunk, done: True)
+def test_generate_async_matches_jax(engines):
+    """The JAX engine's streaming test (tests/test_engine.py): the greedy
+    stream's tokens and text equal generate_sync's, and JAX's."""
+    jeng, teng = engines
+    got, want = [], []
+    out = teng.generate_async(PROMPTS[0], lambda c, d: (got.append(c), True)[1])
+    jout = jeng.generate_async(PROMPTS[0], lambda c, d: (want.append(c), True)[1])
+    sync = teng.generate_sync([PROMPTS[0]])[0]
+    assert out.token_ids == jout.token_ids == sync.token_ids
+    assert "".join(got) == "".join(want) == sync.text == out.text
+    assert out.finish_reason.value == jout.finish_reason.value
 
 
 def test_cli_batch(model_dir, capsys):
@@ -119,8 +127,8 @@ def test_cli_batch(model_dir, capsys):
 
 
 def test_cli_deferred_flag_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="stream"):
-        cli.main(["--model", model_dir, "--device", "cpu", "--stream"])
+    with pytest.raises(NotImplementedError, match="mesh"):
+        cli.main(["--model", model_dir, "--device", "cpu", "--mesh", "1,1,2"])
 
 
 def test_engine_sampling_is_seeded(model_dir):

@@ -3,9 +3,10 @@ tests/test_server.py (/v1/models, completions and chat, non-streaming and
 SSE, validation errors, 404, the web UI, /health, concurrent requests
 through the continuous batcher, the stop-string machinery and request
 parsing), on the CPU, on a tiny llama model dir with the port's generated
-Metaspace-BPE tokenizer. The sequential worker is not ported and raises.
-The pure helpers are held against the JAX package's, and a greedy
-completion against the port's batcher driven directly."""
+Metaspace-BPE tokenizer. The sequential worker has its tests in
+tests/test_torch_stream.py. The pure helpers are held against the JAX
+package's, and a greedy completion against the port's batcher driven
+directly."""
 
 import concurrent.futures
 import http.server
@@ -245,13 +246,6 @@ def test_concurrent_requests_interleave(server):
     for d in results:
         assert d["choices"][0]["finish_reason"] in ("length", "stop")
         assert 0 < d["usage"]["completion_tokens"] <= 5
-
-
-def test_sequential_scheduler_mode_not_ported(model_dir):
-    srv = TinyGPTServer(ServerConfig(model_dir=model_dir, dtype="float32",
-                                     scheduler="sequential", device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        srv.prepare()
 
 
 # -- stop-string machinery and request parsing (pure) -------------------------

@@ -9,8 +9,10 @@ Weight-only quantization: `--quantization int8`, or `--quantization int4`
 with AWQ by default (`--awq-calib FILE` to calibrate on your own text,
 `--no-awq` for plain round-to-nearest). `--speculative ngram` decodes a
 single prompt by n-gram speculation (a batch of prompts takes the chunked
-loop). The flags of features not ported yet (--stream, --mesh) are
-accepted and raise NotImplementedError.
+loop). `--stream` streams the first prompt through
+GPTEngine.generate_async, printing text as it arrives. The flag of a
+feature not ported yet (--mesh) is accepted and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ DEFAULT_PROMPTS = [
 ]
 
 # flag -> ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {"stream": 5, "mesh": 13}
+_NOT_PORTED = {"mesh": 13}
 
 
 def main(argv=None) -> int:
@@ -52,7 +54,7 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt", action="append", default=None,
                     help="prompt (repeatable); default: 4 fixed prompts")
     ap.add_argument("--stream", action="store_true",
-                    help="(not ported yet)")
+                    help="stream the first prompt's text as it is generated")
     ap.add_argument("--quantization", default=None, choices=["int8", "int4"],
                     help="weight-only quantization")
     ap.add_argument("--quant-group-size", type=int, default=None,
@@ -97,6 +99,19 @@ def main(argv=None) -> int:
     print(f"[load] {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
     prompts = args.prompt or DEFAULT_PROMPTS
+
+    if args.stream:
+        print(f">>> {prompts[0]}", flush=True)
+        t0 = time.perf_counter()
+        out = engine.generate_async(
+            prompts[0],
+            lambda chunk, done: (print(chunk, end="", flush=True), True)[1],
+        )
+        dt = time.perf_counter() - t0
+        print(f"\n[{len(out.token_ids)} tokens, "
+              f"{len(out.token_ids) / dt:.2f} token/s]", file=sys.stderr)
+        return 0
+
     t0 = time.perf_counter()
     outs = engine.generate_sync(prompts)
     dt = time.perf_counter() - t0

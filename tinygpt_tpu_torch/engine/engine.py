@@ -1,13 +1,26 @@
 """GPTEngine: load → encode → prefill → decode → detokenize.
 
-Counterpart of tinygpt_tpu/engine/engine.py for batch inference:
-prepare() (model-dir load, EOS collection from generation_config falling
-back to the tokenizer, generation-config sampler defaults unless
-use_generation_defaults=False), reconfigure(),
-left-pad/truncate batch encoding into length buckets, and generate_sync:
-one prefill, then chunks of `decode_chunk` frozen-cache decode steps
-(causal_lm.decode_steps) with the EOS check on the host between chunks —
-the only point where the loop waits for the device.
+Counterpart of tinygpt_tpu/engine/engine.py: prepare() (model-dir load,
+EOS collection from generation_config falling back to the tokenizer,
+generation-config sampler defaults unless use_generation_defaults=False),
+reconfigure(), left-pad/truncate batch encoding into length buckets,
+generate_sync (a batch) and generate_async (one prompt, streamed to a
+callback in UTF-8-safe text chunks, with EOS stop and abort).
+
+Both run one loop: a prefill, then chunks of `decode_chunk` (generate_sync)
+or `stream_chunk` (generate_async) frozen-cache decode steps
+(causal_lm.decode_steps, attention through K2), or at a chunk of 1 the
+per-token route (decode_step, each token written straight into the cache,
+attention through K13). Chunk k + 1 is launched from the device-resident
+last token of chunk k before chunk k is read, up to two chunks ahead.
+Each chunk's tokens go to the host through a pinned buffer and an event,
+and the launching thread itself hands them to the callback between two
+launched steps, once the event has passed: one thread, so the callbacks
+never contend with the launches for the interpreter lock, and neither the
+read nor the stream's pacing (stream_pace: the JAX engine's min-gap rule)
+delays a launch (_HostTokens). A callback that returns False (EOS, abort)
+stops the stream at once: nothing is emitted after it, and the chunks
+already launched are dropped.
 
 Every family of the registry runs, GPT-2 included. On the card every
 attention call goes through the Hopper kernels (ops/attention_kernels.py;
@@ -27,15 +40,16 @@ verifies them in one (spec_draft_len + 1)-token forward over the dense
 cache (K1 at the round's first slot); a batch takes the chunked loop, as
 the JAX engine does.
 
-Not ported yet, each raising NotImplementedError when asked for: device
-meshes and streaming (generate_async).
+Not ported yet, raising NotImplementedError when asked for: device meshes.
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Any, List, Optional, Sequence, Set
+from typing import Any, Callable, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -66,10 +80,9 @@ class FinishReason(Enum):
 
 @dataclass
 class GPTConfig:
-    """Engine configuration: the JAX GPTConfig's fields, except those of
-    streaming (stream_chunk, stream_pace; ROADMAP.md queue 1, item 5) and
-    of pipeline parallelism (pp_microbatches, item 13), not ported yet.
-    mesh_shape must keep its default (item 13)."""
+    """Engine configuration: the JAX GPTConfig's fields, except that of
+    pipeline parallelism (pp_microbatches, ROADMAP.md queue 1, item 13), not
+    ported yet. mesh_shape must keep its default (item 13)."""
 
     model_dir: str
     dtype: str = "bfloat16"
@@ -80,8 +93,18 @@ class GPTConfig:
     # prompt lengths are bucketed to these multiples
     prefill_bucket: int = 64
     max_context: Optional[int] = None  # default: model context size
-    # decode steps per chunk; EOS is checked on the host between chunks
+    # decode steps per chunk; EOS is checked on the host between chunks.
+    # 1 = the per-token route (decode_step, attention through K13)
     decode_chunk: int = 32
+    # decode steps per chunk on the STREAMING path (generate_async): small,
+    # so a client sees near-per-token cadence instead of decode_chunk-sized
+    # bursts; 1 = the per-token route
+    stream_chunk: int = 8
+    # pace the emission of a chunk's tokens at the measured per-step
+    # interval (the JAX engine's min-gap rule) while the next chunk runs;
+    # the last chunk bursts (nothing runs behind it). Off = a burst of
+    # stream_chunk tokens per chunk. Never at a chunk of 1
+    stream_pace: bool = True
     device: Any = "cuda"
     # weight-only quantization: None | "int8" | "int4"
     quantization: Optional[str] = None
@@ -107,6 +130,14 @@ class GPTConfig:
     # adopt generation_config.json sampling defaults (do_sample +
     # temperature/top_k/top_p/min_p) when no sampler knob was set here
     use_generation_defaults: bool = True
+
+
+# callback(chunk_text, finished) -> keep_going
+GenerateCallback = Callable[[str, bool], bool]
+
+# chunks the decode loop may launch ahead of the one being read (the JAX
+# engine's run-ahead depth)
+RUN_AHEAD = 2
 
 
 @dataclass
@@ -190,6 +221,100 @@ def quantize_loaded(ctx: GPTContext, quantization: str,
                     "on the gate model (PPL_GATE.json)")
     log.info("quantizing weights to %s (group %d)", quantization, group)
     return quantize_params(ctx.params, bits=bits, group_size=group)
+
+
+def _to_host(toks: torch.Tensor):
+    """Starts the copy of a chunk's tokens to the host: on the card into a
+    fresh pinned buffer, without blocking, with an event recorded after it
+    (a blocking copy would wait for every chunk launched behind this one).
+    Returns (the event or None, the host tensor)."""
+    if toks.device.type != "cuda":
+        return None, toks
+    buf = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+    buf.copy_(toks, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev, buf
+
+
+class _HostTokens:
+    """The host side of the decode loop, run by the launching thread
+    itself: the chunks launched but not yet emitted, oldest first, each
+    with a pinned copy of its tokens and an event. advance() hands the
+    tokens of the chunks the device finished to on_token(step, toks [B]),
+    one position at a time; it is called after every launched decode step
+    (in sample_fn) and, with `keep`, before each chunk's launch, where it
+    waits for the device while more than `keep` chunks wait.
+
+    Pacing (JAX's min-gap rule) gives each token of a decode chunk a slot
+    t0 + i * step, step = min(1.15 gap / chunk, 0.98 gap / (chunk - 1),
+    0.25 s) from the smallest gap seen between two chunks' arrivals; a
+    token is emitted at the first advance() after its slot, or at once
+    when the next chunk has arrived. The loop sleeps for a slot only where
+    it waits for the device anyway, so pacing never delays a launch. The
+    first chunk of decode steps and the last chunk burst; a chunk of 1 is
+    never paced. The first False from on_token stops emission for good."""
+
+    def __init__(self, on_token, chunk: int, pace: bool):
+        self.on_token = on_token
+        self.chunk = chunk
+        self.pace = pace and chunk > 1
+        self.stopped = False
+        self._chunks: deque = deque()
+        # the chunk emitting: (step, tokens [n, B] numpy, arrival, slot),
+        # and its next position
+        self._cur, self._next = None, 0
+        self._last_sync, self._min_gap, self._step_dt = None, float("inf"), 0.0
+
+    def put(self, step: int, toks: torch.Tensor, decode: bool, last: bool) -> None:
+        """Queues the tokens [n, B] of positions step.. (decode: a decode
+        chunk's, whose arrival times set the pace; last: nothing follows)."""
+        self._chunks.append((step, *_to_host(toks), decode, last))
+
+    def _waiting(self) -> int:
+        return len(self._chunks) + (self._cur is not None)
+
+    def _ready(self) -> bool:
+        ev = self._chunks[0][1]
+        return ev is None or ev.query()
+
+    def _start(self) -> None:
+        step, ev, host, decode, last = self._chunks.popleft()
+        if ev is not None:
+            ev.synchronize()
+        now = time.perf_counter()
+        if decode:
+            if self._last_sync is not None:
+                self._min_gap = min(self._min_gap, now - self._last_sync)
+                self._step_dt = min(1.15 * self._min_gap / self.chunk,
+                                    0.98 * self._min_gap / max(1, self.chunk - 1), 0.25)
+            self._last_sync = now
+        slot = self._step_dt if self.pace and decode and not last else 0.0
+        self._cur, self._next = (step, host.numpy(), now, slot), 0
+
+    def advance(self, keep: Optional[int] = None) -> None:
+        """Emits what is due without waiting; with `keep`, also waits for
+        the device (and for paced slots) while more than `keep` chunks
+        wait to be emitted."""
+        while not self.stopped and self._waiting():
+            block = keep is not None and self._waiting() > keep
+            if self._cur is None:
+                if not (block or self._ready()):
+                    return
+                self._start()
+            step, toks, t0, slot = self._cur
+            while self._next < len(toks):
+                i = self._next
+                wait = t0 + i * slot - time.perf_counter() if slot and i else 0.0
+                if wait > 0 and not (self._chunks and self._ready()):
+                    if not block:
+                        return
+                    time.sleep(wait)
+                self._next += 1
+                if not self.on_token(step + i, toks[i]):
+                    self.stopped = True
+                    return
+            self._cur = None
 
 
 class GPTEngine:
@@ -318,11 +443,16 @@ class GPTEngine:
 
     # -- generation ------------------------------------------------------
 
-    def _prefill_and_loop(self, texts: Sequence[str], max_tokens: int,
-                          on_token) -> List[List[int]]:
-        """Prefill, then chunked decode, calling on_token(step, toks [B])
-        for every generated position until it returns False or
-        max_tokens positions were produced."""
+    def _prefill_and_loop(self, texts: Sequence[str], max_tokens: int, on_token,
+                          decode_chunk: Optional[int] = None,
+                          pace: bool = False) -> List[List[int]]:
+        """Prefill, then decode `decode_chunk` steps at a time (default
+        config.decode_chunk; 1 takes the per-token route, decode_step),
+        calling on_token(step, toks [B]) for every generated position,
+        between launches, until it returns False or max_tokens positions
+        were produced. `pace` paces the emission of each chunk but the
+        first and the last (_HostTokens). One prompt with
+        speculative="ngram" takes the speculative loop instead."""
         assert self.ctx is not None, "call prepare() first"
         if self.config.speculative == "ngram" and len(texts) == 1:
             return self._spec_prefill_and_loop(texts, max_tokens, on_token)
@@ -331,9 +461,11 @@ class GPTEngine:
         params = self.ctx.params
         dev = self._device
         sampler_cfg = self.config.sampler
-        chunk = max(1, min(self.config.decode_chunk, max_tokens))
+        chunk = max(1, min(decode_chunk or self.config.decode_chunk, max_tokens))
         ids, positions, valid, lens, encoded = self._encode_batch(texts)
         B, S = ids.shape
+        # tokens 1 .. max_tokens - 1 come from decode steps; a chunk writes
+        # all its slots
         n_chunks = -(-(max_tokens - 1) // chunk)
         cache = create_kv_cache(mc, B, S + n_chunks * chunk,
                                 dtype=self._kv_dtype(),
@@ -344,26 +476,35 @@ class GPTEngine:
             torch.from_numpy(valid).to(dev), last_only=True,
         )
         tok = sample(logits[:, -1, :], sampler_cfg, self._generator)  # [B]
+        host = _HostTokens(on_token, chunk, pace)
+        host.put(0, tok[None], decode=False, last=max_tokens <= 1)
 
         def sample_fn(lg):
-            return sample(lg, sampler_cfg, self._generator)
+            nxt = sample(lg, sampler_cfg, self._generator)
+            host.advance()  # between two launched steps: emit what is due
+            return nxt
 
-        if not on_token(0, tok.cpu().numpy()):
-            return encoded
         lens_dev = torch.from_numpy(lens).to(dev)
         step = 1
         while step < max_tokens:
+            # at most RUN_AHEAD chunks launched beyond the one being read
+            host.advance(keep=RUN_AHEAD)
+            if host.stopped:
+                return encoded
             # the chunk's first input (token `step - 1`) sits at logical
             # position len + step - 1
             pos0 = (lens_dev + (step - 1))[:, None]
-            toks, cache = model.decode_steps(params, mc, tok, cache, pos0,
-                                             chunk, sample_fn)
-            host = toks.cpu().numpy()  # [chunk, B] — the one sync per chunk
-            for i in range(min(chunk, max_tokens - step)):
-                if not on_token(step, host[i]):
-                    return encoded
-                step += 1
-            tok = toks[-1]
+            if chunk == 1:
+                logits, cache = model.decode_step(params, mc, tok, cache, pos0)
+                toks = sample_fn(logits[:, -1, :]).to(torch.int32)[None]
+            else:
+                toks, cache = model.decode_steps(params, mc, tok, cache, pos0, chunk,
+                                                 sample_fn)
+            tok = toks[-1]  # the next chunk starts from the device's token
+            n = min(chunk, max_tokens - step)
+            host.put(step, toks[:n], decode=True, last=step + n >= max_tokens)
+            step += n
+        host.advance(keep=0)
         return encoded
 
     def _spec_prefill_and_loop(self, texts: Sequence[str], max_tokens: int,
@@ -470,8 +611,40 @@ class GPTEngine:
             for b in range(B)
         ]
 
-    def generate_async(self, text: str, callback) -> GPTOutput:
-        """Streaming generation is not ported yet."""
-        raise NotImplementedError(
-            "generate_async (streaming) is not ported to tinygpt_tpu_torch "
-            "yet (ROADMAP.md queue 1, item 5)")
+    @torch.inference_mode()
+    def generate_async(self, text: str, callback: GenerateCallback) -> GPTOutput:
+        """Streaming generation of one prompt: callback(chunk, finished)
+        gets UTF-8-safe text chunks as tokens arrive, then the final flush
+        (finished=True), on the calling thread. EOS ends the stream with
+        FinishReason.STOP; a callback that returns False aborts it
+        (FinishReason.ABORT, no final flush). Decodes `stream_chunk` steps
+        a chunk (1: the per-token route), paced by `stream_pace`;
+        speculative="ngram" takes the speculative loop."""
+        assert self.ctx is not None, "call prepare() first"
+        tok = self.ctx.tokenizer
+        stream = tok.decode_stream(skip_special_tokens=True)
+        out_tokens: List[int] = []
+        state = {"reason": FinishReason.LENGTH, "aborted": False}
+
+        def on_token(step, toks):
+            t = int(toks[0])
+            if t in self._eos_ids:
+                state["reason"] = FinishReason.STOP
+                return False
+            out_tokens.append(t)
+            chunk = stream.step(t)
+            if chunk and not callback(chunk, False):
+                state["reason"] = FinishReason.ABORT
+                state["aborted"] = True
+                return False
+            return True
+
+        self._prefill_and_loop([text], self.config.max_tokens, on_token,
+                               decode_chunk=self.config.stream_chunk,
+                               pace=self.config.stream_pace)
+        tail = stream.flush()
+        if not state["aborted"]:
+            callback(tail, True)
+        return GPTOutput(token_ids=out_tokens,
+                         text=tok.decode(out_tokens, skip_special_tokens=True),
+                         finish_reason=state["reason"])

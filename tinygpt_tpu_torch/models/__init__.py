@@ -4,7 +4,7 @@ Counterpart of tinygpt_tpu/models/__init__.py. llama / qwen2 / qwen3 /
 mistral / mixtral share the generic CausalLM (they differ only by config
 deltas; mixtral's MLP is a routed mixture of experts); gpt2 is its own
 module. Every namespace has load_params, init_params, forward,
-forward_paged, decode_steps and decode_paged_steps, and
+forward_paged, decode_steps, decode_step and decode_paged_steps, and
 decode_paged_spec_steps where the family has it (not gpt2, as in the JAX
 package).
 """
@@ -35,6 +35,7 @@ def get_model(model_type: str):
         forward=mod.forward,
         forward_paged=mod.forward_paged,
         decode_steps=mod.decode_steps,
+        decode_step=mod.decode_step,
         decode_paged_steps=mod.decode_paged_steps,
     )
     # the batcher speculates only where the family has a speculative quantum

@@ -47,25 +47,29 @@ stepwise quantum. `decode_paged_spec_steps` is its speculative quantum:
 rounds of n-gram drafting and an S-position verify forward (attention
 through K10), with greedy prefix acceptance or exact rejection sampling.
 
-The three one-token loops (decode_steps, decode_paged_steps,
+`decode_step` is one decode step written straight into the dense cache,
+attention through K13 (flash_decode) under one mask a step: the streaming
+engine's per-token route.
+
+The four one-token loops (decode_steps, decode_step, decode_paged_steps,
 forward_paged) are shared with GPT-2 (models/gpt2.py): run_decode_steps,
-run_decode_paged_steps and run_forward_paged take the family's token
-function, decode_token(params, cfg, tok, pos, put_kv, attend, impl) ->
-logits [B, 1, V], which hands each layer's new K/V to put_kv and attends
-through attend.
+run_decode_step, run_decode_paged_steps and run_forward_paged take the
+family's token function, decode_token(params, cfg, tok, pos, put_kv,
+attend, impl) -> logits [B, 1, V], which hands each layer's new K/V to
+put_kv and attends through attend.
 
 The KV cache and the pools may be fp8 (torch.float8_e4m3fn): K/V are cast
 once as they are written (engine/kv_cache.kv_cast), the in-flight buffers
 of the chunked loops stay bf16 until the merge or scatter, and attention
-decodes the e4m3 slots (K1, K2, K8 and K10 each take them).
+decodes the e4m3 slots (K1, K2, K8, K9, K10 and K13 each take them).
 
 The MoE MLP (mixtral, HF semantics: full softmax over the router logits,
 top-k, renormalized): `forward` and the verify forward of the speculative
 quantum run `moe_mlp` on layer l's experts, dequantized to bf16 when
 quantized, as the JAX package does (dense below 32 tokens, else routed:
 tokens sorted by expert, one torch.matmul per expert's group). The
-one-token step (decode_steps, decode_paged_steps, forward_paged) runs
-ops/moe_kernels.moe_mlp_gathered on the whole expert stacks at layer l:
+one-token step (decode_steps, decode_step, decode_paged_steps,
+forward_paged) runs ops/moe_kernels.moe_mlp_gathered on the whole expert stacks at layer l:
 K12 for bf16 stacks, K11a for int8, K11b for int4, on the card for all
 three dtypes (the JAX package sends bf16 stacks to the dense formulation at
 decode, after a TPU measurement that does not carry over). Quantized
@@ -86,9 +90,11 @@ from tinygpt_tpu_torch.engine.paged_kv import PagedKVState
 from tinygpt_tpu_torch.hf.config import ModelConfig
 from tinygpt_tpu_torch.ops.attention import (
     attention_with_cache,
+    decode_mask,
     sdpa_decode_frozen,
+    sdpa_with_cache,
 )
-from tinygpt_tpu_torch.ops.attention_kernels import flash_decode_frozen
+from tinygpt_tpu_torch.ops.attention_kernels import flash_decode, flash_decode_frozen
 from tinygpt_tpu_torch.ops.paged_attention import (
     paged_decode,
     paged_decode_frozen,
@@ -671,9 +677,7 @@ def _decode_one(decode_token, params, cfg, tok, pos, cache, infl_k, infl_v, step
     window = cfg.sliding_window
     if impl == "kernel":
         # frozen-slot mask (causal & valid & window), shared by the layers
-        mask_f = (cache.kv_pos <= pos) & cache.valid
-        if window is not None:
-            mask_f &= cache.kv_pos > pos - window
+        mask_f = decode_mask(cache.kv_pos, cache.valid, pos, window)
 
     def attend(l, q):
         if impl == "kernel":
@@ -749,6 +753,59 @@ def run_decode_steps(decode_token, params: Dict, cfg: ModelConfig, tok0: torch.T
     cache.valid[:, slot0:end] = True
     cache.length = end
     return toks, cache
+
+
+def decode_step(
+    params: Dict,
+    cfg: ModelConfig,
+    tok: torch.Tensor,       # [B] input token
+    cache: KVCache,
+    pos: torch.Tensor,       # [B, 1] logical position of tok
+    attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step written straight into the dense cache: the
+    streaming engine's per-token route (the JAX engine's per-token body,
+    a one-token `forward`). Every layer writes the token's K/V at slot
+    cache.length, then attends over its layer of the cache through K13
+    (flash_decode) under one mask a step, shared by the layers. The decode
+    matmuls are decode_steps': the fused int4 route (K6, K7), int8 (K5a,
+    K3), the MoE gathered kernels (K12, K11a, K11b).
+
+    Returns (fp32 logits [B, 1, V], and the cache, advanced by one slot in
+    place)."""
+    _check_weights(params)
+    return run_decode_step(_decode_token, params, cfg, tok, cache, pos, attn_impl)
+
+
+def run_decode_step(decode_token, params: Dict, cfg: ModelConfig, tok: torch.Tensor,
+                    cache: KVCache, pos: torch.Tensor,
+                    attn_impl: str = "kernel") -> Tuple[torch.Tensor, KVCache]:
+    """decode_step of a family whose one-token step is `decode_token`."""
+    impl = _impl(attn_impl)
+    slot = cache.length
+    if slot >= cache.max_len:
+        raise ValueError(f"a decode step at slot {slot} overflows a cache of "
+                         f"{cache.max_len} slots")
+    D, window = cfg.head_dim, cfg.sliding_window
+    pos = pos.to(torch.int32)
+    cache.kv_pos[:, slot] = pos[:, 0]
+    cache.valid[:, slot] = True
+    mask = decode_mask(cache.kv_pos, cache.valid, pos, window)
+
+    def put_kv(l, k, v):  # [B, Nk, D] into slot `slot` of layer l
+        cache.k[l, :, :, slot] = kv_cast(k, cache.k.dtype)
+        cache.v[l, :, :, slot] = kv_cast(v, cache.v.dtype)
+
+    def attend(l, q):
+        if impl == "kernel":
+            return flash_decode(q[:, 0].contiguous(), cache.k[l], cache.v[l], mask,
+                                scale=D ** -0.5)[:, None]
+        return sdpa_with_cache(q, cache.k[l], cache.v[l], pos, cache.kv_pos,
+                               cache.valid, sliding_window=window)
+
+    logits = decode_token(params, cfg, tok.to(torch.int32), pos, put_kv, attend, impl)
+    cache.length = slot + 1
+    return logits, cache
 
 
 def decode_paged_steps(

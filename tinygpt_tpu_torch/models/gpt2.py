@@ -17,10 +17,12 @@ Params keep the JAX package's keys and layouts, so that
 Attention runs the same kernels as the llama family: `forward` (prefill)
 through K1 (ops/attention.attention_with_cache), `decode_steps` through
 K2 (flash_decode_frozen; the JAX package calls the XLA sdpa_decode_frozen
-here, which computes the same function), `decode_paged_steps` through K8
+here, which computes the same function), `decode_step` (the streaming
+engine's per-token route) through K13, `decode_paged_steps` through K8
 and `forward_paged` through K9; attn_impl="plain" runs their plain
 versions. The decode loops are causal_lm's (run_decode_steps,
-run_decode_paged_steps, run_forward_paged), with this module's token step.
+run_decode_step, run_decode_paged_steps, run_forward_paged), with this
+module's token step.
 Weight-only params (ops/quant.quantize_params) run the four layer
 matrices through K5a (int8) or K5b (int4) by layer index; the tied head
 stays a float matmul, as in the JAX package. GPT-2 has no speculative
@@ -48,6 +50,7 @@ from tinygpt_tpu_torch.models.causal_lm import (
     _mm,
     params_from_numpy,
     run_decode_paged_steps,
+    run_decode_step,
     run_decode_steps,
     run_forward_paged,
 )
@@ -55,7 +58,7 @@ from tinygpt_tpu_torch.ops.attention import attention_with_cache
 from tinygpt_tpu_torch.ops.norms import layer_norm
 
 __all__ = ["load_params", "init_params", "params_from_numpy", "forward", "decode_steps",
-           "decode_paged_steps", "forward_paged"]
+           "decode_step", "decode_paged_steps", "forward_paged"]
 
 # layer param -> HF name under h.{i}.
 _HF_NAMES = {
@@ -249,6 +252,21 @@ def decode_steps(
     _check_weights(params)
     return run_decode_steps(_decode_token, params, cfg, tok0, cache, pos0, n_steps,
                             sample_fn, attn_impl)
+
+
+def decode_step(
+    params: Dict,
+    cfg: ModelConfig,
+    tok: torch.Tensor,       # [B] input token
+    cache: KVCache,
+    pos: torch.Tensor,       # [B, 1] logical position of tok
+    attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step written straight into the dense cache (causal_lm's
+    decode_step, attention through K13). Returns (fp32 logits [B, 1, V],
+    the cache advanced by one slot in place)."""
+    _check_weights(params)
+    return run_decode_step(_decode_token, params, cfg, tok, cache, pos, attn_impl)
 
 
 def decode_paged_steps(

@@ -5,7 +5,9 @@ Counterpart of tinygpt_tpu/ops/attention.py. `sdpa_with_cache` and
 `sdpa_decode_frozen` mask by LOGICAL position (kv_pos / q_pos); they are
 the numerics oracles, computed in fp32. The kernel route
 (`attention_kernels.flash_prefill` / `flash_decode_frozen`) masks by SLOT,
-which agrees with positions on the real rows of a left-padded batch.
+which agrees with positions on the real rows of a left-padded batch;
+`attention_kernels.flash_decode` (K13, one query row) takes the
+position mask `decode_mask` computes.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from tinygpt_tpu_torch.ops.attention_kernels import flash_prefill
+from tinygpt_tpu_torch.ops.attention_kernels import flash_decode, flash_prefill
 
 NEG_INF = -1e30
 
@@ -94,6 +96,21 @@ def sdpa_decode_frozen(
     return out.reshape(B, 1, Nq, D).to(q.dtype)
 
 
+def decode_mask(
+    kv_pos: torch.Tensor,    # [B, T] logical position of each cache slot
+    kv_valid: torch.Tensor,  # [B, T] bool: slot holds a real token
+    q_pos: torch.Tensor,     # [B, 1] logical position of the query
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """The slots a one-token query sees, [B, T] bool: valid, at or before
+    its position and, with a window w, after position - w (the mask K13
+    takes; sdpa_with_cache's at S == 1)."""
+    mask = kv_valid & (kv_pos <= q_pos)
+    if sliding_window is not None:
+        mask &= kv_pos > q_pos - sliding_window
+    return mask
+
+
 def attention_with_cache(
     q: torch.Tensor,         # [B, S, Nq, D]
     k_cache: torch.Tensor,   # [B, Nk, T, D]
@@ -106,13 +123,13 @@ def attention_with_cache(
     sliding_window: Optional[int] = None,
     kernel: str = "kernel",  # "kernel" | "plain"
 ) -> torch.Tensor:
-    """Dispatch between the plain oracle and flash_prefill.
+    """Dispatch between the plain oracle and the kernels.
 
-    "kernel" sends every call, S == 1 included, to flash_prefill, which
-    takes only a validity byte per slot and the slot of the first query
-    row (slot causality equals position causality within a left-padded
-    row). Its wrapper runs the kernel on a CUDA tensor and its plain
-    version on a CPU tensor."""
+    "kernel" sends S == 1 to flash_decode (K13) under decode_mask, and
+    S > 1 to flash_prefill (K1), which takes only a validity byte per slot
+    and the slot of the first query row (slot causality equals position
+    causality within a left-padded row). Each wrapper runs its kernel on a
+    CUDA tensor and its plain version on a CPU tensor."""
     if kernel == "plain":
         return sdpa_with_cache(
             q, k_cache, v_cache, q_pos=q_pos, kv_pos=kv_pos,
@@ -123,6 +140,10 @@ def attention_with_cache(
     D = q.shape[-1]
     if scale is None:
         scale = D ** -0.5
+    if q.shape[1] == 1:
+        mask = decode_mask(kv_pos, kv_valid, q_pos, sliding_window)
+        return flash_decode(q[:, 0].contiguous(), k_cache, v_cache, mask,
+                            scale=scale)[:, None]
     out = flash_prefill(
         q.transpose(1, 2).contiguous(), k_cache, v_cache, kv_valid,
         scale=scale, q_slot=slot, sliding_window=sliding_window,

@@ -1,14 +1,18 @@
-"""Hopper attention kernels: flash prefill and frozen-cache GQA decode.
+"""Hopper attention kernels: flash prefill (K1), frozen-cache GQA decode
+(K2) and one-layer GQA decode (K13).
 
 Counterparts of the TPU kernels in tinygpt_tpu/ops/attention_kernels.py,
 written in CUDA C++ for sm_90a (``csrc/flash_prefill.cu``,
-``csrc/flash_decode_frozen.cu``) and bound with ctypes
-(``ops/cuda_build.py``).
+``csrc/flash_decode_frozen.cu``, ``csrc/flash_decode.cu``) and bound with
+ctypes (``ops/cuda_build.py``).
 
-Both kernels run over the engine's dense slot cache. Causality uses SLOT
-indices: with left padding every token of a row shares one pad offset, so
-(logical kv_pos <= logical q_pos) <=> (kv slot <= q slot). The only mask
-inputs are a per-slot validity byte and the slot of the first query row.
+The kernels run over the engine's dense slot cache. K1 and K2 take
+causality from SLOT indices: with left padding every token of a row shares
+one pad offset, so (logical kv_pos <= logical q_pos) <=> (kv slot <= q
+slot); their only mask inputs are a per-slot validity byte and the slot of
+the first query row (K2: a frozen-slot mask). K13, the per-token step's
+attention, takes one [B, T] mask that its caller folds validity, causality
+and the window into, shared by the layers of a step.
 
 The cache is of q's dtype, or fp8 (torch.float8_e4m3fn, the fp8 KV cache):
 then q and the output keep their dtype, the kernels decode the e4m3 slots
@@ -40,12 +44,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 E4M3 = torch.float8_e4m3fn
 _E4M3_CODE = 3  # tg::kE4M3 (csrc/attention_common.cuh): a cache type only
 _HEAD_DIMS = (64, 128)
-_MAX_GROUP = 16  # query heads per KV head the decode kernels (K2, K8, K9) take
+_MAX_GROUP = 16  # query heads per KV head the decode kernels (K2, K8, K9, K13) take
 
 # C signatures (csrc/*.cu): pointers, ints, scale, trailing ints, stream
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PREFILL_ARGS = [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P]
 _DECODE_ARGS = [_P] * 7 + [_I] * 10 + [_F, _I, _P]
+_DECODE_ONE_ARGS = [_P] * 5 + [_I] * 7 + [_F, _P]
 
 
 def reset_launches() -> None:
@@ -72,10 +77,10 @@ def kv_operands(name: str, q: torch.Tensor, cache: torch.Tensor):
 def check_kernel_shapes(cfg, device) -> None:
     """Raises ValueError, before any weight is used, for a model whose
     attention shapes no kernel on the card takes: a head dim other than 64
-    and 128 (K1, K2, K8, K9 and K10 each take those two, the head dims of
-    every published config of the six families), query heads that are not
-    a multiple of the KV heads, or more than _MAX_GROUP query heads per KV
-    head (K2, K8, K9). The engine and the batcher call it at start, so
+    and 128 (K1, K2, K8, K9, K10 and K13 each take those two, the head dims
+    of every published config of the six families), query heads that are
+    not a multiple of the KV heads, or more than _MAX_GROUP query heads per
+    KV head (K2, K8, K9, K13). The engine and the batcher call it at start, so
     that such a model fails there and not in its first decode step. On
     the CPU the plain versions take any shape: nothing is checked."""
     if torch.device(device).type != "cuda":
@@ -84,12 +89,12 @@ def check_kernel_shapes(cfg, device) -> None:
     name = cfg.model_type
     if D not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D}: the attention kernels (K1, K2, K8, "
-                         f"K9, K10) take head dims {_HEAD_DIMS}")
+                         f"K9, K10, K13) take head dims {_HEAD_DIMS}")
     if Nk <= 0 or Nq % Nk:
         raise ValueError(f"{name}: {Nq} query heads over {Nk} KV heads")
     if Nq // Nk > _MAX_GROUP:
         raise ValueError(f"{name}: {Nq // Nk} query heads per KV head: the decode "
-                         f"kernels (K2, K8, K9) take at most {_MAX_GROUP}")
+                         f"kernels (K2, K8, K9, K13) take at most {_MAX_GROUP}")
 
 
 def _check_cuda_operands(name: str, dtype_ref: torch.Tensor, *tensors) -> None:
@@ -300,4 +305,68 @@ def flash_decode_frozen(
                  float(scale), win, ctypes.c_void_p(stream))
     cuda_build.check("flash_decode_frozen.cu", err, "flash_decode_frozen")
     LAUNCHES["flash_decode_frozen"] += 1
+    return out
+
+
+# -- one-layer decode (K13) ----------------------------------------------------
+
+
+def flash_decode_plain(
+    q: torch.Tensor,        # [B, Nq, D]
+    k_cache: torch.Tensor,  # [B, Nk, T, D]
+    v_cache: torch.Tensor,  # [B, Nk, T, D]
+    mask: torch.Tensor,     # [B, T] bool/uint8
+    scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of flash_decode, same semantics."""
+    B, Nq, D = q.shape
+    Nk = k_cache.shape[1]
+    qf = q.float().reshape(B, Nk, Nq // Nk, D)
+    s = torch.einsum("bkgd,bktd->bkgt", qf, k_cache.float()) * scale
+    out = _masked_softmax_av(s, (mask != 0)[:, None, None, :], v_cache.float())
+    return out.reshape(B, Nq, D).to(q.dtype)
+
+
+def flash_decode(
+    q: torch.Tensor,        # [B, Nq, D] — single query position
+    k_cache: torch.Tensor,  # [B, Nk, T, D] one layer's cache
+    v_cache: torch.Tensor,  # [B, Nk, T, D]
+    mask: torch.Tensor,     # [B, T] bool/uint8 — valid & causal & window
+    scale: float,
+) -> torch.Tensor:
+    """One-token GQA decode over one layer's dense cache at the slots
+    `mask` shows (the caller folds validity, causality and the window into
+    it). A query that sees no slot gives zeros. Returns [B, Nq, D] in q's
+    dtype."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    B, Nq, D = q.shape
+    Nk, T = k_cache.shape[1], k_cache.shape[2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_decode (K13): head dim {D} not in {_HEAD_DIMS}")
+    if k_cache.shape != (B, Nk, T, D) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode (K13): cache shapes {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} do not fit q {tuple(q.shape)}")
+    if Nk == 0 or Nq % Nk or Nq // Nk > _MAX_GROUP:
+        raise ValueError(f"flash_decode (K13): {Nq} query heads over {Nk} KV heads "
+                         f"(at most {_MAX_GROUP} per KV head)")
+    if mask.shape != (B, T):
+        raise ValueError(f"flash_decode (K13): mask {tuple(mask.shape)} != {(B, T)}")
+    kv_code, _ = kv_operands("flash_decode", q, k_cache)
+    _check_cuda_operands(
+        "flash_decode", q, ("q", q, None), ("k_cache", k_cache, (k_cache.dtype,)),
+        ("v_cache", v_cache, (k_cache.dtype,)), ("mask", mask, (torch.bool, torch.uint8)))
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("flash_decode.cu", "tg_flash_decode", _DECODE_ONE_ARGS)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(mask), _ptr(out),
+                 B, Nq, Nk, T, D, _DTYPE_CODE[q.dtype], kv_code, float(scale),
+                 ctypes.c_void_p(stream))
+    cuda_build.check("flash_decode.cu", err, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
     return out

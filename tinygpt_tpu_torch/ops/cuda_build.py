@@ -26,8 +26,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-SOURCES = ("flash_prefill.cu", "flash_decode_frozen.cu", "int4_matmul.cu",
-           "int4_fused.cu", "int4_mlp.cu", "paged_decode_frozen.cu",
+SOURCES = ("flash_prefill.cu", "flash_decode_frozen.cu", "flash_decode.cu",
+           "int4_matmul.cu", "int4_fused.cu", "int4_mlp.cu", "paged_decode_frozen.cu",
            "int8_matmul.cu", "paged_decode_spec.cu", "paged_decode.cu",
            "moe_gather_matmul.cu")
 HEADERS = ("attention_common.cuh", "int4_common.cuh")

@@ -9,8 +9,8 @@ disconnect abort, and usage token accounting.
 HTTP threads enqueue InferenceTasks; one worker thread owns the engine.
 BatchedInferenceWorker (the server's default) runs the continuous batcher
 (engine/scheduler.py) over the paged KV pool, so concurrent requests
-share decode quanta. InferenceWorker, the one-request-at-a-time mode,
-needs the engine's streaming generate_async, which is not ported yet.
+share decode quanta. InferenceWorker (scheduler="sequential") serves one
+request at a time through the engine's streaming generate_async.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import uuid
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from tinygpt_tpu_torch.engine.engine import GPTEngine
+from tinygpt_tpu_torch.engine.engine import FinishReason, GPTEngine
 from tinygpt_tpu_torch.server.utils import (
     BadRequest,
     InferenceParams,
@@ -56,14 +56,77 @@ class InferenceTask:
 
 class InferenceWorker:
     """The one-request-at-a-time worker (ServerConfig.scheduler=
-    "sequential"). It streams through GPTEngine.generate_async, which is
-    not ported yet."""
+    "sequential"): one thread owns the engine, reconfigures it for each
+    request and streams it through GPTEngine.generate_async, stop strings
+    held back by a StopStringStreamer; a set abort (client disconnect) or
+    a matched stop string ends the stream."""
 
     def __init__(self, engine: GPTEngine):
-        raise NotImplementedError(
-            "the sequential server worker needs GPTEngine.generate_async, "
-            "which is not ported to tinygpt_tpu_torch yet (ROADMAP.md queue "
-            "1, item 5); use scheduler='continuous'")
+        self.engine = engine
+        self.tasks: "queue.Queue[Optional[InferenceTask]]" = queue.Queue()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.tasks.put(None)
+        self._thread.join(timeout=30)
+
+    def submit(self, task: InferenceTask) -> None:
+        self.tasks.put(task)
+
+    def _run(self) -> None:
+        while True:
+            task = self.tasks.get()
+            if task is None:
+                return
+            try:
+                self._process(task)
+            except Exception as e:  # surface errors to the waiting thread
+                log.exception("inference task failed")
+                task.error = str(e)
+            finally:
+                task.chunks.put(None)
+                task.done.set()
+
+    def _process(self, task: InferenceTask) -> None:
+        p = task.params
+        self.engine.reconfigure(
+            sampler=p.sampler,
+            max_tokens=p.max_tokens or self.engine.config.max_tokens,
+            extra_stop_token_ids=p.stop_token_ids,
+        )
+        task.prompt_tokens = len(self.engine.ctx.tokenizer.encode(task.prompt))
+        stopper = StopStringStreamer(p.stop, p.include_stop_str_in_output)
+        emitted: List[str] = []
+
+        def cb(chunk: str, finished: bool) -> bool:
+            if task.abort.is_set():
+                return False
+            if chunk:
+                out = stopper.push(chunk)
+                if out:
+                    emitted.append(out)
+                    task.chunks.put(out)
+                if stopper.stopped:
+                    return False
+            return True
+
+        out = self.engine.generate_async(task.prompt, cb)
+        if not stopper.stopped and not task.abort.is_set():
+            tail = stopper.flush()
+            if tail:
+                emitted.append(tail)
+                task.chunks.put(tail)
+        task.result_text = "".join(emitted)
+        task.completion_tokens = len(out.token_ids)
+        if task.abort.is_set():
+            task.finish_reason = "abort"
+        elif stopper.stopped or out.finish_reason == FinishReason.STOP:
+            task.finish_reason = "stop"
+        else:
+            task.finish_reason = "length"
 
 
 class BatchedInferenceWorker:

@@ -5,7 +5,9 @@ GET /health, POST /v1/completions and POST /v1/chat/completions (SSE),
 CORS, the static web UI, chat-template priority CLI > model > ChatML
 fallback > chat disabled, graceful SIGINT/SIGTERM shutdown, and one
 inference worker consuming a task queue: the continuous batcher over the
-paged KV pool (server/api.BatchedInferenceWorker).
+paged KV pool (server/api.BatchedInferenceWorker, the default), or with
+--scheduler sequential one request at a time through the engine's
+streaming generate_async (server/api.InferenceWorker).
 
     python -m tinygpt_tpu_torch.server --model DIR [--quantization int8|int4]
 
@@ -13,9 +15,8 @@ The engine runs on the card (ServerConfig.device="cuda") unless asked for
 the CPU; int4 runs AWQ by default (--awq-calib FILE, --no-awq).
 --speculative runs the batcher's n-gram speculative quanta (greedy
 requests verify exactly, sampled ones by exact rejection sampling). Not
-ported yet, each raising NotImplementedError: the sequential worker
-(scheduler="sequential", ROADMAP.md queue 1 item 5) and device meshes
-(item 13).
+ported yet, raising NotImplementedError: device meshes (ROADMAP.md queue
+1, item 13).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class ServerConfig:
     speculative: bool = False  # n-gram speculative quanta (greedy rows verify
     # by argmax prefix, sampled rows by exact rejection sampling)
     # "continuous" = paged continuous batching; "sequential" = the
-    # one-request-at-a-time worker (not ported)
+    # one-request-at-a-time worker (streams through generate_async)
     scheduler: str = "continuous"
     batch_capacity: int = 8
     kv_block_size: int = 64
@@ -76,7 +77,7 @@ class TinyGPTServer:
     def __init__(self, config: ServerConfig):
         self.config = config
         self.engine: Optional[GPTEngine] = None
-        self.worker: Optional[api.BatchedInferenceWorker] = None
+        self.worker = None  # api.BatchedInferenceWorker or api.InferenceWorker
         self.model_id = os.path.basename(os.path.normpath(config.model_dir))
         self.chat_enabled = False
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -116,7 +117,7 @@ class TinyGPTServer:
                 ),
             )
         else:
-            self.worker = api.InferenceWorker(self.engine)  # raises (item 5)
+            self.worker = api.InferenceWorker(self.engine)
         self.worker.start()
 
     def _setup_chat_template(self) -> None:
