@@ -6,11 +6,15 @@
 Phases, in order:
   env      the card's name and power limit, torch and nvcc versions;
   build    compiles the CUDA kernels from the checkout's sources (nvcc,
-           one process per source, all at once);
+           one process per source, all at once); prints K1's and K13's
+           registers, spills and shared memory at the main path and checks
+           their machine code for wgmma and TMA (K1) and cluster barriers
+           (K13);
   kernels  holds each attention kernel against its plain PyTorch version
            on the card (bf16 and fp32, head dims 128 and 64, and an e4m3
            cache beside bf16 queries) and times kernel, plain version and
-           torch's scaled_dot_product_attention beside the kernel's bound;
+           torch's scaled_dot_product_attention beside the kernel's bound
+           (K1 also at the batcher's admission shape and GPT-2's heads);
   int4     the same for the int4 dequant-matmul kernels (K4, K5b, K6, K7)
            at the int4 path's shapes, with torch._weight_int4pack_mm as
            the library yardstick where it computes the same function;
@@ -112,7 +116,9 @@ Phases, in order:
            (batch 4, 32/8 heads of 128, 576 slots; bf16 and e4m3), and in
            fp32, fp16, head dim 64, 1 to 16 query heads per KV head, windows
            and a row that sees no slot; timed beside its bound, the plain
-           version and scaled_dot_product_attention;
+           version and scaled_dot_product_attention; at the stream's batch 1
+           beside K2 over the same visible slots (in turns), and over the
+           same visible slots in caches of 108 to 576 slots;
   stream   writes a full-width Mistral-7B dir (32 layers, 14.5 GB of random
            bf16 weights) and streams one prompt through
            GPTEngine.generate_async at batch 1, in bf16 and in int4 (the
@@ -408,6 +414,76 @@ def phase_build() -> None:
         log(f"[build] {src}: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
             f"registers a thread, {sum(s > 0 for s in spills)} with spills "
             f"(at most {max(spills)} bytes)")
+    _attention_reports()
+
+
+def _ptxas_entries(text: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, static shared
+    memory bytes)} from a ptxas -v report."""
+    entries, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            entries[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[name][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entries[name][2] = int(m.group(1)) if m else 0
+    return {k: tuple(v) for k, v in entries.items()}
+
+
+def _demangle(names) -> dict:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return {n: n for n in names}
+    return dict(zip(names, (o.replace("(anonymous namespace)::", "").split("(")[0]
+                            for o in out)))
+
+
+def _attention_reports() -> None:
+    """K1's and K13's instantiations at the main path's types: registers,
+    spills and static shared memory (ptxas -v; their shared-memory rings
+    are dynamic, sized at launch as the sources' head notes give them); and
+    the Hopper instructions in their machine code (cuobjdump -sass): wgmma
+    (HGMMA) and TMA loads (UTMALDG) in K1, cluster barriers (UCGABAR) in
+    K13."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    wanted = {
+        "flash_prefill.cu": ("flash_prefill_tc<__nv_bfloat16, __nv_bfloat16, 128>",
+                             "flash_prefill_tc<__nv_bfloat16, __nv_fp8_e4m3, 128>",
+                             "flash_prefill_tc<__nv_bfloat16, __nv_bfloat16, 64>"),
+        "flash_decode.cu": ("flash_decode_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4>",
+                            "flash_decode_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4>"),
+    }
+    ops = {"flash_prefill.cu": ("HGMMA", "UTMALDG"), "flash_decode.cu": ("UCGABAR",)}
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    for src, kernels in wanted.items():
+        entries = _ptxas_entries(cuda_build.build_log(src))
+        names = _demangle(list(entries))
+        for want in kernels:
+            hits = [m for m, d in names.items() if d.endswith(want)]
+            if not hits:
+                raise PhaseError(f"{src}: no ptxas report for {want}")
+            regs, spill, smem = entries[hits[0]]
+            log(f"[build] {src} {want}: {regs} registers, {spill} bytes spilled, "
+                f"{smem} bytes of static shared memory")
+        sass = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path(src))],
+                              capture_output=True, text=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}", sass)) for op in ops[src]}
+        log(f"[build] {src} machine code: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
+        if not all(counts.values()):
+            raise PhaseError(f"{src}: missing {counts} in its machine code")
 
 
 # -- kernels -------------------------------------------------------------------
@@ -544,6 +620,10 @@ def phase_kernels(main_path: dict) -> dict:
     mp = main_path["prefill"]
     prefill_cases = [
         ("main path", 128, mp["S"], mp["T"], mp["pads"], 0, None, torch.bfloat16, True),
+        # the batcher's admission of one 512-token prompt; GPT-2's prefill
+        ("admission B=1 S512/T512", 128, 512, 512, (0,), 0, None, torch.bfloat16, False),
+        ("GPT-2 12/12 heads", 64, mp["S"], mp["T"], mp["pads"], 0, None, torch.bfloat16,
+         False),
         ("S512/T1024 q_slot256 w256", 128, 512, 1024, (0, 100, 300, 500), 256, 256,
          torch.bfloat16, False),
         ("S512/T1024 q_slot256 w256", 128, 512, 1024, (0, 100, 300, 500), 256, 256,
@@ -554,7 +634,8 @@ def phase_kernels(main_path: dict) -> dict:
          torch.float32, False),
     ]
     for i, (label, D, S, T, pads, q_slot, window, dtype, main) in enumerate(prefill_cases):
-        args = _prefill_case(B, Nq, Nk, D, S, T, pads, q_slot, window, dtype, seed=i)
+        heads = (12, 12) if label.startswith("GPT-2") else (Nq, Nk)
+        args = _prefill_case(len(pads), *heads, D, S, T, pads, q_slot, window, dtype, seed=i)
         got = ak.flash_prefill(*args)
         want = ak.flash_prefill_plain(*args)
         torch.cuda.synchronize()
@@ -3952,7 +4033,9 @@ def phase_k13_kernels(table: dict) -> None:
     caches in turn (cold in L2, as a step reads them) beside its bound, the
     plain version and scaled_dot_product_attention; then fp32, fp16, head
     dim 64, 1, 3, 4 and 16 query heads per KV head, windows, a row that sees
-    no slot, and the e4m3 branch at the main path's shape."""
+    no slot, and the e4m3 branch at the main path's shape; then the
+    stream's batch 1 beside K2 over the same slots, and K13's time against
+    the cache's length at the same visible slots."""
     import torch
 
     from tinygpt_tpu_torch.engine.kv_cache import kv_cast
@@ -4029,7 +4112,8 @@ def phase_k13_kernels(table: dict) -> None:
     log("[k13] worst error over the cases as a share of its limit: "
         + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
     # the stream's shape (batch 1, a 192-slot cache, 100 prompt slots and 8
-    # decoded): K13 beside K2 over the same visible slots, 32 layers in turn
+    # decoded): K13 beside K2 over the same visible slots, 32 layers in turn,
+    # timed in turns (K2, K13, K13, K2) three times: the medians compared
     L, T, P, N = 32, 192, 100, 8
     q, ks, vs, mask = _k13_case(L, 1, 32, 8, 128, T, (T - 64 - P,), T - 64 + N, None,
                                 torch.bfloat16, seed=399)
@@ -4037,12 +4121,42 @@ def phase_k13_kernels(table: dict) -> None:
     frozen = mask.clone()
     frozen[:, T - 64:] = False
     layers = iter(range(10 ** 9))
-    t_k2 = cuda_time_ms(lambda: ak.flash_decode_frozen(
-        q, ks, vs, frozen, ki, ki, next(layers) % L, N - 1, 128 ** -0.5), iters=4 * L)
-    t_k13 = cuda_time_ms(_k13_cycle(q, ks, vs, mask), iters=4 * L)
+
+    def k2():
+        return ak.flash_decode_frozen(q, ks, vs, frozen, ki, ki, next(layers) % L, N - 1,
+                                      128 ** -0.5)
+
+    calls = {"k2": k2, "k13": _k13_cycle(q, ks, vs, mask)}
+    times = {"k2": [], "k13": []}
+    for _ in range(3):
+        for name in ("k2", "k13", "k13", "k2"):
+            times[name].append(cuda_time_ms(calls[name], iters=4 * L))
+    t_k2, t_k13 = statistics.median(times["k2"]), statistics.median(times["k13"])
     log(f"[k13] batch 1 (the stream's shape, {int(mask.sum())} visible slots of {T}): "
         f"flash_decode {t_k13:.4f} ms, flash_decode_frozen over the same slots "
-        f"{t_k2:.4f} ms")
+        f"{t_k2:.4f} ms (medians of 6 in turns; K13 "
+        + ", ".join(f"{t:.4f}" for t in times["k13"]) + "; K2 "
+        + ", ".join(f"{t:.4f}" for t in times["k2"]) + ")")
+    del ks, vs
+    # K13's time against the cache's length at the same visible slots (108
+    # in caches of 108, 192 and 576 slots, at the start and near the end),
+    # and a short span (8 visible of 192)
+    for T, start, n in ((108, 0, 108), (192, 28, 108), (576, 28, 108), (576, 440, 108),
+                        (192, 128, 8)):
+        g = torch.Generator(device=DEVICE).manual_seed(T + start)
+        ks = torch.randn(L, 1, 8, T, 128, generator=g, device=DEVICE).to(torch.bfloat16)
+        vs = torch.randn(L, 1, 8, T, 128, generator=g, device=DEVICE).to(torch.bfloat16)
+        mask = torch.zeros(1, T, dtype=torch.bool, device=DEVICE)
+        mask[:, start:start + n] = True
+        got = ak.flash_decode(q, ks[L - 1], vs[L - 1], mask, 128 ** -0.5)
+        want = ak.flash_decode_plain(q, ks[L - 1], vs[L - 1], mask, 128 ** -0.5)
+        err, tol = (got.float() - want.float()).abs().max().item(), _paged_tol("bfloat16", want)
+        if not (math.isfinite(err) and err <= tol):
+            raise PhaseError(f"flash_decode batch 1 T={T} visible {start}..: error {err} > {tol}")
+        t = cuda_time_ms(_k13_cycle(q, ks, vs, mask), iters=4 * L)
+        log(f"[k13] batch 1, {n} visible slots ({start}..{start + n - 1}) of {T}: "
+            f"flash_decode {t:.4f} ms (max_abs_err {err:.3g}, tol {tol:.3g})")
+        del ks, vs
 
 
 def _write_full_model_dir(d: str) -> None:

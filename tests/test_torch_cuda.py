@@ -703,6 +703,49 @@ def test_flash_prefill_e4m3_matches_plain(dev, case):
     assert _max_err(got, want) <= TOL[dtype] * 4  # outputs of e4m3 values x4 reach ~8
 
 
+# the edges of K1's tensor-core tiling (128 query rows a block in two
+# warpgroups of 64, KV tiles of 64 slots): S around 64 and 128, caches that
+# end inside a tile, q_slot > 0 with rows that see nothing, windows inside
+# one tile and across tiles, 1 to 16 query heads per KV head, D = 64, and a
+# row whose every block is padding (exact zeros)
+K1_EDGE_CASES = [
+    # (D, dtype, Nq, Nk, S, T, pads, q_slot, window)
+    (128, torch.bfloat16, 8, 8, 1, 70, (0, 69), 69, None),         # S = 1, G = 1
+    (128, torch.bfloat16, 24, 8, 63, 100, (0, 40, 99), 37, None),  # G = 3, rows see nothing
+    (64, torch.float16, 64, 8, 65, 130, (0, 7), 65, 5),            # G = 8, window 5
+    (128, torch.bfloat16, 128, 8, 127, 200, (3, 0), 0, 100),       # G = 16, window across tiles
+    (64, torch.bfloat16, 16, 1, 129, 129, (0, 129), 0, None),      # a row of padding only
+    (128, torch.float16, 32, 8, 129, 300, (0, 250), 171, 64),      # window of one tile
+    (64, torch.bfloat16, 12, 12, 130, 131, (0, 1, 130), 1, None),  # GPT-2's heads
+]
+
+
+@pytest.mark.parametrize("e4m3", [False, True])
+@pytest.mark.parametrize("case", K1_EDGE_CASES)
+def test_flash_prefill_tiling_edges_match_plain(dev, case, e4m3):
+    D, dtype, Nq, Nk, S, T, pads, q_slot, window = case
+    gen = torch.Generator().manual_seed(30)
+    B = len(pads)
+    q = _randn(gen, B, Nq, S, D, dtype=dtype, dev=dev)
+    if e4m3:
+        k = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+        v = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+    else:
+        k = _randn(gen, B, Nk, T, D, dtype=dtype, dev=dev)
+        v = _randn(gen, B, Nk, T, D, dtype=dtype, dev=dev)
+    slots = torch.arange(T, device=dev)[None, :]
+    valid = (slots >= torch.tensor(pads, device=dev)[:, None]) & (slots < q_slot + S)
+    args = (q, k, v, valid, D ** -0.5, q_slot, window)
+    ak.reset_launches()
+    got = ak.flash_prefill(*args)
+    assert ak.LAUNCHES["flash_prefill"] == 1
+    want = ak.flash_prefill_plain(*args)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= TOL[dtype] * (4 if e4m3 else 1)
+    for b, p in enumerate(pads):  # rows before the first real slot: exact zeros
+        assert not got[b, :, : max(0, p - q_slot)].any()
+
+
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_flash_decode_frozen_e4m3_matches_plain(dev, case):
     D, dtype, Nq, Nk, L, T, N, pads, length, step, window = case
@@ -1291,6 +1334,52 @@ def test_flash_decode_kernel_matches_plain(dev, case, e4m3):
             assert not got[b].any()
     got_u8 = ak.flash_decode(q, k, v, mask.to(torch.uint8), scale)
     assert torch.equal(got_u8, got)
+
+
+# the edges of K13's split (clusters of decode_split's C blocks, each a
+# share of the visible span in 32-slot tiles): spans of 0, 1 and fewer slots
+# than C, a span inside one block's share, T that C does not divide, holes
+# in the mask, the stream's batch-1 shape, and one e4m3 cache beside each
+K13_EDGE_CASES = [
+    # (D, dtype, Nq, Nk, T, visible (start, count) per row, or "holes")
+    (128, torch.bfloat16, 32, 8, 576, ((0, 0), (100, 1), (300, 3), (0, 576))),
+    (128, torch.bfloat16, 32, 8, 192, ((28, 108),)),           # the stream at batch 1
+    (64, torch.float16, 12, 4, 1000, ((500, 40), (10, 990), (999, 1), (0, 0))),
+    (128, torch.float32, 128, 8, 333, ((5, 300), (0, 333))),   # G = 16
+    (64, torch.bfloat16, 8, 8, 4096, ((4000, 96),)),           # a long scan, span at the end
+    (128, torch.bfloat16, 32, 8, 700, "holes"),                 # tiles the mask hides whole
+]
+
+
+@pytest.mark.parametrize("e4m3", [False, True])
+@pytest.mark.parametrize("case", K13_EDGE_CASES)
+def test_flash_decode_split_edges_match_plain(dev, case, e4m3):
+    D, dtype, Nq, Nk, T, rows = case
+    gen = torch.Generator().manual_seed(40)
+    if rows == "holes":  # every other 64-slot stretch hidden, random bits in the rest
+        mask = (torch.rand(3, T, generator=gen) < 0.5) & ((torch.arange(T) // 64) % 2 == 0)
+    else:
+        mask = torch.zeros(len(rows), T, dtype=torch.bool)
+        for b, (a, n) in enumerate(rows):
+            mask[b, a:a + n] = True
+    B = mask.shape[0]
+    mask = mask.to(dev)
+    if e4m3:
+        k = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+        v = _e4m3(_randn(gen, B, Nk, T, D, dtype=torch.float32, dev=dev))
+    else:
+        k = _randn(gen, B, Nk, T, D, dtype=dtype, dev=dev)
+        v = _randn(gen, B, Nk, T, D, dtype=dtype, dev=dev)
+    q = _randn(gen, B, Nq, D, dtype=dtype, dev=dev)
+    ak.reset_launches()
+    got = ak.flash_decode(q, k, v, mask, D ** -0.5)
+    assert ak.LAUNCHES["flash_decode"] == 1
+    want = ak.flash_decode_plain(q, k, v, mask, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= TOL[dtype] * (4 if e4m3 else 1)
+    for b in range(B):  # a row that sees no slot gives zeros
+        if not mask[b].any():
+            assert not got[b].any()
 
 
 def test_flash_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):

@@ -16,9 +16,16 @@ and the window into, shared by the layers of a step.
 
 The cache is of q's dtype, or fp8 (torch.float8_e4m3fn, the fp8 KV cache):
 then q and the output keep their dtype, the kernels decode the e4m3 slots
-to fp32, and the decode kernel's in-flight K/V are bf16, as the JAX package
-keeps the newest tokens before they are merged into an fp8 cache
+exactly (K1 to q's type for its tensor-core products, the decode kernels
+to fp32), and the decode kernel's in-flight K/V are bf16, as the JAX
+package keeps the newest tokens before they are merged into an fp8 cache
 (``kv_operands``).
+
+K1 computes bf16 and fp16 queries on the tensor cores (P rounded to q's
+type before P V, fp32 softmax state; fp32 queries keep an FMA body). K13
+splits each row's visible slots over the blocks of a thread-block cluster
+of ``decode_split`` blocks and merges their softmax states in the same
+launch.
 
 Each wrapper dispatches on the device of its tensors: on the CPU it runs
 its plain PyTorch version (``*_plain``), on a CUDA device it launches the
@@ -30,6 +37,7 @@ adds one to ``LAUNCHES[name]``; callers reset the counts with
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from typing import Optional
 
@@ -50,7 +58,16 @@ _MAX_GROUP = 16  # query heads per KV head the decode kernels (K2, K8, K9, K13) 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PREFILL_ARGS = [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P]
 _DECODE_ARGS = [_P] * 7 + [_I] * 10 + [_F, _I, _P]
-_DECODE_ONE_ARGS = [_P] * 5 + [_I] * 7 + [_F, _P]
+_DECODE_ONE_ARGS = [_P] * 5 + [_I] * 7 + [_F, _I, _P]
+
+# K13's split over the slots (csrc/flash_decode.cu): a tile is 32 slots (one
+# 32-bit word of the mask's bits), a block's share at least _SPLIT_MIN_TILES
+# tiles unless the visible span is shorter, a cluster at most
+# _SPLIT_MAX_BLOCKS blocks (the portable cluster size)
+_SPLIT_TILE = 32
+_SPLIT_MIN_TILES = 2
+_SPLIT_MAX_BLOCKS = 8
+_MAX_GROUP_TILE = 8  # query heads a decode block holds (tg::kMaxGroupTile)
 
 
 def reset_launches() -> None:
@@ -327,6 +344,30 @@ def flash_decode_plain(
     return out.reshape(B, Nq, D).to(q.dtype)
 
 
+def group_tile(G: int) -> int:
+    """Query heads one block of the decode kernels holds: the largest
+    divisor of G that is at most 8 (tg::group_tile)."""
+    return next(gt for gt in range(min(G, _MAX_GROUP_TILE), 0, -1) if G % gt == 0)
+
+
+def decode_split(B: int, Nk: int, G: int, T: int, sms: int = 132) -> int:
+    """K13's split plan: the blocks C of each (batch row, KV head, group
+    tile)'s cluster. Enough blocks to fill the card's `sms` SMs, at most
+    8, and no more than the T slots can give shares of at least 64 slots.
+    The host knows T, not the visible span (reading the mask would
+    synchronise the stream): each block cuts the span it finds in the mask
+    into at most C shares of at least _SPLIT_MIN_TILES tiles."""
+    groups = B * Nk * (G // group_tile(G))
+    tiles = -(-T // _SPLIT_TILE)
+    return max(1, min(_SPLIT_MAX_BLOCKS, sms // max(groups, 1),
+                      tiles // _SPLIT_MIN_TILES))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_decode(
     q: torch.Tensor,        # [B, Nq, D] — single query position
     k_cache: torch.Tensor,  # [B, Nk, T, D] one layer's cache
@@ -362,10 +403,11 @@ def flash_decode(
 
     fn = cuda_build.function("flash_decode.cu", "tg_flash_decode", _DECODE_ONE_ARGS)
     out = torch.empty_like(q)
+    C = decode_split(B, Nk, Nq // Nk, T, _sm_count(q.device.index or 0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_ptr(q), _ptr(k_cache), _ptr(v_cache), _ptr(mask), _ptr(out),
-                 B, Nq, Nk, T, D, _DTYPE_CODE[q.dtype], kv_code, float(scale),
+                 B, Nq, Nk, T, D, _DTYPE_CODE[q.dtype], kv_code, float(scale), C,
                  ctypes.c_void_p(stream))
     cuda_build.check("flash_decode.cu", err, "flash_decode")
     LAUNCHES["flash_decode"] += 1
