@@ -6,10 +6,10 @@
 Phases, in order:
   env      the card's name and power limit, torch and nvcc versions;
   build    compiles the CUDA kernels from the checkout's sources (nvcc,
-           one process per source, all at once); prints K1's and K13's
-           registers, spills and shared memory at the main path and checks
-           their machine code for wgmma and TMA (K1) and cluster barriers
-           (K13);
+           one process per source, all at once); prints the registers,
+           spills and shared memory of K1, K13, K2 and the int8 GEMV at the
+           main path and checks their machine code for wgmma and TMA (K1),
+           cluster barriers (K13, K2, the GEMV) and cp.async (the GEMV);
   kernels  holds each attention kernel against its plain PyTorch version
            on the card (bf16 and fp32, head dims 128 and 64, and an e4m3
            cache beside bf16 queries) and times kernel, plain version and
@@ -371,6 +371,43 @@ def _events_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, calls: int, reps: int = 5, warmup: int = 3) -> list:
+    """`reps` readings of the mean device ms of one fn(i) call, each over a
+    CUDA graph of fn(0) .. fn(calls - 1) launched back to back, between
+    CUDA events around one replay: no host gap between the launches, and
+    every kernel of the graph counted (torch.profiler's device time has
+    come back below the bytes' bound for back-to-back GEMVs). Graph kernel
+    launches add well under a microsecond each. Returns the readings in
+    the order taken."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop) / calls)
+    del graph
+    return out
+
+
+def _spread(xs) -> str:
+    """A list of readings as 'median (min-max of n)'."""
+    return f"{statistics.median(xs):.4f} ({min(xs):.4f}-{max(xs):.4f} of {len(xs)})"
+
+
 def bound_ms(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -451,22 +488,30 @@ def _demangle(names) -> dict:
 
 
 def _attention_reports() -> None:
-    """K1's and K13's instantiations at the main path's types: registers,
-    spills and static shared memory (ptxas -v; their shared-memory rings
-    are dynamic, sized at launch as the sources' head notes give them); and
-    the Hopper instructions in their machine code (cuobjdump -sass): wgmma
-    (HGMMA) and TMA loads (UTMALDG) in K1, cluster barriers (UCGABAR) in
-    K13."""
+    """The redesigned kernels' instantiations at the main path's types (K1,
+    K13, K2 and the int8 GEMV of K3/K5a): registers, spills and static
+    shared memory (ptxas -v; their shared-memory rings are dynamic, sized
+    at launch as the sources' head notes give them); and the Hopper
+    instructions in their machine code (cuobjdump -sass): wgmma (HGMMA) and
+    TMA loads (UTMALDG) in K1, cluster barriers (UCGABAR) in K13, K2 and
+    the GEMV, and the GEMV's cp.async copies (LDGSTS)."""
     from tinygpt_tpu_torch.ops import cuda_build
 
     wanted = {
         "flash_prefill.cu": ("flash_prefill_tc<__nv_bfloat16, __nv_bfloat16, 128>",
                              "flash_prefill_tc<__nv_bfloat16, __nv_fp8_e4m3, 128>",
                              "flash_prefill_tc<__nv_bfloat16, __nv_bfloat16, 64>"),
-        "flash_decode.cu": ("flash_decode_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4>",
-                            "flash_decode_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4>"),
+        "flash_decode.cu": ("split_decode_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4, false>",
+                            "split_decode_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4, false>"),
+        "flash_decode_frozen.cu": (
+            "split_decode_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4, true>",
+            "split_decode_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4, true>"),
+        "int8_matmul.cu": ("int8_gemv_kernel<__nv_bfloat16, 4, true>",
+                           "int8_gemv_kernel<__nv_bfloat16, 8, true>",
+                           "int8_gemv_kernel<float, 4, true>"),
     }
-    ops = {"flash_prefill.cu": ("HGMMA", "UTMALDG"), "flash_decode.cu": ("UCGABAR",)}
+    ops = {"flash_prefill.cu": ("HGMMA", "UTMALDG"), "flash_decode.cu": ("UCGABAR",),
+           "flash_decode_frozen.cu": ("UCGABAR",), "int8_matmul.cu": ("UCGABAR", "LDGSTS")}
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     for src, kernels in wanted.items():
         entries = _ptxas_entries(cuda_build.build_log(src))
@@ -670,7 +715,26 @@ def phase_kernels(main_path: dict) -> dict:
               lambda: ak.flash_prefill_plain(*args), _prefill_cost(q, args[1], valid, 0, None),
               iters=(20, 5))
 
-    md = main_path["decode"]
+    _decode_frozen_cases(table, worst, main_path["decode"])
+    for (name, dname), err in sorted(worst.items()):
+        log(f"[kernels] {name} {dname}: worst max_abs_err over all cases {err:.3g} "
+            f"(tol {TOL[dname]})")
+    return table
+
+
+def _decode_frozen_cases(table: dict, worst: dict, md: dict) -> None:
+    """flash_decode_frozen (K2) against its plain version on the card: the
+    model phase's decode shape (B = 4, 32/8 heads of 128, T = 576, N = 32,
+    the chunk's last step), T1024/N32 with and without a window, fp32, head
+    dim 64, and the e4m3 branch at the main path's shape; each timed over
+    the stack's layers in turn beside its bound, the plain version and
+    scaled_dot_product_attention. Fills K2's table row and `worst`."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.kv_cache import kv_cast
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    B, Nq, Nk = 4, 32, 8
     # (label, L, D, T, N, pads, length, steps, window, dtype, is_main_path)
     decode_cases = [
         ("main path", 32, 128, md["T"], md["N"], md["pads"], md["length"], (md["step"],),
@@ -705,20 +769,26 @@ def phase_kernels(main_path: dict) -> dict:
                     raise PhaseError(f"flash_decode_frozen {label} l={l} step={step} "
                                      f"{dname}: error {err} > {TOL[dname]}")
             # cycle through the layers, as a decode step does: the stacks
-            # exceed the 50 MB L2 cache, so each call reads cold K/V
-            layers = iter(range(10**9))
-            t_k = cuda_time_ms(lambda: ak.flash_decode_frozen(
-                q, ks, vs, mask, ki, vi, next(layers) % L, step, D ** -0.5, window),
-                iters=4 * L)
+            # exceed the 50 MB L2 cache, so each call reads cold K/V; three
+            # readings, the median kept
+            def kern(i, q=q, ks=ks, vs=vs, mask=mask, ki=ki, vi=vi, L=L, step=step, D=D,
+                     window=window):
+                return ak.flash_decode_frozen(q, ks, vs, mask, ki, vi, i % L, step, D ** -0.5,
+                                              window)
+
+            calls = iter(range(10 ** 9))
+            r_k = [cuda_time_ms(lambda: kern(next(calls)), iters=4 * L) for _ in range(3)]
+            t_k = statistics.median(r_k)
             l = L - 1
             args = (q, ks, vs, mask, ki, vi, l, step, D ** -0.5, window)
             t_p = cuda_time_ms(lambda: ak.flash_decode_frozen_plain(*args), iters=10)
             t_l = cuda_time_ms(_sdpa_decode(*args), iters=20)
             nbytes, flops = _decode_cost(q, mask, ki, step, window)
             b_ms, b_by = bound_ms(nbytes, flops, dname)
+            host = f" host {host_us(kern):.1f} us a call" if main else ""
             log(f"[kernels] flash_decode_frozen {label} D={D} step={step} {dname}: "
-                f"max_abs_err {err:.3g} (tol {TOL[dname]}) kernel {t_k:.4f} ms "
-                f"plain {t_p:.4f} ms sdpa {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}) ok")
+                f"max_abs_err {err:.3g} (tol {TOL[dname]}) kernel {_spread(r_k)} ms "
+                f"plain {t_p:.4f} ms sdpa {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}){host} ok")
             if main:
                 table["flash_decode_frozen"] = dict(
                     name="flash_decode_frozen", route="cuda",
@@ -745,10 +815,6 @@ def phase_kernels(main_path: dict) -> dict:
                                                           step, 128 ** -0.5)))
     del ks8, vs8
     torch.cuda.empty_cache()
-    for (name, dname), err in sorted(worst.items()):
-        log(f"[kernels] {name} {dname}: worst max_abs_err over all cases {err:.3g} "
-            f"(tol {TOL[dname]})")
-    return table
 
 
 E4M3_ROWS = {}  # kernel -> its e4m3 branch's numbers at the main path's shape
@@ -1026,7 +1092,12 @@ def phase_int8_kernels(table: dict) -> None:
     K3 the head at M = 4), and beside them at IN = 896 (7 groups) and 64,
     M = 1, 4, 32, 33 and 2048. Times the bf16 calls beside their bound,
     the plain version and the library call: cuBLAS (torch.matmul) on the
-    weight dequantized to bf16 beforehand, outside the timed call. The
+    weight dequantized to bf16 beforehand, outside the timed call. Kernel
+    and cuBLAS take the same timing (graph_ms): at least 30 calls that walk
+    a stack larger than the 50 MB L2 cache (K5a its 32 layers, K3 three
+    copies of the head, 402 MB; cuBLAS LIB_LAYERS dequantized layers, or
+    the three heads), five readings, their median kept and their spread
+    printed; beside it the host's microseconds a decode-shaped call. The
     table rows are launch-weighted means over the main path's mix (64
     decode steps to one prefill)."""
     import torch
@@ -1064,7 +1135,7 @@ def phase_int8_kernels(table: dict) -> None:
         "o": _int8_stack(g, L, Nq * D, H, G),
         "gate_up": _int8_stack(g, L, H, 2 * I, G),
         "down": _int8_stack(g, L, I, H, G),
-        "head": _int8_stack(g, 1, H, V, G),
+        "head": _int8_stack(g, 3, H, V, G),   # three copies: K3 takes one a call
     }
     cases = [("matmul_dequant_int8_stacked", key, L * w, key, M)
              for key in ("qkv", "o", "gate_up", "down")
@@ -1086,32 +1157,30 @@ def phase_int8_kernels(table: dict) -> None:
             for l in sorted({0, Ls - 1}):
                 err, tol = check(name, label, dt, kern(xs[dt], l), plain(xs[dt], l))
         xb = xs[torch.bfloat16]
-        t_k = _time_layers(lambda l: kern(xb, l), Ls, 3 * Ls)
+        n_calls = max(30, 3 * Ls)
+        r_k = graph_ms(lambda i: kern(xb, i % Ls), n_calls)
         t_p = cuda_time_ms(lambda: plain(xb, Ls - 1), iters=3, warmup=1)
-        # the library call walks LIB_LAYERS dequantized layers, as the kernel
-        # walks the stack: either reads its weight cold from device memory
+        # the library call walks LIB_LAYERS dequantized layers (the three
+        # heads), as the kernel walks the stack: either reads its weight
+        # cold from device memory
         nl = min(Ls, LIB_LAYERS)
         ws = [qk.dequant_fp32(data[l], scales[l], G).to(torch.bfloat16) for l in range(nl)]
-        t_lib = _time_layers(lambda l: torch.matmul(xb, ws[l]), nl, 3 * LIB_LAYERS)
-        # the profiler's device time can come back below the least time the
-        # bf16 weight's bytes need; CUDA events then time the same loop (an
-        # upper bound: it includes the host's gaps between launches)
+        r_lib = graph_ms(lambda i: torch.matmul(xb, ws[i % nl]), max(30, 3 * nl))
         lib_b = bound_ms(_nbytes(xb, ws[0]) + M * OUT * 2, 2.0 * M * IN * OUT,
                          "bfloat16")[0]
-        if t_lib < lib_b:
-            lw = iter(range(10 ** 9))
-            t_ev = _events_ms(lambda: torch.matmul(xb, ws[next(lw) % nl]), 3 * LIB_LAYERS)
-            log(f"[int8] cuBLAS {label}: profiler device time {t_lib:.4f} ms is below the "
-                f"{lib_b:.4f} ms its bf16 weight needs; CUDA events over the same loop "
-                f"{t_ev:.4f} ms, kept as its time")
-            t_lib = t_ev
         del ws
+        t_k, t_lib = statistics.median(r_k), statistics.median(r_lib)
         nbytes = _nbytes(xb, data[0], scales[0]) + M * OUT * 2
         b_ms, b_by = bound_ms(nbytes, 2.0 * M * IN * OUT, "bfloat16")
+        host = (f" host {host_us(lambda i: kern(xb, i % Ls)):.1f} us a call"
+                if M <= qk.MAX_DECODE_ROWS else "")
         log(f"[int8] {name} {label}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
-            f"{t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}) cuBLAS on "
-            f"the bf16-dequantized weight {t_lib:.4f} ms (its own bound {lib_b:.4f} ms)")
+            f"{_spread(r_k)} ms over {n_calls} calls plain {t_p:.4f} ms bound {b_ms:.4f} ms "
+            f"({b_by}) cuBLAS on the bf16-dequantized weight {_spread(r_lib)} ms (its own "
+            f"bound {lib_b:.4f} ms){host}")
         rows.setdefault(name, []).append((weight, t_k, t_p, b_ms, b_by, t_lib, err, tol))
+        if M == B:
+            _gemv_split_sweep(label, xb, data, scales, G)
     del stacks
     torch.cuda.empty_cache()
 
@@ -1136,6 +1205,47 @@ def phase_int8_kernels(table: dict) -> None:
             f"tolerance")
     _mix_rows(table, rows)
     torch.cuda.empty_cache()
+
+
+def _gemv_split_sweep(label, x, data, scales, group) -> None:
+    """The int8 GEMV through its C entry point at every cluster size its
+    plan picks from (quant_kernels._GEMV_SPLITS), walking the stack's
+    layers, beside the plan's own pick: the check on gemv_split. A size
+    whose shared memory the kernel refuses is skipped."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+    from tinygpt_tpu_torch.ops.attention_kernels import _ptr, _sm_count
+
+    fn = cuda_build.function("int8_matmul.cu", "tg_int8_matmul", qk._INT8_MATMUL_ARGS)
+    M = x.shape[0]
+    L, IN, OUT = data.shape
+    out = torch.empty(M, OUT, dtype=x.dtype, device=x.device)
+
+    def call(l, C):
+        err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group, l,
+                 qk._DTYPE_CODE[x.dtype], C, qk._stream(x.device))
+        cuda_build.check("int8_matmul.cu", err, "tg_int8_matmul")
+
+    times, refused = {}, []
+    for C in qk._GEMV_SPLITS:
+        if C > IN // 16:
+            continue
+        try:
+            call(0, C)
+        except RuntimeError:  # the block's activation rows exceed its shared memory
+            refused.append(C)
+            continue
+        times[C] = statistics.median(graph_ms(lambda i: call(i % L, C), max(30, 3 * L), reps=3))
+    plan = qk.gemv_split(M, IN, OUT, _sm_count(x.device.index or 0))
+    if plan not in times:
+        raise PhaseError(f"int8 split sweep {label}: the plan's C={plan} was refused")
+    best = min(times, key=times.get)
+    log(f"[int8] split sweep {label}: " + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
+        + f" ms; the plan's C={plan} {times[plan]:.4f}, the fastest C={best} "
+        f"({times[plan] / times[best]:.3f}x)"
+        + (f"; refused (shared memory): C={refused}" if refused else ""))
 
 
 # -- paged frozen-pool decode kernel (K8) ------------------------------------------
@@ -1860,6 +1970,24 @@ def _run_route(params, cfg, batch, T, attn_impl, force=None, n_chunks=N_CHUNKS,
             t_decode * 1e3 / (n_chunks * chunk))
 
 
+def host_us(fn, n: int = 100, rounds: int = 5) -> float:
+    """Wall microseconds the host spends on one fn(i) call: the median of
+    `rounds` rounds of n calls back to back, each round timed without
+    waiting for the device (the launch queue takes the calls) and followed
+    by a synchronize. The host's cores are shared, so one round spreads."""
+    import torch
+
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        out.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
 def host_launch_us(n: int = 2000) -> float:
     """Wall microseconds a tiny kernel launch costs the host (n in-place
     adds on a 16-element tensor, then one synchronize): the rate that
@@ -1927,10 +2055,9 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
               "gathered experts (K12, K11a, K11b)": 0.0,
               "int4 (K4-K7)": 0.0, "int8 (K5a, K3)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
     for us, _, key in kernels:
-        if "flash_decode_frozen" in key:
-            groups["flash_decode_frozen"] += us
-        elif "flash_decode_kernel" in key:
-            groups["flash_decode (K13)"] += us
+        if "split_decode_kernel" in key:  # K2 and K13: one template, INFL true for K2
+            k2 = re.search(r",\s*(true|\(bool\)1)>", key)
+            groups["flash_decode_frozen" if k2 else "flash_decode (K13)"] += us
         elif "moe_gather" in key:
             groups["gathered experts (K12, K11a, K11b)"] += us
         elif "int4" in key:

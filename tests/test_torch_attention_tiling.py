@@ -1,5 +1,6 @@
-"""The arithmetic of the Hopper designs of K1 (flash_prefill) and K13
-(flash_decode), emulated here on the CPU and held against the JAX kernels.
+"""The arithmetic of the Hopper designs of K1 (flash_prefill), K13
+(flash_decode) and K2 (flash_decode_frozen), emulated here on the CPU and
+held against the JAX kernels.
 
 The card computes P = exp(S - m) in fp32 and rounds it to q's type (bf16 or
 fp16) for each 64-slot tile before P V on the tensor cores, with fp32 row
@@ -16,8 +17,11 @@ The split plan (attention_kernels.decode_split, and `_shares` below, which
 emulates how each block of the kernel cuts its share of the span) is
 checked directly: every visible slot goes to exactly one block, at most 8
 blocks a cluster, and no share is shorter than 64 slots unless the span is.
-The card tests (test_flash_decode_split_edges_match_plain) hold the
-kernel's own split against the plain version.
+K2 runs the same kernel (csrc/decode_split.cuh) with its in-flight slots as
+the span's last tile (`_k2_shares`). The card tests
+(test_flash_decode_split_edges_match_plain,
+test_flash_decode_frozen_split_edges_match_plain) hold the kernels' own
+splits against the plain versions.
 """
 
 import math
@@ -244,3 +248,126 @@ def test_k13_emulation_matches_jax_kernel(case, dtype):
             assert np.abs(got[b] - want[b]).max() <= TOL[dtype]
         else:  # the JAX kernel gives the mean of V there; the port gives zeros
             assert not got[b].any()
+
+
+# -- K2: the frozen slots' shares, with the in-flight slots as the span's last tile -----
+
+
+def _k2_shares(mask_row, N: int, step: int, window, C: int) -> list:
+    """The frozen slots [a, b) and the in-flight slots [c, d) that each of
+    the C blocks of a K2 cluster walks for one row, as decode_split.cuh cuts
+    them: the in-flight slot j is the virtual slot T_w + j (T_w the frozen
+    tiles' slots), visible for j <= step and step - j < window, and the
+    virtual row is cut as K13 cuts its mask row (_shares)."""
+    T = len(mask_row)
+    Tw = -(-T // TS) * TS
+    j_lo = max(0, step - window + 1) if window else 0
+    virt = np.zeros(Tw + N, bool)
+    virt[:T] = mask_row
+    virt[Tw + j_lo:Tw + step + 1] = True
+    return [((min(a, T), min(b, T)), (min(max(a - Tw, 0), N), min(max(b - Tw, 0), N)))
+            for a, b in _shares(virt, C)]
+
+
+@pytest.mark.parametrize("C", range(1, 9))
+@pytest.mark.parametrize("T,density,N,step,window,seed", [
+    (576, 1.0, 32, 31, None, 0), (576, 0.3, 32, 0, None, 1), (192, 0.0, 8, 7, None, 2),
+    (1000, 0.05, 32, 17, 5, 3), (20, 1.0, 32, 31, 1, 4), (33, 0.5, 16, 3, 40, 5),
+    (4096, 0.01, 64, 50, None, 6),
+])
+def test_k2_shares_cover_every_visible_slot_once(C, T, density, N, step, window, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random(T) < density
+    j = np.arange(N)
+    infl = (j <= step) & ((step - j < window) if window else True)
+    shares = _k2_shares(mask, N, step, window, C)
+    frozen, inflight = np.zeros(T, np.int64), np.zeros(N, np.int64)
+    for (a, b), (c, d) in shares:
+        frozen[a:b] += 1
+        inflight[c:d] += 1
+    assert (frozen[mask] == 1).all() and (inflight[infl] == 1).all()
+    # the in-flight slots go with the last share that holds any slot
+    holders = [r for r, ((a, b), (c, d)) in enumerate(shares) if b > a or d > c]
+    assert holders == list(range(len(holders)))
+    assert [r for r, (_, (c, d)) in enumerate(shares) if d > c] == [holders[-1]]
+    if not mask.any():  # every frozen slot hidden: rank 0 walks the in-flight tile alone
+        assert holders == [0]
+
+
+def _k2_emulated(q, ks, vs, mask, ki, vi, l, step, scale, window, C):
+    """K2's split: each block's online-softmax state over its share of the
+    frozen and in-flight slots (_k2_shares), the C states merged as rank 0
+    merges them; a block with no visible slot holds m = -1e30."""
+    B, Nq, D = q.shape
+    Nk, T = ks.shape[2], ks.shape[3]
+    N = ki.shape[2]
+    G = Nq // Nk
+    j = torch.arange(N)
+    vis_i = (j <= step) & ((step - j < window) if window else torch.ones(N, dtype=torch.bool))
+    out = torch.zeros(B, Nq, D)
+    for b in range(B):
+        qb = q[b].reshape(Nk, G, D) * scale
+        states = []
+        for (fa, fb), (ia, ib) in _k2_shares(mask[b].numpy(), N, step, window, C):
+            k = torch.cat([ks[l, b, :, fa:fb], ki[b, :, ia:ib]], dim=1)
+            v = torch.cat([vs[l, b, :, fa:fb], vi[b, :, ia:ib]], dim=1)
+            vis = torch.cat([mask[b, fa:fb], vis_i[ia:ib]])
+            s = torch.einsum("kgd,ktd->kgt", qb, k).masked_fill(~vis, -1e30)
+            m = s.amax(-1, keepdim=True) if k.shape[1] else torch.full((Nk, G, 1), -1e30)
+            p = torch.exp(s - m) * vis
+            states.append((m, p.sum(-1, keepdim=True), p @ v))
+        M = torch.stack([m for m, _, _ in states]).amax(0)
+        L = sum(lsum * torch.exp(m - M) for m, lsum, _ in states)
+        O = sum(acc * torch.exp(m - M) for m, _, acc in states)
+        out[b] = torch.where(L > 0, O / torch.where(L > 0, L, torch.ones_like(L)),
+                             0.0).reshape(Nq, D)
+    return out
+
+
+K2_CASES = [
+    # (Nq, Nk, D, T, N, frozen visible (start, count) per row, e4m3)
+    (32, 8, 128, 576, 32, ((0, 544), (112, 432), (300, 3), (0, 0)), False),  # the main path's; an all-pad row
+    (24, 2, 64, 300, 16, ((10, 290), (0, 0)), False),   # G = 12: 2 group tiles of 6
+    (128, 8, 128, 200, 8, ((0, 150), (77, 73)), False),  # G = 16: 2 group tiles of 8
+    (8, 2, 64, 20, 32, ((3, 17), (0, 20)), False),       # T shorter than one tile
+    (32, 8, 128, 333, 32, ((5, 300), (0, 0)), True),     # an e4m3 cache, bf16 in-flight K/V
+]
+
+
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("at_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k2_emulation_matches_jax_kernel(case, dtype, at_last, window):
+    Nq, Nk, D, T, N, rows, e4m3 = case
+    B, L, l = len(rows), 2, 1
+    step = N - 1 if at_last else 0
+    rng = np.random.default_rng(13)
+    q = _round(rng.standard_normal((B, Nq, D)).astype(np.float32), dtype)
+    if e4m3:
+        ks8, vs8 = (jnp.asarray(rng.standard_normal((L, B, Nk, T, D)).astype(np.float32) * 0.5)
+                    .astype(jnp.float8_e4m3fn) for _ in range(2))
+        ks, vs = (np.asarray(a).astype(np.float32) for a in (ks8, vs8))
+        jks, jvs = ks8, vs8
+        itype = torch.bfloat16
+    else:
+        ks, vs = (_round(rng.standard_normal((L, B, Nk, T, D)).astype(np.float32), dtype)
+                  for _ in range(2))
+        jks, jvs = jnp.asarray(ks), jnp.asarray(vs)
+        itype = dtype
+    ki, vi = (_round(rng.standard_normal((B, Nk, N, D)).astype(np.float32), itype)
+              for _ in range(2))
+    mask = np.zeros((B, T), bool)
+    for b, (a, n) in enumerate(rows):
+        mask[b, a:a + n] = True
+    scale = D ** -0.5
+    jinfl = (lambda a: jnp.asarray(a).astype(jnp.bfloat16)) if e4m3 else jnp.asarray
+    want = np.asarray(jak.flash_decode_frozen(
+        jnp.asarray(q), jks, jvs, jnp.asarray(mask), jinfl(ki), jinfl(vi),
+        jnp.asarray(l, jnp.int32), jnp.asarray(step, jnp.int32), scale=scale, window=window,
+        interpret=True)).astype(np.float32)
+    C = tak.decode_split(B, Nk, Nq // Nk, T + N)
+    got = _k2_emulated(*(torch.from_numpy(a) for a in (q, ks, vs, mask, ki, vi)), l, step,
+                       scale, window, C)
+    got = got.to(dtype).float().numpy()   # the kernel writes q's type
+    assert np.abs(got - want).max() <= TOL[dtype]

@@ -604,6 +604,47 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         qk.matmul_dequant_int8_stacked(x[:, :128].contiguous(), data, scales, 0, g)
 
 
+# the edges of the GEMV's split (clusters of quant_kernels.gemv_split's
+# blocks splitting IN in 16-row units, 8 warps a block): a share with no
+# rows (the entry point called with more blocks than units), IN = 64 (one
+# unit a block, seven warps of eight without rows), OUT not a multiple of
+# 256 (and OUT % 16 == 8, where rows take 8-byte copies), M = 5, 9 and 32,
+# group 16, and a non-portable cluster of 16 at the down projection's IN
+INT8_GEMV_EDGES = [
+    # (M, IN, OUT, group, dtype, split: None for the plan's)
+    (4, 64, 256, 64, torch.bfloat16, 16),     # 12 of 16 blocks hold no rows
+    (1, 64, 64, 64, torch.float32, None),
+    (5, 896, 264, 128, torch.bfloat16, None),
+    (9, 4096, 1000, 128, torch.float32, None),
+    (32, 4096, 4864, 128, torch.bfloat16, None),
+    (32, 14336, 4096, 128, torch.bfloat16, 16),
+    (4, 80, 24, 16, torch.float32, 5),
+]
+
+
+@pytest.mark.parametrize("case", INT8_GEMV_EDGES)
+def test_int8_gemv_split_edges_match_plain(dev, case):
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    M, IN, OUT, group, dtype, split = case
+    gen = torch.Generator().manual_seed(9)
+    data, scales, g = _q8weight(gen, 2, IN, OUT, group, dev)
+    x = _randn(gen, M, IN, dtype=dtype, dev=dev)
+    want = qk.matmul_dequant_int8_stacked_plain(x, data, scales, 1, g)
+    if split is None:
+        ak.reset_launches()
+        got = qk.matmul_dequant_int8_stacked(x, data, scales, 1, g)
+        assert ak.LAUNCHES["matmul_dequant_int8_stacked"] == 1
+    else:  # the entry point itself, at a split the plan would not pick
+        fn = cuda_build.function("int8_matmul.cu", "tg_int8_matmul", qk._INT8_MATMUL_ARGS)
+        got = torch.empty(M, OUT, dtype=dtype, device=dev)
+        err = fn(ak._ptr(x), ak._ptr(data), ak._ptr(scales), ak._ptr(got), M, IN, OUT, g, 1,
+                 qk._DTYPE_CODE[dtype], split, qk._stream(x.device))
+        cuda_build.check("int8_matmul.cu", err, "tg_int8_matmul")
+    torch.cuda.synchronize()
+    _qclose(got, want, dtype, f"M={M} IN={IN} OUT={OUT} split={split}")
+
+
 def _model_dir(tmp_path, cfg):
     from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
 
@@ -1380,6 +1421,53 @@ def test_flash_decode_split_edges_match_plain(dev, case, e4m3):
     for b in range(B):  # a row that sees no slot gives zeros
         if not mask[b].any():
             assert not got[b].any()
+
+
+# the edges of K2's split (decode_split.cuh: the frozen span plus the
+# in-flight tile, cut over clusters of decode_split(B, Nk, G, T + N)
+# blocks): T shorter than one tile, every frozen slot hidden, window 1, and
+# the cluster sizes the plan picks at B = 1 (8) and at B = 16 (1)
+K2_EDGE_CASES = [
+    # (D, dtype, Nq, Nk, T, N, step, window, frozen visible (start, count) per row, C)
+    (128, torch.bfloat16, 32, 8, 20, 32, 31, None, ((3, 17), (0, 20)), 1),
+    (128, torch.bfloat16, 32, 8, 576, 32, 5, None, ((0, 0), (0, 0), (0, 0), (0, 0)), 4),
+    (64, torch.float32, 8, 2, 300, 16, 9, 1, ((0, 300), (10, 5)), 5),
+    (128, torch.bfloat16, 32, 8, 1024, 32, 31, None, ((100, 900),), 8),
+    (128, torch.bfloat16, 32, 8, 576, 32, 17, None, tuple((17 * b, 544 - 17 * b)
+                                                          for b in range(16)), 1),
+]
+
+
+@pytest.mark.parametrize("e4m3", [False, True])
+@pytest.mark.parametrize("case", K2_EDGE_CASES)
+def test_flash_decode_frozen_split_edges_match_plain(dev, case, e4m3):
+    D, dtype, Nq, Nk, T, N, step, window, rows, C = case
+    B, L = len(rows), 2
+    assert ak.decode_split(B, Nk, Nq // Nk, T + N) == C
+    gen = torch.Generator().manual_seed(41)
+    mask = torch.zeros(B, T, dtype=torch.bool)
+    for b, (a, n) in enumerate(rows):
+        mask[b, a:a + n] = True
+    mask = mask.to(dev)
+    if e4m3:
+        ks = _e4m3(_randn(gen, L, B, Nk, T, D, dtype=torch.float32, dev=dev))
+        vs = _e4m3(_randn(gen, L, B, Nk, T, D, dtype=torch.float32, dev=dev))
+        itype = torch.bfloat16
+    else:
+        ks = _randn(gen, L, B, Nk, T, D, dtype=dtype, dev=dev)
+        vs = _randn(gen, L, B, Nk, T, D, dtype=dtype, dev=dev)
+        itype = dtype
+    ki = _randn(gen, B, Nk, N, D, dtype=itype, dev=dev)
+    vi = _randn(gen, B, Nk, N, D, dtype=itype, dev=dev)
+    q = _randn(gen, B, Nq, D, dtype=dtype, dev=dev)
+    for l in range(L):
+        args = (q, ks, vs, mask, ki, vi, l, step, D ** -0.5, window)
+        ak.reset_launches()
+        got = ak.flash_decode_frozen(*args)
+        assert ak.LAUNCHES["flash_decode_frozen"] == 1
+        want = ak.flash_decode_frozen_plain(*args)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= TOL[dtype] * (4 if e4m3 else 1), f"layer {l}"
 
 
 def test_flash_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):

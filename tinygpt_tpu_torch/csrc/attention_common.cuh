@@ -96,7 +96,7 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Query heads one block of the one-token decode kernels (K2, K8, K9) holds:
+// Query heads one block of the one-token decode kernels (K2, K8, K9, K13) holds:
 // the largest divisor of G = Nq / Nk that is at most kMaxGroupTile. A KV
 // head with more query heads (G = 16: Llama-3.1-405B's 128 over 8) is
 // served by G / GT blocks, each reading the head's K/V rows once (the later
@@ -111,7 +111,7 @@ inline int group_tile(int G) {
   return 1;
 }
 
-// The end of the split-slot decode kernels (K2, K8, K9). Each of the NG slot
+// The end of the paged decode kernels (K8, K9). Each of the NG slot
 // groups of a block (LPR = D / VEC lanes each) holds a partial online-softmax
 // state of the block's GT query rows: m and l, and its lane's VEC columns of
 // the unnormalised output acc. Merges the NG states through `smem` (NG * GT *

@@ -13,18 +13,49 @@
 // of the group (group % 16 == 0), 896 (7 groups of 128) and 64 included.
 //
 // Two regimes, as on the TPU:
-// - M <= 32 (decode, the lm_head of a prefill): a GEMV bound by the weight
-//   bytes (one byte a weight plus the scales). Each warp reads one row's 256
-//   contiguous bytes (8 columns, 8 bytes a lane) per load, 16 rows of one
-//   group in flight, dequantizes in registers (q * s rounded once, the value
-//   the plain version computes) and takes the MR activation rows from shared
-//   memory as broadcasts. A block owns 256 columns; its 8 warps and a cluster
-//   of 8 blocks split the rows in steps of 16, as evenly as IN / 16 allows
-//   (some blocks get none when IN < 128), so any IN works. The block sums
-//   its warps through shared memory, block 0 of the cluster sums the 8
-//   blocks' tiles through distributed shared memory and rounds once. The TPU
-//   kernel scales per-group partial sums to spare its vector unit; here the
-//   scale is one multiply a weight beside the MR FMAs.
+// - M <= 32 (decode, the lm_head of a prefill): a GEMV. What bounds it on an
+//   H100 is the weight bytes, one byte a weight plus the fp32 scales, read
+//   once (the Mistral-7B head: 134 MB, 0.0414 ms at 3.35 TB/s). At four
+//   rows the card must also spend about six instructions a weight, close to
+//   its issue rate at that byte rate, so the design reads at the memory's
+//   rate with as few instructions as it can:
+//   - Fill the card. A block owns 256 columns (8 a lane) of MR = 4 or 8
+//     activation rows. The C blocks of a thread-block cluster split IN in
+//     16-row units, C planned on the host from M, IN, OUT and the SM count
+//     (ops/quant_kernels.gemv_split, up to a non-portable cluster of 16),
+//     and the block's 8 warps split its units again. Blocks and warps that
+//     get no rows hold zeros. The plan aims at about three blocks for four
+//     SMs: on the H100 that beat two blocks an SM at every Mistral-7B
+//     shape, as the cp.async ring beat TMA bulk copies, deeper rings and
+//     16-row stages (PERF.md).
+//   - Stage once, then stream. The block copies its slice of the MR
+//     activation rows into shared memory as fp32, under one barrier, while
+//     its first weight loads are in flight. Then each warp streams its rows
+//     through its own ring of NS = 3 stages of 8 rows x 256 columns, 16-byte
+//     cp.async (8-byte where OUT % 16 != 0 leaves rows unaligned), two
+//     stages in flight, with no block barrier: cp.async.wait_group and a
+//     __syncwarp order each stage for the warp that copied it.
+//   - Few instructions a weight. A byte becomes a float by one byte permute
+//     into the magic number 2^23 (0x4B0000uu, uu = q ^ 0x80, the float
+//     2^23 + q + 128) and one subtraction of 2^23 + 128, exact for every q
+//     in [-128, 127]. The MR products x * q are summed per group in fp32,
+//     and each group's sum is multiplied by the group's scale once per
+//     column and row, as _int8_kernel does; the scale row is fetched a group
+//     ahead of its use.
+//   - The block sums its warps through shared memory; the cluster's blocks
+//     then reduce-scatter through distributed shared memory (rank r sums
+//     the C tiles at its share of the columns and writes them, rounded
+//     once).
+//   This rounds differently from the plain version, which rounds q * s once
+//   a weight and sums x * (q * s): here s * sum(x * q) is rounded once a
+//   group. Both stay within the kernels' tolerance (fp32 1e-4, bf16 one
+//   ulp of the largest output, chip_smoke.QUANT_TOL).
+//   What is left: the small matrices (o, qkv) stream at well under the
+//   memory's rate, their time the launch, the first loads' latency and
+//   the cluster's reduction; why clusters of some sizes place slowly is
+//   not known; tensor cores (mma.sync or wgmma on int8 converted to bf16)
+//   at 8 to 32 rows, where the FMAs bound the kernel and MR = 8 re-reads
+//   the weight for every 8 rows.
 // - M > 32 (prefill, 4 x 512 rows): bound by operations (2 M operations a
 //   weight byte). The mma.sync structure of the int4 kernel (int4_matmul.cu):
 //   each block stages a 128-row x 64-column tile of activations (cp.async)
@@ -37,6 +68,7 @@
 //   stage shorter than 64 rows (IN % 64 != 0) is zero-filled.
 //   No wgmma or TMA yet.
 
+
 #include "int4_common.cuh"
 
 namespace {
@@ -48,115 +80,257 @@ using tg::to_float;
 
 // -- M <= 32 ----------------------------------------------------------------------
 
-constexpr int GT = tg::GEMV_THREADS, GW = tg::GEMV_WARPS;
-constexpr int GBN = tg::GEMV_BN;  // columns of a block: 8 a lane
-constexpr int GRP = tg::GEMV_RP;  // rows a warp has in flight (one group's, group % 16 == 0)
-constexpr int GCH = tg::GEMV_CH;  // rows staged at a time
-constexpr int GSK = tg::GEMV_SK;  // blocks of a cluster, splitting the rows
+constexpr int GT = 256, GW = GT / 32;  // threads and warps of a block
+constexpr int GBN = 256;               // columns of a block: 8 a lane
+constexpr int UNIT = 16;               // rows of the split's unit (group % 16 == 0)
+constexpr int SR = 8;                  // weight rows of a ring stage
+constexpr int NS = 3;                  // stages of a warp's ring
+constexpr int STAGE = SR * GBN;        // bytes of a stage
+constexpr int MAX_SPLIT = 16;          // blocks of a cluster (above 8: non-portable)
 
 template <int MR>
-constexpr size_t gemv_smem_bytes() {
-  return sizeof(float) * (MR * GCH + GW * MR * GBN + MR * GBN);
+struct Gemv {
+  static constexpr int RING = GW * NS * STAGE;   // the warps' rings
+  static constexpr int RED = GW * MR * GBN * 4;  // the warps' sums, after the walk
+  static constexpr int SCRATCH = RING > RED ? RING : RED;
+  static constexpr int TILE = MR * GBN;          // floats of the block's sums
+  // scratch, the block's tile, then its activation rows as fp32 [MR][rows]
+  static size_t bytes(int rows) { return SCRATCH + 4 * ((size_t)TILE + (size_t)rows * MR); }
+};
+
+// An 8- or 16-byte copy into shared memory; zeros when !ok.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_z(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(ok ? 8 : 0)
+                 : "memory");
+  }
 }
 
-template <typename T, int MR>
-__global__ void __cluster_dims__(1, GSK, 1) __launch_bounds__(GT)
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte J of `biased` (a weight byte q ^ 0x80 = q + 128) as a float: the
+// permute makes the bits 0x4B0000uu, the float 2^23 + q + 128, and the
+// subtraction leaves q, exactly.
+template <int J>
+__device__ __forceinline__ float int8_at(uint32_t biased) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u | J)) - 8388736.f;
+}
+
+template <typename T, int MR, bool WIDE>
+__global__ void __launch_bounds__(GT, MR == 4 ? 2 : 1)
     int8_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ W,
                      const float* __restrict__ Sc, T* __restrict__ out, int M, int IN, int OUT,
                      int group) {
+  using G = Gemv<MR>;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ float smem[];
-  float* xs = smem;              // [MR][GCH] staged activations
-  float* red = xs + MR * GCH;    // [GW][MR][GBN] the warps' partial sums
-  float* tile = red + GW * MR * GBN;  // [MR][GBN] this block's partial sums
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem + G::SCRATCH);  // [MR][GBN]
+  float* xs = tile + G::TILE;                                  // [MR][rows]
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int col0 = blockIdx.x * GBN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int col0 = (blockIdx.x / C) * GBN;
   const int col = col0 + lane * 8;
-  const bool col_ok = col < OUT;
-  const int m0 = blockIdx.z * MR;
-  const int n16 = IN / GRP;  // 16-row steps, split over the cluster's blocks
-  const int r0 = (int)((long long)blockIdx.y * n16 / GSK) * GRP;
-  const int r1 = (int)((long long)(blockIdx.y + 1) * n16 / GSK) * GRP;
+  const bool col_ok = col < OUT;  // OUT % 8 == 0: a lane's 8 columns are all in or out
+  const int m0 = blockIdx.y * MR;
+  // the block's rows [k0, k0 + nk) and the warp's [r0, r1), in 16-row units
+  const int n16 = IN / UNIT;
+  const int u0 = (int)((long long)rank * n16 / C);
+  const int nu = (int)((long long)(rank + 1) * n16 / C) - u0;
+  const int k0 = u0 * UNIT, nk = nu * UNIT;
+  const int r0 = k0 + (warp * nu / GW) * UNIT;
+  const int n_st = ((warp + 1) * nu / GW - warp * nu / GW) * (UNIT / SR);
 
-  float acc[MR][8];
+  // stage i of the warp's rows into slot i % NS of its ring
+  unsigned char* ring = smem + warp * NS * STAGE;
+  auto issue = [&](int i) {
+    const int r = r0 + i * SR;
+    unsigned char* dst = ring + (i % NS) * STAGE;
+    if constexpr (WIDE) {  // 16 bytes a copy: two rows a warp instruction
+#pragma unroll
+      for (int c = 0; c < STAGE / 16 / 32; ++c) {
+        const int row = 2 * c + lane / 16;
+        const int cc = (lane % 16) * 16;
+        const bool ok = col0 + cc < OUT;  // OUT % 16 == 0
+        cp_async_z<16>(dst + row * GBN + cc, ok ? W + (size_t)(r + row) * OUT + col0 + cc : W,
+                       ok);
+      }
+    } else {  // rows are only 8-byte aligned: each lane copies its own columns
+#pragma unroll
+      for (int row = 0; row < SR; ++row)
+        cp_async_z<8>(dst + row * GBN + lane * 8, col_ok ? W + (size_t)(r + row) * OUT + col : W,
+                      col_ok);
+    }
+  };
+  // the scales of row r's group at this lane's 8 columns
+  float s[8];
+  auto fetch_scales = [&](int r) {
+    if (col_ok) {
+      const float4* sp = reinterpret_cast<const float4*>(Sc + (size_t)(r / group) * OUT + col);
+      const float4 a = __ldg(sp), b = __ldg(sp + 1);
+      s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+      s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j] = 0.f;
+    }
+  };
+
+#pragma unroll
+  for (int p = 0; p < NS - 1; ++p) {
+    if (p < n_st) issue(p);
+    cp_commit();
+  }
+  if (n_st > 0) fetch_scales(r0);
+
+  // the block's activation rows as fp32 [MR][nk], zeros past M, while the
+  // weights fly: 16-byte loads (k0 and IN are multiples of 16 rows)
+  constexpr int XV = 16 / sizeof(T);
+  const int nv = nk / XV;
+  for (int i = tid; i < MR * nv; i += GT) {
+    const int m = i / nv, k = (i % nv) * XV;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (m0 + m < M) raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * IN + k0 + k));
+    const T* e = reinterpret_cast<const T*>(&raw);
+    float4* d = reinterpret_cast<float4*>(xs + (size_t)m * nk + k);
+#pragma unroll
+    for (int j = 0; j < XV / 4; ++j)
+      d[j] = make_float4(to_float<T>(e[4 * j]), to_float<T>(e[4 * j + 1]),
+                         to_float<T>(e[4 * j + 2]), to_float<T>(e[4 * j + 3]));
+  }
+  __syncthreads();
+
+  float acc[MR][8], part[MR][8];
 #pragma unroll
   for (int m = 0; m < MR; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[m][j] = part[m][j] = 0.f;
 
-  for (int c0 = r0; c0 < r1; c0 += GCH) {
-    __syncthreads();
-    for (int i = tid; i < MR * GCH; i += GT) {
-      const int m = i / GCH;
-      const int c = c0 + i % GCH;
-      xs[i] = (m0 + m < M && c < r1) ? to_float<T>(x[(size_t)(m0 + m) * IN + c]) : 0.f;
-    }
-    __syncthreads();
-    const int p0 = c0 + warp * GRP;
-    if (col_ok && p0 < r1) {  // r1 - p0 is a multiple of 16: all 16 rows are ours
-      float s[8];
-      const float4* sp = reinterpret_cast<const float4*>(Sc + (size_t)(p0 / group) * OUT + col);
-      const float4 s0 = __ldg(sp), s1 = __ldg(sp + 1);
-      s[0] = s0.x; s[1] = s0.y; s[2] = s0.z; s[3] = s0.w;
-      s[4] = s1.x; s[5] = s1.y; s[6] = s1.z; s[7] = s1.w;
-      uint2 w[GRP];
+  for (int i = 0; i < n_st; ++i) {
+    cp_wait<NS - 2>();  // stage i has landed (for this lane's copies)
+    __syncwarp();       // ... and for the warp's; slot (i - 1) % NS is free
+    if (i + NS - 1 < n_st) issue(i + NS - 1);
+    cp_commit();
+    const unsigned char* st = ring + (i % NS) * STAGE + lane * 8;
+    const int r = r0 + i * SR;
 #pragma unroll
-      for (int r = 0; r < GRP; ++r)
-        w[r] = __ldg(reinterpret_cast<const uint2*>(W + (size_t)(p0 + r) * OUT + col));
-      const float* xw = xs + (p0 - c0);
+    for (int r4 = 0; r4 < SR; r4 += 4) {  // the MR activations of 4 rows: MR broadcasts
+      float4 xv[MR];
 #pragma unroll
-      for (int r = 0; r < GRP; ++r) {
-        float xm[MR];
+      for (int m = 0; m < MR; ++m)
+        xv[m] = *reinterpret_cast<const float4*>(xs + (size_t)m * nk + (r - k0) + r4);
 #pragma unroll
-        for (int m = 0; m < MR; ++m) xm[m] = xw[m * GCH + r];
+      for (int rr = 0; rr < 4; ++rr) {
+        const uint2 wv = *reinterpret_cast<const uint2*>(st + (r4 + rr) * GBN);
+        const uint32_t lo = wv.x ^ 0x80808080u, hi = wv.y ^ 0x80808080u;
+        float q[8];
+        q[0] = int8_at<0>(lo); q[1] = int8_at<1>(lo); q[2] = int8_at<2>(lo); q[3] = int8_at<3>(lo);
+        q[4] = int8_at<0>(hi); q[5] = int8_at<1>(hi); q[6] = int8_at<2>(hi); q[7] = int8_at<3>(hi);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int8_t q = static_cast<int8_t>(((j < 4 ? w[r].x : w[r].y) >> (8 * (j & 3))) & 0xFFu);
-          const float wf = static_cast<float>(q) * s[j];
+        for (int m = 0; m < MR; ++m) {
+          const float xm = rr == 0 ? xv[m].x : rr == 1 ? xv[m].y : rr == 2 ? xv[m].z : xv[m].w;
 #pragma unroll
-          for (int m = 0; m < MR; ++m) acc[m][j] = fmaf(xm[m], wf, acc[m][j]);
+          for (int j = 0; j < 8; ++j) part[m][j] = fmaf(xm, q[j], part[m][j]);
         }
       }
     }
-  }
-
-  // sum the block's warps, then the cluster's blocks
+    if ((r + SR) % group == 0 || i == n_st - 1) {  // the group ends: scale its sums once
 #pragma unroll
-  for (int m = 0; m < MR; ++m)
+      for (int m = 0; m < MR; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) red[(warp * MR + m) * GBN + lane * 8 + j] = acc[m][j];
-  __syncthreads();
-  for (int i = tid; i < MR * GBN; i += GT) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < GW; ++w) s += red[w * MR * GBN + i];
-    tile[i] = s;
-  }
-  cluster.sync();
-  if (cluster.block_rank() == 0) {
-    for (int i = tid; i < MR * GBN; i += GT) {
-      const int m = i / GBN, c = col0 + i % GBN;
-      if (m0 + m >= M || c >= OUT) continue;
-      float s = 0.f;
-      for (int q = 0; q < GSK; ++q) s += cluster.map_shared_rank(tile, q)[i];
-      out[(size_t)(m0 + m) * OUT + c] = from_float<T>(s);
+        for (int j = 0; j < 8; ++j) {
+          acc[m][j] = fmaf(s[j], part[m][j], acc[m][j]);
+          part[m][j] = 0.f;
+        }
+      if (i + 1 < n_st) fetch_scales(r + SR);
     }
   }
-  cluster.sync();  // every block's tile stays alive until block 0 has read it
+  cp_wait<0>();
+  __syncthreads();  // every warp is done with its ring
+
+  // sum the block's warps, then reduce-scatter the cluster's blocks
+  float* red = reinterpret_cast<float*>(smem);  // [GW][MR][GBN]
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    float4* d = reinterpret_cast<float4*>(red + (warp * MR + m) * GBN + lane * 8);
+    d[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    d[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+  }
+  __syncthreads();
+  for (int i = tid; i < MR * GBN; i += GT) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < GW; ++w) sum += red[w * MR * GBN + i];
+    tile[i] = sum;
+  }
+  cluster.sync();
+  const int c_lo = rank * GBN / C;
+  const int nc = (rank + 1) * GBN / C - c_lo;
+  for (int i = tid; i < MR * nc; i += GT) {
+    const int m = i / nc, c = c_lo + i % nc;
+    float v[MAX_SPLIT];  // every rank's value in flight at once, then summed in rank order
+#pragma unroll
+    for (int b = 0; b < MAX_SPLIT; ++b)
+      v[b] = b < C ? cluster.map_shared_rank(tile, b)[m * GBN + c] : 0.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int b = 0; b < MAX_SPLIT; ++b) sum += v[b];
+    if (m0 + m < M && col0 + c < OUT) out[(size_t)(m0 + m) * OUT + col0 + c] = from_float<T>(sum);
+  }
+  cluster.sync();  // every block's tile stays alive until the cluster has read it
+}
+
+template <typename T, int MR, bool WIDE>
+cudaError_t launch_int8_gemv(const T* x, const int8_t* W, const float* Sc, T* out, int M, int IN,
+                             int OUT, int group, int split, cudaStream_t stream) {
+  auto kernel = int8_gemv_kernel<T, MR, WIDE>;
+  const size_t smem = Gemv<MR>::bytes((IN / UNIT + split - 1) / split * UNIT);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  static const cudaError_t attr = [kernel] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((OUT + GBN - 1) / GBN * split, (M + MR - 1) / MR, 1);
+  cfg.blockDim = dim3(GT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = split;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, W, Sc, out, M, IN, OUT, group);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int MR>
-cudaError_t launch_int8_gemv(const T* x, const int8_t* W, const float* Sc, T* out, int M, int IN,
-                        int OUT, int group, cudaStream_t stream) {
-  constexpr size_t smem = gemv_smem_bytes<MR>();
-  static const cudaError_t attr = tg::allow_smem(int8_gemv_kernel<T, MR>, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((OUT + GBN - 1) / GBN, GSK, (M + MR - 1) / MR);
-  int8_gemv_kernel<T, MR><<<grid, GT, smem, stream>>>(x, W, Sc, out, M, IN, OUT, group);
-  return cudaGetLastError();
+cudaError_t launch_gemv(const T* x, const int8_t* W, const float* Sc, T* out, int M, int IN,
+                        int OUT, int group, int split, cudaStream_t stream) {
+  if (OUT % 16 == 0)
+    return launch_int8_gemv<T, MR, true>(x, W, Sc, out, M, IN, OUT, group, split, stream);
+  return launch_int8_gemv<T, MR, false>(x, W, Sc, out, M, IN, OUT, group, split, stream);
 }
 
 // -- M > 32 -----------------------------------------------------------------------
@@ -337,11 +511,12 @@ __global__ void __launch_bounds__(NTHREADS)
 
 template <typename T>
 cudaError_t launch(const void* xv, const int8_t* W, const float* Sc, void* outv, int M, int IN,
-                   int OUT, int group, cudaStream_t stream) {
+                   int OUT, int group, int split, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   T* out = static_cast<T*>(outv);
-  if (M <= 4) return launch_int8_gemv<T, 4>(x, W, Sc, out, M, IN, OUT, group, stream);
-  if (M <= 32) return launch_int8_gemv<T, 8>(x, W, Sc, out, M, IN, OUT, group, stream);
+  if (M <= 32 && (split < 1 || split > MAX_SPLIT)) return cudaErrorInvalidValue;
+  if (M <= 4) return launch_gemv<T, 4>(x, W, Sc, out, M, IN, OUT, group, split, stream);
+  if (M <= 32) return launch_gemv<T, 8>(x, W, Sc, out, M, IN, OUT, group, split, stream);
   constexpr size_t smem = tc_smem_bytes<T>();
   static const cudaError_t attr = tg::allow_smem(int8_mm_tc_kernel<T>, smem);
   if (attr != cudaSuccess) return attr;
@@ -356,18 +531,20 @@ extern "C" {
 
 // out [M, OUT] = x [M, IN] @ dequant(layer `layer` of data int8 [L, IN, OUT]
 // with scales fp32 [L, IN/group, OUT]), in x's type (dtype code: 0 fp32,
-// 2 bf16). Needs OUT % 8 == 0, group % 16 == 0 and IN % group == 0.
-// Returns the cudaError_t of the launch.
+// 2 bf16). Needs OUT % 8 == 0, group % 16 == 0 and IN % group == 0. At
+// M <= 32, `split` (1 to 16) is the GEMV's blocks a cluster, splitting IN
+// (ops/quant_kernels.gemv_split); larger M ignores it. Returns the
+// cudaError_t of the launch.
 int tg_int8_matmul(const void* x, const void* data, const void* scales, void* out, int M, int IN,
-                   int OUT, int group, int layer, int dtype, void* stream) {
+                   int OUT, int group, int layer, int dtype, int split, void* stream) {
   if (M <= 0 || IN <= 0 || OUT <= 0 || OUT % 8 || group <= 0 || group % 16 || IN % group)
     return cudaErrorInvalidValue;
   const int8_t* W = static_cast<const int8_t*>(data) + (size_t)layer * IN * OUT;
   const float* Sc = static_cast<const float*>(scales) + (size_t)layer * (IN / group) * OUT;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case tg::kF32: return launch<float>(x, W, Sc, out, M, IN, OUT, group, s);
-    case tg::kBF16: return launch<__nv_bfloat16>(x, W, Sc, out, M, IN, OUT, group, s);
+    case tg::kF32: return launch<float>(x, W, Sc, out, M, IN, OUT, group, split, s);
+    case tg::kBF16: return launch<__nv_bfloat16>(x, W, Sc, out, M, IN, OUT, group, split, s);
   }
   return cudaErrorInvalidValue;
 }

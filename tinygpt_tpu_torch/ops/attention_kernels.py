@@ -23,9 +23,10 @@ package keeps the newest tokens before they are merged into an fp8 cache
 
 K1 computes bf16 and fp16 queries on the tensor cores (P rounded to q's
 type before P V, fp32 softmax state; fp32 queries keep an FMA body). K13
-splits each row's visible slots over the blocks of a thread-block cluster
-of ``decode_split`` blocks and merges their softmax states in the same
-launch.
+and K2 (one kernel template, ``csrc/decode_split.cuh``) split each row's
+visible slots, K2's in-flight slots included, over the blocks of a
+thread-block cluster of ``decode_split`` blocks and merge their softmax
+states in the same launch.
 
 Each wrapper dispatches on the device of its tensors: on the CPU it runs
 its plain PyTorch version (``*_plain``), on a CUDA device it launches the
@@ -57,10 +58,10 @@ _MAX_GROUP = 16  # query heads per KV head the decode kernels (K2, K8, K9, K13) 
 # C signatures (csrc/*.cu): pointers, ints, scale, trailing ints, stream
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PREFILL_ARGS = [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P]
-_DECODE_ARGS = [_P] * 7 + [_I] * 10 + [_F, _I, _P]
+_DECODE_ARGS = [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P]
 _DECODE_ONE_ARGS = [_P] * 5 + [_I] * 7 + [_F, _I, _P]
 
-# K13's split over the slots (csrc/flash_decode.cu): a tile is 32 slots (one
+# K13's and K2's split over the slots (csrc/decode_split.cuh): a tile is 32 slots (one
 # 32-bit word of the mask's bits), a block's share at least _SPLIT_MIN_TILES
 # tiles unless the visible span is shorter, a cluster at most
 # _SPLIT_MAX_BLOCKS blocks (the portable cluster size)
@@ -314,12 +315,13 @@ def flash_decode_frozen(
                              "tg_flash_decode_frozen", _DECODE_ARGS)
     out = torch.empty_like(q)
     win = int(window) if window else 0
+    C = decode_split(B, Nk, Nq // Nk, T + N, _sm_count(q.device.index or 0))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_ptr(q), _ptr(k_stack), _ptr(v_stack), _ptr(mask),
                  _ptr(k_infl), _ptr(v_infl), _ptr(out),
                  B, Nq, Nk, T, N, D, _DTYPE_CODE[q.dtype], kv_code, int(l), int(step),
-                 float(scale), win, ctypes.c_void_p(stream))
+                 float(scale), win, C, ctypes.c_void_p(stream))
     cuda_build.check("flash_decode_frozen.cu", err, "flash_decode_frozen")
     LAUNCHES["flash_decode_frozen"] += 1
     return out
@@ -350,13 +352,15 @@ def group_tile(G: int) -> int:
     return next(gt for gt in range(min(G, _MAX_GROUP_TILE), 0, -1) if G % gt == 0)
 
 
+@functools.lru_cache(maxsize=1024)  # a few cache lengths a run; called every launch
 def decode_split(B: int, Nk: int, G: int, T: int, sms: int = 132) -> int:
-    """K13's split plan: the blocks C of each (batch row, KV head, group
-    tile)'s cluster. Enough blocks to fill the card's `sms` SMs, at most
-    8, and no more than the T slots can give shares of at least 64 slots.
-    The host knows T, not the visible span (reading the mask would
-    synchronise the stream): each block cuts the span it finds in the mask
-    into at most C shares of at least _SPLIT_MIN_TILES tiles."""
+    """K13's and K2's split plan: the blocks C of each (batch row, KV head,
+    group tile)'s cluster. Enough blocks to fill the card's `sms` SMs, at
+    most 8, and no more than the T slots can give shares of at least 64
+    slots (K2 passes its frozen slots plus its N in-flight ones). The host
+    knows T, not the visible span (reading the mask would synchronise the
+    stream): each block cuts the span it finds in the mask into at most C
+    shares of at least _SPLIT_MIN_TILES tiles."""
     groups = B * Nk * (G // group_tile(G))
     tiles = -(-T // _SPLIT_TILE)
     return max(1, min(_SPLIT_MAX_BLOCKS, sms // max(groups, 1),

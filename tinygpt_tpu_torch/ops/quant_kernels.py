@@ -30,11 +30,13 @@ rules the Hopper kernels do have are checked in ``_check_weight``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from tinygpt_tpu_torch.ops.attention_kernels import LAUNCHES, _ptr
+from tinygpt_tpu_torch.ops.attention_kernels import LAUNCHES, _ptr, _sm_count
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 _ROPE_DIMS = (32, 64, 128)  # head dims the fused RoPE epilogue takes
@@ -42,8 +44,20 @@ MAX_DECODE_ROWS = 32        # rows of the decode-shaped kernels (K6, K7)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _MATMUL_ARGS = [_P] * 4 + [_I] * 6 + [_P]
+_INT8_MATMUL_ARGS = [_P] * 4 + [_I] * 7 + [_P]  # and the GEMV's split
 _FUSED_ARGS = [_P] * 12 + [_I] * 10 + [_F, _I, _P]
 _MLP_ARGS = [_P] * 9 + [_I] * 8 + [_P]
+
+# the int8 GEMV's split (csrc/int8_matmul.cu, M <= 32): a block owns
+# _GEMV_COLS columns of up to 4 (M <= 4) or 8 activation rows; the blocks of
+# a cluster split IN in _GEMV_UNIT-row units, a cluster of one of
+# _GEMV_SPLITS blocks (a non-portable cluster above 8), each block staging
+# at most about _GEMV_MAX_ROWS rows of activations in shared memory
+_GEMV_COLS = 256
+_GEMV_UNIT = 16
+_GEMV_SPLITS = (1, 2, 4, 6, 8, 12, 16)
+_GEMV_BLOCKS_PER_SM = 0.75
+_GEMV_MAX_ROWS = 4096
 
 
 def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -230,6 +244,24 @@ _MATMUL_LIBS = {8: ("int8_matmul.cu", "tg_int8_matmul"),
                 4: ("int4_matmul.cu", "tg_int4_matmul")}
 
 
+@functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
+def gemv_split(M: int, IN: int, OUT: int, sms: int = 132) -> int:
+    """The int8 GEMV's split plan (M <= 32): the blocks C of each cluster,
+    which split IN between them. The size in _GEMV_SPLITS nearest (by
+    ratio) to _GEMV_BLOCKS_PER_SM blocks for each of the card's `sms` SMs
+    (the blocks are the column tiles times the row tiles of M, times C),
+    but enough that no block stages more than _GEMV_MAX_ROWS activation
+    rows, and at most one a 16-row unit of IN. On the H100 a sweep of C
+    from 1 to 16 (chip_smoke.py's int8 phase times the plan against the
+    other sizes) put the fastest split near three blocks for four SMs, and
+    clusters of 3, 5, 7 and 9 to 11 blocks slower than their neighbours."""
+    tiles = -(-OUT // _GEMV_COLS) * -(-M // (4 if M <= 4 else 8))
+    want = _GEMV_BLOCKS_PER_SM * sms / tiles
+    fits = [c for c in _GEMV_SPLITS if c * _GEMV_MAX_ROWS >= IN] or [_GEMV_SPLITS[-1]]
+    C = min(fits, key=lambda c: abs(math.log(c / want)))
+    return max(1, min(C, IN // _GEMV_UNIT))
+
+
 def _launch_matmul(name, x, data, scales, l, group, bits):
     L, IN, OUT = _check_weight(name, x, data, scales, group, bits)
     M = x.shape[0]
@@ -243,11 +275,16 @@ def _launch_matmul(name, x, data, scales, l, group, bits):
     from tinygpt_tpu_torch.ops import cuda_build
 
     source, symbol = _MATMUL_LIBS[bits]
-    fn = cuda_build.function(source, symbol, _MATMUL_ARGS)
     out = torch.empty((M, OUT), dtype=x.dtype, device=x.device)
+    args = [_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group, int(l),
+            _DTYPE_CODE[x.dtype]]
+    if bits == 8:
+        fn = cuda_build.function(source, symbol, _INT8_MATMUL_ARGS)
+        args.append(gemv_split(M, IN, OUT, _sm_count(x.device.index or 0)))
+    else:
+        fn = cuda_build.function(source, symbol, _MATMUL_ARGS)
     with torch.cuda.device(x.device):
-        err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group,
-                 int(l), _DTYPE_CODE[x.dtype], _stream(x.device))
+        err = fn(*args, _stream(x.device))
     cuda_build.check(source, err, name)
     LAUNCHES[name] += 1
     return out
