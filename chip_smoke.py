@@ -141,7 +141,6 @@ result.
 
 from __future__ import annotations
 
-import functools
 import json
 import math
 import os
@@ -207,7 +206,11 @@ GPT2_LOGIT_TOL_BF16 = 0.1
 QUANT_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 INT4_GROUP = 64  # the JAX engine's int4 default for dense models
 INT8_GROUP = 128  # its int8 default
-LIB_LAYERS = 4  # bf16 layers the int8 phase's cuBLAS yardstick walks (> the 50 MB L2)
+LIB_LAYERS = 4  # bf16 layers the cuBLAS yardstick walks (> the 50 MB L2)
+# rows of x at which the prefill regime (M > 32) of K5a and K5b is checked
+# and timed beside the 4 x 512 prefill: a speculative verify round (16 rows
+# x 5) and one admitted 512-token request
+PREFILL_ROWS = (80, 512)
 DECODE_CHUNK = 32
 N_CHUNKS = 2
 PROFILE_STEPS = 8  # decode steps traced by torch.profiler (model phase)
@@ -489,12 +492,13 @@ def _demangle(names) -> dict:
 
 def _attention_reports() -> None:
     """The redesigned kernels' instantiations at the main path's types (K1,
-    K13, K2 and the int8 GEMV of K3/K5a): registers, spills and static
-    shared memory (ptxas -v; their shared-memory rings are dynamic, sized
-    at launch as the sources' head notes give them); and the Hopper
-    instructions in their machine code (cuobjdump -sass): wgmma (HGMMA) and
-    TMA loads (UTMALDG) in K1, cluster barriers (UCGABAR) in K13, K2 and
-    the GEMV, and the GEMV's cp.async copies (LDGSTS)."""
+    K13, K2, the int8 GEMV of K3/K5a and the prefill kernel of K5a/K5b):
+    registers, spills and static shared memory (ptxas -v; their
+    shared-memory rings are dynamic, sized at launch as the sources' head
+    notes give them); and the Hopper instructions in their machine code
+    (cuobjdump -sass): wgmma (HGMMA) and TMA loads (UTMALDG) in K1 and the
+    prefill kernel, cluster barriers (UCGABAR) in K13, K2, the GEMV and the
+    prefill kernel's split, and the GEMV's cp.async copies (LDGSTS)."""
     from tinygpt_tpu_torch.ops import cuda_build
 
     wanted = {
@@ -508,10 +512,16 @@ def _attention_reports() -> None:
             "split_decode_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4, true>"),
         "int8_matmul.cu": ("int8_gemv_kernel<__nv_bfloat16, 4, true>",
                            "int8_gemv_kernel<__nv_bfloat16, 8, true>",
-                           "int8_gemv_kernel<float, 4, true>"),
+                           "int8_gemv_kernel<float, 4, true>",
+                           "dequant_mm_tc<tg::dqmm::Int8, 256>",
+                           "dequant_mm_tc<tg::dqmm::Int8, 128>"),
+        "int4_matmul.cu": ("dequant_mm_tc<tg::dqmm::Int4, 256>",
+                           "dequant_mm_tc<tg::dqmm::Int4, 128>"),
     }
     ops = {"flash_prefill.cu": ("HGMMA", "UTMALDG"), "flash_decode.cu": ("UCGABAR",),
-           "flash_decode_frozen.cu": ("UCGABAR",), "int8_matmul.cu": ("UCGABAR", "LDGSTS")}
+           "flash_decode_frozen.cu": ("UCGABAR",),
+           "int8_matmul.cu": ("UCGABAR", "LDGSTS", "HGMMA", "UTMALDG"),
+           "int4_matmul.cu": ("HGMMA", "UTMALDG", "UCGABAR")}
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     for src, kernels in wanted.items():
         entries = _ptxas_entries(cuda_build.build_log(src))
@@ -892,16 +902,129 @@ def _time_layers(fn, L, iters):
     return cuda_time_ms(lambda: fn(next(layers) % L), iters=iters)
 
 
+def _dequant_weight(data, scales, group, l):
+    """Layer l of an int8 [L, IN, OUT] or packed int4 [L, IN/2, OUT] stack,
+    dequantized to bf16 (the cuBLAS yardstick's weight)."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    q = data[l] if data.shape[1] == scales.shape[1] * group else qk.unpack_int4(data[l])
+    return qk.dequant_fp32(q, scales[l], group).to(torch.bfloat16)
+
+
+def _time_dequant_mm(tag, name, key, M, data, scales, group, weight, check, library=None,
+                     one_layer=False):
+    """A dequant matmul (`name`: K5a or K5b, or with one_layer K3 or K4 on
+    layer l of the stack) at M rows of x over the stack (data, scales):
+    held against its plain version in bf16 and fp32 at the first and last
+    layer (check(name, label, dtype, got, want) -> (err, tol)), then timed
+    in bf16 by graph_ms (at least 30 calls walking the stack's layers)
+    beside cuBLAS on the weight dequantized to bf16 beforehand (walking
+    LIB_LAYERS layers) and, where given, library(x, l) -> (call, why);
+    beside them the host's microseconds a decode-shaped call. Each median
+    reading is held against its own bound: a time below the least time
+    the card could take is a fault of the timing. Returns the kernel
+    table's row (weight, ms, plain, bound, bound_by, library ms, err, tol)
+    with the cuBLAS ms last, the bf16 x and the case's label."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    kern, plain = getattr(qk, name), getattr(qk, name + "_plain")
+    if one_layer:
+        kern, plain = ((lambda x, d, s, l, g, f=f: f(x, d[l], s[l], g)) for f in (kern, plain))
+    Ls, rows, OUT = data.shape
+    IN = scales.shape[1] * group
+    label = f"{key} M={M} {IN}->{OUT}"
+    xs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gx = torch.Generator(device=DEVICE).manual_seed(1000 + M)
+        xs[dt] = torch.randn((M, IN), generator=gx, device=DEVICE).to(dt)
+        for l in sorted({0, Ls - 1}):
+            err, tol = check(name, label, dt, kern(xs[dt], data, scales, l, group),
+                             plain(xs[dt], data, scales, l, group))
+    xb = xs[torch.bfloat16]
+    n_calls = max(30, 3 * Ls)
+    r_k = graph_ms(lambda i: kern(xb, data, scales, i % Ls, group), n_calls)
+    t_p = cuda_time_ms(lambda: plain(xb, data, scales, Ls - 1, group), iters=3, warmup=1)
+    nl = min(Ls, LIB_LAYERS)
+    ws = [_dequant_weight(data, scales, group, l) for l in range(nl)]
+    r_cub = graph_ms(lambda i: torch.matmul(xb, ws[i % nl]), max(30, 3 * nl))
+    cub_b = bound_ms(_nbytes(xb, ws[0]) + M * OUT * 2, 2.0 * M * IN * OUT, "bfloat16")[0]
+    del ws
+    b_ms, b_by = bound_ms(_nbytes(xb, data[0], scales[0]) + M * OUT * 2, 2.0 * M * IN * OUT,
+                          "bfloat16")
+    t_k, t_cub = statistics.median(r_k), statistics.median(r_cub)
+    for what, t, b in (("kernel", t_k, b_ms), ("cuBLAS", t_cub, cub_b)):
+        if t < b:
+            raise PhaseError(f"{name} {label}: the {what}'s reading {t:.4f} ms is below its "
+                             f"bound {b:.4f} ms")
+    t_lib, why = None, ""
+    if library is not None:
+        call, why = library(xb, Ls - 1)
+        if call is not None:
+            t_lib = statistics.median(graph_ms(lambda i: call(), 30, reps=3))
+            why = f"{t_lib:.4f} ms"
+        why = f" _weight_int4pack_mm {why}"
+    if M > qk.MAX_DECODE_ROWS:
+        extra = f" plan (tile, split) {qk.dequant_mm_plan(M, IN, OUT, 8 if rows == IN else 4)}"
+    else:
+        extra = f" host {host_us(lambda i: kern(xb, data, scales, i % Ls, group)):.1f} us a call"
+    log(f"[{tag}] {name} {label}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
+        f"{_spread(r_k)} ms over {n_calls} calls plain {t_p:.4f} ms bound {b_ms:.4f} ms "
+        f"({b_by}) cuBLAS on the bf16-dequantized weight {_spread(r_cub)} ms (its own bound "
+        f"{cub_b:.4f} ms; kernel/cuBLAS {t_k / t_cub:.3f}){why}{extra}")
+    row = (weight, t_k, t_p, b_ms, b_by, t_lib if library is not None else t_cub, err, tol,
+           t_cub)
+    return row, xb, label
+
+
+def _check_dequant_mm(name, key, M, data, scales, group, check) -> None:
+    """K5a or K5b at M rows of x held against its plain version, bf16 and
+    fp32, at the stack's first and last layer (no timing): the prefill
+    regime's smallest row count on the main path's shapes."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    kern, plain = getattr(qk, name), getattr(qk, name + "_plain")
+    Ls, _, OUT = data.shape
+    IN = scales.shape[1] * group
+    gx = torch.Generator(device=DEVICE).manual_seed(1000 + M)
+    x32 = torch.randn((M, IN), generator=gx, device=DEVICE)
+    for dt in (torch.float32, torch.bfloat16):
+        for l in sorted({0, Ls - 1}):
+            check(name, f"{key} M={M} {IN}->{OUT}", dt, kern(x32.to(dt), data, scales, l, group),
+                  plain(x32.to(dt), data, scales, l, group))
+
+
+def _regime_rows(tag, name, rs, decode_m, prefill_m) -> None:
+    """The kernel's two regimes (PERF.md's per-regime rows of the kernel
+    table): the mean over the layer's four matmuls of its per-shape rows
+    `rs` ((row, M) pairs, the row as _time_dequant_mm returns it) at the
+    decode step's rows (M <= 32) and at the prefill's (M > 32)."""
+    for regime, m in (("M <= 32", decode_m), ("M > 32", prefill_m)):
+        sel = [r for r, mm in rs if mm == m]
+        mean = [statistics.fmean(r[i] for r in sel) for i in (1, 2, 3, 8)]
+        log(f"[{tag}] {name} {regime} (M = {m}): mean over {len(sel)} shapes: kernel "
+            f"{mean[0]:.4f} ms plain {mean[1]:.4f} ms bound {mean[2]:.4f} ms cuBLAS "
+            f"{mean[3]:.4f} ms")
+
+
 def phase_int4_kernels(table: dict) -> None:
     """K4, K5b, K6 and K7 against their plain versions on the card, at the
     int4 main path's shapes (Mistral-7B widths, group 64): bf16 and fp32,
     every K6 variant the path uses (and the silu + res one of the two-call
     MLP). Times the bf16 calls beside their bound, the plain version, the
     library call where one exists, and x @ w on the dequantized bf16
-    weight (which moves about 3.6x the bytes). A table row's numbers are
-    means per launch over the path's mix of shapes (K5b: one layer's four
-    prefill matmuls; K6: a decode step's 32 qkv, 32 o and one head call),
-    so that ms x launches is the kernel's time per prefill or step."""
+    weight (which moves about 3.6x the bytes). K5b is checked and timed
+    (_time_dequant_mm: graph_ms, cuBLAS and _weight_int4pack_mm beside) at
+    the prefill's M = 2048, at PREFILL_ROWS and at M = 4. A table row's
+    numbers are means per launch over the path's mix of shapes (K5b: one
+    layer's four prefill matmuls; K6: a decode step's 32 qkv, 32 o and one
+    head call), so that ms x launches is the kernel's time per prefill or
+    step."""
     import torch
 
     from tinygpt_tpu_torch.ops import quant_kernels as qk
@@ -972,18 +1095,23 @@ def phase_int4_kernels(table: dict) -> None:
         w = qk.dequant_fp32(qk.unpack_int4(data), scales, G).to(torch.bfloat16)
         return lambda: x @ w
 
-    # K5b: the prefill's four layer matmuls at M = 4 x 512
+    # K5b: the prefill's four layer matmuls at M = 4 x 512 (the mix), and
+    # at PREFILL_ROWS and one decode row block (M = 4, the int4 GEMV)
+    k5b_rows = []
     for key, (IN, OUT) in (("qkv", (H, (Nq + 2 * Nk) * D)), ("o", (Nq * D, H)),
                            ("gate_up", (H, 2 * I)), ("down", (I, H))):
         data, scales = stacks[key]
-        xs = {dt: x_of(dt, M_pre, IN, 11) for dt in (torch.float32, torch.bfloat16)}
-        run("matmul_dequant_int4_stacked", f"{key} M={M_pre} {IN}->{OUT}", 1,
-            lambda dt, l, d=data, s=scales, xs=xs: (xs[dt], d, s, l, G),
-            qk.matmul_dequant_int4_stacked, qk.matmul_dequant_int4_stacked_plain,
-            _nbytes(xs[torch.bfloat16], data[0], scales[0]) + M_pre * OUT * 2,
-            2.0 * M_pre * IN * OUT, L,
-            library=lambda a: _int4pack_library(a[0], a[1][a[3]], a[2][a[3]], G),
-            deq=lambda a: deq_mm(a[0], a[1][a[3]], a[2][a[3]]))
+        for M in (B,) + PREFILL_ROWS + (M_pre,):
+            row, xb, label = _time_dequant_mm(
+                "int4", "matmul_dequant_int4_stacked", key, M, data, scales, G,
+                1 if M == M_pre else 0, check,
+                library=lambda x, l, d=data, s=scales: _int4pack_library(x, d[l], s[l], G))
+            k5b_rows.append((row, M))
+            if M in PREFILL_ROWS:
+                _dequant_mm_split_sweep("int4", label, 4, xb, data, scales, G)
+        _check_dequant_mm("matmul_dequant_int4_stacked", key, 33, data, scales, G, check)
+    rows["matmul_dequant_int4_stacked"] = [r[:-1] for r, _ in k5b_rows]
+    _regime_rows("int4", "matmul_dequant_int4_stacked", k5b_rows, B, M_pre)
 
     # K4: the prefill's lm_head, M = 4
     hd, hs = stacks["head"]
@@ -1088,8 +1216,9 @@ def _int8_stack(g, L, IN, OUT, group, dev=None):
 def phase_int8_kernels(table: dict) -> None:
     """K3 and K5a against their plain versions on the card, bf16 and fp32:
     at the int8 main path's shapes (Mistral-7B widths, group 128; K5a's
-    four layer matmuls at M = 4, a decode step, and M = 2048, the prefill;
-    K3 the head at M = 4), and beside them at IN = 896 (7 groups) and 64,
+    four layer matmuls at M = 4, a decode step, and M = 2048, the prefill,
+    and beside them at PREFILL_ROWS; K3 the head at M = 4), and beside them
+    at IN = 896 (7 groups) and 64,
     M = 1, 4, 32, 33 and 2048. Times the bf16 calls beside their bound,
     the plain version and the library call: cuBLAS (torch.matmul) on the
     weight dequantized to bf16 beforehand, outside the timed call. Kernel
@@ -1097,9 +1226,10 @@ def phase_int8_kernels(table: dict) -> None:
     a stack larger than the 50 MB L2 cache (K5a its 32 layers, K3 three
     copies of the head, 402 MB; cuBLAS LIB_LAYERS dequantized layers, or
     the three heads), five readings, their median kept and their spread
-    printed; beside it the host's microseconds a decode-shaped call. The
-    table rows are launch-weighted means over the main path's mix (64
-    decode steps to one prefill)."""
+    printed, each median held against its own bound; beside it the host's
+    microseconds a decode-shaped call. The table rows are launch-weighted
+    means over the main path's mix (64 decode steps to one prefill); the
+    two regimes (M = 4 and M = 2048) are logged apart."""
     import torch
 
     from tinygpt_tpu_torch.ops import quant_kernels as qk
@@ -1129,7 +1259,7 @@ def phase_int8_kernels(table: dict) -> None:
             raise PhaseError(f"{name} {label} {dname}: max_abs_err {err} > {tol}")
         return err, tol
 
-    # the main path's shapes: (name, label, weight in the mix, stack, M)
+    # the main path's shapes
     stacks = {
         "qkv": _int8_stack(g, L, H, (Nq + 2 * Nk) * D, G),
         "o": _int8_stack(g, L, Nq * D, H, G),
@@ -1137,52 +1267,28 @@ def phase_int8_kernels(table: dict) -> None:
         "down": _int8_stack(g, L, I, H, G),
         "head": _int8_stack(g, 3, H, V, G),   # three copies: K3 takes one a call
     }
-    cases = [("matmul_dequant_int8_stacked", key, L * w, key, M)
-             for key in ("qkv", "o", "gate_up", "down")
-             for M, w in ((B, steps), (M_pre, 1))]
-    cases.append(("matmul_dequant_int8", "head", 1 + steps, "head", B))
-    for name, key, weight, skey, M in cases:
-        data, scales = stacks[skey]
-        Ls, IN, OUT = data.shape
-        xs = {dt: x_of(dt, M, IN, M) for dt in dts}
-        def call(fn, x, l, data=data, scales=scales, stacked=name.endswith("stacked")):
-            if stacked:
-                return fn(x, data, scales, l, G)
-            return fn(x, data[l], scales[l], G)   # K3: the head, a one-layer stack
-
-        kern = functools.partial(call, getattr(qk, name))
-        plain = functools.partial(call, getattr(qk, name + "_plain"))
-        label = f"{key} M={M} {IN}->{OUT}"
-        for dt in dts:
-            for l in sorted({0, Ls - 1}):
-                err, tol = check(name, label, dt, kern(xs[dt], l), plain(xs[dt], l))
-        xb = xs[torch.bfloat16]
-        n_calls = max(30, 3 * Ls)
-        r_k = graph_ms(lambda i: kern(xb, i % Ls), n_calls)
-        t_p = cuda_time_ms(lambda: plain(xb, Ls - 1), iters=3, warmup=1)
-        # the library call walks LIB_LAYERS dequantized layers (the three
-        # heads), as the kernel walks the stack: either reads its weight
-        # cold from device memory
-        nl = min(Ls, LIB_LAYERS)
-        ws = [qk.dequant_fp32(data[l], scales[l], G).to(torch.bfloat16) for l in range(nl)]
-        r_lib = graph_ms(lambda i: torch.matmul(xb, ws[i % nl]), max(30, 3 * nl))
-        lib_b = bound_ms(_nbytes(xb, ws[0]) + M * OUT * 2, 2.0 * M * IN * OUT,
-                         "bfloat16")[0]
-        del ws
-        t_k, t_lib = statistics.median(r_k), statistics.median(r_lib)
-        nbytes = _nbytes(xb, data[0], scales[0]) + M * OUT * 2
-        b_ms, b_by = bound_ms(nbytes, 2.0 * M * IN * OUT, "bfloat16")
-        host = (f" host {host_us(lambda i: kern(xb, i % Ls)):.1f} us a call"
-                if M <= qk.MAX_DECODE_ROWS else "")
-        log(f"[int8] {name} {label}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
-            f"{_spread(r_k)} ms over {n_calls} calls plain {t_p:.4f} ms bound {b_ms:.4f} ms "
-            f"({b_by}) cuBLAS on the bf16-dequantized weight {_spread(r_lib)} ms (its own "
-            f"bound {lib_b:.4f} ms){host}")
-        rows.setdefault(name, []).append((weight, t_k, t_p, b_ms, b_by, t_lib, err, tol))
-        if M == B:
-            _gemv_split_sweep(label, xb, data, scales, G)
+    regimes = []   # (row, M) of K5a's cases
+    for key in ("qkv", "o", "gate_up", "down"):
+        data, scales = stacks[key]
+        for M, w in ((B, steps),) + tuple((m, 0) for m in PREFILL_ROWS) + ((M_pre, 1),):
+            row, xb, label = _time_dequant_mm("int8", "matmul_dequant_int8_stacked", key, M,
+                                              data, scales, G, L * w, check)
+            rows.setdefault("matmul_dequant_int8_stacked", []).append(row[:-1])
+            regimes.append((row, M))
+            if M == B:
+                _gemv_split_sweep(label, xb, data, scales, G)
+            if M in PREFILL_ROWS:
+                _dequant_mm_split_sweep("int8", label, 8, xb, data, scales, G)
+        _check_dequant_mm("matmul_dequant_int8_stacked", key, 33, data, scales, G, check)
+    # K3: the head, a one-layer stack; three copies walked (402 MB, past the L2)
+    data, scales = stacks["head"]
+    row, xb, label = _time_dequant_mm("int8", "matmul_dequant_int8", "head", B, data, scales,
+                                      G, 1 + steps, check, one_layer=True)
+    rows["matmul_dequant_int8"] = [row[:-1]]
+    _gemv_split_sweep(label, xb, data, scales, G)
     del stacks
     torch.cuda.empty_cache()
+    _regime_rows("int8", "matmul_dequant_int8_stacked", regimes, B, M_pre)
 
     # beside the main path: contraction dims the GEMV splits unevenly over
     # its 8 blocks (896 = 7 groups of 128; 64, one group of 64), and every
@@ -1218,14 +1324,14 @@ def _gemv_split_sweep(label, x, data, scales, group) -> None:
     from tinygpt_tpu_torch.ops import quant_kernels as qk
     from tinygpt_tpu_torch.ops.attention_kernels import _ptr, _sm_count
 
-    fn = cuda_build.function("int8_matmul.cu", "tg_int8_matmul", qk._INT8_MATMUL_ARGS)
+    fn = cuda_build.function("int8_matmul.cu", "tg_int8_matmul", qk._MATMUL_ARGS)
     M = x.shape[0]
     L, IN, OUT = data.shape
     out = torch.empty(M, OUT, dtype=x.dtype, device=x.device)
 
     def call(l, C):
         err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group, l,
-                 qk._DTYPE_CODE[x.dtype], C, qk._stream(x.device))
+                 qk._DTYPE_CODE[x.dtype], C, 0, qk._stream(x.device))
         cuda_build.check("int8_matmul.cu", err, "tg_int8_matmul")
 
     times, refused = {}, []
@@ -1246,6 +1352,38 @@ def _gemv_split_sweep(label, x, data, scales, group) -> None:
         + f" ms; the plan's C={plan} {times[plan]:.4f}, the fastest C={best} "
         f"({times[plan] / times[best]:.3f}x)"
         + (f"; refused (shared memory): C={refused}" if refused else ""))
+
+
+def _dequant_mm_split_sweep(tag, label, bits, x, data, scales, group) -> None:
+    """The prefill regime (M > 32, bf16) through its C entry point at the
+    plan's tile and every split from 1 to 8 (the kernel's limit), walking
+    the stack's layers, beside the plan's own pick: the check on
+    quant_kernels.dequant_mm_plan."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+    from tinygpt_tpu_torch.ops.attention_kernels import _ptr, _sm_count
+
+    source, symbol = qk._MATMUL_LIBS[bits]
+    fn = cuda_build.function(source, symbol, qk._MATMUL_ARGS)
+    M, IN = x.shape
+    L, _, OUT = data.shape
+    tile, plan = qk.dequant_mm_plan(M, IN, OUT, bits, _sm_count(x.device.index or 0))
+    out = torch.empty(M, OUT, dtype=x.dtype, device=x.device)
+
+    def call(l, C):
+        err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group, l,
+                 qk._DTYPE_CODE[x.dtype], C, tile, qk._stream(x.device))
+        cuda_build.check(source, err, symbol)
+
+    times = {C: statistics.median(graph_ms(lambda i: call(i % L, C), 30, reps=3))
+             for C in range(1, 9)}
+    best = min(times, key=times.get)
+    log(f"[{tag}] split sweep {label} (tile {tile}): "
+        + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
+        + f" ms; the plan's C={plan} {times[plan]:.4f}, the fastest C={best} "
+        f"({times[plan] / times[best]:.3f}x)")
 
 
 # -- paged frozen-pool decode kernel (K8) ------------------------------------------
@@ -2060,9 +2198,9 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
             groups["flash_decode_frozen" if k2 else "flash_decode (K13)"] += us
         elif "moe_gather" in key:
             groups["gathered experts (K12, K11a, K11b)"] += us
-        elif "int4" in key:
+        elif "int4" in key.lower():  # the prefill kernel's converter is dqmm::Int4
             groups["int4 (K4-K7)"] += us
-        elif "int8" in key:
+        elif "int8" in key.lower():
             groups["int8 (K5a, K3)"] += us
         elif any(w in key.lower() for w in ("gemm", "nvjet", "cutlass", "gemv")):
             groups["GEMM (cuBLAS)"] += us
@@ -2847,7 +2985,7 @@ def phase_spec_serve(table: dict, params) -> None:
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy = sum(us for us, _, _ in kernels)
         k10 = sum(us for us, _, k in kernels if "paged_decode_spec" in k)
-        k5b = sum(us for us, _, k in kernels if "int4" in k)
+        k5b = sum(us for us, _, k in kernels if "int4" in k.lower())
         if busy:
             log(f"[spec_serve] one speculative quantum (1 round of {SPEC['draft_len'] + 1} "
                 f"verify positions) at {s['capacity']} live rows under the profiler: wall "
@@ -2892,8 +3030,9 @@ def phase_spec_serve(table: dict, params) -> None:
 def _gpt2_quant_kernels(qparams, bits, Ms) -> None:
     """K5a (int8) or K5b (int4) against its plain version on GPT-2 124M's
     own quantized layer stacks (qkv 768->2304, o 768->768, fc 768->3072,
-    proj 3072->768) at the path's row counts Ms (a decode step's and the
-    prefill's), bf16 and fp32 activations, the first and the last layer;
+    proj 3072->768) at the row counts Ms (a decode step's, the prefill's
+    and the prefill regime's edges between), bf16 and fp32 activations,
+    the first and the last layer;
     each within QUANT_TOL of its largest output, as in the int8 and int4
     phases."""
     import torch
@@ -2994,7 +3133,7 @@ def phase_gpt2(table: dict):
         name = f"matmul_dequant_int{bits}_stacked"
         with torch.inference_mode():
             q = quantize_params(params, bits=bits, group_size=group)
-            _gpt2_quant_kernels(q, bits, (B, B * S))
+            _gpt2_quant_kernels(q, bits, (B, 33) + PREFILL_ROWS + (B * S,))
             plain = _run_route(q, cfg, batch, T, "plain", model=gpt2)
             _run_route(q, cfg, batch, T, "kernel", force=plain[1], model=gpt2)  # warm-up
             ak.reset_launches()

@@ -636,13 +636,119 @@ def test_int8_gemv_split_edges_match_plain(dev, case):
         got = qk.matmul_dequant_int8_stacked(x, data, scales, 1, g)
         assert ak.LAUNCHES["matmul_dequant_int8_stacked"] == 1
     else:  # the entry point itself, at a split the plan would not pick
-        fn = cuda_build.function("int8_matmul.cu", "tg_int8_matmul", qk._INT8_MATMUL_ARGS)
+        fn = cuda_build.function("int8_matmul.cu", "tg_int8_matmul", qk._MATMUL_ARGS)
         got = torch.empty(M, OUT, dtype=dtype, device=dev)
         err = fn(ak._ptr(x), ak._ptr(data), ak._ptr(scales), ak._ptr(got), M, IN, OUT, g, 1,
-                 qk._DTYPE_CODE[dtype], split, qk._stream(x.device))
+                 qk._DTYPE_CODE[dtype], split, 0, qk._stream(x.device))
         cuda_build.check("int8_matmul.cu", err, "tg_int8_matmul")
     torch.cuda.synchronize()
     _qclose(got, want, dtype, f"M={M} IN={IN} OUT={OUT} split={split}")
+
+
+# the prefill regime's plan (M > 32, bf16: csrc/dequant_mm_tc.cuh): one and
+# two row tiles of 128 and 256 rows of x (M = 33, 64, 65, 80, 129, 512,
+# 2048), splits of the k walk over a cluster (the plan's, and every one
+# through the entry point), OUT % 16 == 8 (weight rows copied by cp.async,
+# not TMA), last stages shorter than 64 rows (IN = 80, 896), groups of 16
+# to 128, every layer of the stack
+DEQUANT_MM_EDGES = [
+    # (bits, M, IN, OUT, group, L)
+    (8, 33, 896, 136, 128, 2),
+    (8, 64, 80, 264, 16, 3),
+    (8, 65, 4096, 6144, 128, 2),     # Mistral-7B qkv
+    (8, 80, 14336, 4096, 128, 2),    # Mistral-7B down at a verify round
+    (8, 129, 64, 200, 32, 2),
+    (8, 512, 4096, 4096, 128, 2),
+    (8, 2048, 4096, 1024, 128, 2),
+    (4, 33, 512, 520, 32, 2),
+    (4, 64, 256, 200, 16, 3),
+    (4, 65, 4096, 6144, 64, 2),
+    (4, 80, 14336, 4096, 64, 2),
+    (4, 129, 768, 2304, 64, 2),      # GPT-2 qkv
+    (4, 512, 4096, 4096, 64, 2),
+    (4, 2048, 3072, 768, 64, 2),     # GPT-2 proj
+]
+
+
+def _stack(bits, gen, L, IN, OUT, group, dev):
+    if bits == 8:
+        data, scales, g = _q8weight(gen, L, IN, OUT, group, dev)
+        return data, scales, g, IN
+    return _qweight(gen, L, IN, OUT, group, dev)
+
+
+def _dequant_mm_fns(bits):
+    if bits == 8:
+        return (qk.matmul_dequant_int8_stacked, qk.matmul_dequant_int8_stacked_plain,
+                "matmul_dequant_int8_stacked")
+    return (qk.matmul_dequant_int4_stacked, qk.matmul_dequant_int4_stacked_plain,
+            "matmul_dequant_int4_stacked")
+
+
+@pytest.mark.parametrize("case", DEQUANT_MM_EDGES)
+def test_dequant_mm_plan_edges_match_plain(dev, case):
+    bits, M, IN, OUT, group, L = case
+    gen = torch.Generator().manual_seed(10)
+    data, scales, g, in_p = _stack(bits, gen, L, IN, OUT, group, dev)
+    x = pad_x_to(_randn(gen, M, IN, dtype=torch.bfloat16, dev=dev), in_p).contiguous()
+    kern, plain, name = _dequant_mm_fns(bits)
+    for l in range(L):
+        ak.reset_launches()
+        got = kern(x, data, scales, l, g)
+        assert ak.LAUNCHES[name] == 1
+        want = plain(x, data, scales, l, g)
+        torch.cuda.synchronize()
+        assert got.shape == (M, OUT)
+        _qclose(got, want, torch.bfloat16, f"int{bits} M={M} IN={IN} OUT={OUT} layer {l}")
+
+
+@pytest.mark.parametrize("tile", [128, 256])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_mm_every_split_matches_plain(dev, bits, tile):
+    """The entry point at every split of the k walk (1 to 8 blocks of a
+    cluster) and both row tiles, whatever the plan would pick."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    gen = torch.Generator().manual_seed(11)
+    M, IN, OUT, group = 200, 1024, 264, 64
+    data, scales, g, in_p = _stack(bits, gen, 2, IN, OUT, group, dev)
+    x = _randn(gen, M, in_p, dtype=torch.bfloat16, dev=dev)
+    _, plain, _ = _dequant_mm_fns(bits)
+    want = plain(x, data, scales, 1, g)
+    source, symbol = qk._MATMUL_LIBS[bits]
+    fn = cuda_build.function(source, symbol, qk._MATMUL_ARGS)
+    for split in range(1, 9):
+        got = torch.empty(M, OUT, dtype=torch.bfloat16, device=dev)
+        err = fn(ak._ptr(x), ak._ptr(data), ak._ptr(scales), ak._ptr(got), M, in_p, OUT, g, 1,
+                 qk._DTYPE_CODE[torch.bfloat16], split, tile, qk._stream(x.device))
+        cuda_build.check(source, err, symbol)
+        torch.cuda.synchronize()
+        _qclose(got, want, torch.bfloat16, f"int{bits} tile {tile} split {split}")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_mm_prefill_call_is_one_kernel(dev, bits):
+    """A bf16 call at M > 32 counts one launch and runs one kernel on the
+    card, the wgmma kernel: no conversion, copy or fill beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(12)
+    data, scales, g, in_p = _stack(bits, gen, 2, 1024, 512, 64, dev)
+    x = _randn(gen, 80, in_p, dtype=torch.bfloat16, dev=dev)
+    kern, _, name = _dequant_mm_fns(bits)
+    kern(x, data, scales, 1, g)  # built and set up
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then comes back without device events
+        ak.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern(x, data, scales, 1, g)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    assert ak.LAUNCHES[name] == 1
+    assert len(names) == 1 and "dequant_mm_tc" in names[0], names
 
 
 def _model_dir(tmp_path, cfg):

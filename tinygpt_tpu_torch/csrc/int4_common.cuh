@@ -2,7 +2,7 @@
 // K3/K5a): nibble unpacking and dequantization, the decode-shaped (M <= 32)
 // int4 GEMV kernel with its optional prologues and epilogues, its tile
 // constants (which the int8 GEMV shares), and the mma.sync helpers of the
-// prefill-shaped (M > 32) tensor-core kernels.
+// prefill-shaped (M > 32) kernels' fp32 route.
 //
 // Weight layout (tinygpt_tpu/ops/quant.py, kept byte for byte): a stacked
 // weight is data int8 [L, IN/2, OUT] and scales fp32 [L, IN/group, OUT].
@@ -347,43 +347,34 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
                : "r"(a));
 }
 
-// The A fragment of rows [0, 16) x columns [0, 16) of a staged activation
-// tile (at `tile`, row stride LD elements), times the B fragments of four
-// 8-column tiles, into c: one product for bf16 (loaded with ldmatrix), two
-// for fp32, whose activations are split into bf16 parts x = hi + lo (exact
-// to about 2^-17), both multiplied.
-template <typename T, int LD>
-struct MmaRows;
-
+// The A fragment of rows [0, 16) x columns [0, 16) of a staged fp32
+// activation tile (at `tile`, row stride LD floats), times the B fragments
+// of four 8-column tiles, into c: the activations are split into three
+// bf16 parts x = hi + mid + lo (exact: 24 bits of significand in three
+// 8-bit pieces), each multiplied. (bf16 activations run the wgmma kernel
+// of dequant_mm_tc.cuh.)
 template <int LD>
-struct MmaRows<__nv_bfloat16, LD> {
-  static __device__ __forceinline__ void run(const __nv_bfloat16* tile, int lane,
-                                             const uint32_t (*b)[2], float (*c)[4]) {
-    uint32_t af[4];
-    ldsm_x4(af, tile + (lane % 16) * LD + (lane / 16) * 8);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) mma_bf16(c[nt], af, b[nt]);
-  }
-};
-
-template <int LD>
-struct MmaRows<float, LD> {
+struct MmaRows {
   static __device__ __forceinline__ void run(const float* tile, int lane,
                                              const uint32_t (*b)[2], float (*c)[4]) {
     const float* ap = tile + (lane / 4) * LD + (lane % 4) * 2;
     const float* src[4] = {ap, ap + 8 * LD, ap + 8, ap + 8 * LD + 8};
-    uint32_t hi[4], lo[4];
+    uint32_t hi[4], mid[4], lo[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = *reinterpret_cast<const float2*>(src[i]);
       const float h0 = __bfloat162float(__float2bfloat16(f.x));
       const float h1 = __bfloat162float(__float2bfloat16(f.y));
+      const float m0 = __bfloat162float(__float2bfloat16(f.x - h0));
+      const float m1 = __bfloat162float(__float2bfloat16(f.y - h1));
       hi[i] = pack_bf16x2(h0, h1);
-      lo[i] = pack_bf16x2(f.x - h0, f.y - h1);
+      mid[i] = pack_bf16x2(m0, m1);
+      lo[i] = pack_bf16x2(f.x - h0 - m0, f.y - h1 - m1);
     }
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       mma_bf16(c[nt], hi, b[nt]);
+      mma_bf16(c[nt], mid, b[nt]);
       mma_bf16(c[nt], lo, b[nt]);
     }
   }

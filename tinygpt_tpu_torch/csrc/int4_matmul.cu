@@ -9,18 +9,21 @@
 // Two regimes, as on the TPU:
 // - M <= 32 (decode-shaped, the lm_head of a prefill): the GEMV kernel of
 //   int4_common.cuh. Bound by the packed weight bytes.
-// - M > 32 (prefill-shaped, 4 x 512 rows): bound by operations (about 2 M
-//   operations a weight byte). A tensor-core kernel: each block stages a
-//   128-row x 64-column tile of each nibble plane's activations (cp.async)
-//   and the matching 64 packed rows x 128 columns of weights, unpacked to
-//   (u - 8) in bf16 (exact: integers in [-8, 7]), in shared memory, and
-//   multiplies them with mma.sync m16n8k16 bf16 -> fp32, two stages in
-//   flight. Products are scaled per group in fp32 fragments, so no
-//   dequantized weight is rounded and none is written to global memory.
-//   fp32 activations are split into two bf16 parts (x = hi + lo, exact to
-//   about 2^-17) and both are multiplied. No wgmma or TMA yet.
+// - M > 32 (prefill-shaped, 4 x 512 rows; a verify round's 80): bound by
+//   operations (about 4 M operations a packed byte). bf16 activations run
+//   the wgmma + TMA kernel of dequant_mm_tc.cuh (shared with
+//   int8_matmul.cu): each nibble dequantized to bf16(q * s) in registers as
+//   wgmma's A operand, both nibble planes' activations the B operand, the
+//   host's plan (tile, split) filling the card. fp32 activations (no main
+//   path on the card runs them) keep the mma.sync kernel below: each block
+//   stages a 128-row x 64-column tile of each nibble plane's activations
+//   (cp.async, split exactly into three bf16 parts, x = hi + mid + lo,
+//   each multiplied) and
+//   the matching 64 packed rows x 128 columns of weights, unpacked to
+//   (u - 8) in bf16 (exact), and scales the fp32 fragments per group, so
+//   no dequantized weight is rounded.
 
-#include "int4_common.cuh"
+#include "dequant_mm_tc.cuh"
 
 namespace {
 
@@ -33,24 +36,12 @@ constexpr int BN = 128;  // columns of a block tile
 constexpr int KC = 64;   // packed rows a stage holds
 constexpr int NTHREADS = 256;
 constexpr int WPAD = 8;  // bf16 row padding of the weight tile, against bank conflicts
-
-// Activations are staged as they are (bf16, or fp32 split into two bf16
-// parts when a fragment is built); rows padded against bank conflicts.
-template <typename T>
-struct XTile {
-  static constexpr int PAD = 16 / sizeof(T);
-  static constexpr int LD = KC + PAD;                       // elements a row
-  static constexpr int VECS = KC * sizeof(T) / 16;          // 16-byte copies a row
-  static constexpr int STAGE = 2 * BM * LD;                 // elements: both planes
-};
-
+constexpr int XLD = KC + 4;           // floats a staged activation row (padded against bank conflicts)
+constexpr int XSTAGE = 2 * BM * XLD;  // floats of a stage: both planes
 constexpr int SROWS = 2 * (KC / 16);  // scale rows a stage reads: a plane's per 16 rows
-
-template <typename T>
-constexpr size_t tc_smem_bytes() {
-  return 2 * XTile<T>::STAGE * sizeof(T) + 2 * BN * (KC + WPAD) * sizeof(__nv_bfloat16) +
-         2 * SROWS * BN * sizeof(float);
-}
+constexpr size_t F32_SMEM = 2 * XSTAGE * sizeof(float) +
+                            2 * BN * (KC + WPAD) * sizeof(__nv_bfloat16) +
+                            2 * SROWS * BN * sizeof(float);
 
 // Byte j of a (row k) and byte j of b (row k + 1), each a biased nibble u,
 // as the bf16 pair (u_a - 8, u_b - 8): the byte goes into the mantissa of
@@ -72,17 +63,15 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t a, uint32_t b, int j) {
 // stages. Each nibble plane is multiplied in turn into one fp32 fragment
 // set, which is scaled into the sums at every group boundary and at the end
 // of the stage (scale * (a + b) = scale * a + scale * b within a group).
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    int4_mm_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ W,
-                      const float* __restrict__ Sc, T* __restrict__ out, int M, int half, int OUT,
-                      int group) {
-  using X = XTile<T>;
+    int4_mm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ W,
+                       const float* __restrict__ Sc, float* __restrict__ out, int M, int half,
+                       int OUT, int group) {
   constexpr int WLD = KC + WPAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // [2 stages][2 planes][BM][X::LD]
+  float* xs = reinterpret_cast<float*>(smem_raw);  // [2 stages][2 planes][BM][XLD]
   __nv_bfloat16* ws =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * X::STAGE * sizeof(T));  // [2][BN][WLD]
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * XSTAGE * sizeof(float));  // [2][BN][WLD]
   float* ss = reinterpret_cast<float*>(ws + 2 * BN * WLD);  // [2 stages][SROWS][BN] scales
 
   const int tid = threadIdx.x;
@@ -95,14 +84,14 @@ __global__ void __launch_bounds__(NTHREADS)
   const int n_stages = half / KC;
 
   auto issue_x = [&](int s, int p0) {
-    T* dst = xs + (s % 2) * X::STAGE;
-    for (int i = tid; i < 2 * BM * X::VECS; i += NTHREADS) {
-      const int plane = i / (BM * X::VECS);
-      const int r = (i / X::VECS) % BM;
-      const int v = (i % X::VECS) * (16 / sizeof(T));
+    float* dst = xs + (s % 2) * XSTAGE;
+    for (int i = tid; i < 2 * BM * (KC / 4); i += NTHREADS) {
+      const int plane = i / (BM * (KC / 4));
+      const int r = (i / (KC / 4)) % BM;
+      const int v = (i % (KC / 4)) * 4;
       const bool ok = m0 + r < M;
-      const T* src = x + (size_t)(ok ? m0 + r : 0) * IN + plane * half + p0 + v;
-      cp_async16(dst + (plane * BM + r) * X::LD + v, src, ok);
+      const float* src = x + (size_t)(ok ? m0 + r : 0) * IN + plane * half + p0 + v;
+      cp_async16(dst + (plane * BM + r) * XLD + v, src, ok);
     }
     // the scale row of each plane and 16-row step of the stage (one 16-byte
     // copy a thread), so the group flushes below read shared memory
@@ -170,7 +159,7 @@ __global__ void __launch_bounds__(NTHREADS)
       asm volatile("cp.async.wait_group 0;\n");
     }
     __syncthreads();
-    const T* xst = xs + (s % 2) * X::STAGE;
+    const float* xst = xs + (s % 2) * XSTAGE;
 #pragma unroll
     for (int plane = 0; plane < 2; ++plane) {
 #pragma unroll
@@ -182,8 +171,8 @@ __global__ void __launch_bounds__(NTHREADS)
                                  kk + ((lane / 8) % 2) * 8]);
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt)
-          tg::MmaRows<T, X::LD>::run(xst + (plane * BM + wm * 64 + mt * 16) * X::LD + kk, lane,
-                                     b, tmp[mt]);
+          tg::MmaRows<XLD>::run(xst + (plane * BM + wm * 64 + mt * 16) * XLD + kk, lane, b,
+                                tmp[mt]);
         if ((p0 + kk + 16) % group == 0 || kk + 16 == KC) {  // scale into the sums
           const float* srow = ss + ((s % 2) * SROWS + plane * (KC / 16) + kk / 16) * BN;
 #pragma unroll
@@ -212,26 +201,30 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int f = 0; f < 4; ++f) {
         const int row = m0 + wm * 64 + mt * 16 + gid + (f >= 2 ? 8 : 0);
         const int c = n0 + wn * 32 + nt * 8 + t4 * 2 + (f & 1);
-        if (row < M && c < OUT) out[(size_t)row * OUT + c] = from_float<T>(acc[mt][nt][f]);
+        if (row < M && c < OUT) out[(size_t)row * OUT + c] = acc[mt][nt][f];
       }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const int8_t* W, const float* Sc, void* out, int M, int IN,
-                   int OUT, int group, cudaStream_t stream) {
+                   int OUT, int group, int split, int tile, cudaStream_t stream) {
   if (M <= 32) {
     tg::GemvArgs a = tg::plain_gemv_args(x, W, Sc, out, M, IN, IN, OUT, group, 0);
     return tg::launch_gemv<T, T>(a, stream);
   }
   if ((IN / 2) % KC != 0) return cudaErrorInvalidValue;
-  constexpr size_t smem = tc_smem_bytes<T>();
-  static const cudaError_t attr = tg::allow_smem(int4_mm_tc_kernel<T>, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((OUT + BN - 1) / BN, (M + BM - 1) / BM);
-  int4_mm_tc_kernel<T><<<grid, NTHREADS, smem, stream>>>(static_cast<const T*>(x), W, Sc,
-                                                          static_cast<T*>(out), M, IN / 2, OUT,
-                                                          group);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return tg::dqmm::launch<tg::dqmm::Int4>(x, W, Sc, out, M, IN / 2, OUT, group, split, tile,
+                                             stream);
+  } else {
+    static const cudaError_t attr = tg::allow_smem(int4_mm_f32_kernel, F32_SMEM);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((OUT + BN - 1) / BN, (M + BM - 1) / BM);
+    int4_mm_f32_kernel<<<grid, NTHREADS, F32_SMEM, stream>>>(static_cast<const float*>(x), W, Sc,
+                                                             static_cast<float*>(out), M, IN / 2,
+                                                             OUT, group);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -241,17 +234,20 @@ extern "C" {
 // out [M, OUT] = x [M, IN] @ dequant(layer `layer` of data int8 [L, IN/2, OUT]
 // with scales fp32 [L, IN/group, OUT]), in x's type (dtype code: 0 fp32,
 // 2 bf16). Needs OUT % 8 == 0, group % 16 == 0, (IN/2) % group == 0 and
-// (IN/2) % 128 == 0. Returns the cudaError_t of the launch.
+// (IN/2) % 128 == 0. At M > 32 with bf16, `split` (1 to 8) and `tile` (128
+// or 256) are the wgmma kernel's plan (ops/quant_kernels.dequant_mm_plan);
+// other calls read neither. Returns the cudaError_t of the launch.
 int tg_int4_matmul(const void* x, const void* data, const void* scales, void* out, int M, int IN,
-                   int OUT, int group, int layer, int dtype, void* stream) {
+                   int OUT, int group, int layer, int dtype, int split, int tile, void* stream) {
   if (M <= 0 || IN <= 0 || IN % 2 || OUT % 8 || group <= 0 || group % 16 || (IN / 2) % group)
     return cudaErrorInvalidValue;
   const int8_t* W = static_cast<const int8_t*>(data) + (size_t)layer * (IN / 2) * OUT;
   const float* Sc = static_cast<const float*>(scales) + (size_t)layer * (IN / group) * OUT;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case tg::kF32: return launch<float>(x, W, Sc, out, M, IN, OUT, group, s);
-    case tg::kBF16: return launch<__nv_bfloat16>(x, W, Sc, out, M, IN, OUT, group, s);
+    case tg::kF32: return launch<float>(x, W, Sc, out, M, IN, OUT, group, split, tile, s);
+    case tg::kBF16:
+      return launch<__nv_bfloat16>(x, W, Sc, out, M, IN, OUT, group, split, tile, s);
   }
   return cudaErrorInvalidValue;
 }

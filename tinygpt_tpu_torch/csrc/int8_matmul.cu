@@ -56,20 +56,21 @@
 //   not known; tensor cores (mma.sync or wgmma on int8 converted to bf16)
 //   at 8 to 32 rows, where the FMAs bound the kernel and MR = 8 re-reads
 //   the weight for every 8 rows.
-// - M > 32 (prefill, 4 x 512 rows): bound by operations (2 M operations a
-//   weight byte). The mma.sync structure of the int4 kernel (int4_matmul.cu):
-//   each block stages a 128-row x 64-column tile of activations (cp.async)
-//   and the matching 64 rows x 128 columns of int8 weights, converted
-//   exactly to bf16 (|q| <= 128 fits bf16's 8-bit significand), in shared
-//   memory, and multiplies them with m16n8k16 bf16 -> fp32, two stages in
-//   flight. Products are scaled per group in fp32 fragments, so no
-//   dequantized weight is rounded (the TPU kernel's bm > 32 branch rounds
-//   w * s to bf16 first). fp32 activations go in as two bf16 parts. A last
-//   stage shorter than 64 rows (IN % 64 != 0) is zero-filled.
-//   No wgmma or TMA yet.
+// - M > 32 (prefill, 4 x 512 rows, a verify round's 80): bound by
+//   operations (2 M operations a weight byte). bf16 activations run the
+//   wgmma + TMA kernel of dequant_mm_tc.cuh (shared with int4_matmul.cu):
+//   each weight dequantized to bf16(q * s) in registers as wgmma's A
+//   operand, x the B operand, the host's plan (tile, split) filling the
+//   card. fp32 activations (no main path on the card runs them) keep the
+//   mma.sync kernel below: each block stages a 128-row x 64-column tile of
+//   activations (cp.async, split exactly into three bf16 parts, x = hi + mid +
+//   lo, each multiplied) and the matching 64 rows x 128 columns of weights,
+//   converted exactly to bf16 (|q| <= 128), and scales the fp32 fragments
+//   per group, so no dequantized weight is rounded. A last stage shorter
+//   than 64 rows (IN % 64 != 0) is zero-filled.
 
 
-#include "int4_common.cuh"
+#include "dequant_mm_tc.cuh"
 
 namespace {
 
@@ -333,7 +334,7 @@ cudaError_t launch_gemv(const T* x, const int8_t* W, const float* Sc, T* out, in
   return launch_int8_gemv<T, MR, false>(x, W, Sc, out, M, IN, OUT, group, split, stream);
 }
 
-// -- M > 32 -----------------------------------------------------------------------
+// -- M > 32, fp32 activations -------------------------------------------------------
 
 constexpr int BM = 128;  // rows of a block tile
 constexpr int BN = 128;  // columns of a block tile
@@ -342,21 +343,10 @@ constexpr int NTHREADS = 256;
 constexpr int WPAD = 8;  // bf16 row padding of the weight tile, against bank conflicts
 constexpr int WLD = KC + WPAD;
 constexpr int SROWS = KC / 16;  // scale rows a stage reads: one per 16 rows
-
-// Activations are staged as they are (bf16, or fp32 split into two bf16
-// parts when a fragment is built); rows padded against bank conflicts.
-template <typename T>
-struct XTile {
-  static constexpr int LD = KC + 16 / sizeof(T);   // elements a row
-  static constexpr int VECS = KC * sizeof(T) / 16;  // 16-byte copies a row
-  static constexpr int STAGE = BM * LD;             // elements
-};
-
-template <typename T>
-constexpr size_t tc_smem_bytes() {
-  return 2 * XTile<T>::STAGE * sizeof(T) + BN * WLD * sizeof(__nv_bfloat16) +
-         2 * SROWS * BN * sizeof(float);
-}
+constexpr int XLD = KC + 4;     // floats a staged activation row (padded against bank conflicts)
+constexpr int XSTAGE = BM * XLD;
+constexpr size_t F32_SMEM = 2 * XSTAGE * sizeof(float) + BN * WLD * sizeof(__nv_bfloat16) +
+                            2 * SROWS * BN * sizeof(float);
 
 // Byte j of a (row k) and byte j of b (row k + 1), each a signed q, as the
 // bf16 pair (q_a, q_b): exact, |q| <= 128.
@@ -374,16 +364,14 @@ __device__ __forceinline__ uint32_t int8_pair(uint32_t a, uint32_t b, int j) {
 // stages. Products go into one fp32 fragment set, which is scaled into the
 // sums at every group boundary and at the end of the stage (scale * (a + b)
 // = scale * a + scale * b within a group).
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    int8_mm_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ W,
-                      const float* __restrict__ Sc, T* __restrict__ out, int M, int IN, int OUT,
-                      int group) {
-  using X = XTile<T>;
+    int8_mm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ W,
+                       const float* __restrict__ Sc, float* __restrict__ out, int M, int IN,
+                       int OUT, int group) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // [2 stages][BM][X::LD]
+  float* xs = reinterpret_cast<float*>(smem_raw);  // [2 stages][BM][XLD]
   __nv_bfloat16* ws =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * X::STAGE * sizeof(T));  // [BN][WLD]
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + 2 * XSTAGE * sizeof(float));  // [BN][WLD]
   float* ss = reinterpret_cast<float*>(ws + BN * WLD);  // [2 stages][SROWS][BN] scales
 
   const int tid = threadIdx.x;
@@ -394,13 +382,13 @@ __global__ void __launch_bounds__(NTHREADS)
   const int n_stages = (IN + KC - 1) / KC;
 
   auto issue_x = [&](int s, int p0) {
-    T* dst = xs + (s % 2) * X::STAGE;
-    for (int i = tid; i < BM * X::VECS; i += NTHREADS) {
-      const int r = i / X::VECS;
-      const int v = (i % X::VECS) * (16 / sizeof(T));
+    float* dst = xs + (s % 2) * XSTAGE;
+    for (int i = tid; i < BM * (KC / 4); i += NTHREADS) {
+      const int r = i / (KC / 4);
+      const int v = (i % (KC / 4)) * 4;
       const bool ok = m0 + r < M && p0 + v < IN;  // IN % 16 == 0: a copy is all in or out
-      const T* src = x + (ok ? (size_t)(m0 + r) * IN + p0 + v : 0);
-      cp_async16(dst + r * X::LD + v, src, ok);
+      const float* src = x + (ok ? (size_t)(m0 + r) * IN + p0 + v : 0);
+      cp_async16(dst + r * XLD + v, src, ok);
     }
     // the scale row of each 16-row step of the stage (one 16-byte copy a
     // thread), so the group flushes below read shared memory
@@ -465,7 +453,7 @@ __global__ void __launch_bounds__(NTHREADS)
       asm volatile("cp.async.wait_group 0;\n");
     }
     __syncthreads();
-    const T* xst = xs + (s % 2) * X::STAGE;
+    const float* xst = xs + (s % 2) * XSTAGE;
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 16) {
       if (p0 + kk < IN) {
@@ -476,7 +464,7 @@ __global__ void __launch_bounds__(NTHREADS)
                                  ((lane / 8) % 2) * 8]);
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt)
-          tg::MmaRows<T, X::LD>::run(xst + (wm * 64 + mt * 16) * X::LD + kk, lane, b, tmp[mt]);
+          tg::MmaRows<XLD>::run(xst + (wm * 64 + mt * 16) * XLD + kk, lane, b, tmp[mt]);
         if ((p0 + kk + 16) % group == 0 || kk + 16 == KC) {  // scale into the sums
           const float* srow = ss + ((s % 2) * SROWS + kk / 16) * BN;
 #pragma unroll
@@ -505,24 +493,28 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int f = 0; f < 4; ++f) {
         const int row = m0 + wm * 64 + mt * 16 + gid + (f >= 2 ? 8 : 0);
         const int c = n0 + wn * 32 + nt * 8 + t4 * 2 + (f & 1);
-        if (row < M && c < OUT) out[(size_t)row * OUT + c] = from_float<T>(acc[mt][nt][f]);
+        if (row < M && c < OUT) out[(size_t)row * OUT + c] = acc[mt][nt][f];
       }
 }
 
 template <typename T>
 cudaError_t launch(const void* xv, const int8_t* W, const float* Sc, void* outv, int M, int IN,
-                   int OUT, int group, int split, cudaStream_t stream) {
+                   int OUT, int group, int split, int tile, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   T* out = static_cast<T*>(outv);
   if (M <= 32 && (split < 1 || split > MAX_SPLIT)) return cudaErrorInvalidValue;
   if (M <= 4) return launch_gemv<T, 4>(x, W, Sc, out, M, IN, OUT, group, split, stream);
   if (M <= 32) return launch_gemv<T, 8>(x, W, Sc, out, M, IN, OUT, group, split, stream);
-  constexpr size_t smem = tc_smem_bytes<T>();
-  static const cudaError_t attr = tg::allow_smem(int8_mm_tc_kernel<T>, smem);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((OUT + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_mm_tc_kernel<T><<<grid, NTHREADS, smem, stream>>>(x, W, Sc, out, M, IN, OUT, group);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return tg::dqmm::launch<tg::dqmm::Int8>(x, W, Sc, out, M, IN, OUT, group, split, tile,
+                                             stream);
+  } else {
+    static const cudaError_t attr = tg::allow_smem(int8_mm_f32_kernel, F32_SMEM);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((OUT + BN - 1) / BN, (M + BM - 1) / BM);
+    int8_mm_f32_kernel<<<grid, NTHREADS, F32_SMEM, stream>>>(x, W, Sc, out, M, IN, OUT, group);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -533,18 +525,21 @@ extern "C" {
 // with scales fp32 [L, IN/group, OUT]), in x's type (dtype code: 0 fp32,
 // 2 bf16). Needs OUT % 8 == 0, group % 16 == 0 and IN % group == 0. At
 // M <= 32, `split` (1 to 16) is the GEMV's blocks a cluster, splitting IN
-// (ops/quant_kernels.gemv_split); larger M ignores it. Returns the
-// cudaError_t of the launch.
+// (ops/quant_kernels.gemv_split), and `tile` is not read; at M > 32 with
+// bf16, `split` (1 to 8) and `tile` (128 or 256) are the wgmma kernel's
+// plan (ops/quant_kernels.dequant_mm_plan); fp32 at M > 32 reads neither.
+// Returns the cudaError_t of the launch.
 int tg_int8_matmul(const void* x, const void* data, const void* scales, void* out, int M, int IN,
-                   int OUT, int group, int layer, int dtype, int split, void* stream) {
+                   int OUT, int group, int layer, int dtype, int split, int tile, void* stream) {
   if (M <= 0 || IN <= 0 || OUT <= 0 || OUT % 8 || group <= 0 || group % 16 || IN % group)
     return cudaErrorInvalidValue;
   const int8_t* W = static_cast<const int8_t*>(data) + (size_t)layer * IN * OUT;
   const float* Sc = static_cast<const float*>(scales) + (size_t)layer * (IN / group) * OUT;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case tg::kF32: return launch<float>(x, W, Sc, out, M, IN, OUT, group, split, s);
-    case tg::kBF16: return launch<__nv_bfloat16>(x, W, Sc, out, M, IN, OUT, group, split, s);
+    case tg::kF32: return launch<float>(x, W, Sc, out, M, IN, OUT, group, split, tile, s);
+    case tg::kBF16:
+      return launch<__nv_bfloat16>(x, W, Sc, out, M, IN, OUT, group, split, tile, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -30,7 +30,8 @@ SOURCES = ("flash_prefill.cu", "flash_decode_frozen.cu", "flash_decode.cu",
            "int4_matmul.cu", "int4_fused.cu", "int4_mlp.cu", "paged_decode_frozen.cu",
            "int8_matmul.cu", "paged_decode_spec.cu", "paged_decode.cu",
            "moe_gather_matmul.cu")
-HEADERS = ("attention_common.cuh", "decode_split.cuh", "int4_common.cuh")
+HEADERS = ("attention_common.cuh", "decode_split.cuh", "int4_common.cuh",
+           "hopper_common.cuh", "dequant_mm_tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

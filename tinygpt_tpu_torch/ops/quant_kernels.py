@@ -15,7 +15,10 @@ Weights keep the JAX package's layout (ops/quant.py): int8 [L, IN, OUT]
 or packed int4 [L, IN/2, OUT] holding biased, half-split nibbles, and
 fp32 scales [L, IN/group, OUT]. A layer is an offset into the stack; no
 layer's bytes are copied. The kernels dequantize on chip and accumulate
-in fp32; they take bf16 and fp32 activations.
+in fp32; they take bf16 and fp32 activations. With bf16 activations at
+M > 32 (the prefill regime, csrc/dequant_mm_tc.cuh) each dequantized
+weight is rounded to bf16 before its product, as the TPU kernels' bm > 32
+branch does; elsewhere no dequantized weight is rounded.
 
 Each wrapper dispatches on the device of its tensors: on the CPU it runs
 its plain PyTorch version (``*_plain``: weights dequantized exactly in
@@ -43,8 +46,7 @@ _ROPE_DIMS = (32, 64, 128)  # head dims the fused RoPE epilogue takes
 MAX_DECODE_ROWS = 32        # rows of the decode-shaped kernels (K6, K7)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_MATMUL_ARGS = [_P] * 4 + [_I] * 6 + [_P]
-_INT8_MATMUL_ARGS = [_P] * 4 + [_I] * 7 + [_P]  # and the GEMV's split
+_MATMUL_ARGS = [_P] * 4 + [_I] * 8 + [_P]  # ..., split, tile, stream
 _FUSED_ARGS = [_P] * 12 + [_I] * 10 + [_F, _I, _P]
 _MLP_ARGS = [_P] * 9 + [_I] * 8 + [_P]
 
@@ -58,6 +60,18 @@ _GEMV_UNIT = 16
 _GEMV_SPLITS = (1, 2, 4, 6, 8, 12, 16)
 _GEMV_BLOCKS_PER_SM = 0.75
 _GEMV_MAX_ROWS = 4096
+
+# the prefill regime's plan (csrc/dequant_mm_tc.cuh, M > 32, bf16): a block
+# owns _TC_COLS weight columns and `tile` rows of x (wgmma's N, one of
+# _TC_TILES) and walks its share of the stages of _TC_STAGE weight rows
+# (int8) or packed rows (int4); the C blocks of a cluster (at most
+# _TC_MAX_SPLIT) split the stages and sum their tiles through distributed
+# shared memory, which costs a block about _TC_SPLIT_COST int8 stages
+_TC_COLS = 128
+_TC_STAGE = 64
+_TC_TILES = (128, 256)
+_TC_MAX_SPLIT = 3
+_TC_SPLIT_COST = 6
 
 
 def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -262,6 +276,31 @@ def gemv_split(M: int, IN: int, OUT: int, sms: int = 132) -> int:
     return max(1, min(C, IN // _GEMV_UNIT))
 
 
+@functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
+def dequant_mm_plan(M: int, IN: int, OUT: int, bits: int, sms: int = 132) -> Tuple[int, int]:
+    """The prefill regime's plan (M > 32, bf16 activations): (tile, C),
+    tile the rows of x a block takes (128 up to M = 128, else 256) and C
+    the blocks of a cluster splitting the k walk's stages. C minimises the
+    waves of blocks on the card's `sms` SMs times a block's stages (its
+    share, plus the split's reduction, _TC_SPLIT_COST int8 stages or half
+    as many int4 stages); ties go to the smaller C. On the H100 a sweep of
+    both tiles and C from 1 to 8 at M = 80 and 512 (the Mistral-7B shapes,
+    both formats; chip_smoke.py's quant phases time the plan against every
+    split) put this pick at the fastest in all 16 cases; clusters of 4 and
+    more read slower than the model (as some of the int8 GEMV's do), so C
+    stops at _TC_MAX_SPLIT."""
+    tile = _TC_TILES[0] if M <= _TC_TILES[0] else _TC_TILES[1]
+    stages = -(-(IN if bits == 8 else IN // 2) // _TC_STAGE)
+    tiles = -(-OUT // _TC_COLS) * -(-M // tile)
+    split_cost = _TC_SPLIT_COST * bits / 8
+
+    def cost(C):
+        waves = -(-tiles * C // sms)
+        return waves * (-(-stages // C) + (split_cost if C > 1 else 0))
+
+    return tile, min(range(1, min(_TC_MAX_SPLIT, stages) + 1), key=cost)
+
+
 def _launch_matmul(name, x, data, scales, l, group, bits):
     L, IN, OUT = _check_weight(name, x, data, scales, group, bits)
     M = x.shape[0]
@@ -276,15 +315,16 @@ def _launch_matmul(name, x, data, scales, l, group, bits):
 
     source, symbol = _MATMUL_LIBS[bits]
     out = torch.empty((M, OUT), dtype=x.dtype, device=x.device)
-    args = [_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group, int(l),
-            _DTYPE_CODE[x.dtype]]
-    if bits == 8:
-        fn = cuda_build.function(source, symbol, _INT8_MATMUL_ARGS)
-        args.append(gemv_split(M, IN, OUT, _sm_count(x.device.index or 0)))
+    sms = _sm_count(x.device.index or 0)
+    if M <= MAX_DECODE_ROWS:
+        plan = (gemv_split(M, IN, OUT, sms) if bits == 8 else 1, 0)
     else:
-        fn = cuda_build.function(source, symbol, _MATMUL_ARGS)
+        tile, C = dequant_mm_plan(M, IN, OUT, bits, sms)
+        plan = (C, tile)
+    fn = cuda_build.function(source, symbol, _MATMUL_ARGS)
     with torch.cuda.device(x.device):
-        err = fn(*args, _stream(x.device))
+        err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group, int(l),
+                 _DTYPE_CODE[x.dtype], *plan, _stream(x.device))
     cuda_build.check(source, err, name)
     LAUNCHES[name] += 1
     return out
@@ -311,7 +351,8 @@ def matmul_dequant_int8_stacked(
     group: int,
 ) -> torch.Tensor:
     """x @ dequant(layer l of a stacked int8 weight) (K5a). M <= 32 runs
-    the GEMV kernel, larger M the tensor-core kernel."""
+    the GEMV kernel, larger M the tensor-core kernel (bf16: wgmma, planned
+    by dequant_mm_plan)."""
     if x.device.type == "cpu":
         return matmul_dequant_int8_stacked_plain(x, data, scales, l, group)
     return _launch_matmul("matmul_dequant_int8_stacked", x, data, scales, l,
@@ -339,7 +380,8 @@ def matmul_dequant_int4_stacked(
     group: int,
 ) -> torch.Tensor:
     """x @ dequant(layer l of a stacked int4 weight) (K5b). M <= 32 runs
-    the GEMV kernel, larger M the tensor-core kernel."""
+    the GEMV kernel, larger M the tensor-core kernel (bf16: wgmma, planned
+    by dequant_mm_plan)."""
     if x.device.type == "cpu":
         return matmul_dequant_int4_stacked_plain(x, data, scales, l, group)
     return _launch_matmul("matmul_dequant_int4_stacked", x, data, scales, l,
