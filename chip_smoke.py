@@ -894,14 +894,6 @@ def _int4pack_library(x, data, scales, group):
     return call, None
 
 
-def _time_layers(fn, L, iters):
-    """Mean device ms of fn(l) over calls that walk the L layers (each
-    call reads a cold layer when a layer exceeds the 50 MB L2 cache, and
-    the stacks together do)."""
-    layers = iter(range(10 ** 9))
-    return cuda_time_ms(lambda: fn(next(layers) % L), iters=iters)
-
-
 def _dequant_weight(data, scales, group, l):
     """Layer l of an int8 [L, IN, OUT] or packed int4 [L, IN/2, OUT] stack,
     dequantized to bf16 (the cuBLAS yardstick's weight)."""
@@ -1012,19 +1004,82 @@ def _regime_rows(tag, name, rs, decode_m, prefill_m) -> None:
             f"{mean[3]:.4f} ms")
 
 
+def _int4_split_sweep(label, x, data, scales, group) -> None:
+    """The int4 GEMV (M <= 32) through its C entry point at every cluster
+    size its plan picks from (quant_kernels._I4_SPLITS), walking the
+    stack's layers, beside the plan's own pick (one bf16 part): the check
+    on int4_gemv_split. A size whose blocks cannot hold their activations
+    is refused by the kernel and skipped."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+    from tinygpt_tpu_torch.ops.attention_kernels import _ptr, _sm_count
+
+    fn = cuda_build.function("int4_matmul.cu", "tg_int4_matmul", qk._MATMUL_ARGS)
+    M, IN = x.shape
+    L, _, OUT = data.shape
+    out = torch.empty(M, OUT, dtype=x.dtype, device=x.device)
+
+    def call(l, C):
+        err = fn(_ptr(x), _ptr(data), _ptr(scales), _ptr(out), M, IN, OUT, group, l,
+                 qk._DTYPE_CODE[x.dtype], C, 0, qk._stream(x.device))
+        cuda_build.check("int4_matmul.cu", err, "tg_int4_matmul")
+
+    times = {}
+    for C in qk._I4_SPLITS:
+        if C <= IN // 32 and qk.int4_gemv_plan(M, IN, C, 1)[0]:
+            times[C] = statistics.median(graph_ms(lambda i: call(i % L, C), max(30, 3 * L),
+                                                  reps=3))
+    plan = qk.int4_gemv_split(M, IN, OUT, 1, _sm_count(x.device.index or 0))
+    best = min(times, key=times.get)
+    log(f"[int4] split sweep {label}: " + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
+        + f" ms; the plan's C={plan} {times[plan]:.4f}, the fastest C={best} "
+        f"({times[plan] / times[best]:.3f}x)")
+
+
+def _int4_yardsticks(mats, Ls):
+    """The library calls beside an int4 GEMV reading: for each (x, data,
+    scales, group) of `mats` (K7: gate_up, then down on an activation of
+    its width), torch._weight_int4pack_mm where it takes the shape and
+    cuBLAS on the weight dequantized to bf16 beforehand (LIB_LAYERS layers
+    walked), both by graph_ms; the sums over `mats`. Returns (int4pack ms
+    or None, its note, cuBLAS ms, cuBLAS's own bound)."""
+    import torch
+
+    t_pack, why, t_cub, cub_b = 0.0, "", 0.0, 0.0
+    for x, data, scales, group in mats:
+        call, no = _int4pack_library(x, data[Ls - 1], scales[Ls - 1], group)
+        if call is None or t_pack is None:
+            t_pack, why = None, no or why
+        else:
+            t_pack += statistics.median(graph_ms(lambda i: call(), 30, reps=3))
+        nl = min(Ls, LIB_LAYERS)
+        ws = [_dequant_weight(data, scales, group, l) for l in range(nl)]
+        t_cub += statistics.median(graph_ms(lambda i: torch.matmul(x, ws[i % nl]),
+                                            max(30, 3 * nl), reps=3))
+        cub_b += bound_ms(_nbytes(x, ws[0]) + x.shape[0] * ws[0].shape[1] * 2,
+                          2.0 * x.shape[0] * ws[0].numel(), "bfloat16")[0]
+        del ws
+    return t_pack, why, t_cub, cub_b
+
+
 def phase_int4_kernels(table: dict) -> None:
     """K4, K5b, K6 and K7 against their plain versions on the card, at the
     int4 main path's shapes (Mistral-7B widths, group 64): bf16 and fp32,
     every K6 variant the path uses (and the silu + res one of the two-call
-    MLP). Times the bf16 calls beside their bound, the plain version, the
-    library call where one exists, and x @ w on the dequantized bf16
-    weight (which moves about 3.6x the bytes). K5b is checked and timed
-    (_time_dequant_mm: graph_ms, cuBLAS and _weight_int4pack_mm beside) at
-    the prefill's M = 2048, at PREFILL_ROWS and at M = 4. A table row's
-    numbers are means per launch over the path's mix of shapes (K5b: one
-    layer's four prefill matmuls; K6: a decode step's 32 qkv, 32 o and one
-    head call), so that ms x launches is the kernel's time per prefill or
-    step."""
+    MLP), at the decode batch (M = 4) and the serving quantum's 16 rows.
+    Every bf16 call is timed by graph_ms (at least 30 calls walking the
+    stack's layers, five readings, the median held against its bound)
+    beside its bound, the plain version, torch._weight_int4pack_mm where it
+    takes the shape and cuBLAS on the bf16-dequantized weight (which moves
+    about 3.6x the bytes). K5b is also checked and timed at the prefill's
+    M = 2048 and at PREFILL_ROWS (_time_dequant_mm), and the int4 GEMV's
+    split plan is swept (_int4_split_sweep) at M = 4 and 16. A table row's
+    numbers are means per launch over the path's mix of shapes at
+    M = 4 (K5b: one layer's four prefill matmuls; K6: a decode step's 32
+    qkv, 32 o and one head call), so that ms x launches is the kernel's
+    time per prefill or step; the M = 16 readings are logged beside."""
     import torch
 
     from tinygpt_tpu_torch.ops import quant_kernels as qk
@@ -1059,49 +1114,46 @@ def phase_int4_kernels(table: dict) -> None:
             raise PhaseError(f"{name} {label} {dname}: max_abs_err {err} > {tol}")
         return err, tol
 
-    def run(name, label, weight, make, kern, plain, nbytes, flops, Ls, library=None,
-            deq=None):
+    def run(name, label, weight, make, kern, plain, nbytes, flops, Ls, mats):
         """Checks kern against plain in bf16 and fp32 (make(dt, l) gives the
-        arguments of layer l), then times the bf16 call."""
+        arguments of layer l), then times the bf16 call beside its
+        yardsticks (_int4_yardsticks(mats(args)))."""
         for dt in (torch.float32, torch.bfloat16):
             for l in sorted({0, Ls - 1}):
                 args = make(dt, l)
                 err, tol = check(name, label, dt, kern(*args), plain(*args))
-        t_k = _time_layers(lambda l: kern(*make(torch.bfloat16, l)), Ls, 3 * Ls)
-        args = make(torch.bfloat16, Ls - 1)
+        argl = [make(torch.bfloat16, l) for l in range(Ls)]
+        r_k = graph_ms(lambda i: kern(*argl[i % Ls]), max(30, 3 * Ls))
+        t_k = statistics.median(r_k)
+        args = argl[Ls - 1]
         t_p = cuda_time_ms(lambda: plain(*args), iters=3, warmup=1)
         b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-        t_lib, why = None, None
-        if library is not None:
-            call, why = library(args)
-            if call is not None:
-                lib_err = (call().float() - plain(*args).float()).abs().max().item()
-                t_lib = cuda_time_ms(call, iters=10)
-                why = f"max_abs_err vs plain {lib_err:.3g} (bf16 scales)"
-        else:
-            why = "no single PyTorch call computes the fused function"
-        t_deq = cuda_time_ms(deq(args), iters=10) if deq is not None else None
+        if t_k < b_ms:
+            raise PhaseError(f"{name} {label}: the kernel's reading {t_k:.4f} ms is below "
+                             f"its bound {b_ms:.4f} ms")
+        t_pack, why, t_cub, cub_b = _int4_yardsticks(mats(args), Ls)
+        pack = f"{t_pack:.4f} ms" if t_pack is not None else f"- [{why}]"
         log(f"[int4] {name} {label}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
-            f"{t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}) library "
-            + (f"{t_lib:.4f} ms" if t_lib is not None else "-") + f" [{why}]"
-            + (f" x@w(bf16 dequantized) {t_deq:.4f} ms" if t_deq is not None else ""))
-        rows.setdefault(name, []).append((weight, t_k, t_p, b_ms, b_by, t_lib, err, tol))
+            f"{_spread(r_k)} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}; kernel/bound "
+            f"{t_k / b_ms:.2f}) _weight_int4pack_mm {pack} cuBLAS on the bf16-dequantized "
+            f"weight {t_cub:.4f} ms (its own bound {cub_b:.4f} ms)"
+            + (f" kernel/int4pack {t_k / t_pack:.3f}" if t_pack else ""))
+        # the table's library call computes the same function: only K4 has one
+        lib = t_pack if name == "matmul_dequant_int4" else None
+        rows.setdefault(name, []).append((weight, t_k, t_p, b_ms, b_by, lib, err, tol))
 
     def x_of(dt, M, n, seed):
         gx = torch.Generator(device=DEVICE).manual_seed(seed)
         return torch.randn((M, n), generator=gx, device=DEVICE).to(dt)
 
-    def deq_mm(x, data, scales):
-        w = qk.dequant_fp32(qk.unpack_int4(data), scales, G).to(torch.bfloat16)
-        return lambda: x @ w
-
     # K5b: the prefill's four layer matmuls at M = 4 x 512 (the mix), and
-    # at PREFILL_ROWS and one decode row block (M = 4, the int4 GEMV)
+    # at PREFILL_ROWS and the decode and serving row blocks (M = 4, 16: the
+    # int4 GEMV, its split swept)
     k5b_rows = []
     for key, (IN, OUT) in (("qkv", (H, (Nq + 2 * Nk) * D)), ("o", (Nq * D, H)),
                            ("gate_up", (H, 2 * I)), ("down", (I, H))):
         data, scales = stacks[key]
-        for M in (B,) + PREFILL_ROWS + (M_pre,):
+        for M in (B, 16) + PREFILL_ROWS + (M_pre,):
             row, xb, label = _time_dequant_mm(
                 "int4", "matmul_dequant_int4_stacked", key, M, data, scales, G,
                 1 if M == M_pre else 0, check,
@@ -1109,65 +1161,78 @@ def phase_int4_kernels(table: dict) -> None:
             k5b_rows.append((row, M))
             if M in PREFILL_ROWS:
                 _dequant_mm_split_sweep("int4", label, 4, xb, data, scales, G)
+            elif M <= qk.MAX_DECODE_ROWS:
+                _int4_split_sweep(label, xb, data, scales, G)
         _check_dequant_mm("matmul_dequant_int4_stacked", key, 33, data, scales, G, check)
     rows["matmul_dequant_int4_stacked"] = [r[:-1] for r, _ in k5b_rows]
     _regime_rows("int4", "matmul_dequant_int4_stacked", k5b_rows, B, M_pre)
+    for M in (B, 16):
+        sel = [r for r, mm in k5b_rows if mm == M]
+        log(f"[int4] matmul_dequant_int4_stacked M = {M}: mean over the four matmuls: kernel "
+            f"{statistics.fmean(r[1] for r in sel):.4f} ms bound "
+            f"{statistics.fmean(r[3] for r in sel):.4f} ms _weight_int4pack_mm "
+            + (f"{statistics.fmean(r[5] for r in sel):.4f} ms" if all(r[5] for r in sel)
+               else "-"))
 
-    # K4: the prefill's lm_head, M = 4
     hd, hs = stacks["head"]
-    xs = {dt: x_of(dt, B, H, 12) for dt in (torch.float32, torch.bfloat16)}
-    run("matmul_dequant_int4", f"head M={B} {H}->{V}", 1,
-        lambda dt, l: (xs[dt], hd[0], hs[0], G),
-        qk.matmul_dequant_int4, qk.matmul_dequant_int4_plain,
-        _nbytes(xs[torch.bfloat16], hd, hs) + B * V * 2, 2.0 * B * H * V, 1,
-        library=lambda a: _int4pack_library(a[0], a[1], a[2], G),
-        deq=lambda a: deq_mm(a[0], a[1], a[2]))
-
-    # K6 at M = 4: qkv (norm prologue, RoPE), o (+ res), head (final norm)
-    inv = torch.rand((B, 1), generator=g, device=DEVICE) + 0.5
-    ang = torch.rand((B, D // 2), generator=g, device=DEVICE) * 6.3
-    cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
     qd, qs = stacks["qkv"]
-    xs = {dt: x_of(dt, B, H, 13) for dt in (torch.float32, torch.bfloat16)}
-    OQ = (Nq + 2 * Nk) * D
-    run("matmul_dequant_int4_stacked_fused", f"qkv ln+rope M={B} {H}->{OQ}", L,
-        lambda dt, l: (xs[dt], qd, qs, l, G, ln[dt], inv, None, None, False, cos, sin,
-                       Nq + Nk, D),
-        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
-        _nbytes(xs[torch.bfloat16], qd[0], qs[0], ln[torch.bfloat16][0], inv, cos, sin)
-        + B * OQ * 2, 2.0 * B * H * OQ, L)
     od, os_ = stacks["o"]
-    res = {dt: x_of(dt, B, H, 14) for dt in (torch.float32, torch.bfloat16)}
-    xo = {dt: x_of(dt, B, Nq * D, 15) for dt in (torch.float32, torch.bfloat16)}
-    run("matmul_dequant_int4_stacked_fused", f"o res M={B} {Nq * D}->{H}", L,
-        lambda dt, l: (xo[dt], od, os_, l, G, None, None, res[dt]),
-        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
-        _nbytes(xo[torch.bfloat16], od[0], os_[0], res[torch.bfloat16]) + B * H * 2,
-        2.0 * B * Nq * D * H, L)
-    fln = {dt: ln[dt][:1] for dt in ln}
-    run("matmul_dequant_int4_stacked_fused", f"head ln M={B} {H}->{V}", 1,
-        lambda dt, l: (xs[dt], hd, hs, 0, G, fln[dt], inv),
-        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
-        _nbytes(xs[torch.bfloat16], hd, hs, fln[torch.bfloat16], inv) + B * V * 2,
-        2.0 * B * H * V, 1)
-    # the two-call MLP's second call (silu * up, + res): off the main path
     dd, ds = stacks["down"]
-    xg = {dt: x_of(dt, B, 2 * I, 16) for dt in (torch.float32, torch.bfloat16)}
-    run("matmul_dequant_int4_stacked_fused", f"down silu+res M={B} {I}->{H} "
-        f"(off the main path)", 0,
-        lambda dt, l: (xg[dt], dd, ds, l, G, None, None, res[dt], None, True),
-        qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
-        _nbytes(xg[torch.bfloat16], dd[0], ds[0], res[torch.bfloat16]) + B * H * 2,
-        2.0 * B * I * H, L)
-
-    # K7 at M = 4
     gd, gs = stacks["gate_up"]
-    xm = {dt: x_of(dt, B, H, 17) for dt in (torch.float32, torch.bfloat16)}
-    run("mlp_fused_int4_stacked", f"mlp M={B} {H}->{2 * I}->{H}", 1,
-        lambda dt, l: (xm[dt], gd, gs, dd, ds, ln[dt], inv, l, G),
-        qk.mlp_fused_int4_stacked, qk.mlp_fused_int4_stacked_plain,
-        _nbytes(xm[torch.bfloat16], gd[0], gs[0], dd[0], ds[0], ln[torch.bfloat16][0],
-                inv) + B * H * 2, 2.0 * B * (H * 2 * I + I * H), L)
+    OQ = (Nq + 2 * Nk) * D
+    fln = {dt: ln[dt][:1] for dt in ln}
+    for M in (B, 16):
+        w = 1 if M == B else 0  # the decode step's mix is at M = 4
+        sd = 100 * M
+        xs = {dt: x_of(dt, M, H, sd + 12) for dt in (torch.float32, torch.bfloat16)}
+        xh = xs[torch.bfloat16]
+        # K4: the prefill's lm_head
+        run("matmul_dequant_int4", f"head M={M} {H}->{V}", w,
+            lambda dt, l: (xs[dt], hd[0], hs[0], G),
+            qk.matmul_dequant_int4, qk.matmul_dequant_int4_plain,
+            _nbytes(xh, hd, hs) + M * V * 2, 2.0 * M * H * V, 1,
+            lambda a: [(a[0], hd, hs, G)])
+        if M == B:
+            _int4_split_sweep(f"head M={M} {H}->{V}", xh, hd, hs, G)
+        # K6: qkv (norm prologue, RoPE), o (+ res), head (final norm)
+        inv = torch.rand((M, 1), generator=g, device=DEVICE) + 0.5
+        ang = torch.rand((M, D // 2), generator=g, device=DEVICE) * 6.3
+        cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
+        run("matmul_dequant_int4_stacked_fused", f"qkv ln+rope M={M} {H}->{OQ}", L * w,
+            lambda dt, l: (xs[dt], qd, qs, l, G, ln[dt], inv, None, None, False, cos, sin,
+                           Nq + Nk, D),
+            qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
+            _nbytes(xh, qd[0], qs[0], ln[torch.bfloat16][0], inv, cos, sin) + M * OQ * 2,
+            2.0 * M * H * OQ, L, lambda a: [(a[0], qd, qs, G)])
+        res = {dt: x_of(dt, M, H, sd + 14) for dt in (torch.float32, torch.bfloat16)}
+        xo = {dt: x_of(dt, M, Nq * D, sd + 15) for dt in (torch.float32, torch.bfloat16)}
+        run("matmul_dequant_int4_stacked_fused", f"o res M={M} {Nq * D}->{H}", L * w,
+            lambda dt, l: (xo[dt], od, os_, l, G, None, None, res[dt]),
+            qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
+            _nbytes(xo[torch.bfloat16], od[0], os_[0], res[torch.bfloat16]) + M * H * 2,
+            2.0 * M * Nq * D * H, L, lambda a: [(a[0], od, os_, G)])
+        run("matmul_dequant_int4_stacked_fused", f"head ln M={M} {H}->{V}", w,
+            lambda dt, l: (xs[dt], hd, hs, 0, G, fln[dt], inv),
+            qk.matmul_dequant_int4_stacked_fused, qk.matmul_dequant_int4_stacked_fused_plain,
+            _nbytes(xh, hd, hs, fln[torch.bfloat16], inv) + M * V * 2,
+            2.0 * M * H * V, 1, lambda a: [(a[0], hd, hs, G)])
+        if M == B:  # the two-call MLP's second call (silu * up, + res): off the main path
+            xg = {dt: x_of(dt, M, 2 * I, sd + 16) for dt in (torch.float32, torch.bfloat16)}
+            run("matmul_dequant_int4_stacked_fused", f"down silu+res M={M} {I}->{H} "
+                f"(off the main path)", 0,
+                lambda dt, l: (xg[dt], dd, ds, l, G, None, None, res[dt], None, True),
+                qk.matmul_dequant_int4_stacked_fused,
+                qk.matmul_dequant_int4_stacked_fused_plain,
+                _nbytes(xg[torch.bfloat16], dd[0], ds[0], res[torch.bfloat16]) + M * H * 2,
+                2.0 * M * I * H, L, lambda a: [(a[0][:, :I].contiguous(), dd, ds, G)])
+        # K7
+        xm = {dt: x_of(dt, M, H, sd + 17) for dt in (torch.float32, torch.bfloat16)}
+        run("mlp_fused_int4_stacked", f"mlp M={M} {H}->{2 * I}->{H}", w,
+            lambda dt, l: (xm[dt], gd, gs, dd, ds, ln[dt], inv, l, G),
+            qk.mlp_fused_int4_stacked, qk.mlp_fused_int4_stacked_plain,
+            _nbytes(xm[torch.bfloat16], gd[0], gs[0], dd[0], ds[0], ln[torch.bfloat16][0],
+                    inv) + M * H * 2, 2.0 * M * (H * 2 * I + I * H), L,
+            lambda a: [(a[0], gd, gs, G), (x_of(torch.bfloat16, M, I, sd + 18), dd, ds, G)])
 
     for (name, dname), r in sorted(worst.items()):
         log(f"[int4] {name} {dname}: worst max_abs_err over all cases {r:.3g} of its "
@@ -2167,17 +2232,22 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
     tok = logits[:, -1].argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     n = PROFILE_STEPS
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def steps(start):
+        """n decode steps from position lens + start, then a synchronize."""
         if per_token:
+            t, c = tok, cache
             for i in range(n):
-                logits, cache = model.decode_step(params, cfg, tok, cache,
-                                                  lens[:, None] + i)
-                tok = logits[:, -1].argmax(-1).to(torch.int32)
+                logits, c = model.decode_step(params, cfg, t, c, lens[:, None] + start + i)
+                t = logits[:, -1].argmax(-1).to(torch.int32)
         else:
-            model.decode_steps(params, cfg, tok, cache, lens[:, None], n,
+            model.decode_steps(params, cfg, tok, cache, lens[:, None] + start, n,
                                lambda lg: lg.argmax(-1))
         torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(0)
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, memcpy/memset); the CPU-side ops
     # that launched them report the same time again
@@ -2215,8 +2285,45 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
     for us, count, key in sorted(kernels, reverse=True)[:8]:
         log(f"{tag}   {us / n / 1e3:8.4f} ms/step  {count // n:4d} launches/step  "
             f"{key[:90]}")
+    # the host's side of the same steps: the CUDA runtime's calls (their CPU
+    # time, under the profiler), then the Python functions (cProfile, over n
+    # more steps)
+    api = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU and e.key.startswith("cuda")),
+                 reverse=True)
+    log(f"{tag} {label}: host, CUDA runtime calls a step (us a call): "
+        + ", ".join(f"{key} {count // n} ({us / count:.2f})" for us, count, key in api[:5]))
+    _host_functions(lambda: steps(n), n, f"{tag} {label}")
     return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
             "launches": launches / n}
+
+
+def _host_functions(run, n: int, tag: str) -> None:
+    """Where the host's time goes in run() (n decode steps): the wall ms a
+    step under cProfile, the kernel wrappers' (the functions that count
+    launches) calls a step and us a call with what they call, and the eight
+    functions of most self time, us a step. cProfile's cost lengthens every
+    Python call, about alike in any tree, so compare two trees with it, not
+    with the wall of an unprofiled step."""
+    import cProfile
+    import pstats
+
+    from tinygpt_tpu_torch.ops.attention_kernels import LAUNCHES
+
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    run()
+    pr.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    stats = pstats.Stats(pr).stats  # (file, line, name) -> (cc, calls, self s, cum s, callers)
+    wrappers = sorted((cum / calls * 1e6, calls // n, fn[2]) for fn, (_, calls, _, cum, _)
+                      in stats.items() if fn[2] in LAUNCHES and calls >= n)
+    top = sorted(((own / n * 1e6, fn[2]) for fn, (_, _, own, _, _) in stats.items()),
+                 reverse=True)[:8]
+    log(f"{tag}: host under cProfile {wall_ms:.3f} ms a step; kernel wrappers (calls a "
+        f"step, us a call): " + ", ".join(f"{name} {c} ({us:.1f})" for us, c, name in wrappers)
+        + "; most self time (us a step): " + ", ".join(f"{name} {us:.0f}" for us, name in top))
 
 
 def _check_routes(label, kern, plain, tol, tag="[model]"):

@@ -351,6 +351,222 @@ def test_int4_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         qk.mlp_fused_int4_stacked(x, data, scales, dn, dns, ln[:, :128], inv, 0, g)
 
 
+# the int4 GEMV (M <= 32, csrc/int4_common.cuh): every row count of its
+# n-tiling (1, 4, 5, 8 in one tile of 8 rows; 16 in two; 17 and 32 in four),
+# OUT % 16 == 8 (rows copied 8 bytes at a time), OUT not a multiple of the
+# 128-column tile, row-padded weights (x narrower than the stack), groups of
+# 16, 64 and 128, and every K6 prologue / epilogue and K7 at each row count
+GEMV_ROWS = (1, 4, 5, 8, 16, 17, 32)
+INT4_GEMV_EDGES = [
+    # (IN, OUT, group, dtype)
+    (256, 264, 16, torch.bfloat16),
+    (192, 136, 64, torch.float32),      # padded to 256 rows
+    (1024, 520, 128, torch.bfloat16),
+    (320, 4096, 64, torch.float32),     # padded to 512 rows
+    (4096, 6144, 64, torch.bfloat16),   # Mistral-7B qkv
+]
+
+
+@pytest.mark.parametrize("M", GEMV_ROWS)
+@pytest.mark.parametrize("case", INT4_GEMV_EDGES)
+def test_int4_gemv_rows_and_edges_match_plain(dev, case, M):
+    IN, OUT, group, dtype = case
+    gen = torch.Generator().manual_seed(13)
+    data, scales, g, in_p = _qweight(gen, 2, IN, OUT, group, dev)
+    x = pad_x_to(_randn(gen, M, IN, dtype=dtype, dev=dev), in_p).contiguous()
+    ak.reset_launches()
+    got = qk.matmul_dequant_int4_stacked(x, data, scales, 1, g)
+    assert ak.LAUNCHES["matmul_dequant_int4_stacked"] == 1
+    _qclose(got, qk.matmul_dequant_int4_stacked_plain(x, data, scales, 1, g), dtype,
+            f"K5b M={M} IN={IN} OUT={OUT}")
+    got = qk.matmul_dequant_int4(x, data[0], scales[0], g)
+    _qclose(got, qk.matmul_dequant_int4_plain(x, data[0], scales[0], g), dtype, "K4")
+
+
+GEMV_FUSED_VARIANTS = ("ln", "res", "silu_res", "ln_bias", "ln_rope", "ln_rope_qk")
+
+
+@pytest.mark.parametrize("M", GEMV_ROWS)
+@pytest.mark.parametrize("variant", GEMV_FUSED_VARIANTS)
+def test_int4_fused_variants_at_every_row_count_match_plain(dev, variant, M):
+    """K6 at each row count, bf16 and fp32: heads of 64 (5 q, 2 k / v), so
+    a 128-column tile holds two heads, the q / k and the q || k / v
+    boundaries fall inside tiles and the last tile is half full."""
+    gen = torch.Generator().manual_seed(14)
+    L, IN, Nq, Nk, D = 2, 320, 5, 2, 64
+    OUT = (Nq + 2 * Nk) * D
+    data, scales, g, _ = _qweight(gen, L, IN, OUT, 64, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn(gen, M, 2 * IN if variant == "silu_res" else IN, dtype=dtype, dev=dev)
+        kw = {}
+        if variant.startswith("ln"):
+            kw["ln"] = (1 + 0.1 * torch.randn((L, IN), generator=gen)).to(dtype).to(dev)
+            kw["invrms"] = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + 1e-5)
+        if "res" in variant:
+            kw["res"] = _randn(gen, M, OUT, dtype=dtype, dev=dev)
+        if variant == "silu_res":
+            kw["silu"] = True
+        if "bias" in variant:
+            kw["bias"] = _randn(gen, L, OUT, dtype=dtype, dev=dev)
+        if "rope" in variant:
+            ang = torch.rand((M, D // 2), generator=gen) * 6.3
+            kw.update(rope_cos=torch.cat([ang.cos()] * 2, -1).to(dev),
+                      rope_sin=torch.cat([ang.sin()] * 2, -1).to(dev),
+                      rope_heads=Nq + Nk, rope_dim=D)
+        if "qk" in variant:
+            kw.update(qk_norm_w=tuple((1 + 0.1 * torch.randn((L, D), generator=gen))
+                                      .to(dtype).to(dev) for _ in range(2)),
+                      qk_heads=Nq, eps=1e-6)
+        ak.reset_launches()
+        got = qk.matmul_dequant_int4_stacked_fused(x, data, scales, 1, g, **kw)
+        assert ak.LAUNCHES["matmul_dequant_int4_stacked_fused"] == 1
+        want = qk.matmul_dequant_int4_stacked_fused_plain(x, data, scales, 1, g, **kw)
+        torch.cuda.synchronize()
+        _qclose(got, want, dtype, f"{variant} M={M} {dtype}")
+
+
+@pytest.mark.parametrize("M", GEMV_ROWS)
+@pytest.mark.parametrize("H,I", [(512, 640), (256, 328)])
+def test_int4_mlp_at_every_row_count_matches_plain(dev, M, H, I):
+    """K7 at each row count, bf16 and fp32: I % 16 == 0, where gate_up
+    writes silu(g) * u in down's fragment order, and I % 16 == 8, where it
+    writes the fp32 gate || up and down stages silu(g) * u itself."""
+    gen = torch.Generator().manual_seed(15)
+    L = 2
+    gu, gus, g, _ = _qweight(gen, L, H, 2 * I, 64, dev)
+    dn, dns, _, _ = _qweight(gen, L, I, H, 64, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn(gen, M, H, dtype=dtype, dev=dev)
+        ln = (1 + 0.1 * torch.randn((L, H), generator=gen)).to(dtype).to(dev)
+        inv = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + 1e-5)
+        ak.reset_launches()
+        got = qk.mlp_fused_int4_stacked(x, gu, gus, dn, dns, ln, inv, 1, g)
+        assert ak.LAUNCHES["mlp_fused_int4_stacked"] == 1
+        want = qk.mlp_fused_int4_stacked_plain(x, gu, gus, dn, dns, ln, inv, 1, g)
+        torch.cuda.synchronize()
+        _qclose(got, want, dtype, f"M={M} {dtype}")
+
+
+@pytest.mark.parametrize("M", [4, 16, 32])
+def test_int4_gemv_every_split_matches_plain(dev, M):
+    """The entry point at every cluster size the int4 plan picks from
+    (quant_kernels._I4_SPLITS), whatever the plan would pick, bf16 and
+    fp32 (a split whose blocks cannot hold their activations is refused);
+    and a split with more blocks than 16-row units (blocks without
+    rows)."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    gen = torch.Generator().manual_seed(16)
+    IN, OUT, group = 4096, 264, 64
+    data, scales, g, _ = _qweight(gen, 2, IN, OUT, group, dev)
+    small, small_s, _, _ = _qweight(gen, 2, 256, 264, 16, dev)   # 8 units of rows
+    fn = cuda_build.function("int4_matmul.cu", "tg_int4_matmul", qk._MATMUL_ARGS)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d, s, n, splits in ((data, scales, IN, qk._I4_SPLITS), (small, small_s, 256, (16,))):
+            x = _randn(gen, M, n, dtype=dtype, dev=dev)
+            gs = group if n == IN else 16
+            want = qk.matmul_dequant_int4_stacked_plain(x, d, s, 1, gs)
+            for split in splits:
+                got = torch.empty(M, OUT, dtype=dtype, device=dev)
+                err = fn(ak._ptr(x), ak._ptr(d), ak._ptr(s), ak._ptr(got), M, n, OUT, gs, 1,
+                         qk._DTYPE_CODE[dtype], split, 0, qk._stream(x.device))
+                if not qk.int4_gemv_plan(M, n, split, qk._int4_parts(dtype, False))[0]:
+                    assert err, f"split {split}: activations that fit no block launched"
+                    continue  # the plan never picks it
+                cuda_build.check("int4_matmul.cu", err, "tg_int4_matmul")
+                torch.cuda.synchronize()
+                _qclose(got, want, dtype, f"M={M} IN={n} split {split} {dtype}")
+
+
+# the matrices of the plan check: Mistral-7B, GPT-2 and qwen2-0.5B widths,
+# and narrow ones whose blocks hold few rows
+INT4_PLAN_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 32768),
+                    (768, 2304), (768, 3072), (3072, 768), (896, 1152), (896, 9728),
+                    (4864, 896), (256, 264), (512, 136)]
+
+
+def _plan_fn(source, symbol, n_ints):
+    import ctypes
+
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    return cuda_build.function(source, symbol, [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+
+
+def _kernel_plan(fn, *args, n=8):
+    import ctypes
+
+    plan = (ctypes.c_int * n)()
+    assert fn(*args, plan) == 0, args
+    return tuple(plan)
+
+
+def test_int4_gemv_host_plan_matches_the_kernels(dev):
+    """The host's model of the int4 GEMV's plan (quant_kernels.int4_gemv_plan
+    and the wrappers' _fused_act and _mlp_act) against what the three C
+    entry points launch (their tg_int4_*_plan exports): the n-tiles a pass,
+    the route and a block's shared memory, at every row count, every
+    split, bf16 and fp32, aligned, padded and unaligned x, and each K6
+    prologue; K7's gated choice where down takes its rows in one pass."""
+    mm = _plan_fn("int4_matmul.cu", "tg_int4_matmul_plan", 5)
+    fused = _plan_fn("int4_fused.cu", "tg_int4_fused_plan", 8)
+    mlp = _plan_fn("int4_mlp.cu", "tg_int4_mlp_plan", 8)
+    for dtype in (torch.bfloat16, torch.float32):
+        code = qk._DTYPE_CODE[dtype]
+        for M in range(1, qk.MAX_DECODE_ROWS + 1):
+            for IN, OUT in INT4_PLAN_SHAPES:
+                for C in qk._I4_SPLITS:
+                    want = qk.int4_gemv_plan(M, IN, C, qk._int4_parts(dtype, False))
+                    assert _kernel_plan(mm, M, IN, OUT, code, C, n=3) == want, (M, IN, C)
+                    for in_x in (IN, IN - 64, IN - 4):
+                        for ln, silu in ((False, False), (True, False), (False, True)):
+                            parts, staged = qk._fused_act(dtype, silu, ln, in_x)
+                            got = _kernel_plan(fused, M, in_x, IN, OUT, ln, silu, code, C, n=4)
+                            want = (parts,) + qk.int4_gemv_plan(M, IN, C, parts, staged)
+                            assert got == want, (M, in_x, IN, ln, silu, C)
+            for H, I in ((4096, 14336), (768, 3072), (896, 4864), (512, 640), (256, 328)):
+                Hp, Ip = -(-H // 128) * 128, -(-I // 128) * 128
+                parts, staged_a, staged_b = qk._mlp_act(dtype, H, 2 * I)
+                for ca in (1, 4, 16):
+                    for cb in qk._I4_SPLITS + (qk.int4_gemv_split(M, Ip, H, parts, 132,
+                                                                  staged_b),):
+                        got = _kernel_plan(mlp, M, H, Hp, 2 * I, Ip, code, ca, cb)
+                        gate = qk.int4_gemv_plan(M, Hp, ca, parts, staged_a)
+                        down = qk.int4_gemv_plan(M, Ip, cb, parts, staged_b)
+                        gated = not staged_b and 8 * down[0] >= M
+                        assert got == (parts, *gate, gated, *down), (M, H, I, ca, cb)
+                cb = qk.int4_gemv_split(M, Ip, H, parts, 132, staged_b)
+                assert _kernel_plan(mlp, M, H, Hp, 2 * I, Ip, code, 1, cb)[4] == (not staged_b)
+
+
+def test_int4_gemv_allocates_only_its_outputs(dev):
+    """K5b and K6 allocate their output and nothing else on the card; K7 its
+    output and the scratch between its two launches."""
+    gen = torch.Generator().manual_seed(17)
+    M, H, I = 16, 512, 640
+    gu, gus, g, _ = _qweight(gen, 2, H, 2 * I, 64, dev)
+    dn, dns, _, _ = _qweight(gen, 2, I, H, 64, dev)
+    x = _randn(gen, M, H, dtype=torch.bfloat16, dev=dev)
+    ln = torch.ones(2, H, dtype=torch.bfloat16, device=dev)
+    inv = torch.ones(M, 1, device=dev)
+    calls = (
+        (lambda: qk.matmul_dequant_int4_stacked(x, gu, gus, 1, g), M * 2 * I * 2),
+        (lambda: qk.matmul_dequant_int4_stacked_fused(x, gu, gus, 1, g, ln=ln, invrms=inv),
+         M * 2 * I * 2),
+        (lambda: qk.mlp_fused_int4_stacked(x, gu, gus, dn, dns, ln, inv, 1, g),
+         M * H * 2 + qk._mlp_act_bytes(M, 2 * I, dn.shape[1] * 2, 2)),
+    )
+    for call, nbytes in calls:
+        call()  # built and set up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = call()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated(dev) - base <= -(-nbytes // 512) * 512
+        del out
+
+
 # -- paged frozen-pool decode (K8) ------------------------------------------------
 #
 # Both sides compute in fp32 from the same inputs in another order and round

@@ -8,7 +8,8 @@
 //
 // Two regimes, as on the TPU:
 // - M <= 32 (decode-shaped, the lm_head of a prefill): the GEMV kernel of
-//   int4_common.cuh. Bound by the packed weight bytes.
+//   int4_common.cuh (tensor cores, one pass over the packed weight, the
+//   host's split over a cluster). Bound by the packed weight bytes.
 // - M > 32 (prefill-shaped, 4 x 512 rows; a verify round's 80): bound by
 //   operations (about 4 M operations a packed byte). bf16 activations run
 //   the wgmma + TMA kernel of dequant_mm_tc.cuh (shared with
@@ -210,7 +211,8 @@ cudaError_t launch(const void* x, const int8_t* W, const float* Sc, void* out, i
                    int OUT, int group, int split, int tile, cudaStream_t stream) {
   if (M <= 32) {
     tg::GemvArgs a = tg::plain_gemv_args(x, W, Sc, out, M, IN, IN, OUT, group, 0);
-    return tg::launch_gemv<T, T>(a, stream);
+    constexpr int parts = std::is_same<T, __nv_bfloat16>::value ? 1 : 3;
+    return tg::launch_gemv<T, T, parts>(a, split, stream);
   }
   if ((IN / 2) % KC != 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
@@ -234,9 +236,11 @@ extern "C" {
 // out [M, OUT] = x [M, IN] @ dequant(layer `layer` of data int8 [L, IN/2, OUT]
 // with scales fp32 [L, IN/group, OUT]), in x's type (dtype code: 0 fp32,
 // 2 bf16). Needs OUT % 8 == 0, group % 16 == 0, (IN/2) % group == 0 and
-// (IN/2) % 128 == 0. At M > 32 with bf16, `split` (1 to 8) and `tile` (128
-// or 256) are the wgmma kernel's plan (ops/quant_kernels.dequant_mm_plan);
-// other calls read neither. Returns the cudaError_t of the launch.
+// (IN/2) % 128 == 0. At M <= 32, `split` (1 to 16) is the GEMV's blocks a
+// cluster (ops/quant_kernels.int4_gemv_split); at M > 32 with bf16, `split`
+// (1 to 8) and `tile` (128 or 256) are the wgmma kernel's plan
+// (ops/quant_kernels.dequant_mm_plan); fp32 at M > 32 reads neither.
+// Returns the cudaError_t of the launch.
 int tg_int4_matmul(const void* x, const void* data, const void* scales, void* out, int M, int IN,
                    int OUT, int group, int layer, int dtype, int split, int tile, void* stream) {
   if (M <= 0 || IN <= 0 || IN % 2 || OUT % 8 || group <= 0 || group % 16 || (IN / 2) % group)
@@ -250,6 +254,18 @@ int tg_int4_matmul(const void* x, const void* data, const void* scales, void* ou
       return launch<__nv_bfloat16>(x, W, Sc, out, M, IN, OUT, group, split, tile, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The GEMV's plan for tg_int4_matmul's arguments at M <= 32 and split
+// `split` (tg::gv_describe): plan[0..2] = its n-tiles a pass, its route and
+// its shared memory bytes. Returns a cudaError_t.
+int tg_int4_matmul_plan(int M, int IN, int OUT, int dtype, int split, int* plan) {
+  if (M <= 0 || M > 32 || IN <= 0 || IN % 2 || (dtype != tg::kF32 && dtype != tg::kBF16))
+    return cudaErrorInvalidValue;
+  const tg::GemvArgs a =
+      tg::plain_gemv_args(nullptr, nullptr, nullptr, nullptr, M, IN, IN, OUT, 0, 0);
+  tg::gv_describe(a, split, dtype == tg::kF32 ? 3 : 1, plan);
+  return cudaSuccess;
 }
 
 const char* tg_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -23,7 +23,7 @@
 // than MR rows is read again for each further group (the later reads partly
 // from L2).
 //
-// The streaming is the decode GEMV of int4_common.cuh: each warp reads RP
+// The streaming: each warp reads RP
 // contiguous rows of 256 columns at a time (8 columns a lane: 32 bytes of
 // fp32, 16 of bf16, 8 of int8 or of packed int4), dequantizes in registers
 // (q * s and (u - 8) * s rounded once, exactly the plain version's fp32
@@ -45,13 +45,13 @@ namespace {
 using tg::from_float;
 using tg::to_float;
 
-constexpr int NT = tg::GEMV_THREADS, NW = tg::GEMV_WARPS;
-constexpr int BN = tg::GEMV_BN;  // columns of a block: 8 a lane
+constexpr int NT = 256, NW = NT / 32;
+constexpr int BN = 256;  // columns of a block: 8 a lane
 // Blocks of a cluster, splitting an expert's rows: 8 when the column tiles
 // of the experts are few (down: 16 tiles x 8 experts), 1 when they fill the
 // card alone (gate_up: 112 x 8), where the split's reduction would cost as
 // much as the block's share of the rows.
-constexpr int SK_SPLIT = tg::GEMV_SK;
+constexpr int SK_SPLIT = 8;
 constexpr int MANY_BLOCKS = 4 * 132;
 
 enum WKind : int { kBF16W = 0, kInt8W = 1, kInt4W = 2, kF32W = 3 };

@@ -47,8 +47,8 @@ MAX_DECODE_ROWS = 32        # rows of the decode-shaped kernels (K6, K7)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _MATMUL_ARGS = [_P] * 4 + [_I] * 8 + [_P]  # ..., split, tile, stream
-_FUSED_ARGS = [_P] * 12 + [_I] * 10 + [_F, _I, _P]
-_MLP_ARGS = [_P] * 9 + [_I] * 8 + [_P]
+_FUSED_ARGS = [_P] * 12 + [_I] * 10 + [_F, _I, _I, _P]  # ..., eps, dtype, split, stream
+_MLP_ARGS = [_P] * 9 + [_I] * 10 + [_P]  # ..., dtype, split_a, split_b, stream
 
 # the int8 GEMV's split (csrc/int8_matmul.cu, M <= 32): a block owns
 # _GEMV_COLS columns of up to 4 (M <= 4) or 8 activation rows; the blocks of
@@ -60,6 +60,25 @@ _GEMV_UNIT = 16
 _GEMV_SPLITS = (1, 2, 4, 6, 8, 12, 16)
 _GEMV_BLOCKS_PER_SM = 0.75
 _GEMV_MAX_ROWS = 4096
+
+# the int4 GEMV's split (csrc/int4_common.cuh, M <= 32): a block owns
+# _I4_COLS columns of all the call's rows (8, 16 or 32 a pass: 1, 2 or 4
+# n-tiles); the C blocks of a cluster, one of _I4_SPLITS, split IN/2 in
+# _I4_UNIT-row units. A block's shared memory (_i4_smem) is its warps'
+# cp.async rings and, on the staged route (_i4_route), its activations,
+# within _I4_SMEM; its fixed cost (launch, first loads, the cluster's
+# reduction) is about _I4_BLOCK_COST units of rows. A block on a ring route
+# is 4 warps, two an SM (registers); a staged block 8 warps, one an SM
+# (shared memory); the H100 runs at most _I4_CLUSTERS[C] clusters of C
+# blocks of one an SM at once, about twice as many of two an SM
+# (cudaOccupancyMaxActiveClusters on its 132 SMs: a cluster must fit one
+# GPC)
+_I4_COLS = 128
+_I4_UNIT = 16
+_I4_SPLITS = (1, 2, 4, 6, 8, 12, 16)
+_I4_SMEM = 232448
+_I4_BLOCK_COST = 12
+_I4_CLUSTERS = {1: 132, 2: 66, 4: 30, 6: 17, 8: 15, 12: 7, 16: 7}
 
 # the prefill regime's plan (csrc/dequant_mm_tc.cuh, M > 32, bf16): a block
 # owns _TC_COLS weight columns and `tile` rows of x (wgmma's N, one of
@@ -276,6 +295,117 @@ def gemv_split(M: int, IN: int, OUT: int, sms: int = 132) -> int:
     return max(1, min(C, IN // _GEMV_UNIT))
 
 
+def _i4_route(M: int, parts: int, staged: bool) -> int:
+    """How an int4 GEMV block gets its activation rows (the kernel's
+    gv_plan): 0, bf16 x rides the ring with the weights; 2, an activation
+    in parts is formed chunk by chunk from what rides the ring (at most 16
+    rows); 1, the block stages all its rows once (`staged`: the silu
+    prologue or x rows not 16-byte aligned; or 32 rows)."""
+    if parts == 1:
+        return 0
+    return 2 if M <= 16 and not staged else 1
+
+
+def _i4_smem(nt: int, nk: int, parts: int, route: int) -> int:
+    """Shared memory of an int4 GEMV block (the kernel's gv_bytes): its
+    warps' rings of 2 nt + 1 slots, each a chunk's 16 packed rows of 128 /
+    nt columns, both planes' scale rows and the chunk's activation payload;
+    staged (route 1), the nk packed rows' activations and norm weights."""
+    w = _I4_COLS // nt
+    pay = {0: 512 * nt, 1: 0, 2: max(512 * parts * nt, 1024 * nt + 128)}[route]
+    ring = (8 if route == 1 else 4) * (2 * nt + 1) * (_I4_UNIT * w + 8 * w + pay)
+    return ring + (nk * (32 * parts * nt + 8) if route == 1 else 0)
+
+
+def int4_gemv_plan(M: int, IN: int, C: int, parts: int,
+                   staged: bool = False) -> Tuple[int, int, int]:
+    """What the int4 GEMV launches at split C (the kernel's gv_describe,
+    which the libraries export as tg_int4_*_plan): (the n-tiles of 8 rows a
+    pass, the route (_i4_route), a block's shared memory bytes). The
+    n-tiles are those of M (1 for M <= 8, 2 for M <= 16, else 4), fewer
+    where a staged block's activations would not fit its shared memory, 0
+    (and 0 bytes) where even one does not."""
+    nk = -(-(IN // 2 // _I4_UNIT) // C) * _I4_UNIT
+    nt = 1 if M <= 8 else 2 if M <= 16 else 4
+    route = _i4_route(M, parts, staged)
+    while nt and _i4_smem(nt, nk, parts, route) > _I4_SMEM:
+        nt //= 2
+    return nt, route, _i4_smem(nt, nk, parts, route) if nt else 0
+
+
+@functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
+def int4_gemv_split(M: int, IN: int, OUT: int, parts: int, sms: int = 132,
+                    staged: bool = False) -> int:
+    """The int4 GEMV's split plan (M <= 32): the blocks C of each cluster,
+    which split IN/2 between them. One pass over the rows first (the
+    fewest passes at which a block's activations, `parts` bf16 parts, fit);
+    then the least waves of clusters (_I4_CLUSTERS at once, scaled to the
+    card's `sms` SMs and the blocks an SM: two on the ring routes, one
+    staged, _i4_route) times a block's rows plus its fixed cost
+    (_I4_BLOCK_COST units); ties go to the smaller C. At most one block a
+    16-row unit. Raises ValueError for a shape whose activations fit at no
+    split."""
+    n16 = IN // 2 // _I4_UNIT
+    tiles = -(-OUT // _I4_COLS)
+    best = None
+    for C in _I4_SPLITS:
+        if C > max(1, n16):
+            break
+        nt = int4_gemv_plan(M, IN, C, parts, staged)[0]
+        if not nt:
+            continue
+        passes = -(-M // (8 * nt))
+        per_sm = 1 if _i4_route(M, parts, staged) == 1 else 2
+        waves = -(-tiles * passes // max(1, per_sm * _I4_CLUSTERS[C] * sms // 132))
+        key = (passes, waves * (-(-n16 // C) + _I4_BLOCK_COST), C)
+        best = min(best or key, key)
+    if best is None:
+        raise ValueError(f"int4 GEMV: the activations of IN = {IN} ({parts} parts) "
+                         f"fit no split of up to {_I4_SPLITS[-1]} blocks")
+    return best[2]
+
+
+def _int4_parts(dtype: torch.dtype, fp32_act: bool) -> int:
+    """The bf16 parts the int4 GEMV splits its activation into: three in
+    fp32 (exact), two for an fp32-valued activation with bf16 outputs (a
+    prologue's, or staged x), one for bf16 x as it is."""
+    return 3 if dtype == torch.float32 else 2 if fp32_act else 1
+
+
+def _fused_act(dtype: torch.dtype, silu: bool, has_ln: bool, in_x: int) -> Tuple[int, bool]:
+    """K6's activation (csrc/int4_fused.cu's fused_parts): its bf16 parts
+    and whether the block stages it (the silu prologue, or x rows not
+    16-byte aligned)."""
+    staged = silu or in_x % 8 != 0
+    return _int4_parts(dtype, staged or has_ln), staged
+
+
+def _mlp_act(dtype: torch.dtype, H: int, I2: int) -> Tuple[int, bool, bool]:
+    """K7's activations (csrc/int4_mlp.cu's mlp_plan): their bf16 parts,
+    whether gate_up stages x (rows not 16-byte aligned), and whether down
+    stages silu(g) * u with its prologue (I % 16 != 0) instead of copying
+    the fragments gate_up's epilogue wrote (the plan gives down one pass
+    over its rows wherever that is possible)."""
+    return _int4_parts(dtype, True), H % 8 != 0, (I2 // 2) % 16 != 0
+
+
+@functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
+def _fused_split(M, in_x, IN, OUT, dtype, silu, has_ln, device) -> int:
+    """K6's split on card `device`."""
+    parts, staged = _fused_act(dtype, silu, has_ln, in_x)
+    return int4_gemv_split(M, IN, OUT, parts, _sm_count(device), staged)
+
+
+@functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
+def _mlp_splits(M, H, Hp, I2, Ip, dtype, device) -> Tuple[int, int, int]:
+    """K7's two splits on card `device` and its scratch's fp32 words."""
+    parts, staged_a, staged_b = _mlp_act(dtype, H, I2)
+    sms = _sm_count(device)
+    return (int4_gemv_split(M, Hp, I2, parts, sms, staged_a),
+            int4_gemv_split(M, Ip, H, parts, sms, staged_b),
+            _mlp_act_bytes(M, I2, Ip, parts) // 4)
+
+
 @functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
 def dequant_mm_plan(M: int, IN: int, OUT: int, bits: int, sms: int = 132) -> Tuple[int, int]:
     """The prefill regime's plan (M > 32, bf16 activations): (tile, C),
@@ -317,7 +447,9 @@ def _launch_matmul(name, x, data, scales, l, group, bits):
     out = torch.empty((M, OUT), dtype=x.dtype, device=x.device)
     sms = _sm_count(x.device.index or 0)
     if M <= MAX_DECODE_ROWS:
-        plan = (gemv_split(M, IN, OUT, sms) if bits == 8 else 1, 0)
+        C = (gemv_split(M, IN, OUT, sms) if bits == 8
+             else int4_gemv_split(M, IN, OUT, _int4_parts(x.dtype, False), sms))
+        plan = (C, 0)
     else:
         tile, C = dequant_mm_plan(M, IN, OUT, bits, sms)
         plan = (C, tile)
@@ -470,12 +602,14 @@ def matmul_dequant_int4_stacked_fused(
 
     fn = cuda_build.function("int4_fused.cu", "tg_int4_fused", _FUSED_ARGS)
     out = torch.empty((M, OUT), dtype=x.dtype, device=x.device)
+    split = _fused_split(M, in_x, IN, OUT, x.dtype, bool(silu), ln is not None,
+                         x.get_device())
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(data), _ptr(scales), _opt_ptr(ln), _opt_ptr(invrms),
                  _opt_ptr(res), _opt_ptr(bias), _opt_ptr(rope_cos),
                  _opt_ptr(rope_sin), _opt_ptr(qn), _opt_ptr(kn), _ptr(out),
                  M, in_x, IN, OUT, group, int(l), int(bool(silu)), rope_cols,
-                 int(rope_dim), qk_cols, float(eps), _DTYPE_CODE[x.dtype],
+                 int(rope_dim), qk_cols, float(eps), _DTYPE_CODE[x.dtype], split,
                  _stream(x.device))
     cuda_build.check("int4_fused.cu", err, name)
     LAUNCHES[name] += 1
@@ -483,6 +617,14 @@ def matmul_dequant_int4_stacked_fused(
 
 
 # -- K7 -------------------------------------------------------------------------
+
+
+def _mlp_act_bytes(M: int, I2: int, Ip: int, parts: int) -> int:
+    """Bytes of K7's scratch between its two launches: the fp32 [M, 2I]
+    gate || up, or silu(g) * u as `parts` bf16 parts in the down call's
+    fragment order (16 Ip parts n-tiles bytes, up to 4 n-tiles), whichever
+    the kernel forms (csrc/int4_mlp.cu)."""
+    return max(4 * M * I2, 64 * Ip * parts)
 
 
 def mlp_fused_int4_stacked(
@@ -523,12 +665,13 @@ def mlp_fused_int4_stacked(
     from tinygpt_tpu_torch.ops import cuda_build
 
     fn = cuda_build.function("int4_mlp.cu", "tg_int4_mlp", _MLP_ARGS)
-    act = torch.empty((M, I2), dtype=torch.float32, device=x.device)
+    split_a, split_b, words = _mlp_splits(M, H, Hp, I2, Ip, x.dtype, x.get_device())
+    act = torch.empty(words, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(gu_data), _ptr(gu_scales), _ptr(dn_data),
                  _ptr(dn_scales), _ptr(ln), _ptr(invrms), _ptr(act), _ptr(out),
-                 M, H, Hp, I2, Ip, group, int(l), _DTYPE_CODE[x.dtype],
+                 M, H, Hp, I2, Ip, group, int(l), _DTYPE_CODE[x.dtype], split_a, split_b,
                  _stream(x.device))
     cuda_build.check("int4_mlp.cu", err, name)
     LAUNCHES[name] += 1
