@@ -301,6 +301,7 @@ MIXTRAL_LOGIT_TOL = {4: 2.0, 8: 2.0, None: 0.5}
 # the moe_kernels phase: rows of a call (4 tokens x 2 experts, 16 serving
 # rows x 2, a verify of 16 rows x 5 positions x 2), the stacks' layers
 MOE_ROWS = (8, 32, 160)
+MOE_SWEEP_SPLITS = (1, 2, 4, 6, 8, 12, 16)  # K12's cluster sizes swept against its plan
 MOE_STACK_LAYERS = 2
 # the mixtral4 phase's serving leg: the serve phase's scheduler, 8 requests
 MIXTRAL_SERVE = dict(n_requests=8, prompt_len=512, max_new=64, gap_s=0.25)
@@ -492,13 +493,15 @@ def _demangle(names) -> dict:
 
 def _attention_reports() -> None:
     """The redesigned kernels' instantiations at the main path's types (K1,
-    K13, K2, the int8 GEMV of K3/K5a and the prefill kernel of K5a/K5b):
-    registers, spills and static shared memory (ptxas -v; their
-    shared-memory rings are dynamic, sized at launch as the sources' head
-    notes give them); and the Hopper instructions in their machine code
-    (cuobjdump -sass): wgmma (HGMMA) and TMA loads (UTMALDG) in K1 and the
-    prefill kernel, cluster barriers (UCGABAR) in K13, K2, the GEMV and the
-    prefill kernel's split, and the GEMV's cp.async copies (LDGSTS)."""
+    K13, K2, the int8 GEMV of K3/K5a, the prefill kernel of K5a/K5b, K8
+    and K12's bf16 body): registers, spills and static shared memory
+    (ptxas -v; their shared-memory rings are dynamic, sized at launch as
+    the sources' head notes give them); and the Hopper instructions in
+    their machine code (cuobjdump -sass): wgmma (HGMMA) and TMA loads
+    (UTMALDG) in K1 and the prefill kernel, cluster barriers (UCGABAR) in
+    K13, K2, K8, K12, the GEMV and the prefill kernel's split, cp.async
+    copies (LDGSTS) in the GEMV, K8 and K12, and mma.sync (HMMA) from
+    ldmatrix (LDSM) in K12."""
     from tinygpt_tpu_torch.ops import cuda_build
 
     wanted = {
@@ -517,11 +520,20 @@ def _attention_reports() -> None:
                            "dequant_mm_tc<tg::dqmm::Int8, 128>"),
         "int4_matmul.cu": ("dequant_mm_tc<tg::dqmm::Int4, 256>",
                            "dequant_mm_tc<tg::dqmm::Int4, 128>"),
+        "paged_decode_frozen.cu": (
+            "paged_decode_frozen_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4>",
+            "paged_decode_frozen_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4>",
+            "paged_decode_frozen_kernel<__nv_bfloat16, __nv_bfloat16, 64, 1>"),
+        "moe_gather_matmul.cu": ("moe_gather_tc_kernel<__nv_bfloat16, 1, 1>",
+                                 "moe_gather_tc_kernel<__nv_bfloat16, 4, 1>",
+                                 "moe_gather_tc_kernel<__nv_bfloat16, 8, 1>"),
     }
     ops = {"flash_prefill.cu": ("HGMMA", "UTMALDG"), "flash_decode.cu": ("UCGABAR",),
            "flash_decode_frozen.cu": ("UCGABAR",),
            "int8_matmul.cu": ("UCGABAR", "LDGSTS", "HGMMA", "UTMALDG"),
-           "int4_matmul.cu": ("HGMMA", "UTMALDG", "UCGABAR")}
+           "int4_matmul.cu": ("HGMMA", "UTMALDG", "UCGABAR"),
+           "paged_decode_frozen.cu": ("UCGABAR", "LDGSTS"),
+           "moe_gather_matmul.cu": ("HMMA", "LDSM", "LDGSTS", "UCGABAR")}
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     for src, kernels in wanted.items():
         entries = _ptxas_entries(cuda_build.build_log(src))
@@ -1576,6 +1588,9 @@ def phase_paged_kernels(table: dict) -> None:
         ("D64 G1", 4, 8, 8, 64, {}, None, torch.bfloat16, False),
         ("D64 G1 w100, 1 inactive row", 4, 8, 8, 64, {2: lens[2]}, 100, torch.float32,
          False),
+        ("GPT-2 serve shape", GPT2_124M["n_layer"], 12, 12, 64, {}, None, torch.bfloat16,
+         False),
+        ("G16", 4, 128, 8, 128, {}, None, torch.bfloat16, False),
     ]
     worst = {}
     for i, (label, Lc, nq, nk, d, inactive, window, dtype, main) in enumerate(cases):
@@ -1643,8 +1658,61 @@ def phase_paged_kernels(table: dict) -> None:
     for dname, err in sorted(worst.items()):
         log(f"[paged] paged_decode_frozen {dname}: worst max_abs_err over all cases "
             f"{err:.3g} (tol at most {TOL[dname]}; bf16: 2^-7 of the largest output)")
+    _paged_split_sweep("serve shape", L, Nq, Nk, D)
+    _paged_split_sweep("GPT-2 serve shape", GPT2_124M["n_layer"], 12, 12, 64)
+    _paged_split_sweep("G16", 4, 128, 8, 128)
     _paged_decode_k9(table)
     _wide_groups()
+
+
+def _paged_split_sweep(label, L, Nq, Nk, D) -> None:
+    """K8 through its C entry point at every cluster size (1 to 8), at
+    `label`'s heads over the serve phase's rows and pool
+    (bf16, step N - 1, the calls walking the L layers), beside the plan's
+    pick (attention_kernels.paged_decode_split): the check on the plan."""
+    import ctypes
+
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+    from tinygpt_tpu_torch.ops.attention_kernels import (
+        _DTYPE_CODE,
+        _ptr,
+        _sm_count,
+        paged_decode_split,
+    )
+
+    p = PAGED
+    q, kp, vp, tables, lengths, starts, ki, vi = _paged_case(
+        L, Nq, Nk, D, PAGED_LENGTHS, {}, torch.bfloat16, seed=210)
+    fn = cuda_build.function("paged_decode_frozen.cu", "tg_paged_decode_frozen",
+                             pa._FROZEN_ARGS)
+    B, N, code = q.shape[0], p["N"], _DTYPE_CODE[torch.bfloat16]
+    out = torch.empty_like(q)
+
+    def call(l, C):
+        err = fn(_ptr(q), _ptr(kp), _ptr(vp), _ptr(tables), _ptr(lengths), _ptr(starts),
+                 _ptr(ki), _ptr(vi), _ptr(out), B, Nq, Nk, p["n_blocks"], p["bs"], p["MB"], N,
+                 D, code, code, l, N - 1, D ** -0.5, 0, C,
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        cuda_build.check("paged_decode_frozen.cu", err, "tg_paged_decode_frozen")
+
+    dev = q.device.index or 0
+    per_sm = pa._paged_per_sm(Nq, Nk, p["MB"], D, code, code, dev)
+    plan = paged_decode_split(B, Nk, Nq // Nk, p["MB"] * p["bs"] + N, per_sm, _sm_count(dev))
+    times = {}
+    for C in range(1, 9):
+        layers = iter(range(10 ** 9))
+        times[C] = cuda_time_ms(lambda: call(next(layers) % L, C), iters=4 * L)
+    best = min(times, key=times.get)
+    log(f"[paged] paged_decode_frozen split sweep {label} (B={B} Nk={Nk} G={Nq // Nk} "
+        f"D={D}; blocks an SM at C = 1..8: {per_sm}): "
+        + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
+        + f" ms; the plan's C={plan} {times[plan]:.4f}, the fastest C={best} "
+        f"({times[plan] / times[best]:.3f}x)")
+    del q, kp, vp, ki, vi
+    torch.cuda.empty_cache()
 
 
 # -- speculative-verify kernel (K10) -------------------------------------------------
@@ -3527,6 +3595,60 @@ def _moe_library(x, w, l, idx, OUT):
     return t, why
 
 
+def _moe_split_sweep(key, x, w, l, idx) -> None:
+    """K12 on a bf16 stack through its C entry point at every split of
+    MOE_SWEEP_SPLITS (the plan's powers of two, and 6 and 12 beside them)
+    whose rows fit a block (tg_moe_gather_plan: its n-tiles of 8 rows a
+    pass, logged beside each time), beside the plan's pick
+    (moe_gather_split on the library's plan): the check on the plan, with
+    the passes the plan makes over the expert that most rows name.
+    Timed by CUDA events around 10 calls: a call takes a quarter of a
+    millisecond or more, far above a launch's host cost, and torch.profiler
+    has read single splits 20 % to 30 % below their other readings here."""
+    import ctypes
+
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.ops import moe_kernels as mk
+    from tinygpt_tpu_torch.ops.attention_kernels import _DTYPE_CODE, _ptr, _sm_count
+
+    src = "moe_gather_matmul.cu"
+    fn = cuda_build.function(src, "tg_moe_gather_float", mk._FLOAT_ARGS)
+    plan_fn = cuda_build.function(src, "tg_moe_gather_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    R, IN = x.shape
+    _, E, _, OUT = w.shape
+    out = torch.empty(R, OUT, dtype=x.dtype, device=x.device)
+
+    def call(split):
+        err = fn(_ptr(x), _ptr(w), _ptr(idx), _ptr(out), R, IN, OUT, E, l,
+                 _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], split,
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        cuda_build.check(src, err, "tg_moe_gather_float")
+
+    def ntiles(split):
+        got = (ctypes.c_int * 2)()
+        cuda_build.check(src, plan_fn(R, IN, _DTYPE_CODE[x.dtype], split, got),
+                         "tg_moe_gather_plan")
+        return got[0]
+
+    times, nts = {}, {}
+    for split in MOE_SWEEP_SPLITS:
+        nt = ntiles(split) if split <= -(-IN // 16) else 0
+        if nt:
+            nts[split] = nt
+            times[split] = _events_ms(lambda: call(split), 10)
+    plan = mk.moe_gather_split(R, E, IN, OUT, 1, _sm_count(x.device.index or 0),
+                               mk._library_plan)
+    best = min(times, key=times.get)
+    most = int(torch.bincount(idx.long().clamp(0, E - 1)).max())
+    log(f"[moe_kernels] moe_gather_matmul split sweep {key} R={R} {IN}->{OUT} (at most "
+        f"{most} rows an expert): "
+        + ", ".join(f"SK={c} (nt {nts[c]}) {t:.4f}" for c, t in times.items())
+        + f" ms; the plan's SK={plan} {times[plan]:.4f} ({-(-most // (8 * nts[plan]))} "
+        f"pass(es) over that expert), the fastest SK={best} ({times[plan] / times[best]:.3f}x)")
+
+
 def phase_moe_kernels(table: dict) -> None:
     """K12, K11a and K11b against their plain versions on the card at the
     Mixtral-8x7B matrices (gate_up 4096 -> 28672, down 14336 -> 4096) of a
@@ -3535,10 +3657,13 @@ def phase_moe_kernels(table: dict) -> None:
     ids from a seeded generator with repeats and one unused expert, bf16 and
     fp32 activations (QUANT_TOL). Times the bf16 calls beside their bound
     (the bytes of the distinct experts the ids name, x and out), the plain
-    version and torch.bmm on the gathered weights; beside K12, the dense
-    moe_mlp (every expert on every token) and the gathered MLP at 4 and 16
-    tokens. A table row is the mean of the main path's shape, R = 8 (gate_up
-    and down alike)."""
+    version and torch.bmm on the gathered weights, and sweeps K12's split
+    at every R (_moe_split_sweep), at R = 32 also over an uneven draw (12
+    of the rows on one expert: more than 8, so a pass of fewer than 32 rows
+    would read that expert twice); beside K12, the dense moe_mlp (every
+    expert on every token) and the gathered MLP at 4 and 16 tokens. A table
+    row is the mean of the main path's shape, R = 8 (gate_up and down
+    alike)."""
     import torch
 
     from tinygpt_tpu_torch.hf.config import parse_model_config
@@ -3598,6 +3723,18 @@ def phase_moe_kernels(table: dict) -> None:
                     + f" [{why}]")
                 rows.setdefault(name, []).append(
                     (1 if R == MOE_ROWS[0] else 0, t_k, t_p, b_ms, b_by, t_lib, err, tol))
+                if bits is None:
+                    _moe_split_sweep(key, x, w, l, idx)
+                if bits is None and R == MOE_ROWS[1]:  # uneven routing: 12 rows on expert 0
+                    skew = torch.cat([torch.zeros(12, dtype=torch.int32), torch.randint(
+                        1, E - 1, (R - 12,), generator=g, dtype=torch.int32)]).to(DEVICE)
+                    got = kern(x, *wargs, l, skew)
+                    want = plain(x, *wargs, l, skew)
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = QUANT_TOL["bfloat16"] * want.float().abs().max().item()
+                    if not (math.isfinite(err) and err <= tol):
+                        raise PhaseError(f"{name} {key} R={R} skewed: max_abs_err {err} > {tol}")
+                    _moe_split_sweep(f"{key} skewed", x, w, l, skew)
         if bits is None:   # the dense formulation beside K12 on the same layer
             gen = torch.Generator(device=DEVICE).manual_seed(3)
             router = (torch.randn((H, E), generator=gen, device=DEVICE) * 0.02).to(

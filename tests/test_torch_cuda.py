@@ -1150,6 +1150,134 @@ def test_paged_decode_frozen_e4m3_matches_plain(dev, case):
             assert _max_err(got, want) <= 4 * _paged_tol(dtype, want), f"step {step} layer {l}"
 
 
+K8_SPLIT_CASES = [
+    # (D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, step,
+    #  window): inactive rows keep their lengths over a zero table
+    (128, torch.bfloat16, 4, 8, 64, 16, 257, 8, (512, 767, 0, 1100, 600),
+     (0, 0, 0, 0, 3), (2, 3), 7, None),      # ragged; a row at 0; a stale length
+    (128, torch.bfloat16, 4, 2, 16, 40, 100, 8, (600, 130, 37), (0, 5, 0), (), 5,
+     100),                                   # bs 16; a window across the shares
+    (64, torch.float16, 16, 2, 64, 8, 40, 4, (500, 70), (0, 0), (), 3, 300),  # G = 16
+    (64, torch.bfloat16, 1, 12, 64, 16, 300, 8, (700, 512, 45), (0, 0, 0), (), 0,
+     None),                                  # GPT-2's heads, the first step
+    (128, torch.float32, 8, 1, 32, 70, 80, 40, (2200, 31), (0, 0), (), 39,
+     None),                                  # 40 in flight: two in-flight tiles
+    (64, torch.bfloat16, 2, 2, 48, 9, 30, 6, (400, 97), (10, 0), (), 2, 64),  # bs 48
+    (64, torch.bfloat16, 2, 2, 16, 4200, 4300, 8, (66000, 900), (0, 0), (), 7,
+     None),                                  # 4,125 block ids: past the id cache at C <= 2
+]
+
+
+def _k8_split_call(args, C):
+    """K8 through its C entry point at split C (1 to 8), not the plan's."""
+    import ctypes
+
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    q, kp, vp, tables, lens, sts, ki, vi, l, step, scale, window = args
+    fn = cuda_build.function("paged_decode_frozen.cu", "tg_paged_decode_frozen",
+                             pa._FROZEN_ARGS)
+    B, Nq, D = q.shape
+    _, n_blocks, Nk, bs, _ = kp.shape
+    kv_code, _ = ak.kv_operands("paged_decode_frozen", q, kp)
+    out = torch.empty_like(q)
+    err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (q, kp, vp, tables, lens, sts, ki, vi,
+                                                        out)),
+             B, Nq, Nk, n_blocks, bs, tables.shape[1], ki.shape[2], D, ak._DTYPE_CODE[q.dtype],
+             kv_code, l, step, scale, window or 0, C,
+             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0, (C, err)
+    return out
+
+
+@pytest.mark.parametrize("e4m3", [False, True])
+@pytest.mark.parametrize("case", K8_SPLIT_CASES + PAGED_CASES[:2])
+def test_paged_decode_frozen_every_split_matches_plain(dev, case, e4m3):
+    """K8 at every cluster size C = 1 .. 8 against the plain version: ragged
+    rows, a row at length 0, a stale length past the table, windows across
+    share boundaries, G = 16, bs 16, 48 and 64, two in-flight tiles, a share
+    longer than the block ids a block keeps (per-slot lookups), an e4m3
+    pool beside bf16 in-flight K/V, the null block poisoned with NaN where
+    no row is inactive; and the wrapper's own plan."""
+    if len(case) == 14:  # a PAGED_CASES entry: its last step
+        D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, steps, window, \
+            poison = case
+        step = steps[-1]
+    else:
+        D, dtype, G, Nk, bs, MB, n_blocks, N, lengths, starts, inactive, step, window = case
+        poison = not inactive  # an inactive row reads the null block
+    q, kp, vp, tables, lens, sts, ki, vi = _paged_case(
+        dev, D, torch.float32 if e4m3 else dtype, G, Nk, bs, MB, n_blocks, N, lengths,
+        starts, inactive, poison)
+    if e4m3:
+        q, kp, vp, ki, vi = q.to(dtype), _e4m3(kp), _e4m3(vp), ki.bfloat16(), vi.bfloat16()
+    for l in range(kp.shape[0]):
+        args = (q, kp, vp, tables, lens, sts, ki, vi, l, step, D ** -0.5, window)
+        want = pa.paged_decode_frozen_plain(*args)
+        tol = (4 if e4m3 else 1) * _paged_tol(dtype, want)
+        assert bool(torch.isfinite(want).all())
+        for C in range(1, 9):
+            got = _k8_split_call(args, C)
+            torch.cuda.synchronize()
+            assert _max_err(got, want) <= tol, f"C={C} layer {l}"
+        got = pa.paged_decode_frozen(*args)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= tol, f"plan layer {l}"
+
+
+def test_paged_decode_frozen_pool_past_2_31_elements(dev):
+    """The Mistral-7B serving pool at 1040 blocks holds more than 2^31
+    elements a pool: K8 reads its last layer's last blocks through 64-bit
+    offsets."""
+    L, n_blocks, Nk, bs, D, G, N = 32, 1040, 8, 64, 128, 4, 8
+    assert L * n_blocks * Nk * bs * D > 2 ** 31
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kp = torch.zeros(L, n_blocks, Nk, bs, D, dtype=torch.bfloat16, device=dev)
+    vp = torch.zeros_like(kp)
+    tables = torch.zeros(2, 12, dtype=torch.int32)
+    tables[0, :11] = torch.arange(n_blocks - 1, n_blocks - 12, -1)
+    tables[1, :5] = torch.arange(n_blocks - 20, n_blocks - 15)
+    used = tables[tables > 0].long().to(dev)
+    for pool in (kp, vp):
+        pool[L - 1, used] = torch.randn((len(used), Nk, bs, D), generator=gen,
+                                        device=dev).bfloat16()
+    q = torch.randn((2, Nk * G, D), generator=gen, device=dev).bfloat16()
+    ki = torch.randn((2, Nk, N, D), generator=gen, device=dev).bfloat16()
+    vi = torch.randn((2, Nk, N, D), generator=gen, device=dev).bfloat16()
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (q, kp, vp, tables.to(dev), torch.tensor([700, 300], **i32),
+            torch.zeros(2, **i32), ki, vi, L - 1, N - 1, D ** -0.5, None)
+    want = pa.paged_decode_frozen_plain(*args)
+    for C in (1, 3, 8):
+        got = _k8_split_call(args, C)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= _paged_tol(torch.bfloat16, want), C
+
+
+def test_paged_decode_split_plan_reads_the_kernels_occupancy(dev):
+    """K8's plan takes the blocks an SM from the library
+    (tg_paged_decode_frozen_plan: the kernel's occupancy, registers and
+    shared memory counted): at least one at every split, type, pool type,
+    head dim, group and table width, within 227 KB; at the serve, GPT-2 and
+    G = 16 shapes the plan picks C = 2, 2 and 1, the fastest of the
+    split sweep on an H100 (PERF.md)."""
+    fn = _plan_fn("paged_decode_frozen.cu", "tg_paged_decode_frozen_plan", 7)
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for kv_code in (ak._DTYPE_CODE[dtype], 3):
+            for D in (64, 128):
+                for G in (1, 3, 4, 8, 10, 16):
+                    for MB in (3, 16, 4096):
+                        for C in range(1, 9):
+                            smem, per_sm = _kernel_plan(fn, 2 * G, 2, MB, D,
+                                                        ak._DTYPE_CODE[dtype], kv_code, C, n=2)
+                            assert per_sm >= 1 and smem <= 227 * 1024, (dtype, D, G, MB, C)
+    bf16 = ak._DTYPE_CODE[torch.bfloat16]
+    for Nq, Nk, D, want in ((32, 8, 128, 2), (12, 12, 64, 2), (128, 8, 128, 1)):
+        per_sm = pa._paged_per_sm(Nq, Nk, 16, D, bf16, bf16, 0)
+        assert ak.paged_decode_split(16, Nk, Nq // Nk, 16 * 64 + 8, per_sm,
+                                     ak._sm_count(0)) == want, (Nq, Nk, per_sm)
+
+
 SPEC_CASES = [
     # (D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, round, lengths, starts,
     #  inactive, window, poison)
@@ -1530,6 +1658,66 @@ def test_moe_gather_kernels_at_the_edges_match_plain(dev, case):
             want = plain(x, *stack, l, idx, *extra)
             torch.cuda.synchronize()
             _qclose(got, want, dtype, f"{case} layer {l} {dtype}")
+
+
+MOE_TC_ROWS = (1, 8, 32, 33, 160)
+MOE_TC_SPLITS = (1, 2, 4, 6, 8, 12, 16)  # cluster sizes beside the plan's (1, 2, 4, 8, 16)
+
+
+def _moe_tc_call(x, w, l, idx, split):
+    """K12 on a bf16 stack through its C entry point at split `split`."""
+    import ctypes
+
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("moe_gather_matmul.cu", "tg_moe_gather_float", mk._FLOAT_ARGS)
+    L, E, IN, OUT = w.shape
+    out = torch.empty((x.shape[0], OUT), dtype=x.dtype, device=x.device)
+    err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (x, w, idx, out)), x.shape[0], IN, OUT,
+             E, l, ak._DTYPE_CODE[x.dtype], ak._DTYPE_CODE[w.dtype], split,
+             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0, (split, err)
+    return out
+
+
+@pytest.mark.parametrize("R", MOE_TC_ROWS)
+def test_moe_gather_bf16_rows_and_splits_match_plain(dev, R):
+    """K12 on a bf16 stack at R = 1, 8, 32, 33 and 160 rows, with repeats
+    and an unused expert, and with every row on one expert (R / 64 passes),
+    in bf16 and fp32 activations, at the plan's split and at every split
+    of MOE_TC_SPLITS; IN 1040 is not a multiple of the splits' 16 rows a
+    unit."""
+    (w,), _ = _moe_stack("float", 2, 8, 1040, 392, None, dev, seed=4)
+    for ids in (_moe_ids(R, 8, R), torch.full((R,), 5, dtype=torch.int32)):
+        idx = ids.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _randn(torch.Generator().manual_seed(R + 1), R, 1040, dtype=dtype, dev=dev)
+            want = mk.moe_gather_matmul_plain(x, w, 1, idx)
+            ak.reset_launches()
+            got = mk.moe_gather_matmul(x, w, 1, idx)
+            assert ak.LAUNCHES["moe_gather_matmul"] == 1
+            torch.cuda.synchronize()
+            _qclose(got, want, dtype, f"R={R} {dtype} plan")
+            for split in MOE_TC_SPLITS:
+                got = _moe_tc_call(x, w, 1, idx, split)
+                torch.cuda.synchronize()
+                _qclose(got, want, dtype, f"R={R} {dtype} split {split}")
+
+
+def test_moe_gather_host_plan_matches_the_kernel(dev):
+    """moe_kernels.moe_gather_plan, the CPU tests' model of K12's launch,
+    against what the library reports (tg_moe_gather_plan, which the
+    wrapper's plan reads through _library_plan): the n-tiles a pass and a
+    block's shared memory, at every split the C entry point takes, bf16 and
+    fp32 activations, row counts 1 to 200 and widths from 16 to 65536."""
+    fn = _plan_fn("moe_gather_matmul.cu", "tg_moe_gather_plan", 4)
+    for dtype, parts in ((torch.bfloat16, 1), (torch.float32, 2)):
+        for R in sorted(set(range(1, 201, 7)) | {8, 16, 17, 32, 33, 64, 65, 160}):
+            for IN in (16, 72, 1040, 4096, 14336, 65536):
+                for split in range(1, 17):
+                    got = _kernel_plan(fn, R, IN, ak._DTYPE_CODE[dtype], split, n=2)
+                    assert got == mk.moe_gather_plan(R, IN, parts, split), (R, IN, split)
+                    assert got == mk._library_plan(R, IN, parts, split)
 
 
 def test_moe_wrappers_raise_on_what_the_kernels_do_not_take(dev):

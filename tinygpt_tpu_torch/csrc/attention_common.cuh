@@ -111,7 +111,7 @@ inline int group_tile(int G) {
   return 1;
 }
 
-// The end of the paged decode kernels (K8, K9). Each of the NG slot
+// The end of the paged decode kernel K9. Each of the NG slot
 // groups of a block (LPR = D / VEC lanes each) holds a partial online-softmax
 // state of the block's GT query rows: m and l, and its lane's VEC columns of
 // the unnormalised output acc. Merges the NG states through `smem` (NG * GT *

@@ -1,7 +1,10 @@
 // The one-token GQA decode split over the slots, shared by K13
 // (flash_decode.cu: one layer's dense cache under a [B, T] mask) and K2
 // (flash_decode_frozen.cu: a layer of the frozen stacked cache under a
-// [B, T] mask, merged with the chunk's in-flight K/V).
+// [B, T] mask, merged with the chunk's in-flight K/V). K8
+// (paged_decode_frozen.cu) walks a paged pool with its own kernel and
+// shares this one's ring, tile arithmetic and merge (split_begin,
+// split_tile, split_finish).
 //
 // The query q [B, Nq, D] of row b, head h attends to the slots of the
 // frozen cache k/v [B, Nk, T, D] at KV head h / G where mask[b, t] != 0
@@ -178,6 +181,215 @@ __device__ __forceinline__ void share(int t_lo, int t_hi, int C, int rank, int& 
   }
 }
 
+// The start of a split call. Rank 0's barrier expects the other blocks'
+// states, nc - 1 of PART floats. Every block of the cluster has started
+// (and rank 0 has set its barrier up) before any block writes there: arrive
+// now, wait (split_finish) just before the writes.
+template <int PART>
+__device__ __forceinline__ void split_begin(uint64_t* landed, int rank, int nc) {
+  if (rank == 0 && threadIdx.x == 0) {
+    const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(landed));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"((nc - 1) * PART * 4)
+                 : "memory");
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// One tile's slots of a group: the K and V rows this lane copied into ring
+// stage `stage` (kslot(stage, 0 or 1, u)), as elements of type E, at the
+// slots `word` shows, folded into the lane's online-softmax state (q
+// pre-scaled by scale * log2 e).
+template <typename E, int VEC, int LPR, int NG, int U, int GT, typename Slot>
+__device__ __forceinline__ void split_tile(const Slot& kslot, int stage, uint32_t word, int grp,
+                                           const float (&qr)[GT][VEC], float (&m)[GT],
+                                           float (&l)[GT], float (&acc)[GT][VEC]) {
+  constexpr int EB = VEC * static_cast<int>(sizeof(E));
+  float s[U][GT];
+  bool ok[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    ok[u] = (word >> (u * NG + grp)) & 1u;
+    float kv[VEC];
+    raw_to_float<E, VEC>(ring_read<EB>(kslot(stage, 0, u)), kv);
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float acc_s = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc_s = fmaf(qr[g][e], kv[e], acc_s);
+      s[u][g] = acc_s;
+    }
+  }
+  // the partial dots summed over the group's LPR lanes (aligned within
+  // the warp), all U * GT of them a level at a time
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int g = 0; g < GT; ++g) s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+      s[u][g] = ok[u] ? s[u][g] : NEG_INF;  // a hidden slot's bytes were never copied
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    float mx = m[g];
+#pragma unroll
+    for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+    const float alpha = ex2(m[g] - mx);
+    l[g] *= alpha;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+    m[g] = mx;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (!ok[u]) continue;
+    float vv[VEC];
+    raw_to_float<E, VEC>(ring_read<EB>(kslot(stage, 1, u)), vv);
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float p = ex2(s[u][g] - m[g]);
+      l[g] += p;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e]);
+    }
+  }
+}
+
+// The end of a split call: the groups' online-softmax states (m, l,
+// unnormalised acc of the lane's VEC columns from d0) merged into the
+// block's, then the cluster's blocks' into rank 0's, which writes the GT
+// query rows at out_rows() (zeros where no slot was visible). The other
+// ranks return once their state is sent.
+template <int D, int LPR, int GT, int VEC, typename Rows>
+__device__ __forceinline__ void split_finish(float (&m)[GT], float (&l)[GT], float (&acc)[GT][VEC],
+                                             int tid, int warp, int lane32, int d0, uint8_t* smem,
+                                             float* states, uint64_t* landed, int rank, int nc,
+                                             const Rows& out_rows) {
+  using T = typename std::remove_pointer<decltype(out_rows())>::type;
+  constexpr int NT = kDecodeThreads, NW = NT / 32, PART = GT * (D + 2);
+  // the groups of a warp merge by shuffles (a lane and its partner hold the
+  // same columns); then the warps' states merge through shared memory
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float mp = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lp = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float M = fmaxf(m[g], mp);
+      const float x = ex2(m[g] - M), xp = ex2(mp - M);
+      l[g] = l[g] * x + lp * xp;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc[g][e] = acc[g][e] * x + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * xp;
+      m[g] = M;
+    }
+  }
+  __syncthreads();  // the ring's memory is free now
+  float* wacc = reinterpret_cast<float*>(smem);  // [NW][GT][D]
+  float* wm = wacc + NW * GT * D;                // [NW][GT]
+  float* wl = wm + NW * GT;                      // [NW][GT]
+  if (lane32 < LPR) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) wacc[(warp * GT + g) * D + d0 + e] = acc[g][e];
+      if (lane32 == 0) {
+        wm[warp * GT + g] = m[g];
+        wl[warp * GT + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's state: rank 0 keeps it in its slot 0; the others send
+  // theirs into their slot of rank 0's shared memory with st.async, which
+  // completes on rank 0's barrier, and exit
+  uint32_t dst = 0, bar = 0;
+  if (rank != 0) {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    const uint32_t mine = static_cast<uint32_t>(__cvta_generic_to_shared(states + rank * PART));
+    const uint32_t lb = static_cast<uint32_t>(__cvta_generic_to_shared(landed));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n" : "=r"(dst) : "r"(mine));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n" : "=r"(bar) : "r"(lb));
+  }
+  for (int i = tid; i < GT * D; i += NT) {
+    const int g = i / D;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, wm[w * GT + g]);
+    float Lsum = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float x = ex2(wm[w * GT + g] - M);
+      Lsum = fmaf(wl[w * GT + g], x, Lsum);
+      O = fmaf(wacc[(w * GT + g) * D + i % D], x, O);
+    }
+    if (rank == 0) {
+      states[i] = O;
+      if (i % D == 0) {
+        states[GT * D + g] = M;
+        states[GT * D + GT + g] = Lsum;
+      }
+    } else {
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+              dst + 4 * i),
+          "f"(O), "r"(bar)
+          : "memory");
+      if (i % D == 0) {
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                dst + 4 * (GT * D + g)),
+            "f"(M), "r"(bar)
+            : "memory");
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+                dst + 4 * (GT * D + GT + g)),
+            "f"(Lsum), "r"(bar)
+            : "memory");
+      }
+    }
+  }
+  if (rank != 0) return;
+
+  // rank 0: the C states merged, the output written
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  {
+    const uint32_t lb = static_cast<uint32_t>(__cvta_generic_to_shared(landed));
+    uint32_t done = 0;
+    do {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(lb)
+          : "memory");
+    } while (!done);
+  }
+  __syncthreads();  // slot 0, written by this block's threads
+  auto orow = out_rows();
+  for (int i = tid; i < GT * D; i += NT) {
+    const int g = i / D;
+    float M = NEG_INF;
+    for (int r = 0; r < nc; ++r) M = fmaxf(M, states[r * PART + GT * D + g]);
+    float Lsum = 0.f, O = 0.f;
+    for (int r = 0; r < nc; ++r) {
+      const float* st = states + r * PART;
+      const float x = ex2(st[GT * D + g] - M);
+      Lsum = fmaf(st[GT * D + GT + g], x, Lsum);
+      O = fmaf(st[i], x, O);
+    }
+    orow[i] = from_float<T>(Lsum > 0.f ? O / Lsum : 0.f);
+  }
+}
+
 template <typename T, typename C, int D, int GT, bool INFL>
 __global__ void __launch_bounds__(kDecodeThreads) split_decode_kernel(const DecodeArgs a) {
   using Sh = DecodeShape<T, C, D, GT, INFL>;
@@ -201,19 +413,7 @@ __global__ void __launch_bounds__(kDecodeThreads) split_decode_kernel(const Deco
   uint64_t* landed = reinterpret_cast<uint64_t*>(
       (reinterpret_cast<uintptr_t>(wspan + 2 * Sh::NW) + 7) & ~static_cast<uintptr_t>(7));
 
-  // Rank 0's barrier expects the other blocks' states, C - 1 of PART
-  // floats. Every block of the cluster has started (and rank 0 has set its
-  // barrier up) before any block writes there: arrive now, wait just
-  // before the writes.
-  if (rank == 0 && threadIdx.x == 0) {
-    const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(landed));
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"((nc - 1) * Sh::PART * 4)
-                 : "memory");
-  }
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  split_begin<Sh::PART>(landed, rank, nc);
 
   const int n_tiles = G / GT;            // group tiles of a KV head
   const int cid = blockIdx.x / nc;       // this cluster's (KV head, group tile)
@@ -328,60 +528,8 @@ __global__ void __launch_bounds__(kDecodeThreads) split_decode_kernel(const Deco
   };
   // one tile's slots, their K/V rows in the ring as elements of type E
   auto tile = [&](auto tag, int stage, uint32_t word) {
-    using E = typename decltype(tag)::type;
-    constexpr int EB = VEC * static_cast<int>(sizeof(E));
-    float s[U][GT];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      ok[u] = (word >> (u * NG + grp)) & 1u;
-      float kv[VEC];
-      raw_to_float<E, VEC>(ring_read<EB>(kslot(stage, 0, u)), kv);
-#pragma unroll
-      for (int g = 0; g < GT; ++g) {
-        float acc_s = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc_s = fmaf(qr[g][e], kv[e], acc_s);
-        s[u][g] = acc_s;
-      }
-    }
-    // the partial dots summed over the group's LPR lanes (aligned within
-    // the warp), all U * GT of them a level at a time
-#pragma unroll
-    for (int off = LPR / 2; off > 0; off >>= 1)
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int g = 0; g < GT; ++g) s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int g = 0; g < GT; ++g)
-        s[u][g] = ok[u] ? s[u][g] : NEG_INF;  // a hidden slot's bytes were never copied
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
-      const float alpha = ex2(m[g] - mx);
-      l[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
-      m[g] = mx;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (!ok[u]) continue;
-      float vv[VEC];
-      raw_to_float<E, VEC>(ring_read<EB>(kslot(stage, 1, u)), vv);
-#pragma unroll
-      for (int g = 0; g < GT; ++g) {
-        const float p = ex2(s[u][g] - m[g]);
-        l[g] += p;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vv[e], acc[g][e]);
-      }
-    }
+    split_tile<typename decltype(tag)::type, VEC, LPR, NG, U>(kslot, stage, word, grp, qr, m, l,
+                                                              acc);
   };
 
   int ji = next(j0 - 1);
@@ -414,122 +562,9 @@ __global__ void __launch_bounds__(kDecodeThreads) split_decode_kernel(const Deco
   }
   cp_wait<0>();
 
-  // the groups of a warp merge by shuffles (a lane and its partner hold the
-  // same columns); then the warps' states merge through shared memory
-#pragma unroll
-  for (int off = LPR; off < 32; off <<= 1) {
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      const float mp = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lp = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float M = fmaxf(m[g], mp);
-      const float x = ex2(m[g] - M), xp = ex2(mp - M);
-      l[g] = l[g] * x + lp * xp;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        acc[g][e] = acc[g][e] * x + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * xp;
-      m[g] = M;
-    }
-  }
-  __syncthreads();  // the ring's memory is free now
-  float* wacc = reinterpret_cast<float*>(smem);  // [NW][GT][D]
-  float* wm = wacc + Sh::NW * GT * D;            // [NW][GT]
-  float* wl = wm + Sh::NW * GT;                  // [NW][GT]
-  if (lane32 < LPR) {
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) wacc[(warp * GT + g) * D + d0 + e] = acc[g][e];
-      if (lane32 == 0) {
-        wm[warp * GT + g] = m[g];
-        wl[warp * GT + g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-
-  // the block's state: rank 0 keeps it in its slot 0; the others send
-  // theirs into their slot of rank 0's shared memory with st.async, which
-  // completes on rank 0's barrier, and exit
-  uint32_t dst = 0, bar = 0;
-  if (rank != 0) {
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-    const uint32_t mine =
-        static_cast<uint32_t>(__cvta_generic_to_shared(states + rank * Sh::PART));
-    const uint32_t lb = static_cast<uint32_t>(__cvta_generic_to_shared(landed));
-    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n" : "=r"(dst) : "r"(mine));
-    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n" : "=r"(bar) : "r"(lb));
-  }
-  for (int i = tid; i < GT * D; i += NT) {
-    const int g = i / D;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < Sh::NW; ++w) M = fmaxf(M, wm[w * GT + g]);
-    float Lsum = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < Sh::NW; ++w) {
-      const float x = ex2(wm[w * GT + g] - M);
-      Lsum = fmaf(wl[w * GT + g], x, Lsum);
-      O = fmaf(wacc[(w * GT + g) * D + i % D], x, O);
-    }
-    if (rank == 0) {
-      states[i] = O;
-      if (i % D == 0) {
-        states[GT * D + g] = M;
-        states[GT * D + GT + g] = Lsum;
-      }
-    } else {
-      asm volatile(
-          "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
-              dst + 4 * i),
-          "f"(O), "r"(bar)
-          : "memory");
-      if (i % D == 0) {
-        asm volatile(
-            "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
-                dst + 4 * (GT * D + g)),
-            "f"(M), "r"(bar)
-            : "memory");
-        asm volatile(
-            "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
-                dst + 4 * (GT * D + GT + g)),
-            "f"(Lsum), "r"(bar)
-            : "memory");
-      }
-    }
-  }
-  if (rank != 0) return;
-
-  // rank 0: the C states merged, the output written
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  {
-    const uint32_t lb = static_cast<uint32_t>(__cvta_generic_to_shared(landed));
-    uint32_t done = 0;
-    do {
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(lb)
-          : "memory");
-    } while (!done);
-  }
-  __syncthreads();  // slot 0, written by this block's threads
-  T* orow = static_cast<T*>(a.out) + ((size_t)b * Nq + h0) * D;
-  for (int i = tid; i < GT * D; i += NT) {
-    const int g = i / D;
-    float M = NEG_INF;
-    for (int r = 0; r < nc; ++r) M = fmaxf(M, states[r * Sh::PART + GT * D + g]);
-    float Lsum = 0.f, O = 0.f;
-    for (int r = 0; r < nc; ++r) {
-      const float* st = states + r * Sh::PART;
-      const float x = ex2(st[GT * D + g] - M);
-      Lsum = fmaf(st[GT * D + GT + g], x, Lsum);
-      O = fmaf(st[i], x, O);
-    }
-    orow[i] = from_float<T>(Lsum > 0.f ? O / Lsum : 0.f);
-  }
+  split_finish<D, LPR>(m, l, acc, tid, warp, lane32, d0, smem, states, landed, rank, nc, [&] {
+    return static_cast<T*>(a.out) + ((size_t)b * Nq + h0) * D;
+  });
 }
 
 template <typename T, typename C, int D, int GT, bool INFL>

@@ -40,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -365,6 +365,33 @@ def decode_split(B: int, Nk: int, G: int, T: int, sms: int = 132) -> int:
     tiles = -(-T // _SPLIT_TILE)
     return max(1, min(_SPLIT_MAX_BLOCKS, sms // max(groups, 1),
                       tiles // _SPLIT_MIN_TILES))
+
+
+@functools.lru_cache(maxsize=1024)  # a few pool shapes a run; called every launch
+def paged_decode_split(B: int, Nk: int, G: int, T: int, per_sm: Tuple[int, ...],
+                       sms: int = 132) -> int:
+    """K8's split plan: the blocks C of each (batch row, KV head, group
+    tile)'s cluster, which cut the row's visible span of 32-slot tiles into
+    C shares. per_sm[c - 1] is the blocks of a cluster of c that an SM runs
+    at once, registers and shared memory counted (the kernel's occupancy,
+    which the library exports as tg_paged_decode_frozen_plan). C grows
+    from 1 while the B * Nk * (G / GT) clusters give fewer than two blocks
+    an SM, as long as all the clusters of C + 1 still run at once (no block
+    waits for a second wave) and the T = MB * bs + N slots give shares of
+    _SPLIT_MIN_TILES tiles. The host knows T and not the rows' lengths
+    (reading them would synchronise the stream). On an H100 the serve shape
+    (16 rows, 8 KV heads, G = 4, D = 128: two blocks an SM, by registers)
+    takes C = 2, GPT-2's (12 KV heads, G = 1, D = 64: six an SM) 2, G = 16
+    (one an SM) 1: the fastest of the split sweep each (PERF.md).
+    Unlike decode_split (one block an SM), it counts the blocks an SM runs:
+    at the serve shape's 128 clusters that one gives C = 1."""
+    groups = B * Nk * (G // group_tile(G))
+    tiles = -(-T // _SPLIT_TILE)
+    C = 1
+    while (C < _SPLIT_MAX_BLOCKS and groups * C < 2 * sms
+           and C + 1 <= tiles // _SPLIT_MIN_TILES and groups * (C + 1) <= sms * per_sm[C]):
+        C += 1
+    return C
 
 
 @functools.lru_cache(maxsize=None)

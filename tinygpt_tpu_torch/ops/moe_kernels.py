@@ -35,12 +35,13 @@ routing, shared with models/causal_lm.moe_mlp and the AWQ statistics.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from tinygpt_tpu_torch.ops.attention_kernels import LAUNCHES, _ptr
+from tinygpt_tpu_torch.ops.attention_kernels import LAUNCHES, _ptr, _sm_count
 from tinygpt_tpu_torch.ops.quant import QuantizedTensor, pad_x_to
 from tinygpt_tpu_torch.ops.quant_kernels import (
     _DTYPE_CODE,
@@ -52,6 +53,26 @@ from tinygpt_tpu_torch.ops.quant_kernels import (
 
 _SOURCE = "moe_gather_matmul.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FLOAT_ARGS = [_P] * 4 + [_I] * 8 + [_P]  # tg_moe_gather_float
+
+# K12's tensor-core body on bf16 stacks (csrc/moe_gather_matmul.cu,
+# moe_gather_tc_kernel): a block of 4 warps owns _TC_COLS columns of one
+# expert, and the SK blocks of a cluster (one of _MOE_SPLITS) split IN in
+# _TC_UNIT-row units; the plan wants the live experts' blocks to number at
+# least _MOE_FILL an SM. What a launch takes at a split comes from the
+# library (tg_moe_gather_plan); moe_gather_plan models it for the CPU with
+# the kernel's constants: its 4 warps' cp.async rings take _TC_RING bytes of
+# shared memory, and it stages the pass's rows (8 an n-tile) as bf16 parts
+# at its share of IN, each row padded by 16 bytes; two blocks fit an SM
+# while a block takes at most _TC_PAIR bytes, one up to _TC_SMEM (227 KB
+# less 1 KB for the kernel's static shared memory).
+_TC_COLS = 128
+_TC_UNIT = 16
+_TC_RING = 4 * 5 * _TC_UNIT * 64 * 2
+_TC_PAIR = 112640
+_TC_SMEM = 231424
+_MOE_SPLITS = (1, 2, 4, 8, 16)
+_MOE_FILL = 2
 
 
 # -- routing -------------------------------------------------------------------
@@ -156,6 +177,86 @@ def _check(name: str, x: torch.Tensor, data: torch.Tensor, scales, idx: torch.Te
     return E, rows, out
 
 
+def moe_gather_plan(R: int, IN: int, parts: int, split: int) -> Tuple[int, int]:
+    """The CPU model of what K12 launches on a bf16 stack at split `split`
+    (the kernel's tc_ntiles and tc_smem, which the library exports as
+    tg_moe_gather_plan, read on the card by _library_plan): (the n-tiles of
+    8 rows a pass, a block's shared memory bytes). The n-tiles are those of
+    R (1 for R <= 8, 2 <= 16, 4 <= 32, else 8), halved while the staged
+    rows, `parts` bf16 parts of the largest rank's share of IN, keep a
+    second block off the SM (_TC_PAIR), but never below those of min(R,
+    32): an expert's first 32 rows are one pass however the rows fall.
+    (0, 0) where those do not fit a block."""
+    n16 = -(-IN // _TC_UNIT)
+    nk = -(-n16 // split) * _TC_UNIT  # the largest rank's rows
+    nt = 1 if R <= 8 else 2 if R <= 16 else 4 if R <= 32 else 8
+    least = min(nt, 4)
+    xbytes = lambda n: parts * 8 * n * (2 * nk + 16)  # noqa: E731
+    while nt > least and _TC_RING + xbytes(nt) > _TC_PAIR:
+        nt //= 2
+    if _TC_RING + xbytes(nt) > _TC_SMEM:
+        return 0, 0
+    return nt, _TC_RING + xbytes(nt)
+
+
+@functools.lru_cache(maxsize=1024)  # a few shapes a model, a few splits each
+def _library_plan(R: int, IN: int, parts: int, split: int) -> Tuple[int, int]:
+    """What K12 launches on a bf16 stack at split `split`, as the library
+    reports it (tg_moe_gather_plan): the n-tiles a pass and a block's shared
+    memory bytes, (0, 0) where the rows fit no block at that split."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function(_SOURCE, "tg_moe_gather_plan", [_I] * 4 + [_P])
+    out = (ctypes.c_int * 2)()
+    code = _DTYPE_CODE[torch.float32 if parts == 2 else torch.bfloat16]
+    cuda_build.check(_SOURCE, fn(R, IN, code, split, out), "tg_moe_gather_plan")
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
+def moe_gather_split(R: int, E: int, IN: int, OUT: int, parts: int, sms: int = 132,
+                     plan: Callable[[int, int, int, int], Tuple[int, int]] = moe_gather_plan
+                     ) -> int:
+    """K12's split plan on a bf16 stack: the blocks SK of each cluster,
+    which split IN between them. `plan(R, IN, parts, SK)` says what a launch
+    at SK takes (the wrapper passes _library_plan, the kernel's own
+    numbers; the CPU tests its model, moe_gather_plan). The host never reads
+    idx, so it counts min(R, E) live experts, the rows spread evenly over
+    them. In order: the fewest passes over an expert's rows; a portable
+    cluster (at most 8 blocks: 16 only for rows that fit no smaller
+    split); where a pass holds more than 8 rows, two blocks an SM
+    (_TC_PAIR); then the smallest SK whose live blocks (experts x column
+    tiles x SK) number _MOE_FILL an SM, else the largest. At most one block
+    a 16-row unit, and powers of two (clusters of 6 and 12 won no case of
+    the sweep). On an H100 (PERF.md), at Mixtral-8x7B's gate_up (4096 ->
+    28672) this takes SK 1 at R = 8 and 4 at 32 and 160, at down (14336 ->
+    4096) 2 at 8 and 8 at 32 and 160: the fastest of the split sweep (SK 1
+    to 16) in each case, on even and uneven draws, but down at R = 160,
+    which ties with SK 16 (0.4477 against 0.4475 ms). Where a pass holds 8
+    rows, one block an SM streamed as fast (down at R = 8: SK 2 0.266
+    against SK 4's 0.274); where it holds 32, the second block paid
+    (gate_up at R = 32: SK 4 0.649 against SK 2's 0.672). Raises ValueError
+    for a shape whose rows fit no split."""
+    n16 = -(-IN // _TC_UNIT)
+    live = min(R, E)
+    rows = -(-R // live)  # an expert's rows
+    best = None
+    for S in _MOE_SPLITS:
+        if S > max(1, n16):
+            break
+        nt, smem = plan(R, IN, parts, S)
+        if not nt:
+            continue
+        short = live * -(-OUT // _TC_COLS) * S < _MOE_FILL * sms
+        key = (-(-rows // (8 * nt)), S > 8, nt > 1 and smem > _TC_PAIR, short,
+               -S if short else S)
+        best = min(best or key, key)
+    if best is None:
+        raise ValueError(f"moe_gather_matmul: the rows of IN = {IN} ({parts} parts) fit "
+                         f"no split of up to {_MOE_SPLITS[-1]} blocks")
+    return abs(best[-1])
+
+
 def _launch(name: str, symbol: str, argtypes, x, idx, out_cols, tensors, ints, *codes):
     """Launches `symbol`: (x, tensors..., idx, out, ints..., x's dtype code,
     codes..., stream)."""
@@ -177,13 +278,19 @@ def moe_gather_matmul(
     l: int,             # layer
     idx: torch.Tensor,  # [R] int32 expert of each row
 ) -> torch.Tensor:
-    """out[r] = x[r] @ w[l, idx[r]] (K12)."""
+    """out[r] = x[r] @ w[l, idx[r]] (K12). A bf16 stack runs on the
+    tensor cores, on clusters of moe_gather_split blocks; an fp32 stack on
+    the CUDA cores."""
     if x.device.type == "cpu":
         return moe_gather_matmul_plain(x, w, l, idx)
     name = "moe_gather_matmul"
     E, rows, out = _check(name, x, w, None, idx, l, 0, 16)
-    return _launch(name, "tg_moe_gather_float", [_P] * 4 + [_I] * 7 + [_P], x, idx, out,
-                   (w,), (x.shape[0], rows, out, E, int(l)), _DTYPE_CODE[w.dtype])
+    split = 1
+    if w.dtype == torch.bfloat16:
+        split = moe_gather_split(x.shape[0], E, rows, out, 2 if x.dtype == torch.float32 else 1,
+                                 _sm_count(x.device.index or 0), _library_plan)
+    return _launch(name, "tg_moe_gather_float", _FLOAT_ARGS, x, idx, out, (w,),
+                   (x.shape[0], rows, out, E, int(l)), _DTYPE_CODE[w.dtype], split)
 
 
 def moe_gather_matmul_int8(

@@ -33,7 +33,8 @@ never falls back from one to the other. Every launch adds one to
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,16 +46,18 @@ from tinygpt_tpu_torch.ops.attention_kernels import (
     _check_cuda_operands,
     _masked_softmax_av,
     _ptr,
+    _sm_count,
     kv_operands,
+    paged_decode_split,
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: csrc/paged_decode.cu (7 pointers, 9 ints, scale, window,
 # stream), csrc/paged_decode_frozen.cu (9 pointers, 12 ints, scale, window,
-# stream) and csrc/paged_decode_spec.cu (12 pointers, 13 ints, scale,
+# split, stream) and csrc/paged_decode_spec.cu (12 pointers, 13 ints, scale,
 # window, stream)
 _DECODE_ARGS = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
-_FROZEN_ARGS = [_P] * 9 + [_I] * 12 + [_F, _I, _P]
+_FROZEN_ARGS = [_P] * 9 + [_I] * 12 + [_F, _I, _I, _P]
 _SPEC_ARGS = [_P] * 12 + [_I] * 13 + [_F, _I, _P]
 _I32 = (torch.int32,)
 
@@ -220,6 +223,27 @@ def paged_decode_frozen_plain(
     return out.reshape(B, Nq, D).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=256)  # a few pool shapes a run; called every launch
+def _paged_per_sm(Nq: int, Nk: int, MB: int, D: int, dtype: int, kv_dtype: int,
+                  device: int) -> Tuple[int, ...]:
+    """The blocks an SM runs at once of K8's instantiation for these types
+    and sizes, at each cluster size 1 .. 8 (the library's
+    tg_paged_decode_frozen_plan: the kernel's occupancy)."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("paged_decode_frozen.cu", "tg_paged_decode_frozen_plan",
+                             [_I] * 7 + [_P])
+    per_sm = []
+    with torch.cuda.device(device):
+        for C in range(1, 9):
+            out = (ctypes.c_int * 2)()
+            cuda_build.check("paged_decode_frozen.cu",
+                             fn(Nq, Nk, MB, D, dtype, kv_dtype, C, out),
+                             "tg_paged_decode_frozen_plan")
+            per_sm.append(out[1])
+    return tuple(per_sm)
+
+
 def paged_decode_frozen(
     q: torch.Tensor,             # [B, Nq, D] — one query position per row
     k_pools: torch.Tensor,       # [L, n_blocks, Nk, bs, D] FROZEN stacked pools
@@ -236,7 +260,8 @@ def paged_decode_frozen(
 ) -> torch.Tensor:
     """Decode attention of the frozen-pool quantum: layer `l` of the
     stacked pools through the block tables, merged with the in-flight
-    slots j <= step. Returns [B, Nq, D] in q's dtype."""
+    slots j <= step (K8, on clusters of paged_decode_split blocks).
+    Returns [B, Nq, D] in q's dtype."""
     if q.device.type == "cpu":
         return paged_decode_frozen_plain(q, k_pools, v_pools, block_tables,
                                          lengths0, starts, k_infl, v_infl,
@@ -278,12 +303,16 @@ def paged_decode_frozen(
                              _FROZEN_ARGS)
     out = torch.empty_like(q)
     win = int(window) if window else 0
+    dev = q.device.index or 0
+    C = paged_decode_split(B, Nk, Nq // Nk, MB * bs + N,
+                           _paged_per_sm(Nq, Nk, MB, D, _DTYPE_CODE[q.dtype], kv_code, dev),
+                           _sm_count(dev))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_ptr(q), _ptr(k_pools), _ptr(v_pools), _ptr(block_tables),
                  _ptr(lengths0), _ptr(starts), _ptr(k_infl), _ptr(v_infl), _ptr(out),
                  B, Nq, Nk, n_blocks, bs, MB, N, D, _DTYPE_CODE[q.dtype], kv_code, int(l),
-                 int(step), float(scale), win, ctypes.c_void_p(stream))
+                 int(step), float(scale), win, C, ctypes.c_void_p(stream))
     cuda_build.check("paged_decode_frozen.cu", err, "paged_decode_frozen")
     LAUNCHES["paged_decode_frozen"] += 1
     return out
