@@ -93,7 +93,9 @@ Phases, in order:
            matrices (2-layer stacks, called at layer 1; 8, 32 and 160 rows;
            bf16 and fp32 activations) and times each beside its bound (the
            distinct routed experts' bytes), the plain version and torch.bmm
-           on the gathered weights; beside K12, the dense moe_mlp;
+           on the gathered weights; sweeps each kernel's split at every row
+           count and over an uneven draw; times the gathered MLP of 4 and
+           16 tokens on each stack and, beside K12, the dense moe_mlp;
   mixtral4 Mixtral-8x7B at full width and depth in int4 (group 128), built
            layer by layer on the card: fp32 at 2 layers, then the model
            phase's batch and chunks (K1, K5b, K4 in the prefill; K2, K5b,
@@ -493,14 +495,15 @@ def _demangle(names) -> dict:
 
 def _attention_reports() -> None:
     """The redesigned kernels' instantiations at the main path's types (K1,
-    K13, K2, the int8 GEMV of K3/K5a, the prefill kernel of K5a/K5b, K8
-    and K12's bf16 body): registers, spills and static shared memory
+    K13, K2, the int8 GEMV of K3/K5a, the prefill kernel of K5a/K5b, K8,
+    K12's bf16 body and K11a's and K11b's at 8 and 32 rows a pass, bf16 x):
+    registers, spills and static shared memory
     (ptxas -v; their shared-memory rings are dynamic, sized at launch as
     the sources' head notes give them); and the Hopper instructions in
     their machine code (cuobjdump -sass): wgmma (HGMMA) and TMA loads
     (UTMALDG) in K1 and the prefill kernel, cluster barriers (UCGABAR) in
     K13, K2, K8, K12, the GEMV and the prefill kernel's split, cp.async
-    copies (LDGSTS) in the GEMV, K8 and K12, and mma.sync (HMMA) from
+    copies (LDGSTS) in the GEMV, K8, K12 and K11, and mma.sync (HMMA) from
     ldmatrix (LDSM) in K12."""
     from tinygpt_tpu_torch.ops import cuda_build
 
@@ -526,7 +529,11 @@ def _attention_reports() -> None:
             "paged_decode_frozen_kernel<__nv_bfloat16, __nv_bfloat16, 64, 1>"),
         "moe_gather_matmul.cu": ("moe_gather_tc_kernel<__nv_bfloat16, 1, 1>",
                                  "moe_gather_tc_kernel<__nv_bfloat16, 4, 1>",
-                                 "moe_gather_tc_kernel<__nv_bfloat16, 8, 1>"),
+                                 "moe_gather_tc_kernel<__nv_bfloat16, 8, 1>",
+                                 "moe_gather_q_kernel<__nv_bfloat16, 1, 1, 1>",
+                                 "moe_gather_q_kernel<__nv_bfloat16, 1, 4, 1>",
+                                 "moe_gather_q_kernel<__nv_bfloat16, 2, 1, 1>",
+                                 "moe_gather_q_kernel<__nv_bfloat16, 2, 4, 1>"),
     }
     ops = {"flash_prefill.cu": ("HGMMA", "UTMALDG"), "flash_decode.cu": ("UCGABAR",),
            "flash_decode_frozen.cu": ("UCGABAR",),
@@ -3596,15 +3603,16 @@ def _moe_library(x, w, l, idx, OUT):
 
 
 def _moe_split_sweep(key, x, w, l, idx) -> None:
-    """K12 on a bf16 stack through its C entry point at every split of
-    MOE_SWEEP_SPLITS (the plan's powers of two, and 6 and 12 beside them)
-    whose rows fit a block (tg_moe_gather_plan: its n-tiles of 8 rows a
-    pass, logged beside each time), beside the plan's pick
-    (moe_gather_split on the library's plan): the check on the plan, with
-    the passes the plan makes over the expert that most rows name.
-    Timed by CUDA events around 10 calls: a call takes a quarter of a
-    millisecond or more, far above a launch's host cost, and torch.profiler
-    has read single splits 20 % to 30 % below their other readings here."""
+    """A gathered kernel (K12 on a bf16 stack, K11a, K11b) through its C
+    entry point at every split of MOE_SWEEP_SPLITS (the plan's powers of
+    two, and 6 and 12 beside them) whose rows fit a block
+    (tg_moe_gather_plan: its n-tiles of 8 rows a pass and, for K11, the
+    blocks an SM, logged beside each time), beside the plan's pick
+    (moe_gather_split on the library's plan): the check on the plan, with the passes the plan makes over the expert
+    that most rows name. Timed by CUDA events around 10 calls: a call takes
+    a tenth of a millisecond or more, far above a launch's host cost, and
+    torch.profiler has read single splits 20 % to 30 % below their other
+    readings here."""
     import ctypes
 
     import torch
@@ -3614,37 +3622,51 @@ def _moe_split_sweep(key, x, w, l, idx) -> None:
     from tinygpt_tpu_torch.ops.attention_kernels import _DTYPE_CODE, _ptr, _sm_count
 
     src = "moe_gather_matmul.cu"
-    fn = cuda_build.function(src, "tg_moe_gather_float", mk._FLOAT_ARGS)
-    plan_fn = cuda_build.function(src, "tg_moe_gather_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    R, IN = x.shape
-    _, E, _, OUT = w.shape
+    bits = getattr(w, "bits", 16)
+    plan_fn = cuda_build.function(src, "tg_moe_gather_plan", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    R, in_x = x.shape
+    data = w.data if bits != 16 else w
+    _, E, rows, OUT = data.shape
+    IN = 2 * rows if bits == 4 else rows
     out = torch.empty(R, OUT, dtype=x.dtype, device=x.device)
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+    if bits == 16:
+        symbol, argtypes = "tg_moe_gather_float", mk._FLOAT_ARGS
+        args = lambda split: (_ptr(x), _ptr(w), _ptr(idx), _ptr(out), R, IN, OUT, E, l,  # noqa
+                              _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], split, stream())
+    else:
+        symbol = "tg_moe_gather_int8" if bits == 8 else "tg_moe_gather_int4"
+        argtypes = mk._INT8_ARGS if bits == 8 else mk._INT4_ARGS
+        dims = (R, IN) if bits == 8 else (R, in_x, IN)
+        few = mk._q_splits(x, E, IN, OUT, bits)[1]   # the launch over experts of few rows
+        args = lambda split: (_ptr(x), _ptr(w.data), _ptr(w.scales), _ptr(idx),  # noqa
+                              _ptr(out), *dims, OUT, E, w.group_size, l,
+                              _DTYPE_CODE[x.dtype], split, few, stream())
+    fn = cuda_build.function(src, symbol, argtypes)
 
     def call(split):
-        err = fn(_ptr(x), _ptr(w), _ptr(idx), _ptr(out), R, IN, OUT, E, l,
-                 _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], split,
-                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        cuda_build.check(src, err, "tg_moe_gather_float")
+        cuda_build.check(src, fn(*args(split)), symbol)
 
     def ntiles(split):
-        got = (ctypes.c_int * 2)()
-        cuda_build.check(src, plan_fn(R, IN, _DTYPE_CODE[x.dtype], split, got),
+        got = (ctypes.c_int * 3)()
+        cuda_build.check(src, plan_fn(R, IN, _DTYPE_CODE[x.dtype], bits, split, got),
                          "tg_moe_gather_plan")
-        return got[0]
+        return got[0], got[2]
 
-    times, nts = {}, {}
+    times, nts, per_sm = {}, {}, {}
     for split in MOE_SWEEP_SPLITS:
-        nt = ntiles(split) if split <= -(-IN // 16) else 0
+        nt, per_sm[split] = ntiles(split) if split <= -(-rows // 16) else (0, 0)
         if nt:
             nts[split] = nt
             times[split] = _events_ms(lambda: call(split), 10)
     plan = mk.moe_gather_split(R, E, IN, OUT, 1, _sm_count(x.device.index or 0),
-                               mk._library_plan)
+                               mk._library_plan, bits)
     best = min(times, key=times.get)
     most = int(torch.bincount(idx.long().clamp(0, E - 1)).max())
-    log(f"[moe_kernels] moe_gather_matmul split sweep {key} R={R} {IN}->{OUT} (at most "
-        f"{most} rows an expert): "
-        + ", ".join(f"SK={c} (nt {nts[c]}) {t:.4f}" for c, t in times.items())
+    log(f"[moe_kernels] {MOE_NAMES[None if bits == 16 else bits]} split sweep {key} R={R} "
+        f"{IN}->{OUT} (at most {most} rows an expert): "
+        + ", ".join(f"SK={c} (nt {nts[c]}" + (f", {per_sm[c]} an SM" if per_sm[c] else "")
+                    + f") {t:.4f}" for c, t in times.items())
         + f" ms; the plan's SK={plan} {times[plan]:.4f} ({-(-most // (8 * nts[plan]))} "
         f"pass(es) over that expert), the fastest SK={best} ({times[plan] / times[best]:.3f}x)")
 
@@ -3655,15 +3677,16 @@ def phase_moe_kernels(table: dict) -> None:
     2-layer stack, called at layer 1: R = 8 (4 tokens x 2 experts), 32 (16
     serving rows) and 160 (a verify of 16 rows x 5 positions) rows, expert
     ids from a seeded generator with repeats and one unused expert, bf16 and
-    fp32 activations (QUANT_TOL). Times the bf16 calls beside their bound
+    fp32 activations (QUANT_TOL). Times the bf16 calls (CUDA events) beside
+    their bound
     (the bytes of the distinct experts the ids name, x and out), the plain
-    version and torch.bmm on the gathered weights, and sweeps K12's split
-    at every R (_moe_split_sweep), at R = 32 also over an uneven draw (12
-    of the rows on one expert: more than 8, so a pass of fewer than 32 rows
-    would read that expert twice); beside K12, the dense moe_mlp (every
-    expert on every token) and the gathered MLP at 4 and 16 tokens. A table
-    row is the mean of the main path's shape, R = 8 (gate_up and down
-    alike)."""
+    version and torch.bmm on the gathered weights, and sweeps each kernel's
+    split at every R (_moe_split_sweep), at R = 32 also over an uneven draw
+    (12 of the rows on one expert: more than 8, so a pass of fewer than 32
+    rows would read that expert twice); the gathered MLP at 4 and 16 tokens
+    on each stack, and beside K12 the dense moe_mlp (every expert on every
+    token). A table row is the mean of the main path's shape, R = 8
+    (gate_up and down alike)."""
     import torch
 
     from tinygpt_tpu_torch.hf.config import parse_model_config
@@ -3705,15 +3728,14 @@ def phase_moe_kernels(table: dict) -> None:
                                          f"> {tol}")
                 x = xs[torch.bfloat16]
                 call = lambda: kern(x, *wargs, l, idx, *extra)  # noqa: E731
-                t_k = cuda_time_ms(call, iters=10)
+                # CUDA events around 10 calls: a call takes a tenth of a
+                # millisecond or more, far above its host cost, and
+                # torch.profiler reads calls on clusters of 8 low (PERF.md)
+                t_k = _events_ms(call, 10)
                 t_p = cuda_time_ms(lambda: plain(x, *wargs, l, idx, *extra), iters=2,
                                    warmup=1)
                 nbytes, ops = _moe_cost(w, l, idx, x, OUT)
                 b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
-                if t_k < b_ms:   # the profiler lost device time (PERF.md): CUDA events
-                    log(f"[moe_kernels] {name} {key} R={R}: profiler device time {t_k:.4f} "
-                        f"ms is below the bound; CUDA events over the same loop kept")
-                    t_k = _events_ms(call, 10)
                 t_lib, why = _moe_library(x, w, l, idx, OUT)
                 n_e = len(set(idx.tolist()))
                 log(f"[moe_kernels] {name} {key} R={R} {IN}->{OUT} ({n_e} distinct experts): "
@@ -3723,34 +3745,33 @@ def phase_moe_kernels(table: dict) -> None:
                     + f" [{why}]")
                 rows.setdefault(name, []).append(
                     (1 if R == MOE_ROWS[0] else 0, t_k, t_p, b_ms, b_by, t_lib, err, tol))
-                if bits is None:
-                    _moe_split_sweep(key, x, w, l, idx)
-                if bits is None and R == MOE_ROWS[1]:  # uneven routing: 12 rows on expert 0
+                _moe_split_sweep(key, x, w, l, idx)
+                if R == MOE_ROWS[1]:  # uneven routing: 12 rows on expert 0
                     skew = torch.cat([torch.zeros(12, dtype=torch.int32), torch.randint(
                         1, E - 1, (R - 12,), generator=g, dtype=torch.int32)]).to(DEVICE)
-                    got = kern(x, *wargs, l, skew)
-                    want = plain(x, *wargs, l, skew)
+                    got = kern(x, *wargs, l, skew, *extra)
+                    want = plain(x, *wargs, l, skew, *extra)
                     err = (got.float() - want.float()).abs().max().item()
                     tol = QUANT_TOL["bfloat16"] * want.float().abs().max().item()
                     if not (math.isfinite(err) and err <= tol):
                         raise PhaseError(f"{name} {key} R={R} skewed: max_abs_err {err} > {tol}")
                     _moe_split_sweep(f"{key} skewed", x, w, l, skew)
-        if bits is None:   # the dense formulation beside K12 on the same layer
-            gen = torch.Generator(device=DEVICE).manual_seed(3)
-            router = (torch.randn((H, E), generator=gen, device=DEVICE) * 0.02).to(
-                torch.bfloat16)
-            lp = {"router_w": router, "moe_gate_up_w": stacks["gate_up"][l],
-                  "moe_down_w": stacks["down"][l]}
-            for R in MOE_ROWS[:2]:
-                h = torch.randn((R // 2, 1, H), generator=gen, device=DEVICE).to(
-                    torch.bfloat16)
+        # the gathered MLP of 4 and 16 tokens; beside K12, the dense formulation
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        router = (torch.randn((H, E), generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        for R in MOE_ROWS[:2]:
+            h = torch.randn((R // 2, 1, H), generator=gen, device=DEVICE).to(torch.bfloat16)
+            t_gath = cuda_time_ms(lambda: mk.moe_mlp_gathered(
+                h, router, stacks["gate_up"], stacks["down"], l, cfg), iters=10)
+            dense = ""
+            if bits is None:
+                lp = {"router_w": router, "moe_gate_up_w": stacks["gate_up"][l],
+                      "moe_down_w": stacks["down"][l]}
                 t_dense = cuda_time_ms(lambda: causal_lm.moe_mlp(h, lp, cfg, impl="dense"),
                                        iters=5)
-                t_gath = cuda_time_ms(lambda: mk.moe_mlp_gathered(
-                    h, router, stacks["gate_up"], stacks["down"], l, cfg), iters=10)
-                log(f"[moe_kernels] bf16 MLP of {R // 2} tokens (R = {R}): dense moe_mlp "
-                    f"(every expert on every token) {t_dense:.4f} ms, the gathered MLP "
-                    f"(K12 twice, routing and the slot sum) {t_gath:.4f} ms")
+                dense = f"dense moe_mlp (every expert on every token) {t_dense:.4f} ms, "
+            log(f"[moe_kernels] {name} MLP of {R // 2} tokens (R = {R}): {dense}the gathered "
+                f"MLP ({name} twice, routing and the slot sum) {t_gath:.4f} ms")
         del stacks
         torch.cuda.empty_cache()
     for (name, dname), r in sorted(worst.items()):

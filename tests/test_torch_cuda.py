@@ -1704,20 +1704,91 @@ def test_moe_gather_bf16_rows_and_splits_match_plain(dev, R):
                 _qclose(got, want, dtype, f"R={R} {dtype} split {split}")
 
 
+def _moe_q_call(x, data, scales, l, idx, group, bits, split):
+    """K11a (bits 8) or K11b (bits 4) through its C entry point at split
+    `split` (above 8 rows, the plan's split for the launch over the experts
+    that at most 8 rows name)."""
+    import ctypes
+
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    L, E, rows, OUT = data.shape
+    out = torch.empty((x.shape[0], OUT), dtype=x.dtype, device=x.device)
+    split_few = mk._q_splits(x, E, rows * (8 // bits), OUT, bits)[1]
+    if bits == 8:
+        fn = cuda_build.function("moe_gather_matmul.cu", "tg_moe_gather_int8", mk._INT8_ARGS)
+        ints = (x.shape[0], rows, OUT, E, group, l)
+    else:
+        fn = cuda_build.function("moe_gather_matmul.cu", "tg_moe_gather_int4", mk._INT4_ARGS)
+        ints = (x.shape[0], x.shape[1], 2 * rows, OUT, E, group, l)
+    err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (x, data, scales, idx, out)), *ints,
+             ak._DTYPE_CODE[x.dtype], split, split_few,
+             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0, (bits, split, err)
+    return out
+
+
+MOE_Q_CASES = [
+    # (bits, IN, OUT, group): int8 at groups 16 and 128, OUT 392 (rows only
+    # 8-byte aligned) and 384; int4 at group 128, and row-padded (1036 ->
+    # 1280: x of 1036 columns, not a multiple of 8, staged through
+    # registers) at group 16
+    (8, 1040, 392, 16), (8, 1024, 384, 128), (4, 1024, 384, 128), (4, 1036, 392, 16)]
+
+
+@pytest.mark.parametrize("R", MOE_TC_ROWS)
+@pytest.mark.parametrize("case", MOE_Q_CASES)
+def test_moe_gather_quant_rows_and_splits_match_plain(dev, case, R):
+    """K11a and K11b at R = 1, 8, 32, 33 and 160 rows, with repeats and an
+    unused expert, with every row on one expert (passes of 32 rows), and
+    with 12 rows on one expert beside experts of few rows (both launches of
+    a call above 8 rows), in bf16 and fp32 activations, at the plan's split
+    (through the wrapper: one launch counted) and at every split of
+    MOE_TC_SPLITS whose rows fit a block (tg_moe_gather_plan)."""
+    bits, IN, OUT, group = case
+    (data, scales), g = _moe_stack(bits, 2, 8, IN, OUT, group, dev, seed=7)
+    kern, plain = MOE_KERNELS[bits]
+    fn = _plan_fn("moe_gather_matmul.cu", "tg_moe_gather_plan", 5)
+    stored = data.shape[2]
+    skew = torch.cat([torch.full((min(R, 12),), 2, dtype=torch.int32), _moe_ids(R, 8, R)])[:R]
+    for ids in (_moe_ids(R, 8, R), torch.full((R,), 5, dtype=torch.int32), skew):
+        idx = ids.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _randn(torch.Generator().manual_seed(R + 2), R, IN, dtype=dtype, dev=dev)
+            want = plain(x, data, scales, 1, idx, g)
+            ak.reset_launches()
+            got = kern(x, data, scales, 1, idx, g)
+            assert ak.LAUNCHES[MOE_NAMES[bits]] == 1
+            torch.cuda.synchronize()
+            _qclose(got, want, dtype, f"{case} R={R} {dtype} plan")
+            for split in MOE_TC_SPLITS:
+                nt = _kernel_plan(fn, R, stored * (8 // bits), ak._DTYPE_CODE[dtype], bits,
+                                  split, n=3)[0]
+                if not nt or split > stored // 16:
+                    continue
+                got = _moe_q_call(x, data, scales, 1, idx, g, bits, split)
+                torch.cuda.synchronize()
+                _qclose(got, want, dtype, f"{case} R={R} {dtype} split {split}")
+
+
 def test_moe_gather_host_plan_matches_the_kernel(dev):
-    """moe_kernels.moe_gather_plan, the CPU tests' model of K12's launch,
-    against what the library reports (tg_moe_gather_plan, which the
-    wrapper's plan reads through _library_plan): the n-tiles a pass and a
-    block's shared memory, at every split the C entry point takes, bf16 and
-    fp32 activations, row counts 1 to 200 and widths from 16 to 65536."""
-    fn = _plan_fn("moe_gather_matmul.cu", "tg_moe_gather_plan", 4)
-    for dtype, parts in ((torch.bfloat16, 1), (torch.float32, 2)):
-        for R in sorted(set(range(1, 201, 7)) | {8, 16, 17, 32, 33, 64, 65, 160}):
-            for IN in (16, 72, 1040, 4096, 14336, 65536):
-                for split in range(1, 17):
-                    got = _kernel_plan(fn, R, IN, ak._DTYPE_CODE[dtype], split, n=2)
-                    assert got == mk.moe_gather_plan(R, IN, parts, split), (R, IN, split)
-                    assert got == mk._library_plan(R, IN, parts, split)
+    """moe_kernels._model_plan, the CPU tests' model of the gathered
+    kernels' launches (K12 on bf16 stacks, K11a, K11b), against what the
+    library reports (tg_moe_gather_plan, which the wrappers' plan reads
+    through _library_plan): the n-tiles a pass, a block's shared memory and
+    K11's blocks an SM (its occupancy: registers and shared memory), at
+    every split the C entry points take, bf16 and fp32 activations, row
+    counts 1 to 200 and widths from 16 to 65536."""
+    fn = _plan_fn("moe_gather_matmul.cu", "tg_moe_gather_plan", 5)
+    for bits in (16, 8, 4):
+        for dtype, parts in ((torch.bfloat16, 1), (torch.float32, 2)):
+            for R in sorted(set(range(1, 201, 7)) | {8, 16, 17, 32, 33, 64, 65, 160}):
+                for IN in (16, 72, 1040, 4096, 14336, 65536):
+                    for split in range(1, 17):
+                        got = _kernel_plan(fn, R, IN, ak._DTYPE_CODE[dtype], bits, split, n=3)
+                        assert got == mk._model_plan(R, IN, parts, split, bits), (
+                            bits, R, IN, split)
+                        assert got == mk._library_plan(R, IN, parts, split, bits)
 
 
 def test_moe_wrappers_raise_on_what_the_kernels_do_not_take(dev):

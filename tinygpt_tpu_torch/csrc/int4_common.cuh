@@ -1,5 +1,5 @@
 // Shared parts of the dequant-matmul kernels (int4: K4/K5b, K6, K7; int8:
-// K3/K5a; the MoE kernels K11a/K11b): nibble dequantization, the mma.sync
+// K3/K5a; the MoE kernels K11a/K11b): nibble conversion, the mma.sync
 // helpers, and the decode-shaped (M <= 32) int4 GEMV kernel with its
 // optional prologues and epilogues.
 //
@@ -10,11 +10,10 @@
 // scale rows: the low plane uses scales[p / group], the high plane
 // scales[(IN/2 + p) / group]. A layer is a pointer offset into the stack.
 //
-// Dequantization is exact: the GEMV turns each nibble into the bf16 value
-// u - 8 (exact), multiplies it on the tensor cores, sums each group in fp32
-// and multiplies the group's sum by its scale once, as the TPU kernels do
-// (s * (x @ u - 8 sum(x)) a group); the MoE kernels round (u - 8) * s once
-// a weight (dq), the value the plain PyTorch version computes as q * s.
+// Dequantization is exact: the GEMV (and the MoE kernels K11a/K11b) turn
+// each nibble into the bf16 value u - 8 (exact), multiply it on the tensor
+// cores, sum each group in fp32 and multiply the group's sum by its scale
+// once, as the TPU kernels do (s * (x @ u - 8 sum(x)) a group).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -40,12 +39,6 @@ __device__ __forceinline__ float to_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Exact fp32 dequantization of one biased nibble u in [0, 15]: u - 8 is
-// exact, so (u - 8) * s is rounded once.
-__device__ __forceinline__ float dq(uint32_t u, float s) {
-  return (static_cast<float>(u) - 8.f) * s;
 }
 
 // Everything one call of the GEMV kernel reads. Optional operands are null

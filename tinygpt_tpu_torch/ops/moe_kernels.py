@@ -54,25 +54,43 @@ from tinygpt_tpu_torch.ops.quant_kernels import (
 _SOURCE = "moe_gather_matmul.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FLOAT_ARGS = [_P] * 4 + [_I] * 8 + [_P]  # tg_moe_gather_float
+_INT8_ARGS = [_P] * 5 + [_I] * 9 + [_P]   # tg_moe_gather_int8
+_INT4_ARGS = [_P] * 5 + [_I] * 10 + [_P]  # tg_moe_gather_int4
 
-# K12's tensor-core body on bf16 stacks (csrc/moe_gather_matmul.cu,
-# moe_gather_tc_kernel): a block of 4 warps owns _TC_COLS columns of one
-# expert, and the SK blocks of a cluster (one of _MOE_SPLITS) split IN in
-# _TC_UNIT-row units; the plan wants the live experts' blocks to number at
-# least _MOE_FILL an SM. What a launch takes at a split comes from the
-# library (tg_moe_gather_plan); moe_gather_plan models it for the CPU with
-# the kernel's constants: its 4 warps' cp.async rings take _TC_RING bytes of
-# shared memory, and it stages the pass's rows (8 an n-tile) as bf16 parts
-# at its share of IN, each row padded by 16 bytes; two blocks fit an SM
-# while a block takes at most _TC_PAIR bytes, one up to _TC_SMEM (227 KB
-# less 1 KB for the kernel's static shared memory).
+# The tensor-core bodies (csrc/moe_gather_matmul.cu): K12 on bf16 stacks
+# (moe_gather_tc_kernel), K11a and K11b on int8 and int4 stacks
+# (moe_gather_q_kernel). A block owns a tile of one expert's columns
+# (K12's 4 warps _TC_COLS; K11's, _q_shape), and the SK blocks of a cluster
+# (one of _MOE_SPLITS) split the stored rows in _TC_UNIT-row units; the plan
+# wants the live experts' blocks to number at least _MOE_FILL an SM. What a
+# launch takes at a split comes from the library (tg_moe_gather_plan);
+# moe_gather_plan models it for the CPU with the kernels' constants: the
+# warps' cp.async rings (K12's _TC_RING, K11's _Q_WARP_RING a warp), then
+# the pass's rows (8 an n-tile) staged as bf16 parts at the block's share
+# of the stored rows (both nibble planes for int4), K12's rows padded by 16
+# bytes, K11's to an odd multiple of 32; two blocks fit an SM while a block
+# takes at most _TC_PAIR bytes, one up to _TC_SMEM (227 KB less 1 KB for
+# the kernels' static shared memory).
 _TC_COLS = 128
 _TC_UNIT = 16
 _TC_RING = 4 * 5 * _TC_UNIT * 64 * 2
+_Q_WARP_RING = 5 * 2048  # a K11 warp's ring
 _TC_PAIR = 112640
 _TC_SMEM = 231424
 _MOE_SPLITS = (1, 2, 4, 8, 16)
 _MOE_FILL = 2
+# K11 above _Q_FEW rows: the experts that at most _Q_FEW rows name take
+# passes of one n-tile, in a launch of their own
+_Q_FEW = 8
+# The CPU model of K11's occupancy: an SM's 228 KB of shared memory, 1 KB
+# of it reserved a block, a block's static shared memory (4 bytes a row of
+# a pass, 16 more) and allocation in 128-byte units; and the blocks an SM
+# the registers allow, as ptxas gives them on sm_90a for both activation
+# types, by (bits, n-tiles): 4-warp blocks of int8 (157 to 168 registers a
+# thread) three, of int4 (204 to 255) two; the 8-warp blocks of 4 n-tiles
+# one.
+_SM_SMEM = 233472
+_Q_REG_BLOCKS = {(8, 1): 3, (8, 2): 3, (8, 4): 1, (4, 1): 2, (4, 2): 2, (4, 4): 1}
 
 
 # -- routing -------------------------------------------------------------------
@@ -177,18 +195,38 @@ def _check(name: str, x: torch.Tensor, data: torch.Tensor, scales, idx: torch.Te
     return E, rows, out
 
 
-def moe_gather_plan(R: int, IN: int, parts: int, split: int) -> Tuple[int, int]:
-    """The CPU model of what K12 launches on a bf16 stack at split `split`
-    (the kernel's tc_ntiles and tc_smem, which the library exports as
-    tg_moe_gather_plan, read on the card by _library_plan): (the n-tiles of
-    8 rows a pass, a block's shared memory bytes). The n-tiles are those of
-    R (1 for R <= 8, 2 <= 16, 4 <= 32, else 8), halved while the staged
-    rows, `parts` bf16 parts of the largest rank's share of IN, keep a
-    second block off the SM (_TC_PAIR), but never below those of min(R,
-    32): an expert's first 32 rows are one pass however the rows fall.
-    (0, 0) where those do not fit a block."""
-    n16 = -(-IN // _TC_UNIT)
+def _q_shape(nt: int) -> Tuple[int, int]:
+    """K11's block at nt n-tiles of 8 rows a pass: (warps, columns)."""
+    return (8, 256) if nt == 4 else (4, 256 if nt == 2 else 128)
+
+
+def _stored_rows(IN: int, bits: int) -> int:
+    """Rows of a stack's data for contraction dim IN: packed int4 holds two
+    rows in one."""
+    return IN // 2 if bits == 4 else IN
+
+
+def moe_gather_plan(R: int, IN: int, parts: int, split: int, bits: int = 16
+                    ) -> Tuple[int, int]:
+    """The CPU model of what a gathered kernel launches at split `split`
+    over a stack of `bits` (16: K12 on bf16; 8: K11a; 4: K11b) with
+    contraction dim IN (the kernel's tc_ntiles / q_ntiles and tc_smem /
+    q_smem, which the library exports as tg_moe_gather_plan, read on the
+    card by _library_plan): (the n-tiles of 8 rows a pass, a block's shared
+    memory bytes). K12's n-tiles are those of R (1 for R <= 8, 2 <= 16, 4
+    <= 32, else 8), halved while the staged rows, `parts` bf16 parts of the
+    largest rank's share of IN, keep a second block off the SM (_TC_PAIR),
+    but never below those of min(R, 32); K11's are those of min(R, 32): an
+    expert's first 32 rows are one pass however the rows fall. (0, 0) where
+    those do not fit a block."""
+    n16 = -(-_stored_rows(IN, bits) // _TC_UNIT)
     nk = -(-n16 // split) * _TC_UNIT  # the largest rank's rows
+    if bits != 16:
+        nt = 1 if R <= 8 else 2 if R <= 16 else 4
+        planes = 2 if bits == 4 else 1
+        smem = (_q_shape(nt)[0] * _Q_WARP_RING
+                + parts * planes * 8 * nt * ((2 * nk & ~63) + 32))
+        return (nt, smem) if smem <= _TC_SMEM else (0, 0)
     nt = 1 if R <= 8 else 2 if R <= 16 else 4 if R <= 32 else 8
     least = min(nt, 4)
     xbytes = lambda n: parts * 8 * n * (2 * nk + 16)  # noqa: E731
@@ -199,61 +237,87 @@ def moe_gather_plan(R: int, IN: int, parts: int, split: int) -> Tuple[int, int]:
     return nt, _TC_RING + xbytes(nt)
 
 
+def _q_per_sm(nt: int, smem: int, bits: int) -> int:
+    """The CPU model of the blocks of K11 an SM runs at once (the kernel's
+    occupancy, which the library reports as tg_moe_gather_plan's out[2])."""
+    block = -(-(smem + 32 * nt + 16) // 128) * 128 + 1024
+    return min(_SM_SMEM // block, _Q_REG_BLOCKS[bits, nt])
+
+
+def _model_plan(R: int, IN: int, parts: int, split: int, bits: int = 16) -> Tuple[int, int, int]:
+    """moe_gather_plan with K11's blocks an SM (_q_per_sm; 0 for K12): the
+    CPU tests' stand-in for _library_plan."""
+    nt, smem = moe_gather_plan(R, IN, parts, split, bits)
+    return nt, smem, _q_per_sm(nt, smem, bits) if nt and bits != 16 else 0
+
+
 @functools.lru_cache(maxsize=1024)  # a few shapes a model, a few splits each
-def _library_plan(R: int, IN: int, parts: int, split: int) -> Tuple[int, int]:
-    """What K12 launches on a bf16 stack at split `split`, as the library
-    reports it (tg_moe_gather_plan): the n-tiles a pass and a block's shared
-    memory bytes, (0, 0) where the rows fit no block at that split."""
+def _library_plan(R: int, IN: int, parts: int, split: int, bits: int = 16
+                  ) -> Tuple[int, int, int]:
+    """What a gathered kernel launches at split `split` over a stack of
+    `bits`, as the library reports it (tg_moe_gather_plan): the n-tiles a
+    pass, a block's shared memory bytes and, for K11, the blocks an SM runs
+    at once (registers counted); (0, 0, 0) where the rows fit no block at
+    that split."""
     from tinygpt_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.function(_SOURCE, "tg_moe_gather_plan", [_I] * 4 + [_P])
-    out = (ctypes.c_int * 2)()
+    fn = cuda_build.function(_SOURCE, "tg_moe_gather_plan", [_I] * 5 + [_P])
+    out = (ctypes.c_int * 3)()
     code = _DTYPE_CODE[torch.float32 if parts == 2 else torch.bfloat16]
-    cuda_build.check(_SOURCE, fn(R, IN, code, split, out), "tg_moe_gather_plan")
-    return out[0], out[1]
+    cuda_build.check(_SOURCE, fn(R, IN, code, bits, split, out), "tg_moe_gather_plan")
+    return out[0], out[1], out[2]
 
 
 @functools.lru_cache(maxsize=1024)  # a few shapes a model; called every launch
 def moe_gather_split(R: int, E: int, IN: int, OUT: int, parts: int, sms: int = 132,
-                     plan: Callable[[int, int, int, int], Tuple[int, int]] = moe_gather_plan
-                     ) -> int:
-    """K12's split plan on a bf16 stack: the blocks SK of each cluster,
-    which split IN between them. `plan(R, IN, parts, SK)` says what a launch
-    at SK takes (the wrapper passes _library_plan, the kernel's own
-    numbers; the CPU tests its model, moe_gather_plan). The host never reads
-    idx, so it counts min(R, E) live experts, the rows spread evenly over
-    them. In order: the fewest passes over an expert's rows; a portable
-    cluster (at most 8 blocks: 16 only for rows that fit no smaller
-    split); where a pass holds more than 8 rows, two blocks an SM
-    (_TC_PAIR); then the smallest SK whose live blocks (experts x column
-    tiles x SK) number _MOE_FILL an SM, else the largest. At most one block
-    a 16-row unit, and powers of two (clusters of 6 and 12 won no case of
-    the sweep). On an H100 (PERF.md), at Mixtral-8x7B's gate_up (4096 ->
-    28672) this takes SK 1 at R = 8 and 4 at 32 and 160, at down (14336 ->
-    4096) 2 at 8 and 8 at 32 and 160: the fastest of the split sweep (SK 1
-    to 16) in each case, on even and uneven draws, but down at R = 160,
+                     plan: Callable[..., Tuple[int, int, int]] = _model_plan,
+                     bits: int = 16) -> int:
+    """The split plan of K12 (bf16 stack, bits 16), K11a (8) or K11b (4):
+    the blocks SK of each cluster, which split the stored rows between them.
+    `plan(R, IN, parts, SK, bits)` says what a launch at SK takes (the
+    wrappers pass _library_plan, the kernel's own numbers; the CPU tests its
+    model, _model_plan). The host never reads idx, so it counts min(R, E)
+    live experts, the rows spread evenly over them. In order: the fewest
+    passes over an expert's rows; for K11, the most blocks an SM (registers
+    and shared memory counted); a portable cluster (at most 8 blocks: 16
+    only for rows that fit no smaller split, or, for K11, where it runs more
+    blocks an SM); for K12, where a pass holds more than 8 rows, two blocks
+    an SM (_TC_PAIR); then the smallest SK whose live blocks (experts x
+    column tiles x SK) number _MOE_FILL an SM, else the largest. At most one
+    block a 16-row unit, and powers of two (clusters of 6 and 12 won no case
+    of K12's sweep). On an H100 (PERF.md), K12 at Mixtral-8x7B's gate_up
+    (4096 -> 28672) takes SK 1 at R = 8 and 4 at 32 and 160, at down (14336
+    -> 4096) 2 at 8 and 8 at 32 and 160: the fastest of the split sweep (SK
+    1 to 16) in each case, on even and uneven draws, but down at R = 160,
     which ties with SK 16 (0.4477 against 0.4475 ms). Where a pass holds 8
     rows, one block an SM streamed as fast (down at R = 8: SK 2 0.266
     against SK 4's 0.274); where it holds 32, the second block paid
-    (gate_up at R = 32: SK 4 0.649 against SK 2's 0.672). Raises ValueError
-    for a shape whose rows fit no split."""
-    n16 = -(-IN // _TC_UNIT)
+    (gate_up at R = 32: SK 4 0.649 against SK 2's 0.672). K11 streams
+    fastest at the most blocks an SM (K11b gate_up at R = 8: SK 1 and 2 two
+    blocks, by registers, SK 1 0.178 against SK 2's 0.193; K11a three from
+    SK 2 on: SK 2 0.279 against SK 1's 0.291). Raises ValueError for a
+    shape whose rows fit no split."""
+    n16 = -(-_stored_rows(IN, bits) // _TC_UNIT)
     live = min(R, E)
     rows = -(-R // live)  # an expert's rows
     best = None
     for S in _MOE_SPLITS:
         if S > max(1, n16):
             break
-        nt, smem = plan(R, IN, parts, S)
+        nt, smem, per_sm = plan(R, IN, parts, S, bits)
         if not nt:
             continue
-        short = live * -(-OUT // _TC_COLS) * S < _MOE_FILL * sms
-        key = (-(-rows // (8 * nt)), S > 8, nt > 1 and smem > _TC_PAIR, short,
-               -S if short else S)
+        cols = _TC_COLS if bits == 16 else _q_shape(nt)[1]
+        short = live * -(-OUT // cols) * S < _MOE_FILL * sms
+        if bits == 16:
+            key = (-(-rows // (8 * nt)), S > 8, nt > 1 and smem > _TC_PAIR, short,
+                   -S if short else S)
+        else:
+            key = (-(-rows // (8 * nt)), -per_sm, S > 8, short, -S if short else S)
         best = min(best or key, key)
     if best is None:
-        raise ValueError(f"moe_gather_matmul: the rows of IN = {IN} ({parts} parts) fit "
-                         f"no split of up to {_MOE_SPLITS[-1]} blocks")
+        raise ValueError(f"moe_gather_matmul: the rows of IN = {IN} ({parts} parts, {bits} "
+                         f"bits) fit no split of up to {_MOE_SPLITS[-1]} blocks")
     return abs(best[-1])
 
 
@@ -272,6 +336,20 @@ def _launch(name: str, symbol: str, argtypes, x, idx, out_cols, tensors, ints, *
     return out
 
 
+def _split(x: torch.Tensor, E: int, IN: int, OUT: int, bits: int, R: int = 0) -> int:
+    """The plan's split for x (or R of its rows) over a stack of `bits` on
+    x's card."""
+    return moe_gather_split(R or x.shape[0], E, IN, OUT, 2 if x.dtype == torch.float32 else 1,
+                            _sm_count(x.device.index or 0), _library_plan, bits)
+
+
+def _q_splits(x: torch.Tensor, E: int, IN: int, OUT: int, bits: int) -> Tuple[int, int]:
+    """K11's splits: the call's, and that of its launch over the experts
+    that at most _Q_FEW rows name (planned as a call of _Q_FEW rows)."""
+    return (_split(x, E, IN, OUT, bits),
+            _split(x, E, IN, OUT, bits, min(x.shape[0], _Q_FEW)))
+
+
 def moe_gather_matmul(
     x: torch.Tensor,    # [R, IN] bf16/fp32, one row per (token, expert slot)
     w: torch.Tensor,    # [L, E, IN, OUT] bf16 (or fp32) expert stack
@@ -287,8 +365,7 @@ def moe_gather_matmul(
     E, rows, out = _check(name, x, w, None, idx, l, 0, 16)
     split = 1
     if w.dtype == torch.bfloat16:
-        split = moe_gather_split(x.shape[0], E, rows, out, 2 if x.dtype == torch.float32 else 1,
-                                 _sm_count(x.device.index or 0), _library_plan)
+        split = _split(x, E, rows, out, 16)
     return _launch(name, "tg_moe_gather_float", _FLOAT_ARGS, x, idx, out, (w,),
                    (x.shape[0], rows, out, E, int(l)), _DTYPE_CODE[w.dtype], split)
 
@@ -301,13 +378,14 @@ def moe_gather_matmul_int8(
     idx: torch.Tensor,     # [R] int32
     group: int,
 ) -> torch.Tensor:
-    """out[r] = x[r] @ dequant(data[l, idx[r]]) for an int8 stack (K11a)."""
+    """out[r] = x[r] @ dequant(data[l, idx[r]]) for an int8 stack (K11a), on
+    the tensor cores, on clusters of moe_gather_split blocks (_q_splits)."""
     if x.device.type == "cpu":
         return moe_gather_matmul_int8_plain(x, data, scales, l, idx, group)
     name = "moe_gather_matmul_int8"
     E, rows, out = _check(name, x, data, scales, idx, l, group, 8)
-    return _launch(name, "tg_moe_gather_int8", [_P] * 5 + [_I] * 7 + [_P], x, idx, out,
-                   (data, scales), (x.shape[0], rows, out, E, group, int(l)))
+    return _launch(name, "tg_moe_gather_int8", _INT8_ARGS, x, idx, out, (data, scales),
+                   (x.shape[0], rows, out, E, group, int(l)), *_q_splits(x, E, rows, out, 8))
 
 
 def moe_gather_matmul_int4(
@@ -319,13 +397,15 @@ def moe_gather_matmul_int4(
     group: int,
 ) -> torch.Tensor:
     """out[r] = x[r] @ dequant(data[l, idx[r]]) for a packed int4 stack
-    (K11b)."""
+    (K11b), on the tensor cores, on clusters of moe_gather_split blocks
+    (_q_splits)."""
     if x.device.type == "cpu":
         return moe_gather_matmul_int4_plain(x, data, scales, l, idx, group)
     name = "moe_gather_matmul_int4"
     E, rows, out = _check(name, x, data, scales, idx, l, group, 4)
-    return _launch(name, "tg_moe_gather_int4", [_P] * 5 + [_I] * 8 + [_P], x, idx, out,
-                   (data, scales), (x.shape[0], x.shape[1], 2 * rows, out, E, group, int(l)))
+    return _launch(name, "tg_moe_gather_int4", _INT4_ARGS, x, idx, out, (data, scales),
+                   (x.shape[0], x.shape[1], 2 * rows, out, E, group, int(l)),
+                   *_q_splits(x, E, 2 * rows, out, 4))
 
 
 # -- the routed MLP ------------------------------------------------------------------
