@@ -7,9 +7,12 @@ Phases, in order:
   env      the card's name and power limit, torch and nvcc versions;
   build    compiles the CUDA kernels from the checkout's sources (nvcc,
            one process per source, all at once); prints the registers,
-           spills and shared memory of K1, K13, K2 and the int8 GEMV at the
-           main path and checks their machine code for wgmma and TMA (K1),
-           cluster barriers (K13, K2, the GEMV) and cp.async (the GEMV);
+           spills and shared memory of the redesigned kernels at the main
+           path (every instantiation of K10's tensor-core split) and checks
+           their machine code for wgmma and TMA (K1, the prefill kernel),
+           cluster barriers (K13, K2, K8, K9, K10, K12, the GEMV), cp.async
+           (the GEMV, K8, K9, K10, K11, K12) and mma.sync from ldmatrix (K10,
+           K12);
   kernels  holds each attention kernel against its plain PyTorch version
            on the card (bf16 and fp32, head dims 128 and 64, and an e4m3
            cache beside bf16 queries) and times kernel, plain version and
@@ -23,17 +26,22 @@ Phases, in order:
            128 and 64, 4 and 1 query heads per KV head, ragged rows, dead
            table entries, inactive rows, a window) and times it beside its
            bound and scaled_dot_product_attention on the same rows gathered
-           dense; then the same for the single-layer paged decode (K9) at
-           the GPT-2 serving shape (12/12 heads, D 64, rows up to 1,023
-           slots, inactive rows, starts > 0; bf16, fp16, fp32 and e4m3
-           pools) and the Mistral-7B shape with windows 8 and 24; then K2,
-           K8 and K9 at 16 query heads per KV head (Llama-3.1-405B's 128/8)
-           and K10 at 72 and 80 verify rows per KV head;
+           dense, sweeping its split; then the same for the single-layer
+           paged decode (K9) at the GPT-2 serving shape (12/12 heads, D 64,
+           rows up to 1,023 slots, inactive rows, starts > 0; bf16, fp16,
+           fp32 and e4m3 pools), the Mistral-7B shape with windows 8 and 24
+           and the mixtral_serve stepwise quantum's rows, each timed case by
+           CUDA events (K9 and SDPA) with a sweep of K9's split beside its
+           plan; then K2, K8 and K9 at 16 query heads per KV head
+           (Llama-3.1-405B's 128/8) and K10 at 72 and 80 verify rows per
+           KV head (K9 and K10 beside their plain versions, SDPA and their
+           split sweeps);
   spec_kernels  the same for the speculative-verify kernel (K10) at the
            serving shape (16 rows, 5 verify positions, bf16, fp32 and e4m3
            pools, a binding window), with SDPA on the gathered K/V and an
-           explicit mask as the yardstick; and the card's e4m3 cast against
-           the CPU's bytes;
+           explicit mask as the yardstick (both by CUDA events) and a sweep
+           of K10's split beside its plan at each timed case; and the
+           card's e4m3 cast against the CPU's bytes;
   model    full-width Mistral-7B shape (32 layers, bf16, random weights):
            prefill of 4 left-padded prompts, then two greedy decode chunks
            of 32 steps, through the kernels and through the plain
@@ -414,6 +422,33 @@ def _spread(xs) -> str:
     return f"{statistics.median(xs):.4f} ({min(xs):.4f}-{max(xs):.4f} of {len(xs)})"
 
 
+def events_ms(fn, L: int, calls: int = 0) -> float:
+    """Median device ms of one fn(l) call walking the L layers (l = i % L:
+    cold K/V, as a step reads its layers in turn), by CUDA events around a
+    CUDA graph of the calls (graph_ms; 4 * L calls unless `calls`): a
+    single cluster launch reads 20 % to 30 % low under torch.profiler."""
+    return statistics.median(graph_ms(lambda i: fn(i % L), calls or 4 * L))
+
+
+def split_sweep(tag: str, name: str, label: str, call, L: int, plan: int, note=""):
+    """`name` through its C entry point at every cluster size C = 1 .. 8
+    (call(l, C) launches it at layer l), each timed by events_ms over the L
+    layers, logged beside the plan's pick. A split the kernel refuses fails
+    the phase. Returns {C: ms}."""
+    times = {}
+    for C in range(1, 9):
+        try:
+            times[C] = events_ms(lambda l: call(l, C), L)
+        except RuntimeError as e:
+            raise PhaseError(f"{name} split sweep {label}: C={C} refused ({e})") from e
+    best = min(times, key=times.get)
+    log(f"{tag} {name} split sweep {label}{note}: "
+        + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
+        + f" ms (CUDA events); the plan's C={plan} {times[plan]:.4f}, the fastest C={best} "
+        f"({times[plan] / times[best]:.3f}x)")
+    return times
+
+
 def bound_ms(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -496,15 +531,16 @@ def _demangle(names) -> dict:
 def _attention_reports() -> None:
     """The redesigned kernels' instantiations at the main path's types (K1,
     K13, K2, the int8 GEMV of K3/K5a, the prefill kernel of K5a/K5b, K8,
-    K12's bf16 body and K11a's and K11b's at 8 and 32 rows a pass, bf16 x):
-    registers, spills and static shared memory
+    K9, K12's bf16 body and K11a's and K11b's at 8 and 32 rows a pass, bf16
+    x; every instantiation of K10's tensor-core split): registers, spills
+    and static shared memory
     (ptxas -v; their shared-memory rings are dynamic, sized at launch as
     the sources' head notes give them); and the Hopper instructions in
     their machine code (cuobjdump -sass): wgmma (HGMMA) and TMA loads
     (UTMALDG) in K1 and the prefill kernel, cluster barriers (UCGABAR) in
-    K13, K2, K8, K12, the GEMV and the prefill kernel's split, cp.async
-    copies (LDGSTS) in the GEMV, K8, K12 and K11, and mma.sync (HMMA) from
-    ldmatrix (LDSM) in K12."""
+    K13, K2, K8, K9, K10, K12, the GEMV and the prefill kernel's split,
+    cp.async copies (LDGSTS) in the GEMV, K8, K9, K10, K12 and K11, and
+    mma.sync (HMMA) from ldmatrix (LDSM) in K10 and K12."""
     from tinygpt_tpu_torch.ops import cuda_build
 
     wanted = {
@@ -524,9 +560,28 @@ def _attention_reports() -> None:
         "int4_matmul.cu": ("dequant_mm_tc<tg::dqmm::Int4, 256>",
                            "dequant_mm_tc<tg::dqmm::Int4, 128>"),
         "paged_decode_frozen.cu": (
-            "paged_decode_frozen_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4>",
-            "paged_decode_frozen_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4>",
-            "paged_decode_frozen_kernel<__nv_bfloat16, __nv_bfloat16, 64, 1>"),
+            "paged_split_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4, true>",
+            "paged_split_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 4, true>",
+            "paged_split_kernel<__nv_bfloat16, __nv_bfloat16, 64, 1, true>"),
+        "paged_decode.cu": ("paged_split_kernel<__nv_bfloat16, __nv_bfloat16, 64, 1, false>",
+                            "paged_split_kernel<__nv_bfloat16, __nv_fp8_e4m3, 64, 1, false>",
+                            "paged_split_kernel<__nv_bfloat16, __nv_bfloat16, 128, 4, false>"),
+        "paged_decode_spec.cu": (
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_bfloat16, 128, 2>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 2>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_bfloat16, 128, 1>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_bfloat16, 64, 1>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_bfloat16, 64, 2>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_bfloat16, 64, 4>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_fp8_e4m3, 128, 1>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_fp8_e4m3, 64, 1>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_fp8_e4m3, 64, 2>",
+            "paged_spec_tc_kernel<__nv_bfloat16, __nv_fp8_e4m3, 64, 4>",
+            "paged_spec_tc_kernel<__half, __half, 128, 1>",
+            "paged_spec_tc_kernel<__half, __half, 128, 2>",
+            "paged_spec_tc_kernel<__half, __half, 64, 1>",
+            "paged_spec_tc_kernel<__half, __half, 64, 2>",
+            "paged_spec_tc_kernel<__half, __half, 64, 4>"),
         "moe_gather_matmul.cu": ("moe_gather_tc_kernel<__nv_bfloat16, 1, 1>",
                                  "moe_gather_tc_kernel<__nv_bfloat16, 4, 1>",
                                  "moe_gather_tc_kernel<__nv_bfloat16, 8, 1>",
@@ -540,6 +595,8 @@ def _attention_reports() -> None:
            "int8_matmul.cu": ("UCGABAR", "LDGSTS", "HGMMA", "UTMALDG"),
            "int4_matmul.cu": ("HGMMA", "UTMALDG", "UCGABAR"),
            "paged_decode_frozen.cu": ("UCGABAR", "LDGSTS"),
+           "paged_decode.cu": ("UCGABAR", "LDGSTS"),
+           "paged_decode_spec.cu": ("HMMA", "LDSM", "LDGSTS", "UCGABAR"),
            "moe_gather_matmul.cu": ("HMMA", "LDSM", "LDGSTS", "UCGABAR")}
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     for src, kernels in wanted.items():
@@ -1673,10 +1730,10 @@ def phase_paged_kernels(table: dict) -> None:
 
 
 def _paged_split_sweep(label, L, Nq, Nk, D) -> None:
-    """K8 through its C entry point at every cluster size (1 to 8), at
-    `label`'s heads over the serve phase's rows and pool
-    (bf16, step N - 1, the calls walking the L layers), beside the plan's
-    pick (attention_kernels.paged_decode_split): the check on the plan."""
+    """K8 through its C entry point at every cluster size (split_sweep), at
+    `label`'s heads over the serve phase's rows and pool (bf16, step N - 1,
+    the calls walking the L layers), beside the plan's pick
+    (attention_kernels.paged_decode_split): the check on the plan."""
     import ctypes
 
     import torch
@@ -1708,16 +1765,8 @@ def _paged_split_sweep(label, L, Nq, Nk, D) -> None:
     dev = q.device.index or 0
     per_sm = pa._paged_per_sm(Nq, Nk, p["MB"], D, code, code, dev)
     plan = paged_decode_split(B, Nk, Nq // Nk, p["MB"] * p["bs"] + N, per_sm, _sm_count(dev))
-    times = {}
-    for C in range(1, 9):
-        layers = iter(range(10 ** 9))
-        times[C] = cuda_time_ms(lambda: call(next(layers) % L, C), iters=4 * L)
-    best = min(times, key=times.get)
-    log(f"[paged] paged_decode_frozen split sweep {label} (B={B} Nk={Nk} G={Nq // Nk} "
-        f"D={D}; blocks an SM at C = 1..8: {per_sm}): "
-        + ", ".join(f"C={c} {t:.4f}" for c, t in times.items())
-        + f" ms; the plan's C={plan} {times[plan]:.4f}, the fastest C={best} "
-        f"({times[plan] / times[best]:.3f}x)")
+    split_sweep("[paged]", "paged_decode_frozen", label, call, L, plan,
+                note=f" (B={B} Nk={Nk} G={Nq // Nk} D={D}; blocks an SM at C = 1..8: {per_sm})")
     del q, kp, vp, ki, vi
     torch.cuda.empty_cache()
 
@@ -1834,6 +1883,63 @@ def _sdpa_spec(args, l, base, scale, window, q_slots, infl_slots):
     return _sdpa(q.transpose(1, 2).contiguous(), k, v, mask, scale)
 
 
+def _k10_times(args, base, q_slots, infl_slots, scale, window, L):
+    """(kernel, plain, SDPA) ms of one K10 call: the kernel walking the L
+    layers and SDPA on the gathered K/V by CUDA events (events_ms), the
+    plain version by torch.profiler."""
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+
+    t_k = events_ms(lambda l: pa.paged_decode_spec(*args, l, base, scale, window, q_slots,
+                                                   infl_slots), L)
+    call = (*args, L - 1, base, scale, window, q_slots, infl_slots)
+    t_p = cuda_time_ms(lambda: pa.paged_decode_spec_plain(*call), iters=5)
+    sdpa = _sdpa_spec(args, L - 1, base, scale, window, q_slots, infl_slots)
+    return t_k, t_p, events_ms(lambda _: sdpa(), 1, calls=20)
+
+
+def _k10_sweep(label, args, base, q_slots, infl_slots, scale, window, L):
+    """K10 through its C entry point at every split (split_sweep) beside the
+    wrapper's plan (attention_kernels.paged_spec_split over the library's
+    tg_paged_decode_spec_plan)."""
+    import ctypes
+
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+    from tinygpt_tpu_torch.ops.attention_kernels import (
+        _DTYPE_CODE,
+        _ptr,
+        _sm_count,
+        kv_operands,
+        paged_spec_split,
+    )
+
+    q, kp, vp, tables, lens, starts, ki, vi, valid = args
+    fn = cuda_build.function("paged_decode_spec.cu", "tg_paged_decode_spec", pa._SPEC_ARGS)
+    B, S, Nq, D = q.shape
+    _, n_blocks, Nk, bs, _ = kp.shape
+    MB, N = tables.shape[1], ki.shape[2]
+    code, (kv_code, _) = _DTYPE_CODE[q.dtype], kv_operands("paged_decode_spec", q, kp)
+    out = torch.empty_like(q)
+    null = ctypes.c_void_p(None)
+
+    def call(l, C):
+        err = fn(_ptr(q), _ptr(kp), _ptr(vp), _ptr(tables), _ptr(lens), _ptr(starts), _ptr(ki),
+                 _ptr(vi), _ptr(valid), _ptr(q_slots) if window else null,
+                 _ptr(infl_slots) if window else null, _ptr(out), B, S, Nq, Nk, n_blocks, bs,
+                 MB, N, D, code, kv_code, l, base, scale, window or 0, C,
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        cuda_build.check("paged_decode_spec.cu", err, "tg_paged_decode_spec")
+
+    dev = q.device.index or 0
+    per_sm, n_rg = pa._spec_plan(Nq, Nk, S, MB, D, code, kv_code, dev)
+    plan = paged_spec_split(B, Nk, n_rg, MB * bs + N, per_sm, _sm_count(dev))
+    split_sweep("[spec]", "paged_decode_spec", label, call, L, plan,
+                note=f" (S*G={S * Nq // Nk}, {n_rg} row groups; blocks an SM at C = 1..8: "
+                     f"{per_sm})")
+
+
 def phase_spec_kernels(table: dict) -> None:
     """K10 against its plain version on the card at the spec serve phase's
     shape (16 rows of 64 to 904 slots, two of them inactive at length 0 as
@@ -1888,18 +1994,13 @@ def phase_spec_kernels(table: dict) -> None:
             log(f"[spec] paged_decode_spec {label} D={d} G={nq // nk} S={SPEC_S} {dname}: "
                 f"max_abs_err {err:.3g} (tol {tol:.3g}) ok")
             continue
-        layers = iter(range(10 ** 9))
-        t_k = cuda_time_ms(lambda: pa.paged_decode_spec(
-            *args, next(layers) % Lc, base, d ** -0.5, window, q_slots, infl_slots),
-            iters=4 * Lc)
-        call = (*args, Lc - 1, base, d ** -0.5, window, q_slots, infl_slots)
-        t_p = cuda_time_ms(lambda: pa.paged_decode_spec_plain(*call), iters=5)
-        t_l = cuda_time_ms(_sdpa_spec(args, Lc - 1, base, d ** -0.5, window, q_slots,
-                                      infl_slots), iters=20)
+        t_k, t_p, t_l = _k10_times(args, base, q_slots, infl_slots, d ** -0.5, window, Lc)
         log(f"[spec] paged_decode_spec {label} D={d} G={nq // nk} S={SPEC_S} {dname}"
             f"{' e4m3 pools' if e4m3 else ''}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
-            f"{t_k:.4f} ms plain {t_p:.4f} ms sdpa (K/V gathered, mask built beforehand) "
-            f"{t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+            f"{t_k:.4f} ms (CUDA events) plain {t_p:.4f} ms sdpa (K/V gathered, mask built "
+            f"beforehand, CUDA events) {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+            f"{nbytes / 1e6:.2f} MB)")
+        _k10_sweep(f"{label} {dname}", args, base, q_slots, infl_slots, d ** -0.5, window, Lc)
         if main:
             table["paged_decode_spec"] = dict(
                 name="paged_decode_spec", route="cuda", source=SOURCES["paged_decode_spec"],
@@ -1942,17 +2043,54 @@ K9_INACTIVE = {3: 0, 9: 900}
 K9_STARTS = {4: 5, 7: 17}
 
 
-def _k9_case(L, Nq, Nk, D, dtype, seed):
+def _k9_case(L, Nq, Nk, D, dtype, seed, lengths=K9_LENGTHS, inactive=None, starts=None):
     """Inputs of one paged_decode call (the stacked pools, of which a call
-    takes layer l): K8's case at K9_LENGTHS, with K9_STARTS."""
+    takes layer l): K8's case at `lengths` (K9_LENGTHS, with K9_INACTIVE
+    and K9_STARTS unless given)."""
     import torch
 
-    lens = [K9_INACTIVE.get(b, n) for b, n in enumerate(K9_LENGTHS)]
-    q, kp, vp, tables, lengths, starts, _, _ = _paged_case(L, Nq, Nk, D, lens, K9_INACTIVE,
-                                                           dtype, seed)
-    for b, st in K9_STARTS.items():
-        starts[b] = st
-    return q, kp, vp, tables, lengths, starts.to(torch.int32)
+    inactive = K9_INACTIVE if inactive is None else inactive
+    lens = [inactive.get(b, n) for b, n in enumerate(lengths)]
+    q, kp, vp, tables, lengths, starts_t, _, _ = _paged_case(L, Nq, Nk, D, lens, inactive,
+                                                             dtype, seed)
+    for b, st in (K9_STARTS if starts is None else starts).items():
+        starts_t[b] = st
+    return q, kp, vp, tables, lengths, starts_t.to(torch.int32)
+
+
+def _k9_entry(q, kp, vp, tables, lens, starts, scale, window):
+    """(call(l, C): K9 through its C entry point at layer l of the stacked
+    pools and split C, the wrapper's plan for this shape)."""
+    import ctypes
+
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.ops import paged_attention as pa
+    from tinygpt_tpu_torch.ops.attention_kernels import (
+        _DTYPE_CODE,
+        _ptr,
+        _sm_count,
+        kv_operands,
+        paged_decode_split,
+    )
+
+    fn = cuda_build.function("paged_decode.cu", "tg_paged_decode", pa._DECODE_ARGS)
+    B, Nq, D = q.shape
+    _, n_blocks, Nk, bs, _ = kp.shape
+    MB = tables.shape[1]
+    code, (kv_code, _) = _DTYPE_CODE[q.dtype], kv_operands("paged_decode", q, kp)
+    out = torch.empty_like(q)
+
+    def call(l, C):
+        err = fn(_ptr(q), _ptr(kp[l]), _ptr(vp[l]), _ptr(tables), _ptr(lens), _ptr(starts),
+                 _ptr(out), B, Nq, Nk, n_blocks, bs, MB, D, code, kv_code, scale, window or 0,
+                 C, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        cuda_build.check("paged_decode.cu", err, "tg_paged_decode")
+
+    dev = q.device.index or 0
+    per_sm = pa._paged_per_sm(Nq, Nk, MB, D, code, kv_code, dev, "paged_decode.cu")
+    return call, paged_decode_split(B, Nk, Nq // Nk, MB * bs, per_sm, _sm_count(dev)), per_sm
 
 
 def _k9_cost(q, Nk, tables, lengths, starts, window, pool_size):
@@ -1992,13 +2130,20 @@ def _sdpa_k9(q, kp, vp, tables, lens, starts, scale, window):
     return _sdpa(q[:, :, None, :], k, v, mask[:, None, None, :], scale)
 
 
+# the mixtral_serve phase's stepwise quantum: 16 live rows of 512-token
+# prompts a few tokens into their answers, Mixtral-8x7B's 32/8 heads of 128
+MIXTRAL_K9_LENGTHS = tuple(513 + 4 * i for i in range(16))
+
+
 def _paged_decode_k9(table: dict) -> None:
     """K9 against its plain version on the card: the GPT-2 serving shape
     (bf16 main-path row, walking all 12 layers of a 257-block pool; fp16,
-    fp32, and e4m3 pools beside bf16 queries) and the Mistral-7B shape
-    (32/8 heads, D 128) with windows 8 and 24; the first and last layer.
-    Times kernel, plain version and SDPA (K/V gathered beforehand) beside
-    the bound."""
+    fp32, and e4m3 pools beside bf16 queries), the Mistral-7B shape (32/8
+    heads, D 128) with windows 8 and 24, and the mixtral_serve stepwise
+    quantum's rows; the first and last layer. Times kernel (CUDA events
+    around a graph of calls walking the layers), plain version and SDPA
+    (K/V gathered beforehand) beside the bound, and sweeps the split of
+    every timed case beside the plan's pick."""
     import torch
 
     from tinygpt_tpu_torch.engine.kv_cache import kv_cast
@@ -2007,21 +2152,23 @@ def _paged_decode_k9(table: dict) -> None:
     L2, H = GPT2_124M["n_layer"], GPT2_124M["n_head"]
     D2 = GPT2_124M["n_embd"] // H
     bf16 = torch.bfloat16
-    # (label, L, Nq, Nk, D, window, dtype, e4m3 pools, is_main_path, timed)
+    mix = dict(lengths=MIXTRAL_K9_LENGTHS, inactive={}, starts={})
+    # (label, L, Nq, Nk, D, window, dtype, e4m3 pools, is_main_path, timed, rows)
     cases = [
-        ("GPT-2 serving shape", L2, H, H, D2, None, bf16, False, True, True),
-        ("GPT-2 serving shape", L2, H, H, D2, None, bf16, True, False, True),
-        ("GPT-2 serving shape", 2, H, H, D2, None, torch.float16, False, False, False),
-        ("GPT-2 serving shape", 2, H, H, D2, None, torch.float32, False, False, True),
-        ("Mistral-7B shape w8", 2, 32, 8, 128, 8, bf16, False, False, False),
-        ("Mistral-7B shape w24", 2, 32, 8, 128, 24, torch.float32, False, False, False),
-        ("Mistral-7B shape w24", 4, 32, 8, 128, 24, bf16, True, False, False),
-        ("Mistral-7B shape", 4, 32, 8, 128, None, bf16, False, False, True),
+        ("GPT-2 serving shape", L2, H, H, D2, None, bf16, False, True, True, {}),
+        ("GPT-2 serving shape", L2, H, H, D2, None, bf16, True, False, True, {}),
+        ("GPT-2 serving shape", 2, H, H, D2, None, torch.float16, False, False, False, {}),
+        ("GPT-2 serving shape", 2, H, H, D2, None, torch.float32, False, False, True, {}),
+        ("Mistral-7B shape w8", 2, 32, 8, 128, 8, bf16, False, False, False, {}),
+        ("Mistral-7B shape w24", 2, 32, 8, 128, 24, torch.float32, False, False, False, {}),
+        ("Mistral-7B shape w24", 4, 32, 8, 128, 24, bf16, True, False, False, {}),
+        ("Mistral-7B shape", 4, 32, 8, 128, None, bf16, False, False, True, {}),
+        ("mixtral_serve stepwise shape", 4, 32, 8, 128, None, bf16, False, False, True, mix),
     ]
     worst = 0.0
-    for i, (label, Lc, nq, nk, d, window, dtype, e4m3, main, timed) in enumerate(cases):
+    for i, (label, Lc, nq, nk, d, window, dtype, e4m3, main, timed, rows) in enumerate(cases):
         dname = str(dtype).replace("torch.", "")
-        q, kp, vp, tables, lens, starts = _k9_case(Lc, nq, nk, d, dtype, seed=400 + i)
+        q, kp, vp, tables, lens, starts = _k9_case(Lc, nq, nk, d, dtype, seed=400 + i, **rows)
         if e4m3:
             kp, vp = kv_cast(kp, E4M3), kv_cast(vp, E4M3)
         for l in sorted({0, Lc - 1}):
@@ -2039,22 +2186,21 @@ def _paged_decode_k9(table: dict) -> None:
                                  1 if e4m3 else q.element_size())
         b_ms, b_by = bound_ms(nbytes, flops, dname)
         what = (f"[paged] paged_decode {label} D={d} G={nq // nk} {dname}"
-                f"{' e4m3 pools' if e4m3 else ''}: max_abs_err {err:.3g} (tol {tol:.3g})")
+                f"{' e4m3 pools' if e4m3 else ''}")
         if not timed:
-            log(f"{what} ok")
+            log(f"{what}: max_abs_err {err:.3g} (tol {tol:.3g}) ok")
             continue
-        layers = iter(range(10 ** 9))
-
-        def walk():  # cold K/V, as a decode step reads its layers in turn
-            lw = next(layers) % Lc
-            return pa.paged_decode(q, kp[lw], vp[lw], tables, lens, starts, d ** -0.5,
-                                   window)
-
-        t_k = cuda_time_ms(walk, iters=4 * Lc)
+        t_k = events_ms(lambda lw: pa.paged_decode(q, kp[lw], vp[lw], tables, lens, starts,
+                                                   d ** -0.5, window), Lc)
         t_p = cuda_time_ms(lambda: pa.paged_decode_plain(*args), iters=10)
-        t_l = cuda_time_ms(_sdpa_k9(*args), iters=20)
-        log(f"{what} kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa (K/V gathered dense "
-            f"beforehand) {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+        sdpa = _sdpa_k9(*args)
+        t_l = events_ms(lambda _: sdpa(), 1, calls=20)
+        log(f"{what}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms (CUDA events) "
+            f"plain {t_p:.4f} ms sdpa (K/V gathered dense beforehand, CUDA events) "
+            f"{t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+        call, plan, per_sm = _k9_entry(q, kp, vp, tables, lens, starts, d ** -0.5, window)
+        split_sweep("[paged]", "paged_decode", f"{label} {dname}{' e4m3' if e4m3 else ''}",
+                    call, Lc, plan, note=f" (blocks an SM at C = 1..8: {per_sm})")
         if main:
             table["paged_decode"] = dict(
                 name="paged_decode", route="cuda", source=SOURCES["paged_decode"],
@@ -2070,12 +2216,12 @@ def _paged_decode_k9(table: dict) -> None:
 
 
 def _wide_groups() -> None:
-    """The shapes the kernels took no more before this slice, checked
-    against their plain versions and timed beside their bounds: K2, K8 and
-    K9 at 16 query heads per KV head (Llama-3.1-405B's 128 over 8, D 128;
-    two blocks of 8 heads per KV head), K10 at 72 (G 8, 9 verify
-    positions) and 80 (G 16, 5 positions) query rows per KV head (two row
-    groups of 64)."""
+    """Wide head groups, checked against their plain versions and timed
+    beside their bounds: K2, K8 and K9 at 16 query heads per KV head
+    (Llama-3.1-405B's 128 over 8, D 128; two group tiles of 8 heads per KV
+    head), K10 at 72 (G 8, 9 verify positions) and 80 (G 16, 5 positions)
+    query rows per KV head (three row groups of 32); K9 and K10 beside the
+    plain version and SDPA, with their split sweeps."""
     import torch
 
     from tinygpt_tpu_torch.ops import attention_kernels as ak
@@ -2123,12 +2269,23 @@ def _wide_groups() -> None:
             tol = _paged_tol("bfloat16", want)
             if not (math.isfinite(err) and err <= tol):
                 raise PhaseError(f"{name} G=16 l={l}: error {err} > {tol}")
-        layers = iter(range(10 ** 9))
-        t_k = cuda_time_ms(lambda: kern(*call(next(layers) % Lc)), iters=4 * Lc)
         b_ms, b_by = bound_ms(*cost, "bfloat16")
-        log(f"[paged] {name} G=16 (128/8 heads, D 128, the serve phase's 16 rows) bf16: "
-            f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms bound {b_ms:.4f} ms "
-            f"({b_by})")
+        what = (f"[paged] {name} G=16 (128/8 heads, D 128, the serve phase's 16 rows) bf16: "
+                f"max_abs_err {err:.3g} (tol {tol:.3g})")
+        if name == "paged_decode_frozen":
+            layers = iter(range(10 ** 9))
+            t_k = cuda_time_ms(lambda: kern(*call(next(layers) % Lc)), iters=4 * Lc)
+            log(f"{what} kernel {t_k:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+            continue
+        t_k = events_ms(lambda l: kern(*call(l)), Lc)
+        t_p = cuda_time_ms(lambda: plain(*call(Lc - 1)), iters=10)
+        sdpa = _sdpa_k9(*call(Lc - 1))
+        t_l = events_ms(lambda _: sdpa(), 1, calls=20)
+        log(f"{what} kernel {t_k:.4f} ms (CUDA events) plain {t_p:.4f} ms sdpa (K/V gathered "
+            f"dense beforehand, CUDA events) {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        k9, plan, per_sm = _k9_entry(q, kp, vp, tables, lengths, starts, scale, None)
+        split_sweep("[paged]", "paged_decode", "G16 bf16", k9, Lc, plan,
+                    note=f" (blocks an SM at C = 1..8: {per_sm})")
     del q, kp, vp, ki, vi
     torch.cuda.empty_cache()
     # K10 past 64 rows per KV head
@@ -2145,13 +2302,13 @@ def _wide_groups() -> None:
             if not (math.isfinite(err) and err <= tol):
                 raise PhaseError(f"paged_decode_spec S*G={S * nq // Nk} l={l}: error {err} "
                                  f"> {tol}")
-        layers = iter(range(10 ** 9))
-        t_k = cuda_time_ms(lambda: pa.paged_decode_spec(
-            *args, next(layers) % Lc, base, scale, None, q_slots, infl_slots), iters=4 * Lc)
+        t_k, t_p, t_l = _k10_times(args, base, q_slots, infl_slots, scale, None, Lc)
         b_ms, b_by = bound_ms(*_spec_cost(args, base, q_slots, infl_slots, None), "bfloat16")
         log(f"[paged] paged_decode_spec S*G={S * nq // Nk} (G {nq // Nk}, S {S}, D 128, 16 "
-            f"rows) bf16: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"rows) bf16: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms (CUDA "
+            f"events) plain {t_p:.4f} ms sdpa (K/V gathered, mask built beforehand, CUDA "
+            f"events) {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        _k10_sweep(f"S*G={S * nq // Nk} bf16", args, base, q_slots, infl_slots, scale, None, Lc)
         del args
         torch.cuda.empty_cache()
 
@@ -2977,7 +3134,7 @@ def phase_serve(table: dict, params) -> None:
         kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy_us = sum(us for us, _, _ in kernels)
-        k8_us = sum(us for us, _, key in kernels if "paged_decode_frozen" in key)
+        k8_us = sum(us for us, _, key in kernels if _paged_kernel(key) == "paged_decode_frozen")
         quant = [params["lm_head"], *(v for v in params["layers"].values()
                                       if isinstance(v, QuantizedTensor))]
         w_bytes = (sum(_nbytes(q.data, q.scales) for q in quant)
@@ -3166,7 +3323,7 @@ def phase_spec_serve(table: dict, params) -> None:
         kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy = sum(us for us, _, _ in kernels)
-        k10 = sum(us for us, _, k in kernels if "paged_decode_spec" in k)
+        k10 = sum(us for us, _, k in kernels if _paged_kernel(k) == "paged_decode_spec")
         k5b = sum(us for us, _, k in kernels if "int4" in k.lower())
         if busy:
             log(f"[spec_serve] one speculative quantum (1 round of {SPEC['draft_len'] + 1} "
@@ -3336,12 +3493,31 @@ def phase_gpt2(table: dict):
     return params
 
 
-def _profile_quantum(batcher, params, cfg, prompt, tag, kernel):
+def _paged_kernel(key: str):
+    """The paged kernel a profiler key names ("paged_decode_frozen" for K8,
+    "paged_decode" for K9, "paged_decode_spec" for K10), or None. K8 and K9
+    are one template, paged_split_kernel, with its last argument (INFL)
+    true for K8; the names before it (paged_decode_frozen_kernel,
+    paged_decode_kernel) are matched too, for runs over an older
+    package."""
+    if "paged_spec_tc_kernel" in key or "paged_decode_spec_kernel" in key:
+        return "paged_decode_spec"
+    if "paged_split_kernel" in key:
+        return "paged_decode_frozen" if ", true>" in key else "paged_decode"
+    if "paged_decode_frozen_kernel" in key:
+        return "paged_decode_frozen"
+    if "paged_decode_kernel" in key:
+        return "paged_decode"
+    return None
+
+
+def _profile_quantum(batcher, params, cfg, prompt, tag, names):
     """Fills every row of `batcher` (requests of the serving prompt length),
     then runs one quantum of its selected kind (frozen or stepwise) on its
-    state under torch.profiler: (wall ms/step, device busy ms/step, `kernel`
-    ms/step, device launches/step), or None when the profiler saw no device
-    time."""
+    state under torch.profiler: (wall ms/step, device busy ms/step, [ms/step
+    of each of `names`: a paged kernel's name (_paged_kernel) or a part of a
+    kernel's name], device launches/step), or None when the profiler saw no
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3373,12 +3549,12 @@ def _profile_quantum(batcher, params, cfg, prompt, tag, kernel):
         log(f"{tag} one quantum: device time not measured (the profiler saw no device "
             f"activity)")
         return None
-    k_us = sum(us for us, _, key in kernels
-               if kernel in key and (kernel != "paged_decode" or "frozen" not in key
-                                     and "spec" not in key))
+    k_us = [sum(us for us, _, key in kernels
+                if (_paged_kernel(key) == k if k.startswith("paged_decode") else k in key))
+            for k in names]
     for us, count, key in sorted(kernels, reverse=True)[:6]:
         log(f"{tag}   {us / Q / 1e3:8.4f} ms/step  {count // Q:4d} launches/step  {key[:90]}")
-    return (wall_us / Q / 1e3, busy / Q / 1e3, k_us / Q / 1e3,
+    return (wall_us / Q / 1e3, busy / Q / 1e3, [us / Q / 1e3 for us in k_us],
             sum(c for _, c, _ in kernels) // Q)
 
 
@@ -3444,9 +3620,9 @@ def phase_gpt2_serve(table: dict, params) -> None:
             if quantum == "stepwise":
                 table["paged_decode"]["launches"] = launches["paged_decode"]
             streams[quantum] = run["streams"]
-            prof = _profile_quantum(b, params, cfg, prompt, "[gpt2_serve]", kname)
+            prof = _profile_quantum(b, params, cfg, prompt, "[gpt2_serve]", (kname,))
             if prof:
-                wall, busy, k_ms, n_launch = prof
+                wall, busy, (k_ms,), n_launch = prof
                 log(f"[gpt2_serve] {quantum} quantum of {s['quantum']} steps at "
                     f"{s['capacity']} live rows under the profiler: wall {wall:.3f} ms/step, "
                     f"device busy {busy:.3f} ms/step ({100 * busy / wall:.1f}% busy), "
@@ -4078,13 +4254,14 @@ def phase_mixtral_serve(table: dict, params) -> None:
             if adm != m["n_requests"] or launches != want:
                 raise PhaseError(f"mixtral_serve {quantum}: launches {launches} != {want}")
             prof = _profile_quantum(b, params, cfg, prompt, "[mixtral_serve]",
-                                    "moe_gather")
+                                    ("moe_gather", kname))
             if prof:
-                wall, busy, k_ms, n_launch = prof
+                wall, busy, (k_ms, a_ms), n_launch = prof
                 log(f"[mixtral_serve] {quantum} quantum of {s['quantum']} steps at "
                     f"{s['capacity']} live rows under the profiler: wall {wall:.3f} ms/step, "
                     f"device busy {busy:.3f} ms/step ({100 * busy / wall:.1f}% busy), "
-                    f"{n_launch} device launches/step, K11b {k_ms:.4f} ms/step")
+                    f"{n_launch} device launches/step, K11b {k_ms:.4f} ms/step, {kname} "
+                    f"{a_ms:.4f} ms/step")
             del b
             torch.cuda.empty_cache()
 

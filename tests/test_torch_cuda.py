@@ -1519,6 +1519,287 @@ def test_paged_decode_wrapper_raises_on_what_the_kernel_does_not_take(dev):
                         sts, 0.1)
 
 
+# -- K9 and K10 redesigned: every split, the plans, pools past 2^31 --------------
+
+K9_SPLIT_CASES = [
+    # (D, dtype, G, Nk, bs, MB, n_blocks, lengths, starts, inactive, window):
+    # inactive rows keep their lengths over a zero table
+    (64, torch.bfloat16, 1, 12, 64, 16, 257, (1023, 1, 64, 0, 65, 900, 700),
+     (0, 0, 0, 0, 5, 0, 17), (3, 5), None),  # the GPT-2 serving shape's rows
+    (128, torch.bfloat16, 4, 8, 64, 16, 257, (512, 767, 0, 1100, 600),
+     (0, 0, 0, 0, 3), (2, 3), 24),           # Mistral-7B's heads; window 24
+    (128, torch.float32, 4, 2, 16, 40, 100, (600, 130, 37), (0, 5, 0), (), 8),  # bs 16
+    (64, torch.float16, 16, 2, 64, 8, 40, (500, 70), (0, 0), (), None),        # G = 16
+    (64, torch.bfloat16, 2, 2, 48, 9, 30, (400, 97), (10, 0), (), 64),          # bs 48
+    (64, torch.bfloat16, 2, 2, 16, 4200, 4300, (66000, 900), (0, 0), (), None),  # past the ids
+]
+
+
+def _split_call(source, symbol, argtypes, ptrs, ints, scale, window, C):
+    import ctypes
+
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function(source, symbol, argtypes)
+    err = fn(*(ctypes.c_void_p(None if t is None else t.data_ptr()) for t in ptrs), *ints,
+             scale, window or 0, C, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0, (symbol, C, err)
+
+
+def _k9_split_call(args, C):
+    """K9 through its C entry point at split C (1 to 8), not the plan's."""
+    q, kp, vp, tables, lens, sts, scale, window = args
+    B, Nq, D = q.shape
+    n_blocks, Nk, bs, _ = kp.shape
+    kv_code, _ = ak.kv_operands("paged_decode", q, kp)
+    out = torch.empty_like(q)
+    _split_call("paged_decode.cu", "tg_paged_decode", pa._DECODE_ARGS,
+                (q, kp, vp, tables, lens, sts, out),
+                (B, Nq, Nk, n_blocks, bs, tables.shape[1], D, ak._DTYPE_CODE[q.dtype], kv_code),
+                scale, window, C)
+    return out
+
+
+@pytest.mark.parametrize("e4m3", [False, True])
+@pytest.mark.parametrize("case", K9_SPLIT_CASES)
+def test_paged_decode_every_split_matches_plain(dev, case, e4m3):
+    """K9 (K8's split without the in-flight slots) at every cluster size C
+    = 1 .. 8 against the plain version: ragged rows up to 1,023 slots, a
+    row at length 0, a stale length past the table, starts > 0, windows 8,
+    24 and 64, G = 1 to 16, bs 16, 48 and 64, a share past the block ids a
+    block keeps, e4m3 pools beside queries of every dtype, the null block
+    poisoned with NaN where no row is inactive; and the wrapper's plan."""
+    D, dtype, G, Nk, bs, MB, n_blocks, lengths, starts, inactive, window = case
+    q, kp, vp, tables, lens, sts, _, _ = _paged_case(
+        dev, D, dtype, G, Nk, bs, MB, n_blocks, 1, lengths, starts, inactive,
+        poison=not inactive)
+    if e4m3:
+        kp, vp = _e4m3(kp.float()), _e4m3(vp.float())
+    for l in range(kp.shape[0]):
+        args = (q, kp[l], vp[l], tables, lens, sts, D ** -0.5, window)
+        want = pa.paged_decode_plain(*args)
+        assert bool(torch.isfinite(want).all())
+        tol = _paged_tol(dtype, want)
+        for C in range(1, 9):
+            got = _k9_split_call(args, C)
+            torch.cuda.synchronize()
+            assert _max_err(got, want) <= tol, f"C={C} layer {l}"
+        ak.reset_launches()
+        got = pa.paged_decode(*args)
+        assert ak.LAUNCHES["paged_decode"] == 1
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= tol, f"plan layer {l}"
+
+
+def test_paged_decode_pool_past_2_31_elements(dev):
+    """One layer's view of a Mistral-7B serving stack at 1040 blocks: K9
+    reads the last layer's last blocks, past 2^31 elements from the stack's
+    start, through 64-bit offsets, at every split."""
+    L, n_blocks, Nk, bs, D, G = 32, 1040, 8, 64, 128, 4
+    assert L * n_blocks * Nk * bs * D > 2 ** 31
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kp = torch.zeros(L, n_blocks, Nk, bs, D, dtype=torch.bfloat16, device=dev)
+    vp = torch.zeros_like(kp)
+    tables = torch.zeros(2, 12, dtype=torch.int32)
+    tables[0, :11] = torch.arange(n_blocks - 1, n_blocks - 12, -1)
+    tables[1, :5] = torch.arange(n_blocks - 20, n_blocks - 15)
+    used = tables[tables > 0].long().to(dev)
+    for pool in (kp, vp):
+        pool[L - 1, used] = torch.randn((len(used), Nk, bs, D), generator=gen,
+                                        device=dev).bfloat16()
+    q = torch.randn((2, Nk * G, D), generator=gen, device=dev).bfloat16()
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (q, kp[L - 1], vp[L - 1], tables.to(dev), torch.tensor([700, 300], **i32),
+            torch.zeros(2, **i32), D ** -0.5, None)
+    want = pa.paged_decode_plain(*args)
+    for C in (1, 3, 8):
+        got = _k9_split_call(args, C)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= _paged_tol(torch.bfloat16, want), C
+
+
+def test_paged_decode_frozen_and_stepwise_agree(dev):
+    """K8 and K9, one kernel with and without its in-flight slots, compute
+    the same attention when the in-flight K/V sit in the pool at slots
+    lengths0 .. lengths0 + step: the frozen quantum's step against the
+    stepwise one's, within the tolerance of each against its plain
+    version."""
+    D, G, Nk, bs, MB, n_blocks, N, step = 128, 4, 8, 64, 16, 257, 8, 5
+    lengths = tuple(512 + 17 * i for i in range(16))
+    # each row's table covers its slots through lengths0 + step
+    q, kp, vp, tables, lens, sts, ki, vi = _paged_case(
+        dev, D, torch.bfloat16, G, Nk, bs, MB, n_blocks, N,
+        tuple(n + step + 1 for n in lengths), (0,) * 16, (), False)
+    lens = lens - (step + 1)
+    got8 = pa.paged_decode_frozen(q, kp, vp, tables, lens, sts, ki, vi, 1, step, D ** -0.5)
+    for b, n in enumerate(lengths):  # the in-flight slots written into layer 1's pool
+        for j in range(step + 1):
+            t = n + j
+            blk = int(tables[b, t // bs])
+            kp[1, blk, :, t % bs] = ki[b, :, j]
+            vp[1, blk, :, t % bs] = vi[b, :, j]
+    got9 = pa.paged_decode(q, kp[1], vp[1], tables, lens + step + 1, sts, D ** -0.5)
+    want = pa.paged_decode_plain(q, kp[1], vp[1], tables, lens + step + 1, sts, D ** -0.5)
+    torch.cuda.synchronize()
+    tol = _paged_tol(torch.bfloat16, want)
+    assert _max_err(got9, want) <= tol and _max_err(got8, want) <= tol
+
+
+def test_paged_decode_plan_reads_the_kernels_occupancy(dev):
+    """K9's plan takes the blocks an SM from its own library
+    (tg_paged_decode_plan: the kernel's occupancy, registers and shared
+    memory counted): at least one at every split, type, pool type, head
+    dim, group and table width, within 227 KB; without the in-flight slots
+    an e4m3 pool's ring holds 8-byte rows, so a block needs no more shared
+    memory than K8's at the same shape."""
+    fn = _plan_fn("paged_decode.cu", "tg_paged_decode_plan", 7)
+    fn8 = _plan_fn("paged_decode_frozen.cu", "tg_paged_decode_frozen_plan", 7)
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for kv_code in (ak._DTYPE_CODE[dtype], 3):
+            for D in (64, 128):
+                for G in (1, 3, 4, 8, 10, 16):
+                    for MB in (3, 16, 4096):
+                        for C in range(1, 9):
+                            args = (2 * G, 2, MB, D, ak._DTYPE_CODE[dtype], kv_code, C)
+                            smem, per_sm = _kernel_plan(fn, *args, n=2)
+                            assert per_sm >= 1 and smem <= 227 * 1024, args
+                            assert smem <= _kernel_plan(fn8, *args, n=2)[0], args
+    bf16 = ak._DTYPE_CODE[torch.bfloat16]
+    for Nq, Nk, D in ((12, 12, 64), (32, 8, 128), (128, 8, 128)):
+        per_sm = pa._paged_per_sm(Nq, Nk, 16, D, bf16, bf16, 0, "paged_decode.cu")
+        C = ak.paged_decode_split(16, Nk, Nq // Nk, 16 * 64, per_sm, ak._sm_count(0))
+        assert 1 <= C <= 8 and (C == 1 or 16 * Nk * (Nq // Nk // ak.group_tile(Nq // Nk))
+                                * C <= ak._sm_count(0) * per_sm[C - 1]), (Nq, Nk, per_sm)
+
+
+K10_SPLIT_CASES = [
+    # SPEC_CASES' layout: (D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, round,
+    #  lengths, starts, inactive, window, poison)
+    (128, torch.bfloat16, False, 4, 5, 8, 64, 16, 257, 1, 0,   # the spec serve shape
+     (904, 64, 0, 500, 848, 120), (0,) * 6, (2,), None, False),
+    (128, torch.bfloat16, True, 4, 5, 8, 64, 16, 257, 3, 2,    # e4m3, round 2
+     (904, 64, 700, 500), (0, 0, 5, 0), (), None, True),
+    (128, torch.float16, False, 4, 5, 2, 16, 60, 200, 2, 1,    # fp16, bs 16, a window
+     (900, 130, 37), (0, 5, 0), (), 100, True),
+    (64, torch.bfloat16, False, 1, 5, 12, 64, 16, 257, 2, 1,   # GPT-2's heads
+     (1000, 65, 300), (0, 5, 0), (), 24, True),
+    (128, torch.bfloat16, False, 8, 9, 2, 64, 8, 40, 2, 1,     # S * G = 72
+     (500, 64, 250), (0, 0, 0), (), None, True),
+    (128, torch.bfloat16, True, 16, 5, 2, 64, 8, 40, 2, 1,     # S * G = 80, e4m3, window
+     (400, 64, 200), (0, 0, 0), (), 100, False),
+    (64, torch.bfloat16, False, 16, 5, 2, 48, 9, 30, 3, 2,     # S * G = 80 at D 64, bs 48
+     (400, 97), (10, 0), (), 300, True),
+    (128, torch.bfloat16, False, 4, 12, 1, 64, 40, 60, 6, 5,   # two in-flight tiles
+     (2000, 31), (0, 0), (), None, True),
+    (128, torch.float32, False, 4, 5, 2, 16, 4, 20, 2, 1,      # fp32: the FMA body
+     (60, 33, 1000), (0, 0, 0), (2,), 7, False),
+    (64, torch.float16, True, 2, 3, 2, 16, 8, 40, 3, 2,        # fp16 over e4m3: FMA body
+     (1, 17, 100, 60), (0, 5, 20, 0), (), 20, True),
+]
+
+
+def _k10_split_call(args, base, q_slots, infl_slots, l, scale, window, C):
+    """K10 through its C entry point at split C (1 to 8), not the plan's."""
+    q, kp, vp, tables, lens, sts, ki, vi, valid = args
+    B, S, Nq, D = q.shape
+    _, n_blocks, Nk, bs, _ = kp.shape
+    kv_code, _ = ak.kv_operands("paged_decode_spec", q, kp)
+    out = torch.empty_like(q)
+    slots = (q_slots, infl_slots) if window else (None, None)
+    _split_call("paged_decode_spec.cu", "tg_paged_decode_spec", pa._SPEC_ARGS,
+                (q, kp, vp, tables, lens, sts, ki, vi, valid, *slots, out),
+                (B, S, Nq, Nk, n_blocks, bs, tables.shape[1], ki.shape[2], D,
+                 ak._DTYPE_CODE[q.dtype], kv_code, l, base), scale, window, C)
+    return out
+
+
+@pytest.mark.parametrize("case", K10_SPLIT_CASES)
+def test_paged_decode_spec_every_split_matches_plain(dev, case):
+    """K10 at every cluster size C = 1 .. 8 against the plain version: the
+    spec serve shape's rows (one released), rounds 0 to 3 with random
+    acceptance, e4m3 pools beside bf16 in-flight K/V, fp16, windows across
+    the shares and inside the round, S * G = 72 and 80 (three and two row
+    groups), two in-flight tiles, bs 16, 48 and 64, the null block poisoned
+    with NaN where no row is inactive; fp32 q and fp16 q over an e4m3 pool
+    (the FMA body, which takes no split); and the wrapper's plan."""
+    D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, rnd, lengths, starts, inactive, \
+        window, poison = case
+    args, base, (q_slots, infl_slots) = _spec_case(
+        dev, D, dtype, e4m3, G, S, Nk, bs, MB, n_blocks, n_rounds, rnd, lengths, starts,
+        inactive, poison)
+    for l in range(args[1].shape[0]):
+        call = (*args, l, base, D ** -0.5, window, q_slots, infl_slots)
+        want = pa.paged_decode_spec_plain(*call)
+        assert bool(torch.isfinite(want).all())
+        tol = (4 if e4m3 else 1) * _paged_tol(dtype, want)
+        for C in range(1, 9):
+            got = _k10_split_call(args, base, q_slots, infl_slots, l, D ** -0.5, window, C)
+            torch.cuda.synchronize()
+            assert _max_err(got, want) <= tol, f"C={C} layer {l}"
+        ak.reset_launches()
+        got = pa.paged_decode_spec(*call)
+        assert ak.LAUNCHES["paged_decode_spec"] == 1
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= tol, f"plan layer {l}"
+
+
+def test_paged_decode_spec_pool_past_2_31_elements(dev):
+    """The Mistral-7B serving stack at 1040 blocks: K10 reads its last
+    layer's last blocks through 64-bit offsets, at every split."""
+    L, n_blocks, Nk, bs, D, G, S = 32, 1040, 8, 64, 128, 4, 5
+    assert L * n_blocks * Nk * bs * D > 2 ** 31
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kp = torch.zeros(L, n_blocks, Nk, bs, D, dtype=torch.bfloat16, device=dev)
+    vp = torch.zeros_like(kp)
+    tables = torch.zeros(2, 12, dtype=torch.int32)
+    tables[0, :11] = torch.arange(n_blocks - 1, n_blocks - 12, -1)
+    tables[1, :5] = torch.arange(n_blocks - 20, n_blocks - 15)
+    used = tables[tables > 0].long().to(dev)
+    for pool in (kp, vp):
+        pool[L - 1, used] = torch.randn((len(used), Nk, bs, D), generator=gen,
+                                        device=dev).bfloat16()
+    q = torch.randn((2, S, Nk * G, D), generator=gen, device=dev).bfloat16()
+    ki = torch.randn((2, Nk, S, D), generator=gen, device=dev).bfloat16()
+    vi = torch.randn((2, Nk, S, D), generator=gen, device=dev).bfloat16()
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (q, kp, vp, tables.to(dev), torch.tensor([700, 300], **i32),
+            torch.zeros(2, **i32), ki, vi, torch.zeros(2, S, dtype=torch.bool, device=dev))
+    want = pa.paged_decode_spec_plain(*args, L - 1, 0, D ** -0.5)
+    for C in (1, 3, 8):
+        got = _k10_split_call(args, 0, None, None, L - 1, D ** -0.5, None, C)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= _paged_tol(torch.bfloat16, want), C
+
+
+def test_paged_decode_spec_plan_reads_the_kernels_occupancy(dev):
+    """K10's plan takes the blocks an SM and the row groups from the
+    library (tg_paged_decode_spec_plan): at least one block an SM at every
+    split, type, pool type, head dim, S * G and table width, within 227 KB;
+    the tensor-core body's rows a block are attention_kernels.spec_row_tile
+    (the FMA body's 16 to 64), and its shared memory does not grow with
+    the split (the cluster's states live in the ring's memory)."""
+    fn = _plan_fn("paged_decode_spec.cu", "tg_paged_decode_spec_plan", 8)
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for kv_code in (ak._DTYPE_CODE[dtype], 3):
+            tc = dtype == torch.bfloat16 or kv_code != 3 and dtype == torch.float16
+            for D in (64, 128):
+                for G, S in ((1, 5), (4, 5), (8, 9), (16, 5), (12, 12)):
+                    for MB in (3, 16, 4096):
+                        plans = [_kernel_plan(fn, 2 * G, 2, S, MB, D, ak._DTYPE_CODE[dtype],
+                                              kv_code, C, n=4) for C in range(1, 9)]
+                        for smem, per_sm, rows, n_rg in plans:
+                            assert per_sm >= 1 and smem <= 227 * 1024, (dtype, D, G, S, MB)
+                            assert n_rg == -(-S * G // rows)
+                            if tc:
+                                assert rows == ak.spec_row_tile(D, S * G)
+                        if tc:
+                            assert len({p[0] for p in plans}) == 1
+    bf16 = ak._DTYPE_CODE[torch.bfloat16]
+    per_sm, n_rg = pa._spec_plan(32, 8, 5, 16, 128, bf16, bf16, 0)
+    assert n_rg == 1 and per_sm[0] >= 2  # the spec serve shape: two blocks an SM at least
+    assert ak.paged_spec_split(16, 8, n_rg, 16 * 64 + 5, per_sm, ak._sm_count(0)) >= 2
+
+
 def _gpt2_cfg():
     return parse_model_config(dict(model_type="gpt2", vocab_size=211, n_embd=256,
                                    n_layer=2, n_head=4, n_positions=96))

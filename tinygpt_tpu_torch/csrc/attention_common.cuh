@@ -111,43 +111,4 @@ inline int group_tile(int G) {
   return 1;
 }
 
-// The end of the paged decode kernel K9. Each of the NG slot
-// groups of a block (LPR = D / VEC lanes each) holds a partial online-softmax
-// state of the block's GT query rows: m and l, and its lane's VEC columns of
-// the unnormalised output acc. Merges the NG states through `smem` (NG * GT *
-// (D + 2) floats) and writes row g to out_rows + g * D, as zeros where no
-// slot was visible (l = 0).
-template <typename T, int D, int GT, int NG, int VEC, int NTHREADS>
-__device__ __forceinline__ void merge_groups(const float (&m)[GT], const float (&l)[GT],
-                                             const float (&acc)[GT][VEC], int grp, int lane,
-                                             T* __restrict__ out_rows, float* smem) {
-  float* sacc = smem;              // [NG][GT][D]
-  float* sm = sacc + NG * GT * D;  // [NG][GT]
-  float* sl = sm + NG * GT;        // [NG][GT]
-  const int d0 = lane * VEC;
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) sacc[(grp * GT + g) * D + d0 + e] = acc[g][e];
-    if (lane == 0) {
-      sm[grp * GT + g] = m[g];
-      sl[grp * GT + g] = l[g];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < GT * D; i += NTHREADS) {
-    const int g = i / D;
-    const int d = i % D;
-    float M = NEG_INF;
-    for (int n = 0; n < NG; ++n) M = fmaxf(M, sm[n * GT + g]);
-    float L = 0.f, O = 0.f;
-    for (int n = 0; n < NG; ++n) {
-      const float w = expf(sm[n * GT + g] - M);
-      L = fmaf(sl[n * GT + g], w, L);
-      O = fmaf(sacc[(n * GT + g) * D + d], w, O);
-    }
-    out_rows[(size_t)g * D + d] = from_float<T>(L > 0.f ? O / L : 0.f);
-  }
-}
-
 }  // namespace tg

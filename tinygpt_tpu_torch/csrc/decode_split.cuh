@@ -1,10 +1,10 @@
 // The one-token GQA decode split over the slots, shared by K13
 // (flash_decode.cu: one layer's dense cache under a [B, T] mask) and K2
 // (flash_decode_frozen.cu: a layer of the frozen stacked cache under a
-// [B, T] mask, merged with the chunk's in-flight K/V). K8
-// (paged_decode_frozen.cu) walks a paged pool with its own kernel and
-// shares this one's ring, tile arithmetic and merge (split_begin,
-// split_tile, split_finish).
+// [B, T] mask, merged with the chunk's in-flight K/V). K8 and K9
+// (paged_split.cuh) walk a paged pool with their own kernel and share this
+// one's ring, tile arithmetic and merge (split_begin, split_tile,
+// split_finish).
 //
 // The query q [B, Nq, D] of row b, head h attends to the slots of the
 // frozen cache k/v [B, Nk, T, D] at KV head h / G where mask[b, t] != 0

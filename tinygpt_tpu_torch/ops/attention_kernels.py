@@ -69,6 +69,7 @@ _SPLIT_TILE = 32
 _SPLIT_MIN_TILES = 2
 _SPLIT_MAX_BLOCKS = 8
 _MAX_GROUP_TILE = 8  # query heads a decode block holds (tg::kMaxGroupTile)
+_SPEC_TILE = 64  # K10's tile: 4 warps of 16 slots (csrc/paged_decode_spec.cu, kTile)
 
 
 def reset_launches() -> None:
@@ -367,31 +368,63 @@ def decode_split(B: int, Nk: int, G: int, T: int, sms: int = 132) -> int:
                       tiles // _SPLIT_MIN_TILES))
 
 
-@functools.lru_cache(maxsize=1024)  # a few pool shapes a run; called every launch
-def paged_decode_split(B: int, Nk: int, G: int, T: int, per_sm: Tuple[int, ...],
-                       sms: int = 132) -> int:
-    """K8's split plan: the blocks C of each (batch row, KV head, group
-    tile)'s cluster, which cut the row's visible span of 32-slot tiles into
-    C shares. per_sm[c - 1] is the blocks of a cluster of c that an SM runs
-    at once, registers and shared memory counted (the kernel's occupancy,
-    which the library exports as tg_paged_decode_frozen_plan). C grows
-    from 1 while the B * Nk * (G / GT) clusters give fewer than two blocks
-    an SM, as long as all the clusters of C + 1 still run at once (no block
-    waits for a second wave) and the T = MB * bs + N slots give shares of
-    _SPLIT_MIN_TILES tiles. The host knows T and not the rows' lengths
-    (reading them would synchronise the stream). On an H100 the serve shape
-    (16 rows, 8 KV heads, G = 4, D = 128: two blocks an SM, by registers)
-    takes C = 2, GPT-2's (12 KV heads, G = 1, D = 64: six an SM) 2, G = 16
-    (one an SM) 1: the fastest of the split sweep each (PERF.md).
-    Unlike decode_split (one block an SM), it counts the blocks an SM runs:
-    at the serve shape's 128 clusters that one gives C = 1."""
-    groups = B * Nk * (G // group_tile(G))
-    tiles = -(-T // _SPLIT_TILE)
+def _cluster_split(groups: int, tiles: int, per_sm: Tuple[int, ...], sms: int) -> int:
+    """The blocks C of each of `groups` clusters that cut a span of at most
+    `tiles` tiles: C grows from 1 while the clusters give fewer than two
+    blocks an SM, as long as all the clusters of C + 1 still run at once
+    (per_sm[c - 1] is the blocks of a cluster of c an SM runs) and the
+    tiles give shares of _SPLIT_MIN_TILES tiles."""
     C = 1
     while (C < _SPLIT_MAX_BLOCKS and groups * C < 2 * sms
            and C + 1 <= tiles // _SPLIT_MIN_TILES and groups * (C + 1) <= sms * per_sm[C]):
         C += 1
     return C
+
+
+@functools.lru_cache(maxsize=1024)  # a few pool shapes a run; called every launch
+def paged_decode_split(B: int, Nk: int, G: int, T: int, per_sm: Tuple[int, ...],
+                       sms: int = 132) -> int:
+    """K8's and K9's split plan: the blocks C of each (batch row, KV head,
+    group tile)'s cluster, which cut the row's visible span of 32-slot
+    tiles into C shares. per_sm[c - 1] is the blocks of a cluster of c that
+    an SM runs at once, registers and shared memory counted (the kernel's
+    occupancy, which the libraries export as tg_paged_decode_frozen_plan
+    and tg_paged_decode_plan). C grows from 1 while the B * Nk * (G / GT)
+    clusters give fewer than two blocks an SM, as long as all the clusters
+    of C + 1 still run at once (no block waits for a second wave) and the
+    T slots (K8: MB * bs + N; K9: MB * bs) give shares of _SPLIT_MIN_TILES
+    tiles. The host knows T and not the rows' lengths (reading them would
+    synchronise the stream). On an H100 the serve shape (16 rows, 8 KV
+    heads, G = 4, D = 128: two blocks an SM, by registers) takes C = 2,
+    GPT-2's (12 KV heads, G = 1, D = 64: six an SM) 2, G = 16 (one an SM)
+    1: the fastest of K8's split sweep each (PERF.md). Unlike decode_split
+    (one block an SM), it counts the blocks an SM runs: at the serve
+    shape's 128 clusters that one gives C = 1."""
+    groups = B * Nk * (G // group_tile(G))
+    return _cluster_split(groups, -(-T // _SPLIT_TILE), per_sm, sms)
+
+
+def spec_row_tile(D: int, R: int) -> int:
+    """Query rows a block of K10's tensor-core split holds for head dim D
+    and R = S * G rows a KV head: 16 m-tile rows up to 16, else 32 at
+    D = 128 (a thread's accumulators of 32 rows x 128 columns, 128 floats)
+    and up to 64 at D = 64 (spec_mt in csrc/paged_decode_spec.cu)."""
+    if R <= 16:
+        return 16
+    return 32 if D == 128 or R <= 32 else 64
+
+
+@functools.lru_cache(maxsize=1024)  # a few pool shapes a run; called every launch
+def paged_spec_split(B: int, Nk: int, n_rg: int, T: int, per_sm: Tuple[int, ...],
+                     sms: int = 132) -> int:
+    """K10's split plan: the blocks C of each (batch row, KV head, row
+    group)'s cluster, which cut the row's span (its pool slots, then its
+    in-flight ones, in 64-slot tiles) into C shares; n_rg is the row groups
+    of a KV head (ceil(S * G / spec_row_tile(D, S * G))), T the slots
+    MB * bs + N the span can reach, per_sm the blocks an SM runs at each
+    C (tg_paged_decode_spec_plan, the kernel's occupancy). The same rule as
+    paged_decode_split, over these clusters and tiles."""
+    return _cluster_split(B * Nk * n_rg, -(-T // _SPEC_TILE), per_sm, sms)
 
 
 @functools.lru_cache(maxsize=None)

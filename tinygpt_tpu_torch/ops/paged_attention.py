@@ -12,9 +12,12 @@ written in CUDA C++ for sm_90a and bound with ctypes
     paged_decode;
   * K8, paged_decode_frozen_tpu (``csrc/paged_decode_frozen.cu``): one
     query position per row, the frozen decode quantum (decode_paged_steps,
-    every family, GPT-2 included);
+    every family, GPT-2 included). K8 and K9 are one kernel
+    (``csrc/paged_split.cuh``), K9 without the in-flight slots, each
+    launched on clusters of paged_decode_split blocks;
   * K10, paged_decode_spec_tpu (``csrc/paged_decode_spec.cu``): S verify
-    positions per row, the speculative quantum.
+    positions per row, the speculative quantum; bf16 and fp16 q run both
+    products on the tensor cores, on clusters of paged_spec_split blocks.
 
 During a frozen quantum the pools stay FROZEN: each step's (or round's)
 K/V go to a small in-flight buffer [B, Nk, N, D] per layer, and attention
@@ -49,16 +52,17 @@ from tinygpt_tpu_torch.ops.attention_kernels import (
     _sm_count,
     kv_operands,
     paged_decode_split,
+    paged_spec_split,
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: csrc/paged_decode.cu (7 pointers, 9 ints, scale, window,
-# stream), csrc/paged_decode_frozen.cu (9 pointers, 12 ints, scale, window,
-# split, stream) and csrc/paged_decode_spec.cu (12 pointers, 13 ints, scale,
-# window, stream)
-_DECODE_ARGS = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
+# split, stream), csrc/paged_decode_frozen.cu (9 pointers, 12 ints, scale,
+# window, split, stream) and csrc/paged_decode_spec.cu (12 pointers, 13
+# ints, scale, window, split, stream)
+_DECODE_ARGS = [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P]
 _FROZEN_ARGS = [_P] * 9 + [_I] * 12 + [_F, _I, _I, _P]
-_SPEC_ARGS = [_P] * 12 + [_I] * 13 + [_F, _I, _P]
+_SPEC_ARGS = [_P] * 12 + [_I] * 13 + [_F, _I, _I, _P]
 _I32 = (torch.int32,)
 
 
@@ -67,6 +71,32 @@ def paged_gather_dense(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.
     g = pool[block_tables.long()]  # [B, MB, Nk, bs, D]
     B, MB, Nk, bs, D = g.shape
     return g.permute(0, 2, 1, 3, 4).reshape(B, Nk, MB * bs, D)
+
+
+# the library (K8's, K9's) and its export of what a launch takes
+_PLAN_SYMBOL = {"paged_decode_frozen.cu": "tg_paged_decode_frozen_plan",
+                "paged_decode.cu": "tg_paged_decode_plan"}
+
+
+@functools.lru_cache(maxsize=256)  # a few pool shapes a run; called every launch
+def _paged_per_sm(Nq: int, Nk: int, MB: int, D: int, dtype: int, kv_dtype: int,
+                  device: int, source: str = "paged_decode_frozen.cu") -> Tuple[int, ...]:
+    """The blocks an SM runs at once of K8's (source
+    "paged_decode_frozen.cu") or K9's ("paged_decode.cu") instantiation for
+    these types and sizes, at each cluster size 1 .. 8 (the library's
+    tg_paged_decode_frozen_plan or tg_paged_decode_plan: the kernel's
+    occupancy)."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function(source, _PLAN_SYMBOL[source], [_I] * 7 + [_P])
+    per_sm = []
+    with torch.cuda.device(device):
+        for C in range(1, 9):
+            out = (ctypes.c_int * 2)()
+            cuda_build.check(source, fn(Nq, Nk, MB, D, dtype, kv_dtype, C, out),
+                             _PLAN_SYMBOL[source])
+            per_sm.append(out[1])
+    return tuple(per_sm)
 
 
 # -- the single-layer paged decode (K9) ----------------------------------------
@@ -116,9 +146,10 @@ def paged_decode_cuda(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """K9 (the counterpart of paged_decode_tpu): decode attention over one
-    layer's pool through the block tables. A layer of the stacked pools is
-    passed as the view k_pools[l], which the kernel reads in place.
-    Returns [B, Nq, D] in q's dtype."""
+    layer's pool through the block tables, on clusters of
+    paged_decode_split blocks. A layer of the stacked pools is passed as
+    the view k_pools[l], which the kernel reads in place. Returns
+    [B, Nq, D] in q's dtype."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, block_tables, lengths, starts,
                                   scale, sliding_window)
@@ -151,11 +182,17 @@ def paged_decode_cuda(
     fn = cuda_build.function("paged_decode.cu", "tg_paged_decode", _DECODE_ARGS)
     out = torch.empty_like(q)
     win = int(sliding_window) if sliding_window else 0
+    dev = q.device.index or 0
+    C = paged_decode_split(B, Nk, Nq // Nk, MB * bs,
+                           _paged_per_sm(Nq, Nk, MB, D, _DTYPE_CODE[q.dtype], kv_code, dev,
+                                         "paged_decode.cu"),
+                           _sm_count(dev))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(block_tables), _ptr(lengths),
                  _ptr(starts), _ptr(out), B, Nq, Nk, n_blocks, bs, MB, D,
-                 _DTYPE_CODE[q.dtype], kv_code, float(scale), win, ctypes.c_void_p(stream))
+                 _DTYPE_CODE[q.dtype], kv_code, float(scale), win, C,
+                 ctypes.c_void_p(stream))
     cuda_build.check("paged_decode.cu", err, "paged_decode")
     LAUNCHES["paged_decode"] += 1
     return out
@@ -223,25 +260,6 @@ def paged_decode_frozen_plain(
     return out.reshape(B, Nq, D).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=256)  # a few pool shapes a run; called every launch
-def _paged_per_sm(Nq: int, Nk: int, MB: int, D: int, dtype: int, kv_dtype: int,
-                  device: int) -> Tuple[int, ...]:
-    """The blocks an SM runs at once of K8's instantiation for these types
-    and sizes, at each cluster size 1 .. 8 (the library's
-    tg_paged_decode_frozen_plan: the kernel's occupancy)."""
-    from tinygpt_tpu_torch.ops import cuda_build
-
-    fn = cuda_build.function("paged_decode_frozen.cu", "tg_paged_decode_frozen_plan",
-                             [_I] * 7 + [_P])
-    per_sm = []
-    with torch.cuda.device(device):
-        for C in range(1, 9):
-            out = (ctypes.c_int * 2)()
-            cuda_build.check("paged_decode_frozen.cu",
-                             fn(Nq, Nk, MB, D, dtype, kv_dtype, C, out),
-                             "tg_paged_decode_frozen_plan")
-            per_sm.append(out[1])
-    return tuple(per_sm)
 
 
 def paged_decode_frozen(
@@ -397,6 +415,28 @@ def paged_decode_spec_plain(
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Nq, D).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=256)  # a few pool shapes a run; called every launch
+def _spec_plan(Nq: int, Nk: int, S: int, MB: int, D: int, dtype: int, kv_dtype: int,
+               device: int) -> Tuple[Tuple[int, ...], int]:
+    """(the blocks an SM runs at once at each cluster size 1 .. 8, the row
+    groups of a KV head) of K10's instantiation for these types and sizes
+    (the library's tg_paged_decode_spec_plan: the kernel's occupancy)."""
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("paged_decode_spec.cu", "tg_paged_decode_spec_plan",
+                             [_I] * 8 + [_P])
+    per_sm, n_rg = [], 1
+    with torch.cuda.device(device):
+        for C in range(1, 9):
+            out = (ctypes.c_int * 4)()
+            cuda_build.check("paged_decode_spec.cu",
+                             fn(Nq, Nk, S, MB, D, dtype, kv_dtype, C, out),
+                             "tg_paged_decode_spec_plan")
+            per_sm.append(out[1])
+            n_rg = out[3]
+    return tuple(per_sm), n_rg
+
+
 def paged_decode_spec(
     q: torch.Tensor,             # [B, S, Nq, D]
     k_pools: torch.Tensor,       # [L, n_blocks, Nk, bs, D] FROZEN stacked pools
@@ -416,11 +456,12 @@ def paged_decode_spec(
 ) -> torch.Tensor:
     """Speculative-verify attention of the spec quantum: S positions per
     row over layer `l` of the stacked pools through the block tables,
-    merged with the accepted and the own round's in-flight slots. The
-    device tensors (lengths0, infl_valid, q_slots, infl_slots) are read by
-    the kernel, never on the host; base and l are host ints. A binding
-    window goes through the kernel too, which masks in slot space. Returns
-    [B, S, Nq, D] in q's dtype."""
+    merged with the accepted and the own round's in-flight slots (K10; bf16
+    and fp16 q on clusters of paged_spec_split blocks). The device tensors
+    (lengths0, infl_valid, q_slots, infl_slots) are read by the kernel,
+    never on the host; base and l are host ints, and the plan takes host
+    ints only. A binding window goes through the kernel too, which masks in
+    slot space. Returns [B, S, Nq, D] in q's dtype."""
     if q.device.type == "cpu":
         return paged_decode_spec_plain(q, k_pools, v_pools, block_tables, lengths0,
                                        starts, k_infl, v_infl, infl_valid, l, base,
@@ -474,6 +515,9 @@ def paged_decode_spec(
     fn = cuda_build.function("paged_decode_spec.cu", "tg_paged_decode_spec", _SPEC_ARGS)
     out = torch.empty_like(q)
     null = ctypes.c_void_p(None)
+    dev = q.device.index or 0
+    per_sm, n_rg = _spec_plan(Nq, Nk, S, MB, D, _DTYPE_CODE[q.dtype], kv_code, dev)
+    C = paged_spec_split(B, Nk, n_rg, MB * bs + N, per_sm, _sm_count(dev))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_ptr(q), _ptr(k_pools), _ptr(v_pools), _ptr(block_tables),
@@ -481,7 +525,7 @@ def paged_decode_spec(
                  _ptr(infl_valid), _ptr(q_slots) if slots else null,
                  _ptr(infl_slots) if slots else null, _ptr(out),
                  B, S, Nq, Nk, n_blocks, bs, MB, N, D, _DTYPE_CODE[q.dtype], kv_code,
-                 int(l), int(base), float(scale), int(window or 0),
+                 int(l), int(base), float(scale), int(window or 0), C,
                  ctypes.c_void_p(stream))
     cuda_build.check("paged_decode_spec.cu", err, "paged_decode_spec")
     LAUNCHES["paged_decode_spec"] += 1
