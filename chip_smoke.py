@@ -6,7 +6,8 @@
 Phases, in order:
   env      the card's name and power limit, torch and nvcc versions;
   build    compiles the CUDA kernels from the checkout's sources (nvcc,
-           one process per source, all at once); prints the registers,
+           one process per source, all at once) and, beside them, the two
+           host cores (g++: the KV-pool index and the tokenizer); prints the registers,
            spills and shared memory of the redesigned kernels at the main
            path (every instantiation of K10's tensor-core split) and checks
            their machine code for wgmma and TMA (K1, the prefill kernel),
@@ -56,7 +57,9 @@ Phases, in order:
   model4   the same shape quantized to int4 (group 64) on the card: first
            4 layers in fp32, then all 32 in bf16, kernel route against
            plain route, exact launch counts per prefill and decode step;
-  serve    the continuous batcher on model4's int4 params: 16
+  serve    the continuous batcher on model4's int4 params, on the native
+           pool index (the host us of one admission's index work on the
+           native and the Python index logged first): 16
            staggered requests of 512 random tokens, 256 new each (the JAX
            package's serving leg, benches/flagship_bench.py), with TTFT,
            whole-run and steady tok/s, exact launch counts per decode step
@@ -88,11 +91,15 @@ Phases, in order:
            in bf16, with quantization="int4", awq=False, with "int8", with
            "int4" and AWQ by default, with kv_cache_dtype="fp8", and with
            speculative="ngram" on one prompt; then the batcher on fp8 pools;
+           one bf16 generate_sync runs inside utils/profiler.trace, whose
+           file must hold its annotation span and K1 or K2 launches;
   evaluate python -m tinygpt_tpu_torch.evaluate on that dir, bf16, int8 and
            an fp8 KV cache, kernel route against plain route;
   server   serves that model dir over HTTP in-process (TinyGPTServer on
            127.0.0.1): four concurrent clients, completions plain and SSE,
-           chat completions and /health;
+           chat completions and /health; the tokenizer must run on its
+           native encoder, with the Python pipeline's ids on the prompts
+           sent, and the batcher on the native pool index;
   gpt2_engine, gpt2_server  the engine (generate_sync, batch-1
            speculation) and the server on a 2-layer GPT-2 dir with the
            generated tokenizer;
@@ -327,6 +334,7 @@ STREAM_PROMPT = ("The printing press changed how knowledge moved through Europe.
 
 DEVICE = "cuda"
 E4M3 = None  # torch.float8_e4m3fn, set by main() (torch is imported there)
+CARD = "not measured"  # nvidia-smi's name and power limit, set by phase_env
 
 
 class PhaseError(RuntimeError):
@@ -469,6 +477,8 @@ def phase_env() -> dict:
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
+    global CARD
+    CARD = smi
     log(f"[env] python {sys.version.split()[0]}  torch {torch.__version__} "
         f"(cuda {torch.version.cuda})  nvcc: {nvcc}")
     log(f"[env] devices: {torch.cuda.device_count()}  "
@@ -477,12 +487,35 @@ def phase_env() -> dict:
 
 
 def phase_build() -> None:
-    from tinygpt_tpu_torch.ops import cuda_build
+    import threading
+
+    from tinygpt_tpu_torch.ops import cuda_build, host_build
+
+    # the host cores (g++) build beside the kernels (nvcc)
+    host = {}
+
+    def build_host():
+        try:
+            host["seconds"] = host_build.build_all()
+        except RuntimeError as e:
+            host["error"] = e
 
     t0 = time.perf_counter()
-    built = cuda_build.build_all()
+    thread = threading.Thread(target=build_host)
+    thread.start()
+    try:
+        built = cuda_build.build_all()
+    finally:
+        thread.join()
     log(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s "
         f"(parallel nvcc): {json.dumps({k: round(v, 1) for k, v in built.items()})}")
+    if "error" in host:
+        raise PhaseError(f"host libraries: {host['error']}")
+    log(f"[build] host libraries (g++, beside nvcc): "
+        f"{json.dumps({k: round(v, 2) for k, v in host['seconds'].items()})} s")
+    for src in host_build.SOURCES:
+        if host_build.load(src) is None:
+            raise PhaseError(f"host library of {src} does not load")
     for src in cuda_build.SOURCES:
         text = cuda_build.build_log(src)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
@@ -914,15 +947,18 @@ def _e4m3_row(name, tag, label, kern, plain, cost, iters, check=None, tol=None):
 
     got, want = check() if check else (kern(), plain())
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = tol if tol is not None else TOL["bfloat16"]
-    if not (math.isfinite(err) and err <= tol):
-        raise PhaseError(f"{name} e4m3 {label}: error {err} > {tol}")
+    err = (got.float() - want.float()).abs()
+    tol = tol if tol is not None else TOL["bfloat16"]   # a number, or one per output
+    share = (err / tol).max().item()
+    err = err.max().item()
+    if not (math.isfinite(err) and share <= 1):
+        raise PhaseError(f"{name} e4m3 {label}: error {err}, {share:.3g} of its bound")
     t_k = cuda_time_ms(kern, iters=iters[0])
     t_p = cuda_time_ms(plain, iters=iters[1])
     b_ms, b_by = bound_ms(*cost, "bfloat16")
     E4M3_ROWS[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, max_abs_err=err)
-    log(f"{tag} {name} e4m3 {label} (bf16 q): max_abs_err {err:.3g} (tol {tol:.3g}) "
+    log(f"{tag} {name} e4m3 {label} (bf16 q): max_abs_err {err:.3g} ({share:.3g} of its "
+        f"bound) "
         f"kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
         f"{cost[0] / 1e6:.2f} MB)")
 
@@ -1611,17 +1647,39 @@ def _sdpa_paged(q, kp, vp, tables, lens, starts, ki, vi, l, step, scale, window)
     return _sdpa(q[:, :, None, :], k, v, attn_mask, scale)
 
 
-def _paged_tol(dname, want) -> float:
-    """A paged kernel's limit against its plain version: both round one
-    fp32 result to the output dtype, so they differ by at most one ulp of
-    an output; in bf16 that is at most 2^-7 of the largest output (under
-    4e-3 at the serve shape, whose outputs stay below 0.5), never more than
-    TOL; in fp16 2^-10 of it; 1e-4 in fp32."""
-    if dname == "bfloat16":
-        return min(TOL[dname], 2.0 ** -7 * want.float().abs().max().item())
-    if dname == "float16":
-        return 2.0 ** -10 * want.float().abs().max().item()
-    return TOL[dname]
+def _ulp(x, dname):
+    """One ulp of the dtype named `dname` at each element of x (the least
+    normal number's ulp below it)."""
+    import torch
+
+    dtype = getattr(torch, dname)
+    bits = {"float32": 23, "float16": 10, "bfloat16": 7}[dname]
+    _, e = torch.frexp(x.float().abs().clamp(min=torch.finfo(dtype).tiny))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 1 - bits)
+
+
+def _paged_tol(dname, want):
+    """A paged kernel's limit against its plain version, output by output:
+    both round one fp32 result to the output dtype, so they differ by at
+    most one ulp of an output. In bf16 that is 2^-7 of the largest output
+    (under 4e-3 at the serve shape, whose outputs stay below 0.5), capped
+    at TOL, in fp16 2^-10 of it, 1e-4 in fp32; and never less than one ulp
+    of the output's own plain value, which in bf16 passes the cap from
+    outputs of 4 on (tools/paged_rounding.py counts the outputs that round
+    apart against fp64)."""
+    import torch
+
+    big = want.float().abs().max().item()
+    capped = {"bfloat16": min(TOL["bfloat16"], 2.0 ** -7 * big),
+              "float16": 2.0 ** -10 * big}.get(dname, TOL["float32"])
+    return torch.clamp(_ulp(want, dname), min=capped)
+
+
+def _paged_err(got, want, dname):
+    """(max_abs_err, the largest share of its bound that an output's error
+    takes): the kernel agrees when the share is at most 1."""
+    err = (got.float() - want.float()).abs()
+    return err.max().item(), (err / _paged_tol(dname, want)).max().item()
 
 
 def phase_paged_kernels(table: dict) -> None:
@@ -1669,12 +1727,11 @@ def phase_paged_kernels(table: dict) -> None:
                 got = pa.paged_decode_frozen(*args)
                 want = pa.paged_decode_frozen_plain(*args)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                tol = _paged_tol(dname, want)
+                err, share = _paged_err(got, want, dname)
                 worst[dname] = max(err, worst.get(dname, 0.0))
-                if not (math.isfinite(err) and err <= tol):
+                if not (math.isfinite(err) and share <= 1):
                     raise PhaseError(f"paged_decode_frozen {label} l={l} step={step} "
-                                     f"{dname}: error {err} > {tol}")
+                                     f"{dname}: error {err}, {share:.3g} of its bound")
         step = N - 1
         layers = iter(range(10 ** 9))   # walk the layers: cold K/V, as a step reads
         t_k = cuda_time_ms(lambda: pa.paged_decode_frozen(
@@ -1688,7 +1745,7 @@ def phase_paged_kernels(table: dict) -> None:
         nbytes, flops = _paged_cost(q, nk, live + [0] * len(inactive), step, window)
         b_ms, b_by = bound_ms(nbytes, flops, dname)
         log(f"[paged] paged_decode_frozen {label} D={d} G={nq // nk} step={step} "
-            f"{dname}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms "
+            f"{dname}: max_abs_err {err:.3g} ({share:.3g} of its bound) kernel {t_k:.4f} ms "
             f"plain {t_p:.4f} ms sdpa (K/V gathered dense beforehand) {t_l:.4f} ms "
             f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
         if main:
@@ -1696,7 +1753,7 @@ def phase_paged_kernels(table: dict) -> None:
                 name="paged_decode_frozen", route="cuda",
                 source=SOURCES["paged_decode_frozen"],
                 replaces=REPLACES["paged_decode_frozen"], launches=0, max_abs_err=err,
-                tol=tol, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                tol_share=share, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                 library_ms=t_l)
         del q, kp, vp, ki, vi
         torch.cuda.empty_cache()
@@ -1721,7 +1778,8 @@ def phase_paged_kernels(table: dict) -> None:
     torch.cuda.empty_cache()
     for dname, err in sorted(worst.items()):
         log(f"[paged] paged_decode_frozen {dname}: worst max_abs_err over all cases "
-            f"{err:.3g} (tol at most {TOL[dname]}; bf16: 2^-7 of the largest output)")
+            f"{err:.3g} (bound at most {TOL[dname]}, or one ulp of the output where that is "
+            f"more; bf16: 2^-7 of the largest output)")
     _paged_split_sweep("serve shape", L, Nq, Nk, D)
     _paged_split_sweep("GPT-2 serve shape", GPT2_124M["n_layer"], 12, 12, 64)
     _paged_split_sweep("G16", 4, 128, 8, 128)
@@ -1982,21 +2040,21 @@ def phase_spec_kernels(table: dict) -> None:
             got = pa.paged_decode_spec(*call)
             want = pa.paged_decode_spec_plain(*call)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = _paged_tol(dname, want)
-            worst = max(worst, err / tol)
-            if not (math.isfinite(err) and err <= tol):
-                raise PhaseError(f"paged_decode_spec {label} l={l} {dname}: error {err} "
-                                 f"> {tol}")
+            err, share = _paged_err(got, want, dname)
+            worst = max(worst, share)
+            if not (math.isfinite(err) and share <= 1):
+                raise PhaseError(f"paged_decode_spec {label} l={l} {dname}: error {err}, "
+                                 f"{share:.3g} of its bound")
         nbytes, flops = _spec_cost(args, base, q_slots, infl_slots, window)
         b_ms, b_by = bound_ms(nbytes, flops, dname)
         if not timed:
             log(f"[spec] paged_decode_spec {label} D={d} G={nq // nk} S={SPEC_S} {dname}: "
-                f"max_abs_err {err:.3g} (tol {tol:.3g}) ok")
+                f"max_abs_err {err:.3g} ({share:.3g} of its bound) ok")
             continue
         t_k, t_p, t_l = _k10_times(args, base, q_slots, infl_slots, d ** -0.5, window, Lc)
         log(f"[spec] paged_decode_spec {label} D={d} G={nq // nk} S={SPEC_S} {dname}"
-            f"{' e4m3 pools' if e4m3 else ''}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel "
+            f"{' e4m3 pools' if e4m3 else ''}: max_abs_err {err:.3g} ({share:.3g} of its "
+            f"bound) kernel "
             f"{t_k:.4f} ms (CUDA events) plain {t_p:.4f} ms sdpa (K/V gathered, mask built "
             f"beforehand, CUDA events) {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
             f"{nbytes / 1e6:.2f} MB)")
@@ -2004,7 +2062,8 @@ def phase_spec_kernels(table: dict) -> None:
         if main:
             table["paged_decode_spec"] = dict(
                 name="paged_decode_spec", route="cuda", source=SOURCES["paged_decode_spec"],
-                replaces=REPLACES["paged_decode_spec"], launches=0, max_abs_err=err, tol=tol,
+                replaces=REPLACES["paged_decode_spec"], launches=0, max_abs_err=err,
+                tol_share=share,
                 ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
         elif e4m3:
             E4M3_ROWS["paged_decode_spec"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
@@ -2012,7 +2071,8 @@ def phase_spec_kernels(table: dict) -> None:
         del args
         torch.cuda.empty_cache()
     log(f"[spec] paged_decode_spec: worst max_abs_err over all cases {worst:.3g} of its "
-        f"tolerance (one ulp of the largest output in bf16, 1e-4 in fp32)")
+        f"bound (output by output: one ulp of the largest output in bf16, 1e-4 in fp32, "
+        f"or one ulp of the output where that is more)")
 
     # the e4m3 cast: the card's bytes against the CPU's, overflow included
     g = torch.Generator().manual_seed(9)
@@ -2176,26 +2236,27 @@ def _paged_decode_k9(table: dict) -> None:
             got = pa.paged_decode(*args)
             want = pa.paged_decode_plain(*args)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = _paged_tol(dname, want)
-            worst = max(worst, err / tol)
-            if not (math.isfinite(err) and err <= tol):
+            err, share = _paged_err(got, want, dname)
+            worst = max(worst, share)
+            if not (math.isfinite(err) and share <= 1):
                 raise PhaseError(f"paged_decode {label} l={l} {dname}"
-                                 f"{' e4m3' if e4m3 else ''}: error {err} > {tol}")
+                                 f"{' e4m3' if e4m3 else ''}: error {err}, {share:.3g} "
+                                 f"of its bound")
         nbytes, flops = _k9_cost(q, nk, tables, lens, starts, window,
                                  1 if e4m3 else q.element_size())
         b_ms, b_by = bound_ms(nbytes, flops, dname)
         what = (f"[paged] paged_decode {label} D={d} G={nq // nk} {dname}"
                 f"{' e4m3 pools' if e4m3 else ''}")
         if not timed:
-            log(f"{what}: max_abs_err {err:.3g} (tol {tol:.3g}) ok")
+            log(f"{what}: max_abs_err {err:.3g} ({share:.3g} of its bound) ok")
             continue
         t_k = events_ms(lambda lw: pa.paged_decode(q, kp[lw], vp[lw], tables, lens, starts,
                                                    d ** -0.5, window), Lc)
         t_p = cuda_time_ms(lambda: pa.paged_decode_plain(*args), iters=10)
         sdpa = _sdpa_k9(*args)
         t_l = events_ms(lambda _: sdpa(), 1, calls=20)
-        log(f"{what}: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms (CUDA events) "
+        log(f"{what}: max_abs_err {err:.3g} ({share:.3g} of its bound) kernel {t_k:.4f} ms "
+            f"(CUDA events) "
             f"plain {t_p:.4f} ms sdpa (K/V gathered dense beforehand, CUDA events) "
             f"{t_l:.4f} ms bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
         call, plan, per_sm = _k9_entry(q, kp, vp, tables, lens, starts, d ** -0.5, window)
@@ -2204,7 +2265,7 @@ def _paged_decode_k9(table: dict) -> None:
         if main:
             table["paged_decode"] = dict(
                 name="paged_decode", route="cuda", source=SOURCES["paged_decode"],
-                replaces=REPLACES["paged_decode"], launches=0, max_abs_err=err, tol=tol,
+                replaces=REPLACES["paged_decode"], launches=0, max_abs_err=err, tol_share=share,
                 ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
         elif e4m3:
             E4M3_ROWS["paged_decode"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
@@ -2212,7 +2273,8 @@ def _paged_decode_k9(table: dict) -> None:
         del q, kp, vp
         torch.cuda.empty_cache()
     log(f"[paged] paged_decode: worst max_abs_err over all cases {worst:.3g} of its "
-        f"tolerance (one ulp of the largest output in bf16 and fp16, 1e-4 in fp32)")
+        f"bound (output by output: one ulp of the largest output in bf16 and fp16, 1e-4 "
+        f"in fp32, or one ulp of the output where that is more)")
 
 
 def _wide_groups() -> None:
@@ -2238,16 +2300,18 @@ def _wide_groups() -> None:
         args = (q, ks, vs, mask, ki, vi, l, step, scale, None)
         got, want = ak.flash_decode_frozen(*args), ak.flash_decode_frozen_plain(*args)
         torch.cuda.synchronize()
-        err, tol = (got.float() - want.float()).abs().max().item(), _paged_tol("bfloat16", want)
-        if not (math.isfinite(err) and err <= tol):
-            raise PhaseError(f"flash_decode_frozen G=16 l={l}: error {err} > {tol}")
+        err, share = _paged_err(got, want, "bfloat16")
+        if not (math.isfinite(err) and share <= 1):
+            raise PhaseError(f"flash_decode_frozen G=16 l={l}: error {err}, {share:.3g} of "
+                             f"its bound")
     layers = iter(range(10 ** 9))
     t_k = cuda_time_ms(lambda: ak.flash_decode_frozen(q, ks, vs, mask, ki, vi,
                                                       next(layers) % Lc, step, scale),
                        iters=4 * Lc)
     b_ms, b_by = bound_ms(*_decode_cost(q, mask, ki, step, None), "bfloat16")
     log(f"[paged] flash_decode_frozen G=16 (128/8 heads, D 128, T 1024, 4 rows) bf16: "
-        f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms bound {b_ms:.4f} ms "
+        f"max_abs_err {err:.3g} ({share:.3g} of its bound) kernel {t_k:.4f} ms bound "
+        f"{b_ms:.4f} ms "
         f"({b_by})")
     del q, ks, vs, ki, vi
     # K8 and K9 on the serve phase's pool at 16 query heads per KV head
@@ -2265,13 +2329,12 @@ def _wide_groups() -> None:
         for l in (0, Lc - 1):
             got, want = kern(*call(l)), plain(*call(l))
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = _paged_tol("bfloat16", want)
-            if not (math.isfinite(err) and err <= tol):
-                raise PhaseError(f"{name} G=16 l={l}: error {err} > {tol}")
+            err, share = _paged_err(got, want, "bfloat16")
+            if not (math.isfinite(err) and share <= 1):
+                raise PhaseError(f"{name} G=16 l={l}: error {err}, {share:.3g} of its bound")
         b_ms, b_by = bound_ms(*cost, "bfloat16")
         what = (f"[paged] {name} G=16 (128/8 heads, D 128, the serve phase's 16 rows) bf16: "
-                f"max_abs_err {err:.3g} (tol {tol:.3g})")
+                f"max_abs_err {err:.3g} ({share:.3g} of its bound)")
         if name == "paged_decode_frozen":
             layers = iter(range(10 ** 9))
             t_k = cuda_time_ms(lambda: kern(*call(next(layers) % Lc)), iters=4 * Lc)
@@ -2297,15 +2360,15 @@ def _wide_groups() -> None:
             call = (*args, l, base, scale, None, q_slots, infl_slots)
             got, want = pa.paged_decode_spec(*call), pa.paged_decode_spec_plain(*call)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = _paged_tol("bfloat16", want)
-            if not (math.isfinite(err) and err <= tol):
-                raise PhaseError(f"paged_decode_spec S*G={S * nq // Nk} l={l}: error {err} "
-                                 f"> {tol}")
+            err, share = _paged_err(got, want, "bfloat16")
+            if not (math.isfinite(err) and share <= 1):
+                raise PhaseError(f"paged_decode_spec S*G={S * nq // Nk} l={l}: error {err}, "
+                                 f"{share:.3g} of its bound")
         t_k, t_p, t_l = _k10_times(args, base, q_slots, infl_slots, scale, None, Lc)
         b_ms, b_by = bound_ms(*_spec_cost(args, base, q_slots, infl_slots, None), "bfloat16")
         log(f"[paged] paged_decode_spec S*G={S * nq // Nk} (G {nq // Nk}, S {S}, D 128, 16 "
-            f"rows) bf16: max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms (CUDA "
+            f"rows) bf16: max_abs_err {err:.3g} ({share:.3g} of its bound) kernel {t_k:.4f} ms "
+            f"(CUDA "
             f"events) plain {t_p:.4f} ms sdpa (K/V gathered, mask built beforehand, CUDA "
             f"events) {t_l:.4f} ms bound {b_ms:.4f} ms ({b_by})")
         _k10_sweep(f"S*G={S * nq // Nk} bf16", args, base, q_slots, infl_slots, scale, None, Lc)
@@ -3033,6 +3096,63 @@ def _serving_metrics(run) -> dict:
                 tok_s=run["toks"] / wall, steady_tok_s=float(steady), wall_s=wall)
 
 
+def _admission_index_us(batcher, prompt) -> None:
+    """Logs the host us of one admission's pool-index work at the serve
+    shape, on a fresh native and a fresh Python index of the batcher's
+    size: the lookups of the prompt's whole blocks (as the batcher makes
+    them, up to the first miss), share, alloc of the rest of the request's
+    blocks, registration of the blocks not found, and the release at the
+    request's end. "hit": the prompt's shareable blocks are all cached
+    (a repeated system prompt); "miss": every call a new prompt, so that
+    the idle-cached tier fills and alloc evicts, as under varied traffic."""
+    import numpy as np
+
+    from tinygpt_tpu_torch.engine import native_pool
+    from tinygpt_tpu_torch.engine.paged_kv import blocks_needed
+
+    sc = batcher.sc
+    bs = sc.block_size
+    hashes = batcher._block_hashes(prompt)
+    shareable = (len(prompt) - 1) // bs
+    need = blocks_needed(len(prompt) + SERVE["max_new"], bs)
+    rng = np.random.default_rng(1)
+    fresh = [[int.from_bytes(rng.bytes(16), "little") for _ in hashes] for _ in range(2000)]
+
+    def admission(idx, hs):
+        shared = []
+        for h in hs[:shareable]:
+            b = idx.lookup_prefix(h)
+            if b is None:
+                break
+            shared.append(b)
+        idx.share(shared)
+        blocks = shared + idx.alloc(need - len(shared))
+        for j in range(len(shared), len(hs)):
+            idx.register_prefix(hs[j], blocks[j])
+        idx.release(blocks, keep_cached=[b for b in blocks if idx.is_registered(b)])
+        return len(shared)
+
+    t_hash = host_us(lambda _: batcher._block_hashes(prompt), n=200)
+    us = {}
+    for kind in ("native", "python"):
+        lib = native_pool._load()
+        idx = (native_pool.NativePoolIndex(sc.n_blocks, lib) if kind == "native"
+               else native_pool.PythonPoolIndex(sc.n_blocks))
+        admission(idx, hashes)
+        if admission(idx, hashes) != shareable:
+            raise PhaseError(f"serve: the {kind} index found no cached prefix")
+        us[kind, "hit"] = host_us(lambda _: admission(idx, hashes), n=200)
+        calls = iter(fresh)
+        us[kind, "miss"] = host_us(lambda _: admission(idx, next(calls)), n=200, rounds=5)
+    log(f"[serve] host_us of one admission's pool-index work ({len(prompt)}-token prompt, "
+        f"{len(hashes)} whole blocks of {bs}, {need} blocks a request, pool of "
+        f"{sc.n_blocks}): all {shareable} shareable blocks cached: native "
+        f"{us['native', 'hit']:.2f} us, python {us['python', 'hit']:.2f} us; a new prompt "
+        f"each call (evicting once the pool fills): native {us['native', 'miss']:.2f} us, "
+        f"python {us['python', 'miss']:.2f} us; the prompt's chain hashes (either index) "
+        f"{t_hash:.2f} us; card {CARD}")
+
+
 def phase_serve(table: dict, params) -> None:
     """The continuous batcher on the card, at the Mistral-7B shape in int4
     (model4's params), under the JAX package's serving traffic: the main
@@ -3063,6 +3183,10 @@ def phase_serve(table: dict, params) -> None:
     with torch.inference_mode():
         counts = Counter()
         batcher = _serving_batcher(params, cfg, counts)
+        if batcher.allocator.kind != "native":
+            raise PhaseError(f"serve: the batcher's pool index is "
+                             f"{batcher.allocator.kind}, not the native one")
+        _admission_index_us(batcher, prompt(s["prompt_len"]))
         t0 = time.perf_counter()
         _drive(batcher, [prompt(s["prompt_len"])], s["warm_new"])
         torch.cuda.synchronize()
@@ -4406,6 +4530,8 @@ def phase_engine(d: str) -> None:
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
         launches = dict(ak.LAUNCHES)
+        if label == "bf16":
+            _engine_trace(eng, prompts)
         del eng
         torch.cuda.empty_cache()
         n = [len(o.token_ids) for o in outs]
@@ -4422,6 +4548,41 @@ def phase_engine(d: str) -> None:
                              f"never launched")
     _engine_spec(d)
     _engine_fp8_batcher(d)
+
+
+def _engine_trace(eng, prompts) -> None:
+    """One more generate_sync of `prompts` inside utils/profiler.trace, into
+    a temporary directory under _build/: the trace file must hold the
+    annotation span and launches of the port's kernels (K1, the prefill;
+    K2, the decode chunks)."""
+    from tinygpt_tpu_torch.ops import cuda_build
+    from tinygpt_tpu_torch.utils import profiler
+
+    d = tempfile.mkdtemp(prefix="smoke_trace_", dir=cuda_build.BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        with profiler.trace(d, annotate="engine.generate_sync") as t:
+            eng.generate_sync(prompts)
+        wall = time.perf_counter() - t0
+        path = t.get("path")
+        if not path or not os.path.exists(path):
+            raise PhaseError(f"engine: profiler.trace wrote no file under {d}")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        k1 = sum("flash_prefill" in n for n in kernels)
+        k2 = sum(bool(re.search(r"split_decode_kernel<.*,\s*(true|\(bool\)1)>", n))
+                 for n in kernels)
+        log(f"[engine] profiler.trace of one generate_sync ({wall:.2f} s with the trace "
+            f"written): {os.path.getsize(path) / 1e6:.2f} MB, {len(events)} events, "
+            f"{len(kernels)} kernel launches on the card: K1 {k1}, K2 {k2}; annotation "
+            f"span {'present' if 'engine.generate_sync' in names else 'MISSING'}")
+        if "engine.generate_sync" not in names or not (k1 or k2):
+            raise PhaseError(f"engine: the trace lacks the annotation span or a port "
+                             f"kernel (K1 {k1}, K2 {k2})")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 ENGINE_SPEC_PROMPT = ("def add(a, b):\n    return a + b\n\ndef sub(a, b):\n    return a - b\n"
@@ -4587,6 +4748,39 @@ def phase_evaluate(d: str) -> None:
         raise PhaseError(f"evaluate: the fp8 KV cache moves the perplexity by {rel}")
 
 
+def _check_native_host_cores(srv, d: str, scheduler: str, prompts) -> None:
+    """The server's tokenizer runs on the native encoder and gives the
+    Python pipeline's ids on `prompts` (the texts the phase sends); its
+    batcher, when it has one, runs on the native pool index."""
+    from tinygpt_tpu_torch.tokenizer import Tokenizer
+
+    tok = srv.engine.ctx.tokenizer
+    enc = tok.native_encoder
+    if enc is None:
+        raise PhaseError(f"server ({scheduler}): the tokenizer runs without its native "
+                         f"encoder")
+    os.environ["TINYGPT_NO_NATIVE"] = "1"
+    try:
+        py = Tokenizer.from_dir(d)
+        if py.native_encoder is not None:
+            raise PhaseError("server: TINYGPT_NO_NATIVE left the native encoder on")
+    finally:
+        del os.environ["TINYGPT_NO_NATIVE"]
+    got = [tok.encode(p) for p in prompts]
+    want = [py.encode(p) for p in prompts]
+    batcher = getattr(srv.worker, "batcher", None)
+    index = batcher.allocator.kind if batcher is not None else "none (sequential worker)"
+    log(f"[server] {scheduler}: native encoder kind {enc.kind} over a vocab of "
+        f"{tok.vocab_size}; ids of the {len(prompts)} prompts "
+        f"{'equal' if got == want else 'DIFFER from'} the Python pipeline's "
+        f"({[len(g) for g in got]} ids); pool index {index}")
+    if got != want:
+        raise PhaseError(f"server ({scheduler}): native ids {got} != Python ids {want}")
+    if batcher is not None and batcher.allocator.kind != "native":
+        raise PhaseError(f"server ({scheduler}): the pool index is "
+                         f"{batcher.allocator.kind}, not the native one")
+
+
 def phase_server(d: str, scheduler: str = "continuous") -> None:
     """TinyGPTServer on the model dir `d` (bf16, on the card), in-process on
     127.0.0.1 and a free port, with a chat template passed in: four
@@ -4616,6 +4810,10 @@ def phase_server(d: str, scheduler: str = "continuous") -> None:
     thread = threading.Thread(target=srv._httpd.serve_forever, daemon=True)
     thread.start()
     log(f"[server] TinyGPTServer ready at {url} in {time.perf_counter() - t0:.1f} s")
+    chat_messages = [{"role": "user", "content": "Hello there"}]
+    _check_native_host_cores(srv, d, scheduler, [
+        "The meaning of life is", "Once upon a time,",
+        srv.engine.apply_chat_template(chat_messages, add_generation_prompt=True)])
 
     def call(path, body=None):
         data = None if body is None else json.dumps(body).encode()
@@ -4643,8 +4841,7 @@ def phase_server(d: str, scheduler: str = "continuous") -> None:
 
     def chat():
         st, _, body = call("/v1/chat/completions", {
-            "messages": [{"role": "user", "content": "Hello there"}],
-            "max_tokens": max_tokens})
+            "messages": chat_messages, "max_tokens": max_tokens})
         d = json.loads(body)
         return st, d["choices"][0]["message"]["content"], d["usage"]
 
@@ -4774,21 +4971,21 @@ def phase_k13_kernels(table: dict) -> None:
         dname = str(dtype).replace("torch.", "")
         q, ks, vs, mask = _k13_case(L, B, Nq, Nk, D, T, pads, length, window, dtype,
                                     seed=300 + i)
-        err, tol = 0.0, 0.0
+        err, share = 0.0, 0.0
         for l in sorted({0, L - 1}):
             got = ak.flash_decode(q, ks[l], vs[l], mask, D ** -0.5)
             want = ak.flash_decode_plain(q, ks[l], vs[l], mask, D ** -0.5)
             torch.cuda.synchronize()
-            e = (got.float() - want.float()).abs().max().item()
-            t = _paged_tol(dname, want)
-            if not (math.isfinite(e) and e <= t):
-                raise PhaseError(f"flash_decode {label} l={l} {dname}: error {e} > {t}")
+            e, sh = _paged_err(got, want, dname)
+            if not (math.isfinite(e) and sh <= 1):
+                raise PhaseError(f"flash_decode {label} l={l} {dname}: error {e}, {sh:.3g} "
+                                 f"of its bound")
             for b in range(B):  # a row that sees no slot gives zeros
                 if not mask[b].any() and got[b].any():
                     raise PhaseError(f"flash_decode {label}: row {b} sees no slot "
                                      f"and is not zero")
-            err, tol = max(err, e), max(tol, t)
-        worst[dname] = max(err / tol, worst.get(dname, 0.0))
+            err, share = max(err, e), max(share, sh)
+        worst[dname] = max(share, worst.get(dname, 0.0))
         t_k = cuda_time_ms(_k13_cycle(q, ks, vs, mask), iters=4 * L)
         t_p = cuda_time_ms(lambda: ak.flash_decode_plain(q, ks[L - 1], vs[L - 1], mask,
                                                          D ** -0.5), iters=10)
@@ -4797,13 +4994,14 @@ def phase_k13_kernels(table: dict) -> None:
         nbytes, flops = _k13_cost(q, mask, Nk)
         b_ms, b_by = bound_ms(nbytes, flops, dname)
         log(f"[k13] flash_decode {label} B={B} Nq={Nq} Nk={Nk} D={D} T={T} {dname}: "
-            f"max_abs_err {err:.3g} (tol {tol:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-            f"sdpa {t_l:.4f} ms bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB) ok")
+            f"max_abs_err {err:.3g} ({share:.3g} of its bound) kernel {t_k:.4f} ms plain "
+            f"{t_p:.4f} ms sdpa {t_l:.4f} ms bound {b_ms:.5f} ms ({b_by}, "
+            f"{nbytes / 1e6:.2f} MB) ok")
         if main:
             table["flash_decode"] = dict(
                 name="flash_decode", route="cuda", source=SOURCES["flash_decode"],
-                replaces=REPLACES["flash_decode"], launches=0, max_abs_err=err, tol=tol,
-                ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+                replaces=REPLACES["flash_decode"], launches=0, max_abs_err=err,
+                tol_share=share, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
             # the e4m3 branch at the main path's shape (bf16 queries)
             ks8, vs8 = kv_cast(ks, E4M3), kv_cast(vs, E4M3)
             del ks, vs
@@ -4858,12 +5056,13 @@ def phase_k13_kernels(table: dict) -> None:
         mask[:, start:start + n] = True
         got = ak.flash_decode(q, ks[L - 1], vs[L - 1], mask, 128 ** -0.5)
         want = ak.flash_decode_plain(q, ks[L - 1], vs[L - 1], mask, 128 ** -0.5)
-        err, tol = (got.float() - want.float()).abs().max().item(), _paged_tol("bfloat16", want)
-        if not (math.isfinite(err) and err <= tol):
-            raise PhaseError(f"flash_decode batch 1 T={T} visible {start}..: error {err} > {tol}")
+        err, share = _paged_err(got, want, "bfloat16")
+        if not (math.isfinite(err) and share <= 1):
+            raise PhaseError(f"flash_decode batch 1 T={T} visible {start}..: error {err}, "
+                             f"{share:.3g} of its bound")
         t = cuda_time_ms(_k13_cycle(q, ks, vs, mask), iters=4 * L)
         log(f"[k13] batch 1, {n} visible slots ({start}..{start + n - 1}) of {T}: "
-            f"flash_decode {t:.4f} ms (max_abs_err {err:.3g}, tol {tol:.3g})")
+            f"flash_decode {t:.4f} ms (max_abs_err {err:.3g}, {share:.3g} of its bound)")
         del ks, vs
 
 

@@ -24,8 +24,9 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tinygpt_tpu"))
 assert not bad, bad
-from tinygpt_tpu_torch.ops import cuda_build
+from tinygpt_tpu_torch.ops import cuda_build, host_build
 assert not cuda_build._libs, "a kernel library was loaded at import"
+assert not host_build._libs, "a host library was loaded at import"
 print("imported", len([m for m in sys.modules if m.startswith("tinygpt_tpu_torch")]))
 """
 

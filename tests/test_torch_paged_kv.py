@@ -47,9 +47,13 @@ def test_blocks_needed(n, bs):
     assert blocks_needed(n, bs) == j_blocks_needed(n, bs)
 
 
-def test_create_pool_index_is_python():
+def test_create_pool_index_is_python(monkeypatch):
+    """With TINYGPT_NO_NATIVE set, the index is the Python one (the native
+    index, taken otherwise, is held against it in
+    tests/test_torch_native_pool.py)."""
+    monkeypatch.setenv("TINYGPT_NO_NATIVE", "1")
     idx = native_pool.create_pool_index(12)
-    assert isinstance(idx, native_pool.PythonPoolIndex)
+    assert isinstance(idx, native_pool.PythonPoolIndex) and idx.kind == "python"
     assert idx.n_free == 11 and idx.n_idle_cached == 0
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of tinygpt_tpu/hf/safetensors_io.py: u64-length JSON header +
 raw tensor data, single-file and sharded (`model.safetensors.index.json`
-weight_map) loading, shape/dtype validation, and a symmetric save.
+weight_map) loading, shape/dtype validation, a symmetric save, and
+`match_state`, which checks loaded tensors against the names and shapes a
+model expects.
 
 Tensors are returned as CPU `torch.Tensor`s over an `np.memmap` of the
 file — nothing is copied on the host; the model loader moves them to the
@@ -17,10 +19,14 @@ import json
 import os
 import struct
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from tinygpt_tpu_torch.utils.logging import get_logger
+
+log = get_logger("hf.safetensors")
 
 # safetensors dtype string -> (numpy dtype the bytes are read as, torch
 # dtype of the result)
@@ -172,3 +178,40 @@ def save_safetensors(
         for blob in blobs:
             f.write(blob.data)
 
+
+def _shortlist(keys: list) -> str:
+    return f"{keys[:8]}{'...' if len(keys) > 8 else ''}"
+
+
+def match_state(
+    loaded: Dict[str, torch.Tensor],
+    expected: Dict[str, Tuple[tuple, Optional[torch.dtype]]],
+    strict: bool = False,
+    consume: Optional[Callable[[str, torch.Tensor], None]] = None,
+) -> Tuple[list, list]:
+    """Validate loaded tensors against an expected name -> (shape, dtype)
+    map: a shape that differs raises; missing and unexpected names are
+    logged, or raise under strict=True. `consume(name, tensor)` is called
+    on each expected tensor that was loaded, in `expected`'s order, after
+    its shape checked out. The dtype is not checked (the loader casts).
+
+    Returns (missing_keys, unexpected_keys)."""
+    missing = [k for k in expected if k not in loaded]
+    unexpected = [k for k in loaded if k not in expected]
+    for k, (shape, _dtype) in expected.items():
+        if k not in loaded:
+            continue
+        t = loaded[k]
+        if tuple(t.shape) != tuple(shape):
+            raise SafeTensorsError(
+                f"{k}: shape mismatch, file {tuple(t.shape)} vs model {tuple(shape)}"
+            )
+        if consume is not None:
+            consume(k, t)
+    for what, keys in (("missing", missing), ("unexpected", unexpected)):
+        if keys:
+            msg = f"{what} keys: {_shortlist(keys)}"
+            if strict:
+                raise SafeTensorsError(msg)
+            log.warning(msg)
+    return missing, unexpected

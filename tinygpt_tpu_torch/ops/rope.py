@@ -86,3 +86,16 @@ def apply_rope_gathered(
     q_out = qf * c + _rotate_half(qf) * s
     k_out = kf * c + _rotate_half(kf) * s
     return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+def apply_rope(
+    q: torch.Tensor,  # [B, S, Nq, D]
+    k: torch.Tensor,  # [B, S, Nk, D]
+    cos: torch.Tensor,  # [P, D] table
+    sin: torch.Tensor,
+    positions: torch.Tensor,  # [B, S] absolute positions
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate q and k at `positions`: gather_rope, then apply_rope_gathered
+    (a model step gathers once and reuses the rows in every layer)."""
+    c, s = gather_rope(cos, sin, positions)
+    return apply_rope_gathered(q, k, c, s)

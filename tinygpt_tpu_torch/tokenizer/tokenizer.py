@@ -142,11 +142,26 @@ class Tokenizer:
                 unk_token=config.unk_token or "",
             )
 
+        # native (C++) fast path, decided on first use; None keeps
+        # everything on the pure-Python pipeline
+        self._native = None
+        self._native_tried = False
+
     @property
     def native_encoder(self):
-        """The C++ encoder core of tinygpt_tpu.tokenizer.native is not
-        ported yet: everything runs on the pure-Python pipeline."""
-        return None
+        """The C++ encoder core (tokenizer/native.py) when this tokenizer
+        fits its fast path and the core builds, else None: built once per
+        instance, on first use."""
+        if not self._native_tried:
+            self._native_tried = True
+            try:
+                from tinygpt_tpu_torch.tokenizer.native import build_native_encoder
+
+                self._native = build_native_encoder(self)
+            except Exception as e:  # never break tokenization
+                log.warning("native tokenizer unavailable: %s", e)
+                self._native = None
+        return self._native
 
     # -- constructors --------------------------------------------------
 
