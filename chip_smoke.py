@@ -146,7 +146,22 @@ Phases, in order:
            the device's busy share and launches a token under the profiler,
            the per-token route held to the chunked one (logits, near-ties)
            and, in bf16, the model phase's batch through the per-token
-           route against the plain route (K13's main-path launches).
+           route against the plain route (K13's main-path launches);
+  mesh     the multi-device layouts (parallel/) with 2 ranks sharing the
+           card over gloo (NCCL refuses two ranks on one device), after
+           the kernels at tp = 2's local shapes in this process (K6 for
+           qkv on 16 + 2 x 4 heads and for o with the residual off, K7 at
+           I / 2 with and without it, K2 and K1 at 16 over 4 KV heads,
+           K11b on 4 of Mixtral's 8 experts with rows routed away) against
+           their plain versions: the Mistral-7B shape in int4 at tp = 2 through the
+           engine's sharding (32 layers: logits against one rank's on the
+           same params, tokens the same on both ranks, exact launch
+           counts a rank, each rank's busy ms a step), the batcher at
+           tp = 2 (a frozen quantum, K8, and a stepwise one, K9), the
+           engine at dp = 2 and in pipeline stages (1, 1, 2, 1), Mixtral
+           int4 with its experts over sp (K11b on each rank's experts),
+           and the CLI with --mesh 1,1,2 as two processes. A rank that
+           fails or outlives MESH_TIMEOUT_S fails the phase.
 
 Every phase must pass; the script exits non-zero at the first failure.
 Its last lines are the seconds each phase took, the card's name and power
@@ -2545,10 +2560,13 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
         steps(0)
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, memcpy/memset); the CPU-side ops
-    # that launched them report the same time again
+    # that launched them report the same time again, as do the
+    # process-group calls ("nccl:all_reduce", "gloo:..."), whose device
+    # time is their kernels' or copies'
     kernels = [(e.self_device_time_total, e.count, e.key)
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.key.startswith(("nccl:", "gloo:"))]
     busy_us = sum(us for us, _, _ in kernels)
     if not busy_us:
         log(f"{tag} decode steps: device time not measured (the profiler saw "
@@ -2558,7 +2576,11 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
               "gathered experts (K12, K11a, K11b)": 0.0,
               "int4 (K4-K7)": 0.0, "int8 (K5a, K3)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
     for us, _, key in kernels:
-        if "split_decode_kernel" in key:  # K2 and K13: one template, INFL true for K2
+        if key.startswith("ncclDevKernel"):
+            # a collective's kernel waits on its peers: its time is not work
+            groups.setdefault("collectives (NCCL, with their waits)", 0.0)
+            groups["collectives (NCCL, with their waits)"] += us
+        elif "split_decode_kernel" in key:  # K2 and K13: one template, INFL true for K2
             k2 = re.search(r",\s*(true|\(bool\)1)>", key)
             groups["flash_decode_frozen" if k2 else "flash_decode (K13)"] += us
         elif "moe_gather" in key:
@@ -2590,7 +2612,8 @@ def _profile_decode(params, cfg, batch, T, label: str = "bf16", kv_dtype=None,
         + ", ".join(f"{key} {count // n} ({us / count:.2f})" for us, count, key in api[:5]))
     _host_functions(lambda: steps(n), n, f"{tag} {label}")
     return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
-            "launches": launches / n}
+            "launches": launches / n,
+            "collective_ms": groups.get("collectives (NCCL, with their waits)", 0.0) / n / 1e3}
 
 
 def _host_functions(run, n: int, tag: str) -> None:
@@ -5258,9 +5281,648 @@ def phase_stream(table: dict) -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# -- mesh: multi-device layouts, two ranks sharing the card ---------------------------
+
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 420  # a rank that has not finished by then fails the phase
+MESH_LAYERS = 32      # the full-width tp = 2 leg's depth
+MESH_SMALL = dict(MISTRAL_7B, num_hidden_layers=2)
+MESH_TP_SHAPES = dict(qkv=3072, o_in=2048, gate_up=2 * 7168, down_in=7168, vocab=16384)
+# the 2-layer mesh legs against one rank on the same params and inputs, max
+# abs error of the logits at every position: both sides run the same
+# kernels, only the order of the sums differs (an H100 read 0.03125 for the
+# pipeline stages in bf16 and 0.04688 for Mixtral int4's experts over sp);
+# the limits leave about 3x room, well under one logit std (1.28), so a
+# rank's lost expert sum or a foreign row not zeroed fails
+MESH_PIPE_TOL = 0.1
+MESH_MOE_TOL = 0.15
+
+
+def _mesh_kernel_case(tag, name, kern, plain, cost, tol, iters=20):
+    """One kernel at a tp = 2 local shape against its plain version: max
+    abs error within `tol`, timed beside the plain version and the bound."""
+    import torch
+
+    got, want = kern(), plain()
+    err = (got.float() - want.float()).abs().max().item()
+    if not math.isfinite(err) or err > tol:
+        raise PhaseError(f"{tag}: {name} differs from its plain version by {err} > {tol}")
+    ms, plain_ms = cuda_time_ms(kern, iters), cuda_time_ms(plain, iters)
+    b_ms, by = bound_ms(*cost, "bfloat16")
+    log(f"[mesh] {tag}: {name} max_abs_err {err:.4g} (tol {tol}), {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    del got, want
+    torch.cuda.synchronize()
+
+
+def phase_mesh_kernels() -> None:
+    """K6, K7, K2 and K1 at the local shapes that tp = 2 gives each rank at
+    the Mistral-7B shape (16 query and 4 KV heads of 128; qkv 3,072 columns,
+    o 2,048 rows, gate_up 2 x 7,168, down 7,168 rows), against their plain
+    versions, in this process (no process group): K6 for qkv with the norm
+    prologue and RoPE on the local heads, K6 for o and K7 at I / 2 with
+    the residual off (the ranks other than tp rank 0), K7 with it, K2 and
+    K1 at G = 4; and K11b on a stack of 4 of Mixtral's 8 experts (sp = 2),
+    the ids remapped by moe_gather_local with half the rows routed to the
+    other rank, against the same remap around its plain version."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    H, D, L, M = MISTRAL_7B["hidden_size"], 128, 2, len(PROMPT_LENS)
+    Nq, Nk = MISTRAL_7B["num_attention_heads"] // 2, MISTRAL_7B["num_key_value_heads"] // 2
+    sh = MESH_TP_SHAPES
+    tol = QUANT_TOL["bfloat16"] * 8
+    x = torch.randn(M, H, generator=g, device=DEVICE).to(torch.bfloat16)
+    ln = torch.rand(L, H, generator=g, device=DEVICE).to(torch.bfloat16) + 0.5
+    inv = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + 1e-5)
+    cos = torch.rand(M, D, generator=g, device=DEVICE)
+    sin = torch.rand(M, D, generator=g, device=DEVICE)
+    qd, qs = _int4_stack(g, L, H, sh["qkv"], INT4_GROUP)
+    kw = dict(ln=ln, invrms=inv, rope_cos=cos, rope_sin=sin, rope_heads=Nq + Nk, rope_dim=D)
+    _mesh_kernel_case(
+        "qkv, 16 + 2 x 4 local heads", "matmul_dequant_int4_stacked_fused",
+        lambda: qk.matmul_dequant_int4_stacked_fused(x, qd, qs, 1, INT4_GROUP, **kw),
+        lambda: qk.matmul_dequant_int4_stacked_fused_plain(x, qd, qs, 1, INT4_GROUP, **kw),
+        (_nbytes(qd[1], qs[1], x) + M * sh["qkv"] * 2, 2.0 * M * H * sh["qkv"]), tol)
+    a = torch.randn(M, sh["o_in"], generator=g, device=DEVICE).to(torch.bfloat16)
+    od, os_ = _int4_stack(g, L, sh["o_in"], H, INT4_GROUP)
+    _mesh_kernel_case(
+        "o, 2,048 local rows, residual off", "matmul_dequant_int4_stacked_fused",
+        lambda: qk.matmul_dequant_int4_stacked_fused(a, od, os_, 1, INT4_GROUP),
+        lambda: qk.matmul_dequant_int4_stacked_fused_plain(a, od, os_, 1, INT4_GROUP),
+        (_nbytes(od[1], os_[1], a) + M * H * 2, 2.0 * M * sh["o_in"] * H), tol)
+    gd, gs = _int4_stack(g, L, H, sh["gate_up"], INT4_GROUP)
+    dd, ds = _int4_stack(g, L, sh["down_in"], H, INT4_GROUP)
+    for residual in (True, False):
+        _mesh_kernel_case(
+            f"MLP at I / 2 = 7,168, residual {'on' if residual else 'off'}",
+            "mlp_fused_int4_stacked",
+            lambda: qk.mlp_fused_int4_stacked(x, gd, gs, dd, ds, ln, inv, 1, INT4_GROUP,
+                                              residual=residual),
+            lambda: qk.mlp_fused_int4_stacked_plain(x, gd, gs, dd, ds, ln, inv, 1,
+                                                    INT4_GROUP, residual=residual),
+            (_nbytes(gd[1], gs[1], dd[1], ds[1], x) * 1 + M * H * 2,
+             2.0 * M * H * (sh["gate_up"] + sh["down_in"])), tol)
+    mp = main_path_shapes()["decode"]
+    q, ks, vs, mask, ki, vi, step, window = _decode_case(
+        L, M, Nq, Nk, D, mp["T"], mp["N"], mp["pads"], mp["length"], mp["step"], None,
+        torch.bfloat16, seed=3)
+    _mesh_kernel_case(
+        "decode, 16 query over 4 KV heads", "flash_decode_frozen",
+        lambda: ak.flash_decode_frozen(q, ks, vs, mask, ki, vi, 1, step, scale=D ** -0.5),
+        lambda: ak.flash_decode_frozen_plain(q, ks, vs, mask, ki, vi, 1, step, scale=D ** -0.5),
+        _decode_cost(q, mask, ki, step, window), TOL["bfloat16"])
+    pp = main_path_shapes()["prefill"]
+    args = _prefill_case(M, Nq, Nk, D, pp["S"], pp["T"], pp["pads"], 0, None, torch.bfloat16,
+                         seed=4)
+    _mesh_kernel_case(
+        "prefill, 16 query over 4 KV heads", "flash_prefill",
+        lambda: ak.flash_prefill(*args), lambda: ak.flash_prefill_plain(*args),
+        _prefill_cost(args[0], args[1], args[3], 0, None), TOL["bfloat16"], iters=5)
+    del args
+    torch.cuda.empty_cache()
+    _mesh_local_experts_case()
+
+
+def _mesh_local_experts_case() -> None:
+    """K11b on rank 1's stack of experts 4..7 of Mixtral's down (14,336 ->
+    4,096, int4 at MOE_GROUP), 4 tokens x 2 experts with half the rows
+    routed to rank 0's experts: the rows routed away exactly 0, the others
+    within QUANT_TOL of the largest output of the plain version's."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import moe_kernels as mk
+    from tinygpt_tpu_torch.ops.quant import _quantize_moe_stacked
+
+    IN, OUT, n = MIXTRAL_8X7B["intermediate_size"], MIXTRAL_8X7B["hidden_size"], 4
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    w = _quantize_moe_stacked(torch.randn((1, n, IN, OUT), generator=g, device=DEVICE) * 0.02,
+                              4, MOE_GROUP)
+    idx = torch.tensor([0, 5, 3, 4, 7, 1, 6, 2], dtype=torch.int32, device=DEVICE)
+    x = (torch.randn((idx.numel(), IN), generator=g, device=DEVICE) * 0.5).to(torch.bfloat16)
+    kern = lambda: mk.moe_gather_local(x, w, 0, idx, (n, n), "kernel")  # noqa: E731
+    plain = lambda: mk.moe_gather_local(x, w, 0, idx, (n, n), "plain")  # noqa: E731
+    got, want = kern(), plain()
+    away = idx < n
+    if got[away].any() or want[away].any():
+        raise PhaseError("[mesh] K11b on local experts: a row routed away is not 0")
+    tol = QUANT_TOL["bfloat16"] * want.float().abs().max().item()
+    local = mk.local_experts(idx, (n, n))[0]
+    _mesh_kernel_case(
+        f"experts {n}..{2 * n - 1} of 8 (sp = 2), 4 of 8 rows routed away",
+        "moe_gather_matmul_int4", kern, plain, _moe_cost(w, 0, local, x, OUT), tol)
+
+
+def _mesh_launches() -> dict:
+    """The launch counts of every kernel wrapper, by name."""
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops import moe_kernels as mk
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    out = {}
+    for counts in (ak.LAUNCHES, qk.LAUNCHES, mk.LAUNCHES):
+        out.update({k: v for k, v in counts.items() if v})
+    return out
+
+
+def _mesh_reset() -> None:
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops import moe_kernels as mk
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+
+    for counts in (ak.LAUNCHES, qk.LAUNCHES, mk.LAUNCHES):
+        counts.clear()
+
+
+def _mesh_engine(params, cfg, mesh_shape, **kw):
+    """A GPTEngine around params built on the card (random, at full width:
+    no model dir), cut to this rank's shard by the engine's own sharding
+    (GPTEngine.shard). Returns the engine; its shard and local config are
+    eng.ctx.params and eng._run_cfg."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+    from tinygpt_tpu_torch.hf.loader import GPTContext
+    from tinygpt_tpu_torch.models import get_model
+
+    eng = GPTEngine(GPTConfig(model_dir="", device=DEVICE, **kw))
+    eng._device = torch.device(DEVICE)
+    eng.ctx = GPTContext(cfg, None, None, params, get_model(cfg.model_type))
+    eng.shard(mesh_shape)
+    return eng
+
+
+def _mesh_same_tokens(toks, what: str) -> None:
+    """Every rank's tokens equal rank 0's (lockstep sampling)."""
+    import torch
+
+    from tinygpt_tpu_torch.parallel import distributed
+
+    t = toks.to(torch.int64).contiguous()
+    both = distributed.all_gather(t[None], torch.distributed.group.WORLD)
+    if not all(torch.equal(both[0], b) for b in both):
+        raise PhaseError(f"{what}: the ranks' tokens parted ways")
+
+
+def _mesh_tp_full_width(rank: int, res: dict) -> None:
+    """The Mistral-7B shape in int4 (group 64, MESH_LAYERS layers) at tp = 2
+    through the engine's sharded path: rank 0 first runs the same params
+    unsharded (the single-rank reference); both ranks then prefill the
+    model phase's 4 prompts and run one decode chunk fed its tokens, and
+    once free-running. The logits of every position within the int4
+    engine's tolerance of the reference's, the free-running tokens the same
+    on both ranks, every kernel of the path launched (K1, K5b and K4 in
+    the prefill; K6, K7 and K2 in every step on both ranks, K6 for o and
+    K7 adding the residual on tp rank 0 only), and each rank's busy ms a
+    decode step."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops.quant import quantize_params
+    from tinygpt_tpu_torch.parallel import distributed
+
+    tag = "[mesh] tp=2 int4"
+    mp = main_path_shapes()
+    S = mp["prefill"]["S"]
+    T = S + DECODE_CHUNK
+    cfg = parse_model_config(dict(MISTRAL_7B, num_hidden_layers=MESH_LAYERS))
+    t0 = time.perf_counter()
+    params = quantize_params(causal_lm.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                                   device=DEVICE),
+                             bits=4, group_size=INT4_GROUP)
+    torch.cuda.empty_cache()
+    log(f"{tag} rank {rank}: {MESH_LAYERS} layers built and quantized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
+    B = len(PROMPT_LENS)
+    ref = None
+    fed = torch.zeros((1 + DECODE_CHUNK, B), dtype=torch.int32, device=DEVICE)
+    if rank == 0:
+        ref = _run_route(params, cfg, batch, T, "kernel", n_chunks=1)
+        fed.copy_(ref[1])
+    distributed.broadcast(fed, 0, torch.distributed.group.WORLD)
+    eng = _mesh_engine(params, cfg, (1, 1, 2), dtype="bfloat16")
+    del params
+    torch.cuda.empty_cache()
+    lp, lcfg = eng.ctx.params, eng._run_cfg
+    lay = lp["layers"]
+    got = dict(qkv=lay["qkv_w"].out_dim, o_in=lay["o_w"].in_dim,
+               gate_up=lay["gate_up_w"].out_dim, down_in=lay["down_w"].in_dim,
+               vocab=lcfg.vocab_size)
+    if got != MESH_TP_SHAPES:
+        raise PhaseError(f"{tag}: local shapes {got} != {MESH_TP_SHAPES}")
+    _run_route(lp, lcfg, batch, T, "kernel", n_chunks=1, force=fed)   # warm-up
+    _mesh_reset()                                                     # the main path's run
+    mesh = _run_route(lp, lcfg, batch, T, "kernel", n_chunks=1, force=fed)
+    launches = _mesh_launches()
+    L, n = MESH_LAYERS, DECODE_CHUNK
+    want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
+            "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
+            "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
+            "mlp_fused_int4_stacked": L * n}
+    log(f"{tag} rank {rank}: launches {launches} (want {want})")
+    if launches != want:
+        raise PhaseError(f"{tag} rank {rank}: launches {launches} != {want}")
+    res["tp_launches"] = launches
+    free = _run_route(lp, lcfg, batch, T, "kernel", n_chunks=1)
+    _mesh_same_tokens(free[1], tag)
+    if rank == 0:
+        _check_routes(f"tp=2 int4, bf16, {L} layers, against one rank", mesh, ref,
+                      MODEL_LOGIT_TOL["bfloat16"], tag="[mesh]")
+        same = int((free[1] == ref[1]).all(dim=0).sum())
+        log(f"{tag}: free-running greedy tokens equal the single rank's over all "
+            f"{free[1].shape[0]} positions in {same} of {B} rows; prefill {mesh[2]:.1f} ms, "
+            f"decode {mesh[3]:.2f} ms/step (2 ranks sharing one H100 over gloo; single "
+            f"rank: prefill {ref[2]:.1f} ms, decode {ref[3]:.2f} ms/step)")
+    _profile_decode(lp, lcfg, batch, T, label=f"tp=2 rank {rank}", tag="[mesh]")
+    del eng, lp
+    torch.cuda.empty_cache()
+
+
+def _mesh_batcher(rank: int) -> None:
+    """The continuous batcher at (1, 1, 2), 2 layers at Mistral-7B widths in
+    fp32: four requests admitted, one frozen quantum (K8) and one stepwise
+    quantum (forward_paged, K9), against the same on one rank (rank 0): the
+    same streams, and K8 and K9 launched on both ranks."""
+    import functools
+
+    import torch
+
+    from tinygpt_tpu_torch.engine import scheduler
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.models import causal_lm, get_model
+
+    tag = "[mesh] batcher (1,1,2)"
+    cfg = parse_model_config(MESH_SMALL)
+    model = get_model(cfg.model_type)
+    params = causal_lm.init_params(cfg, seed=5, dtype=torch.float32, device=DEVICE)
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (40, 97, 64, 130)]
+    q = 8
+
+    def run(mesh_shape):
+        b = scheduler.ContinuousBatcher(
+            model, cfg, params, eos_ids=set(), config=scheduler.SchedulerConfig(
+                batch_capacity=4, block_size=64, n_blocks=32, max_blocks_per_seq=8,
+                dtype="float32", decode_quantum=q, pipeline_quanta=False,
+                enable_prefix_cache=False, mesh_shape=mesh_shape))
+        for i, p in enumerate(prompts):
+            b.add_request(scheduler.Request(request_id=i, prompt_ids=p,
+                                            max_new_tokens=1 + 2 * q))
+        got = {i: [] for i in range(len(prompts))}
+
+        def step():
+            for ev in b.step():
+                if ev.token_id is not None:
+                    got[ev.request_id].append(ev.token_id)
+
+        step()                                              # the admissions
+        _mesh_reset()
+        step()                                              # a frozen quantum (K8)
+        b._decode_fn = functools.partial(scheduler._decode_quantum, model.forward_paged)
+        step()                                              # a stepwise quantum (K9)
+        return got, _mesh_launches()
+
+    if rank == 0:
+        single, _ = run(None)
+    got, launches = run((1, 1, 2))
+    L = cfg.num_hidden_layers
+    want = {"paged_decode_frozen": L * q, "paged_decode": L * q}
+    log(f"{tag} rank {rank}: launches {launches} (want {want})")
+    if launches != want:
+        raise PhaseError(f"{tag} rank {rank}: launches {launches} != {want}")
+    _mesh_same_tokens(torch.tensor([got[i] for i in range(4)]), tag)
+    if rank == 0:
+        _mesh_near_ties(tag, params, cfg, [prompts[i] for i in range(4)],
+                        [got[i] for i in range(4)], [single[i] for i in range(4)])
+    del params
+    torch.cuda.empty_cache()
+
+
+def _mesh_dir_engine(rank: int, d: str) -> None:
+    """GPTEngine on the 2-layer model dir: at (2, 1, 1) (dp: the 4 prompts
+    cut 2 and 2, the tokens all-gathered) in fp32 against one rank's
+    engine, then pipeline stages at (1, 1, 2, 1) in bf16: the prefill's
+    last-position logits against one rank's forward within MESH_PIPE_TOL, generate_sync's tokens equal on both ranks, and K1 (the
+    prefill) and K13 (each pipelined decode step) launched."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+    from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
+
+    prompts = ["The printing press changed how knowledge moved", "Once upon a time,",
+               "In a shocking finding, scientists discovered", "def add(a, b):"]
+    kw = dict(model_dir=d, device=DEVICE, max_tokens=9, decode_chunk=8)
+    tag = "[mesh] engine (2,1,1)"
+    single = None
+    if rank == 0:
+        eng = GPTEngine(GPTConfig(dtype="float32", **kw))
+        eng.prepare()
+        single = [o.token_ids for o in eng.generate_sync(prompts)]
+        single_params = eng.ctx.params
+        del eng
+    eng = GPTEngine(GPTConfig(dtype="float32", mesh_shape=(2, 1, 1), **kw))
+    eng.prepare()
+    _mesh_reset()
+    got = [o.token_ids for o in eng.generate_sync(prompts)]
+    launches = _mesh_launches()
+    log(f"{tag} rank {rank}: launches {launches}")
+    if not launches.get("flash_prefill") or not launches.get("flash_decode_frozen"):
+        raise PhaseError(f"{tag} rank {rank}: K1 or K2 not launched ({launches})")
+    _mesh_same_tokens(torch.tensor(got), tag)
+    if rank == 0:
+        tok = eng.ctx.tokenizer
+        _mesh_near_ties(tag, single_params, eng.ctx.model_config,
+                        [tok.encode(p) for p in prompts], got, single)
+        del single_params
+    del eng
+    torch.cuda.empty_cache()
+
+    tag = "[mesh] pipeline (1,1,2,1)"
+    eng = GPTEngine(GPTConfig(dtype="bfloat16", mesh_shape=(1, 1, 2, 1), **kw))
+    eng.prepare()
+    S = 64
+    ids, pos, valid = _left_padded_batch(S, (64, 50, 33, 12), eng.ctx.model_config.vocab_size,
+                                         seed=2)
+    cache = create_kv_cache(eng._run_cfg, 4, S, dtype=torch.bfloat16, device=DEVICE)
+    logits, _ = eng._forward(eng.ctx.params, ids, cache, pos, valid)
+    if rank == 0:
+        ref_eng = GPTEngine(GPTConfig(dtype="bfloat16", **kw))
+        ref_eng.prepare()
+        mc = ref_eng.ctx.model_config
+        ref, _ = ref_eng.ctx.model.forward(
+            ref_eng.ctx.params, mc, ids, create_kv_cache(mc, 4, S, dtype=torch.bfloat16,
+                                                         device=DEVICE),
+            pos, valid, last_only=True)
+        err = (logits - ref).abs().max().item()
+        log(f"{tag}: prefill last-position logits against one rank's forward, max_abs_err "
+            f"{err:.4g} (tol {MESH_PIPE_TOL})")
+        if not math.isfinite(err) or err > MESH_PIPE_TOL:
+            raise PhaseError(f"{tag}: logits differ by {err}")
+        del ref_eng
+    _mesh_reset()
+    got = [o.token_ids for o in eng.generate_sync(prompts)]
+    launches = _mesh_launches()
+    log(f"{tag} rank {rank}: launches {launches}")
+    if not launches.get("flash_prefill") or not launches.get("flash_decode"):
+        raise PhaseError(f"{tag} rank {rank}: K1 or K13 not launched ({launches})")
+    _mesh_same_tokens(torch.tensor(got), tag)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _mesh_moe(rank: int) -> None:
+    """Mixtral-8x7B widths in int4 (group 128), 2 layers, its 8 experts
+    over sp = 2 (1, 2, 1): each rank's K11b reads its own 4 experts (the
+    rows routed to the other rank's give 0) and the partial sums meet in
+    the sp all-reduce. Rank 0 first runs the params unsharded; the sharded
+    logits of every position within MESH_MOE_TOL, K11b launched on both
+    ranks."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.parallel import distributed
+
+    tag = "[mesh] mixtral int4 experts over sp (1,2,1)"
+    cfg = parse_model_config(dict(MIXTRAL_8X7B, num_hidden_layers=2))
+    params = _mixtral_params(cfg, 4)
+    lens = PROMPT_LENS
+    S = max(lens)
+    T = S + DECODE_CHUNK
+    batch = _left_padded_batch(S, lens, cfg.vocab_size, seed=3)
+    fed = torch.zeros((1 + DECODE_CHUNK, len(lens)), dtype=torch.int32, device=DEVICE)
+    ref = None
+    if rank == 0:
+        ref = _run_route(params, cfg, batch, T, "kernel", n_chunks=1)
+        fed.copy_(ref[1])
+    distributed.broadcast(fed, 0, torch.distributed.group.WORLD)
+    eng = _mesh_engine(params, cfg, (1, 2, 1), dtype="bfloat16")
+    del params
+    sc = eng.ctx.params["shard"]
+    if not sc.ep or sc.experts != cfg.num_local_experts // 2:
+        raise PhaseError(f"{tag}: experts not cut over sp ({sc})")
+    _mesh_reset()
+    got = _run_route(eng.ctx.params, eng._run_cfg, batch, T, "kernel", n_chunks=1, force=fed)
+    launches = _mesh_launches()
+    log(f"{tag} rank {rank}: experts {sc.expert_start}..{sc.expert_start + sc.experts - 1}, "
+        f"launches {launches}")
+    if launches.get("moe_gather_matmul_int4", 0) != 2 * 2 * DECODE_CHUNK:
+        raise PhaseError(f"{tag} rank {rank}: K11b launched "
+                         f"{launches.get('moe_gather_matmul_int4', 0)} times, want "
+                         f"{2 * 2 * DECODE_CHUNK}")
+    if rank == 0:
+        _check_routes("mixtral int4, 2 layers, experts over sp, against one rank", got, ref,
+                      MESH_MOE_TOL, tag="[mesh]")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _mesh_near_ties(tag, params, cfg, prompts, got, want, gap=1e-3) -> None:
+    """Greedy streams of the mesh against one rank's (fp32): equal, or
+    equal up to a first difference where both tokens are within `gap` of
+    the top of one rank's dense logits (the order of a sum may swap a
+    near-tie), as the CPU tests hold the port to the JAX package."""
+    import torch
+
+    from tinygpt_tpu_torch.engine.kv_cache import create_kv_cache
+    from tinygpt_tpu_torch.models import causal_lm
+
+    flips = 0
+    for p, a, b in zip(prompts, got, want):
+        if a == b:
+            continue
+        i = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), None)
+        if i is None:
+            raise PhaseError(f"{tag}: streams of different lengths {a} / {b}")
+        ctx = list(p) + list(a[:i])
+        n = len(ctx)
+        cache = create_kv_cache(cfg, 1, n, dtype=torch.float32, device=DEVICE)
+        lg, _ = causal_lm.forward(params, cfg, torch.tensor([ctx], device=DEVICE), cache,
+                                  torch.arange(n, device=DEVICE, dtype=torch.int32)[None],
+                                  torch.ones((1, n), dtype=torch.bool, device=DEVICE),
+                                  last_only=True)
+        lg = lg[0, -1]
+        top = lg.max().item()
+        if top - lg[a[i]].item() >= gap or top - lg[b[i]].item() >= gap:
+            raise PhaseError(f"{tag}: a stream departs from one rank's at token {i} "
+                             f"({a[i]} / {b[i]}) without a near-tie")
+        flips += 1
+    log(f"{tag}: {len(got)} streams of {len(got[0])} tokens equal one rank's (fp32)"
+        + (f", {flips} of them up to a near-tie" if flips else ""))
+
+
+def mesh_rank_main(rank: int, port: int, d: str, out: str) -> int:
+    """One rank of the mesh phase (python3 chip_smoke.py --mesh-rank R
+    --mesh-port P --mesh-dir D --mesh-out F): joins the gloo group on the
+    one card (NCCL refuses two ranks on one device), runs the legs, writes
+    its results to F. A failed leg exits non-zero."""
+    import torch
+
+    from tinygpt_tpu_torch.parallel import distributed
+
+    global E4M3, DEVICE
+    E4M3 = torch.float8_e4m3fn
+    DEVICE = "cuda:0"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", MESH_RANKS, rank, backend="gloo",
+                           device=DEVICE)
+    res, seconds = {}, {}
+    try:
+        with torch.inference_mode():
+            for name, leg in (("tp full width", lambda: _mesh_tp_full_width(rank, res)),
+                              ("batcher", lambda: _mesh_batcher(rank)),
+                              ("engine dp, pipeline", lambda: _mesh_dir_engine(rank, d)),
+                              ("mixtral sp", lambda: _mesh_moe(rank))):
+                t0 = time.perf_counter()
+                leg()
+                seconds[name] = round(time.perf_counter() - t0, 1)
+    except PhaseError as e:
+        print(f"chip_smoke: mesh rank {rank} FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    res["seconds"] = seconds
+    with open(out, "w") as f:
+        json.dump(res, f)
+    distributed.barrier()
+    return 0
+
+
+def _mesh_cli(d: str) -> None:
+    """python -m tinygpt_tpu_torch.cli --mesh 1,1,2 as two processes (the
+    torch env of torchrun, gloo on the one card) on the 2-layer dir in
+    fp32: rank 0 prints what one process prints."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [sys.executable, "-m", "tinygpt_tpu_torch.cli", "--model", d, "--device", "cuda:0",
+            "--dtype", "float32", "--max-tokens", "8", "--prompt", "Hello world",
+            "--prompt", "The best way to learn programming is"]
+    env = dict(os.environ, PYTHONPATH=root)
+    one = subprocess.run(args, env=env, cwd=root, capture_output=True, text=True, timeout=300)
+    if one.returncode:
+        raise PhaseError(f"[mesh] cli, one process: exit {one.returncode}: {one.stderr[-2000:]}")
+    port = _mesh_port()
+    procs = []
+    for r in range(2):
+        out = os.path.join(d, f"cli{r}.out")
+        f = open(out, "w")
+        procs.append((subprocess.Popen(
+            args + ["--mesh", "1,1,2", "--dist-backend", "gloo"], cwd=root, stdout=f,
+            stderr=open(out + ".err", "w"), text=True,
+            env=dict(env, MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2",
+                     RANK=str(r), LOCAL_RANK=str(r))), out))
+    outs = _mesh_wait(procs, 300, "cli")
+    if outs[0] != one.stdout or outs[1]:
+        raise PhaseError(f"[mesh] cli --mesh 1,1,2: rank 0 printed {outs[0]!r}, rank 1 "
+                         f"{outs[1]!r}; one process {one.stdout!r}")
+    log(f"[mesh] cli --mesh 1,1,2 (2 processes, gloo): rank 0 printed what one process "
+        f"prints ({len(one.stdout)} chars), rank 1 nothing")
+
+
+def _mesh_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _mesh_start(args, log_path: str, **kw):
+    """A rank's process, its output and errors into log_path."""
+    f = open(log_path, "w")
+    return subprocess.Popen(args, stdout=f, stderr=subprocess.STDOUT, text=True, **kw), log_path
+
+
+def _mesh_wait(procs, timeout: float, what: str):
+    """Wait for every rank's process [(Popen, log path)]; the first that
+    fails, or any still running after `timeout`, fails the phase, and every
+    process still running is killed then. Returns each rank's output."""
+    deadline = time.perf_counter() + timeout
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            failed = [r for r, (p, _) in enumerate(procs) if p.poll()]
+            if failed or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+        for r, (p, path) in enumerate(procs):
+            if p.poll() is None:
+                raise PhaseError(f"[mesh] {what}: rank {r} still running after {timeout} s "
+                                 f"(or another rank failed)")
+            if p.returncode:
+                with open(path) as f:
+                    raise PhaseError(f"[mesh] {what}: rank {r} exit {p.returncode}: "
+                                     f"{f.read()[-3000:]}")
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for _, path in procs:
+        with open(path) as f:
+            outs.append(f.read())
+    return outs
+
+
+def phase_mesh() -> None:
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device): the kernels at tp = 2's local shapes here, then the ranks'
+    legs (mesh_rank_main) and the CLI as two processes. The kernels were
+    built by the build phase, before any rank starts: the ranks load them
+    (no two processes build the same library at once). Times are those of
+    2 ranks sharing one H100: they show the layouts work, not scaling."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import cuda_build
+
+    phase_mesh_kernels()
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="smoke_mesh_", dir=cuda_build.BUILD_DIR)
+    try:
+        _write_model_dir(d)
+        port = _mesh_port()
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(MESH_RANKS)]
+        script = os.path.abspath(__file__)
+        t0 = time.perf_counter()
+        procs = [_mesh_start(
+            [sys.executable, script, "--mesh-rank", str(r), "--mesh-port", str(port),
+             "--mesh-dir", d, "--mesh-out", outs[r]], os.path.join(d, f"rank{r}.log"),
+            cwd=os.path.dirname(script)) for r in range(MESH_RANKS)]
+        try:
+            got = _mesh_wait(procs, MESH_TIMEOUT_S, "ranks")
+        except PhaseError:
+            for r in range(MESH_RANKS):  # every rank's lines, for the record
+                with open(os.path.join(d, f"rank{r}.log")) as f:
+                    log(f"[mesh] rank {r} log:\n{f.read()[-20000:]}")
+            raise
+        for r, out in enumerate(got):
+            for line in out.splitlines():
+                log(line if line.startswith("[mesh]") else f"[mesh] rank {r}: {line}")
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+        log(f"[mesh] ranks done in {time.perf_counter() - t0:.1f} s; legs (s): "
+            + "; ".join(f"rank {r} {x['seconds']}" for r, x in enumerate(res)))
+        if not all(x["tp_launches"].get("mlp_fused_int4_stacked") for x in res):
+            raise PhaseError("[mesh] K7 was not launched on every rank")
+        _mesh_cli(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
+    if "--mesh-rank" in sys.argv:  # one rank of the mesh phase
+        arg = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return mesh_rank_main(int(arg["--mesh-rank"]), int(arg["--mesh-port"]),
+                              arg["--mesh-dir"], arg["--mesh-out"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5347,6 +6009,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed("k13", phase_k13_kernels, table)
         timed("stream", phase_stream, table)
+        torch.cuda.empty_cache()
+        timed("mesh", phase_mesh)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1885,7 +1885,7 @@ def test_gpt2_on_the_card_matches_the_cpu(dev):
 # (QTOL): the same exact dequantization, summed in another order.
 
 from tinygpt_tpu_torch.ops import moe_kernels as mk  # noqa: E402
-from tinygpt_tpu_torch.ops.quant import _quantize_moe_stacked  # noqa: E402
+from tinygpt_tpu_torch.ops.quant import QuantizedTensor, _quantize_moe_stacked  # noqa: E402
 
 MOE_KERNELS = {"float": (mk.moe_gather_matmul, mk.moe_gather_matmul_plain),
                8: (mk.moe_gather_matmul_int8, mk.moe_gather_matmul_int8_plain),
@@ -2439,3 +2439,134 @@ def test_generate_async_on_the_card_matches_the_cpu(dev, tmp_path, quantization)
         assert ak.LAUNCHES[attn] == 2 * 16 and ak.LAUNCHES["flash_prefill"] == 2
         assert out.token_ids == want.token_ids == eng.generate_sync([prompt])[0].token_ids
         assert "".join(chunks) == want.text
+
+
+# -- the local shapes of the sharded paths (parallel/) ----------------------------------
+# A rank of a tp = 2 mesh runs the same kernels on its shard: K6 for qkv on
+# its local heads (RoPE, and qk-norm for qwen3, on those heads), K6 for o
+# and K7 at I / 2 with the residual off on every rank but tp rank 0, K2 and K8
+# at the local KV heads; under expert parallelism the gathered kernels
+# read a stack of the rank's experts, ids remapped by moe_gather_local and
+# the rows routed elsewhere given 0.
+
+SHARD_FUSED_CASES = [
+    # (what, M, IN, OUT, rope_heads, D, qk_heads): Mistral-7B and qwen3-1.7B at tp = 2
+    ("qkv 16 + 2 x 4 heads", 4, 4096, 3072, 20, 128, 0),
+    ("qkv qwen3 8 + 2 x 4 heads", 4, 2048, 2048, 12, 128, 8),
+    ("o 2,048 rows, residual off", 4, 2048, 4096, 0, 128, 0),
+]
+
+
+@pytest.mark.parametrize("case", SHARD_FUSED_CASES)
+def test_int4_fused_at_the_tp2_local_shapes_matches_plain(dev, case):
+    what, M, IN, OUT, rope_heads, D, qk_heads = case
+    gen = torch.Generator().manual_seed(21)
+    L, dtype = 2, torch.bfloat16
+    data, scales, g, _ = _qweight(gen, L, IN, OUT, 64, dev)
+    x = _randn(gen, M, IN, dtype=dtype, dev=dev)
+    kw = {}
+    if rope_heads:
+        ang = torch.rand((M, D // 2), generator=gen) * 6.3
+        kw.update(ln=(1 + 0.1 * torch.randn((L, IN), generator=gen)).to(dtype).to(dev),
+                  invrms=torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + 1e-5),
+                  rope_cos=torch.cat([ang.cos()] * 2, -1).to(dev),
+                  rope_sin=torch.cat([ang.sin()] * 2, -1).to(dev),
+                  rope_heads=rope_heads, rope_dim=D)
+    if qk_heads:
+        kw.update(qk_norm_w=tuple((1 + 0.1 * torch.randn((L, D), generator=gen))
+                                  .to(dtype).to(dev) for _ in range(2)),
+                  qk_heads=qk_heads, eps=1e-6)
+    for l in range(L):
+        ak.reset_launches()
+        got = qk.matmul_dequant_int4_stacked_fused(x, data, scales, l, g, **kw)
+        assert ak.LAUNCHES["matmul_dequant_int4_stacked_fused"] == 1
+        want = qk.matmul_dequant_int4_stacked_fused_plain(x, data, scales, l, g, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, OUT)
+        _qclose(got, want, dtype, f"{what} layer {l}")
+    if not rope_heads:  # the lead rank's call adds the residual to the same sum
+        res = _randn(gen, M, OUT, dtype=dtype, dev=dev)
+        with_res = qk.matmul_dequant_int4_stacked_fused(x, data, scales, 1, g, res=res)
+        _qclose(with_res, (got.float() + res.float()).to(dtype), dtype, "residual on")
+
+
+def test_int4_mlp_at_half_the_intermediate_dim_matches_plain(dev):
+    """K7 at Mistral-7B's I / 2 = 7,168 (tp = 2), 4 rows in bf16."""
+    gen = torch.Generator().manual_seed(22)
+    L, M, H, I, dtype = 2, 4, 4096, 7168, torch.bfloat16
+    gu, gus, g, _ = _qweight(gen, L, H, 2 * I, 64, dev)
+    dn, dns, _, _ = _qweight(gen, L, I, H, 64, dev)
+    x = _randn(gen, M, H, dtype=dtype, dev=dev)
+    ln = (1 + 0.1 * torch.randn((L, H), generator=gen)).to(dtype).to(dev)
+    inv = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + 1e-5)
+    for l in range(L):
+        ak.reset_launches()
+        got = qk.mlp_fused_int4_stacked(x, gu, gus, dn, dns, ln, inv, l, g)
+        assert ak.LAUNCHES["mlp_fused_int4_stacked"] == 1
+        want = qk.mlp_fused_int4_stacked_plain(x, gu, gus, dn, dns, ln, inv, l, g)
+        torch.cuda.synchronize()
+        _qclose(got, want, dtype, f"layer {l}")
+    # a tp rank other than 0: the same kernel without the residual
+    part = qk.mlp_fused_int4_stacked(x, gu, gus, dn, dns, ln, inv, 1, g, residual=False)
+    want = qk.mlp_fused_int4_stacked_plain(x, gu, gus, dn, dns, ln, inv, 1, g,
+                                           residual=False)
+    torch.cuda.synchronize()
+    _qclose(part, want, dtype, "residual off")
+
+
+def test_decode_kernels_at_four_kv_heads_match_plain(dev):
+    """K2 and K8 at a tp = 2 rank's 16 query over 4 KV heads of 128, the
+    model phase's and the serve phase's shapes."""
+    D, Nq, Nk, L, T, N, dtype = 128, 16, 4, 2, 576, 32, torch.bfloat16
+    gen = torch.Generator().manual_seed(23)
+    pads = (0, 112, 212, 384)
+    B = len(pads)
+    ks = _randn(gen, L, B, Nk, T, D, dtype=dtype, dev=dev)
+    vs = _randn(gen, L, B, Nk, T, D, dtype=dtype, dev=dev)
+    ki = _randn(gen, B, Nk, N, D, dtype=dtype, dev=dev)
+    vi = _randn(gen, B, Nk, N, D, dtype=dtype, dev=dev)
+    q = _randn(gen, B, Nq, D, dtype=dtype, dev=dev)
+    slots = torch.arange(T, device=dev)[None, :]
+    pad = torch.tensor(pads, device=dev)[:, None]
+    length, step = 544, 31
+    mask = (slots >= pad) & (slots < length) & ((slots - pad).clamp(min=0) <= length - pad + step)
+    for l in range(L):
+        args = (q, ks, vs, mask, ki, vi, l, step, D ** -0.5, None)
+        got = ak.flash_decode_frozen(*args)
+        want = ak.flash_decode_frozen_plain(*args)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= TOL[dtype], f"K2 layer {l}"
+    q, kp, vp, tables, lens, sts, ki, vi = _paged_case(
+        dev, D, dtype, 4, Nk, 64, 16, 129, 8, tuple(512 + 17 * i for i in range(8)),
+        (0,) * 8, (), False)
+    for l in range(2):
+        args = (q, kp, vp, tables, lens, sts, ki, vi, l, 7, D ** -0.5, None)
+        ak.reset_launches()
+        got = pa.paged_decode_frozen(*args)
+        assert ak.LAUNCHES["paged_decode_frozen"] == 1
+        want = pa.paged_decode_frozen_plain(*args)
+        torch.cuda.synchronize()
+        assert _within(got, want, _paged_tol(dtype, want)), f"K8 layer {l}"
+
+
+@pytest.mark.parametrize("kind", ["float", 4])
+def test_moe_gather_on_local_experts_matches_plain(dev, kind):
+    """K12 (bf16) and K11b (int4) on a rank's stack of 4 of 8 experts
+    (Mixtral's gate_up and down at sp = 2): global ids remapped around the
+    kernel, rows routed to the other rank exactly 0, and every row the
+    kernel's plain version gives."""
+    for IN, OUT in ((4096, 28672), (14336, 4096)):
+        stack, group = _moe_stack(kind, 2, 4, IN, OUT, 128, dev, seed=7)
+        w = stack[0] if kind == "float" else QuantizedTensor(*stack, 4, group, IN)
+        idx = torch.randint(0, 8, (16,), generator=torch.Generator().manual_seed(IN),
+                            dtype=torch.int32).to(dev)
+        x = _randn(torch.Generator().manual_seed(8), 16, IN, dtype=torch.bfloat16, dev=dev)
+        for e0 in (0, 4):
+            ak.reset_launches()
+            got = mk.moe_gather_local(x, w, 1, idx, (e0, 4), "kernel")
+            assert ak.LAUNCHES[MOE_NAMES[kind]] == 1
+            want = mk.moe_gather_local(x, w, 1, idx, (e0, 4), "plain")
+            torch.cuda.synchronize()
+            away = (idx < e0) | (idx >= e0 + 4)
+            assert not got[away].any() and not want[away].any()
+            _qclose(got, want, torch.bfloat16, f"{MOE_NAMES[kind]} e0={e0} IN={IN}")

@@ -82,10 +82,23 @@ def test_batch_row_matches_single(engines):
     assert solo.token_ids == batch.token_ids
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1, 2))])
-def test_deferred_features_raise(model_dir, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTEngine(GPTConfig(model_dir=model_dir, device="cpu", **kw)).prepare()
+@pytest.mark.parametrize("mesh", [(1, 1, 2), (2, 1, 1, 1)])
+def test_mesh_needs_a_process_group(model_dir, mesh):
+    """A mesh of several ranks in a process without a process group
+    raises: it never runs quietly on one rank."""
+    with pytest.raises(ValueError, match="ranks"):
+        GPTEngine(GPTConfig(model_dir=model_dir, device="cpu", mesh_shape=mesh)).prepare()
+
+
+def test_mesh_of_one_rank_matches_jax(model_dir, engines):
+    """mesh_shape=(1, 1, 1): the sharded path's one-rank case gives the JAX
+    engine's tokens."""
+    jeng, _ = engines
+    eng = GPTEngine(GPTConfig(model_dir=model_dir, device="cpu", mesh_shape=(1, 1, 1),
+                              **ENGINE_KW))
+    eng.prepare()
+    want = jeng.generate_sync(PROMPTS)
+    assert [g.token_ids for g in eng.generate_sync(PROMPTS)] == [w.token_ids for w in want]
 
 
 @pytest.mark.parametrize("kw", [dict(quantization="int4", awq=False, kv_cache_dtype="e4m3"),
@@ -126,9 +139,13 @@ def test_cli_batch(model_dir, capsys):
     assert ">>> Hello" in out and ">>> world" in out
 
 
-def test_cli_deferred_flag_raises(model_dir):
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_cli_mesh_needs_a_process_group(model_dir, monkeypatch):
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="ranks"):
         cli.main(["--model", model_dir, "--device", "cpu", "--mesh", "1,1,2"])
+    with pytest.raises(ValueError, match="DP,SP,TP"):
+        cli.main(["--model", model_dir, "--device", "cpu", "--mesh", "2,2"])
 
 
 def test_engine_sampling_is_seeded(model_dir):

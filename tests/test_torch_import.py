@@ -45,6 +45,30 @@ def test_port_imports_without_jax():
     assert r.stdout.startswith("imported")
 
 
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tinygpt_tpu"))
+assert not bad, bad
+print("imported", sys.argv[1])
+"""
+
+
+@pytest.mark.parametrize("module", ["tinygpt_tpu_torch.parallel",
+                                    "tinygpt_tpu_torch.parallel.distributed",
+                                    "tinygpt_tpu_torch.parallel.sharding",
+                                    "tinygpt_tpu_torch.parallel.pipeline"])
+def test_parallel_imports_alone_without_jax(module):
+    """Each module of parallel/ imports first in a fresh process (no
+    import cycle through the models or the engine), without jax or
+    tinygpt_tpu."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == f"imported {module}"
+
+
 def test_sources_name_no_jax_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tinygpt_tpu)(\.|\s|$)", re.M)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]

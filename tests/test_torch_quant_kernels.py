@@ -194,3 +194,23 @@ def test_mlp_plain_is_the_two_call_composition_in_fp32():
         gu = qk.matmul_dequant_int4_stacked_fused(x, gd, gs, l, G, ln=ln, invrms=inv)
         two = qk.matmul_dequant_int4_stacked_fused(gu, dd, ds, l, G, silu=True, res=x)
         torch.testing.assert_close(one, two, rtol=1e-5, atol=1e-5)
+
+
+def test_mlp_without_the_residual_is_a_tp_ranks_partial_sum():
+    """residual=False (a tp rank other than 0) drops the "x +" and nothing
+    else: the result is the two-call route without res, and adding x gives
+    the residual-on result."""
+    rng = np.random.default_rng(9)
+    L, H, I, M, G = 2, 256, 320, 3, 64
+    _, gd, gs = _quant(rng, (L, H, 2 * I), G)
+    _, dd, ds = _quant(rng, (L, I, H), G)
+    x = _t(rng.standard_normal((M, H)).astype(np.float32))
+    ln = _t(rng.standard_normal((L, H)).astype(np.float32))
+    inv = torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-5)
+    for l in range(L):
+        part = qk.mlp_fused_int4_stacked(x, gd, gs, dd, ds, ln, inv, l, G, residual=False)
+        gu = qk.matmul_dequant_int4_stacked_fused(x, gd, gs, l, G, ln=ln, invrms=inv)
+        two = qk.matmul_dequant_int4_stacked_fused(gu, dd, ds, l, G, silu=True)
+        torch.testing.assert_close(part, two, rtol=1e-5, atol=1e-5)
+        whole = qk.mlp_fused_int4_stacked(x, gd, gs, dd, ds, ln, inv, l, G)
+        torch.testing.assert_close(part + x, whole, rtol=1e-5, atol=1e-5)

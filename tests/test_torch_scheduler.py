@@ -464,12 +464,21 @@ def test_pool_exhaustion_finishes_with_length():
     assert b.allocator.n_free == 3
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mesh_shape=(1, 1, 2)), "item 13"),
-])
-def test_not_ported_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _port_batcher("llama", **kw)
+def test_mesh_of_one_rank_matches_jax():
+    """SchedulerConfig.mesh_shape=(1, 1, 1) and (1, 1): the sharded path's
+    one-rank case streams what the JAX batcher does; a mesh of several
+    ranks without a process group raises."""
+    jcfg, jparams, _, _ = _models("llama")
+    prompts = _prompts(61, (5, 18))
+    kw = dict(batch_capacity=2, n_blocks=32)
+    jb = JBatcher(j_get_model(jcfg.model_type), jcfg, jparams, eos_ids=set(),
+                  config=JSchedulerConfig(**SC, **kw))
+    want, _ = _run(jb, prompts, 6)
+    for mesh in ((1, 1, 1), (1, 1)):
+        got, _ = _run(_port_batcher("llama", mesh_shape=mesh, **kw), prompts, 6)
+        _assert_streams_agree("llama", prompts, got, want)
+    with pytest.raises(ValueError, match="ranks"):
+        _port_batcher("llama", mesh_shape=(2, 1, 1), **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(speculative="ngram", spec_draft_len=3, spec_ngram=2),

@@ -10,9 +10,16 @@ with AWQ by default (`--awq-calib FILE` to calibrate on your own text,
 `--no-awq` for plain round-to-nearest). `--speculative ngram` decodes a
 single prompt by n-gram speculation (a batch of prompts takes the chunked
 loop). `--stream` streams the first prompt through
-GPTEngine.generate_async, printing text as it arrives. The flag of a
-feature not ported yet (--mesh) is accepted and raises
-NotImplementedError.
+GPTEngine.generate_async, printing text as it arrives.
+
+`--mesh DP,SP,TP` or `DP,SP,PP,TP` runs the engine sharded, one process a
+rank, each joining the process group from the torch env first
+(parallel.distributed.initialize):
+
+    torchrun --nproc-per-node N -m tinygpt_tpu_torch.cli --model DIR --mesh 1,1,N
+
+one rank a card over NCCL (`--dist-backend gloo` for ranks that share a
+card or run on the CPU). Rank 0 prints the results.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import time
 
 from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
 from tinygpt_tpu_torch.ops.sampling import SamplerConfig
+from tinygpt_tpu_torch.parallel import distributed
 
 DEFAULT_PROMPTS = [
     "The meaning of life is",
@@ -31,8 +39,16 @@ DEFAULT_PROMPTS = [
     "The best way to learn programming is",
 ]
 
-# flag -> ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {"mesh": 13}
+
+
+def parse_mesh(text):
+    """"DP,SP,TP" or "DP,SP,PP,TP" -> a tuple of ints (None: no mesh)."""
+    if not text:
+        return None
+    shape = tuple(int(x) for x in text.split(","))
+    if len(shape) not in (3, 4):
+        raise ValueError(f"--mesh {text!r}: want DP,SP,TP or DP,SP,PP,TP")
+    return shape
 
 
 def main(argv=None) -> int:
@@ -67,16 +83,21 @@ def main(argv=None) -> int:
     ap.add_argument("--awq-calib", default=None, metavar="TEXT_FILE",
                     help="calibration text for --awq (default: built-in)")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
-                    help="(not ported yet)")
+                    help="device mesh (DP,SP,TP or DP,SP,PP,TP), one process "
+                         "a rank (torchrun)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend under --mesh (default: nccl "
+                         "on a CUDA device, gloo on the CPU)")
     ap.add_argument("--speculative", default=None, choices=["ngram"],
                     help="speculative decoding (one prompt; greedy exact, "
                          "sampled via exact rejection sampling)")
     args = ap.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported to tinygpt_tpu_torch yet "
-                f"(ROADMAP.md queue 1, item {item})")
+    mesh = parse_mesh(args.mesh)
+    if mesh is not None:
+        # join the process group of the torch env (torchrun's); a no-op
+        # without one, and then the engine refuses a mesh of several ranks
+        distributed.initialize(backend=args.dist_backend, device=args.device)
+    lead = distributed.world()[0] == 0
 
     engine = GPTEngine(GPTConfig(
         model_dir=args.model,
@@ -93,6 +114,7 @@ def main(argv=None) -> int:
         awq=args.awq,
         awq_calib_path=args.awq_calib,
         speculative=args.speculative,
+        mesh_shape=mesh,
     ))
     t0 = time.perf_counter()
     engine.prepare()
@@ -101,11 +123,12 @@ def main(argv=None) -> int:
     prompts = args.prompt or DEFAULT_PROMPTS
 
     if args.stream:
-        print(f">>> {prompts[0]}", flush=True)
+        if lead:
+            print(f">>> {prompts[0]}", flush=True)
         t0 = time.perf_counter()
         out = engine.generate_async(
             prompts[0],
-            lambda chunk, done: (print(chunk, end="", flush=True), True)[1],
+            lambda chunk, done: (lead and print(chunk, end="", flush=True), True)[1],
         )
         dt = time.perf_counter() - t0
         print(f"\n[{len(out.token_ids)} tokens, "
@@ -117,7 +140,8 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
     total_tokens = sum(len(o.token_ids) for o in outs)
     for p, o in zip(prompts, outs):
-        print(f">>> {p}\n{o.text}\n")
+        if lead:
+            print(f">>> {p}\n{o.text}\n")
     print(
         f"[generate] {total_tokens} tokens in {dt * 1e3:.0f} ms "
         f"({total_tokens / dt:.2f} token/s)",

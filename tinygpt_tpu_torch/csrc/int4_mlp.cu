@@ -1,5 +1,7 @@
 // The whole SwiGLU MLP of one layer in int4, for M <= 32 rows:
 //   out = x + down(silu(g) * u),  [g || u] = gate_up(x * invrms * ln[layer])
+// or, with the residual off, out = down(silu(g) * u): a tensor-parallel
+// rank's partial sum, whose residual one rank of the group adds.
 //
 // Replaces the TPU kernel tinygpt_tpu/ops/quant_kernels.py::
 // mlp_fused_int4_stacked (K7, _mlp_kernel_int4_stacked). As there, the
@@ -32,14 +34,14 @@ struct MlpPlan {
 MlpPlan mlp_plan(const void* x, const void* gu_data, const void* gu_scales, const void* dn_data,
                  const void* dn_scales, const void* ln, const void* invrms, void* act, void* out,
                  int M, int H, int Hp, int I2, int Ip, int group, int layer, int dtype,
-                 int split_b) {
+                 int residual, int split_b) {
   MlpPlan p;
   p.a = tg::plain_gemv_args(x, gu_data, gu_scales, act, M, H, Hp, I2, group, layer);
   p.a.ln = ln;
   p.a.invrms = static_cast<const float*>(invrms);
   p.b = tg::plain_gemv_args(act, dn_data, dn_scales, out, M, I2 / 2, Ip, H, group, layer);
   p.b.silu = 1;
-  p.b.res = x;
+  p.b.res = residual ? x : nullptr;
   // gate_up's epilogue forms silu(g) * u in down's fragment order where
   // down takes all rows in one pass and the gate / up halves split into
   // 16-byte copies; else act is the fp32 [M, 2I] and down's prologue
@@ -74,9 +76,9 @@ cudaError_t launch(const MlpPlan& p, int split_a, int split_b, cudaStream_t stre
 
 extern "C" {
 
-// out [M, H] = x + down(silu(g) * u) with [g || u] = gate_up(x * invrms * ln):
-// x [M, H] and ln [L, H] of one type (dtype code 0 fp32, 2 bf16), invrms [M]
-// fp32; gate_up packed [L, Hp/2, 2I] with scales [L, Hp/group, 2I], down
+// out [M, H] = x + down(silu(g) * u) with [g || u] = gate_up(x * invrms * ln),
+// without the "x +" where residual is 0: x [M, H] and ln [L, H] of one type
+// (dtype code 0 fp32, 2 bf16), invrms [M] fp32; gate_up packed [L, Hp/2, 2I] with scales [L, Hp/group, 2I], down
 // packed [L, Ip/2, H] with scales [L, Ip/group, H], where Hp >= H and
 // Ip >= I are the (row-padded) contraction dims; act is scratch of
 // max(4 M 2I, 64 Ip parts) bytes (ops/quant_kernels._mlp_act_bytes);
@@ -86,10 +88,10 @@ extern "C" {
 int tg_int4_mlp(const void* x, const void* gu_data, const void* gu_scales, const void* dn_data,
                 const void* dn_scales, const void* ln, const void* invrms, void* act, void* out,
                 int M, int H, int Hp, int I2, int Ip, int group, int layer, int dtype,
-                int split_a, int split_b, void* stream) {
+                int residual, int split_a, int split_b, void* stream) {
   if (!mlp_shape_ok(H, Hp, I2, Ip, dtype) || group <= 0) return cudaErrorInvalidValue;
   const MlpPlan p = mlp_plan(x, gu_data, gu_scales, dn_data, dn_scales, ln, invrms, act, out, M,
-                             H, Hp, I2, Ip, group, layer, dtype, split_b);
+                             H, Hp, I2, Ip, group, layer, dtype, residual, split_b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tg::kF32) return launch<float>(p, split_a, split_b, s);
   return launch<__nv_bfloat16>(p, split_a, split_b, s);
@@ -104,7 +106,7 @@ int tg_int4_mlp_plan(int M, int H, int Hp, int I2, int Ip, int dtype, int split_
                      int* plan) {
   if (!mlp_shape_ok(H, Hp, I2, Ip, dtype)) return cudaErrorInvalidValue;
   const MlpPlan p = mlp_plan(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, M, H, Hp, I2, Ip, 0, 0, dtype, split_b);
+                             nullptr, nullptr, M, H, Hp, I2, Ip, 0, 0, dtype, 1, split_b);
   plan[0] = p.parts;
   tg::gv_describe(p.a, split_a, p.parts, plan + 1);
   plan[4] = p.a.gated;

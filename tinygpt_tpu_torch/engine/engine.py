@@ -40,7 +40,20 @@ verifies them in one (spec_draft_len + 1)-token forward over the dense
 cache (K1 at the round's first slot); a batch takes the chunked loop, as
 the JAX engine does.
 
-Not ported yet, raising NotImplementedError when asked for: device meshes.
+mesh_shape=(dp, sp, tp) or (dp, sp, pp, tp) runs the engine as one rank of
+an SPMD world (parallel/): one process a rank, each holding its shard of
+the weights and of the KV cache and running the same kernels on its local
+shapes, with the collectives at the layer boundaries (models/causal_lm.py).
+dp cuts the batch (every rank all-gathers the sampled tokens over dp, so
+that each host loop sees every row), tp the heads, the MLP and the vocab,
+sp the prefill's sequence (and a MoE model's experts); pp > 1 runs
+microbatched pipeline stages (parallel/pipeline.py; float llama-family
+weights, without sp or speculation). Every rank of a dp shard samples the
+same tokens: the same seeded generator on the same gathered logits.
+Speculation runs in a single process only; under a mesh a prompt takes
+the chunked loop. The mesh must span the whole process group (a mesh
+without one raises ValueError), and a rank runs on cuda:{LOCAL_RANK}
+unless `device` names an index.
 """
 
 from __future__ import annotations
@@ -65,6 +78,13 @@ from tinygpt_tpu_torch.ops.awq import (
 )
 from tinygpt_tpu_torch.ops.quant import quantize_params
 from tinygpt_tpu_torch.ops.sampling import SamplerConfig, sample
+from tinygpt_tpu_torch.parallel.distributed import all_gather, local_rank, world
+from tinygpt_tpu_torch.parallel.sharding import (
+    check_world,
+    make_mesh,
+    mesh_dims,
+    shard_model,
+)
 from tinygpt_tpu_torch.utils.logging import get_logger
 from tinygpt_tpu_torch.utils.timer import timed
 
@@ -80,9 +100,7 @@ class FinishReason(Enum):
 
 @dataclass
 class GPTConfig:
-    """Engine configuration: the JAX GPTConfig's fields, except that of
-    pipeline parallelism (pp_microbatches, ROADMAP.md queue 1, item 13), not
-    ported yet. mesh_shape must keep its default (item 13)."""
+    """Engine configuration: the JAX GPTConfig's fields, and the device."""
 
     model_dir: str
     dtype: str = "bfloat16"
@@ -125,8 +143,11 @@ class GPTConfig:
     speculative: Optional[str] = None
     spec_draft_len: int = 4
     spec_ngram: int = 3
-    # not ported yet (ROADMAP.md queue 1, item 13): must stay None
+    # multi-device execution: (dp, sp, tp) or (dp, sp, pp, tp), one process
+    # a rank (module docstring), or None for a single device. pp excludes
+    # sp, quantization, speculative decoding and gpt2
     mesh_shape: Optional[tuple] = None
+    pp_microbatches: int = 4  # upper bound; actual = largest divisor of B
     # adopt generation_config.json sampling defaults (do_sample +
     # temperature/top_k/top_p/min_p) when no sampler knob was set here
     use_generation_defaults: bool = True
@@ -182,15 +203,13 @@ def ngram_draft(context: Sequence[int], n: int, k: int) -> List[int]:
     return []
 
 
-def _check_ported(cfg: GPTConfig) -> None:
+def _check_config(cfg: GPTConfig) -> None:
     if cfg.quantization not in (None, "int4", "int8"):
         raise ValueError(f"unknown quantization {cfg.quantization!r}")
     if cfg.speculative not in (None, "ngram"):
         raise ValueError(f"unknown speculative mode {cfg.speculative!r}")
     if cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            "GPTConfig.mesh_shape is not ported to tinygpt_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 13)")
+        check_world(cfg.mesh_shape)
 
 
 def quantize_loaded(ctx: GPTContext, quantization: str,
@@ -327,20 +346,26 @@ class GPTEngine:
     # -- lifecycle -----------------------------------------------------
 
     def prepare(self) -> None:
-        """Load the model dir onto the device and collect EOS ids."""
+        """Load the model dir onto the device and collect EOS ids; under a
+        mesh, keep this rank's shard."""
         cfg = self.config
-        _check_ported(cfg)
+        _check_config(cfg)
         self._device = torch.device(cfg.device)
+        if cfg.mesh_shape is not None and self._device.type == "cuda" \
+                and self._device.index is None:
+            self._device = torch.device("cuda", local_rank())
+        mc = load_model_config(cfg.model_dir)
+        if cfg.mesh_shape is not None:
+            self._check_pipeline(mc)
         # a shape the kernels do not take fails here, before any weight loads
-        check_kernel_shapes(load_model_config(cfg.model_dir), self._device)
+        check_kernel_shapes(mc, self._device)
         self.ctx = load_model_dir(cfg.model_dir, dtype=cfg.dtype,
                                   device=self._device)
         if cfg.quantization:
             self.ctx.params = quantize_loaded(
                 self.ctx, cfg.quantization, cfg.quant_group_size, cfg.awq,
                 cfg.awq_calib_path, cfg.awq_calib_tokens)
-        self._generator = torch.Generator(device=self._device)
-        self._generator.manual_seed(cfg.seed)
+        self.shard(cfg.mesh_shape)
         self._collect_eos_ids()
         gen = self.ctx.generation_config
         # generation_config.json's sampling defaults apply when asked for
@@ -353,7 +378,6 @@ class GPTEngine:
             )
             log.info("sampler defaults from generation_config: %s",
                      cfg.sampler)
-        mc = self.ctx.model_config
         self._max_context = cfg.max_context or mc.context_size
         # the attention route the continuous batcher takes (server/api.py)
         self._attn_impl = "kernel" if self._device.type == "cuda" else "plain"
@@ -362,6 +386,84 @@ class GPTEngine:
             mc.model_type, mc.num_hidden_layers, self._max_context,
             sorted(self._eos_ids), self._device,
         )
+
+    def _check_pipeline(self, mc) -> None:
+        """The JAX engine's refusals of a pipelined mesh."""
+        dp, sp, pp, tp = mesh_dims(self.config.mesh_shape)
+        if pp == 1:
+            return
+        if sp > 1:
+            raise ValueError("pp and sp are mutually exclusive (for now)")
+        if self.config.quantization:
+            raise ValueError("pp + quantization not supported yet")
+        if self.config.speculative:
+            raise ValueError("pp + speculative decoding not supported")
+        if mc.model_type == "gpt2":
+            raise ValueError("pipeline stages cover the llama family only")
+
+    def shard(self, mesh_shape) -> None:
+        """Keep this rank's shard of the loaded (and quantized) params on
+        `mesh_shape` (None: the single-device layout), set the sampling
+        generator (seeded with the seed plus the dp shard, the same on every
+        rank of a shard) and the model config the kernels see. prepare()
+        calls it; a caller that built ctx itself (random params at full
+        width) calls it directly."""
+        mc = self.ctx.model_config
+        self._run_cfg = mc
+        self._mesh = None
+        self._dp, self._dp_index, self._dp_group, self._sp = 1, 0, None, 1
+        self._pp_forward = None
+        if mesh_shape is not None:
+            check_world(mesh_shape)
+            dp, sp, pp, tp = mesh_dims(mesh_shape)
+            self._dp, self._sp = dp, sp
+            if pp > 1:
+                # imported here: parallel.pipeline imports the models package,
+                # which imports this one's
+                from tinygpt_tpu_torch.parallel.pipeline import (
+                    make_pipeline_mesh, shard_staged, stage_layers)
+
+                self._mesh = make_pipeline_mesh(dp=dp, pp=pp, tp=tp)
+                staged = dict(self.ctx.params, layers=stage_layers(self.ctx.params["layers"], pp))
+                self.ctx.params, self._run_cfg = shard_staged(staged, self._mesh, mc)
+            else:
+                self._mesh = make_mesh(n_devices=dp * sp * tp, dp=dp, sp=sp, tp=tp)
+                self.ctx.params, self._run_cfg = shard_model(self.ctx.params, mc, self._mesh)
+            self._dp_index = self._mesh.index("dp")
+            self._dp_group = self._mesh.group("dp")
+            if self._device.type == "cuda":
+                torch.cuda.empty_cache()
+            # the kernels take this rank's local shapes
+            check_kernel_shapes(self._run_cfg, self._device)
+            log.info("engine rank %d of mesh %s", world()[0], dict(self._mesh.shape))
+        self._generator = torch.Generator(device=self._device)
+        self._generator.manual_seed(self.config.seed + self._dp_index)
+
+    def _forward(self, params, ids, cache, positions, valid):
+        """The prefill (and the pipeline's decode step): last-position fp32
+        logits [B, 1, V]."""
+        if self._pp_stages():
+            from tinygpt_tpu_torch.parallel.pipeline import make_pipelined_forward
+
+            B = ids.shape[0]
+            max_micro = max(1, self.config.pp_microbatches)
+            n_micro = max(d for d in range(1, min(B, max_micro) + 1) if B % d == 0)
+            fwd = make_pipelined_forward(self._mesh, self.ctx.model_config, n_micro,
+                                         stage_cfg=self._run_cfg)
+            logits, cache = fwd(params, ids, cache, positions, valid)
+            return logits[:, None], cache
+        return self.ctx.model.forward(params, self._run_cfg, ids, cache, positions, valid,
+                                      last_only=True)
+
+    def _rows(self, x: np.ndarray) -> np.ndarray:
+        """This dp shard's rows of a batch-major host array."""
+        n = x.shape[0] // self._dp
+        return x[self._dp_index * n : (self._dp_index + 1) * n]
+
+    def _all_rows(self, toks: torch.Tensor) -> torch.Tensor:
+        """Tokens [n, B / dp] of this dp shard -> [n, B] of the whole
+        batch (the dp all-gather), so that every host loop sees every row."""
+        return all_gather(toks, self._dp_group, dim=-1)
 
     def _collect_eos_ids(self) -> None:
         """EOS priority: generation_config list, else model config, else
@@ -425,7 +527,8 @@ class GPTEngine:
         max_len = max(1, max(len(e) for e in encoded))
         S = min(_round_up(max_len, self.config.prefill_bucket),
                 max(budget, 1))
-        S = max(S, max_len)
+        # sequence parallelism cuts the prompt into sp equal slices
+        S = _round_up(max(S, max_len), getattr(self, "_sp", 1))
         B = len(encoded)
         pad_id = tok.pad_token_id or 0
         ids = np.full((B, S), pad_id, dtype=np.int32)
@@ -454,15 +557,20 @@ class GPTEngine:
         first and the last (_HostTokens). One prompt with
         speculative="ngram" takes the speculative loop instead."""
         assert self.ctx is not None, "call prepare() first"
-        if self.config.speculative == "ngram" and len(texts) == 1:
+        if (self.config.speculative == "ngram" and len(texts) == 1
+                and self._mesh is None):
             return self._spec_prefill_and_loop(texts, max_tokens, on_token)
-        mc = self.ctx.model_config
+        mc = self._run_cfg
         model = self.ctx.model
         params = self.ctx.params
         dev = self._device
         sampler_cfg = self.config.sampler
         chunk = max(1, min(decode_chunk or self.config.decode_chunk, max_tokens))
         ids, positions, valid, lens, encoded = self._encode_batch(texts)
+        if len(texts) % self._dp:
+            raise ValueError(f"batch {len(texts)} not divisible by dp={self._dp}")
+        # this dp shard's rows
+        ids, positions, valid, lens = (self._rows(a) for a in (ids, positions, valid, lens))
         B, S = ids.shape
         # tokens 1 .. max_tokens - 1 come from decode steps; a chunk writes
         # all its slots
@@ -470,14 +578,12 @@ class GPTEngine:
         cache = create_kv_cache(mc, B, S + n_chunks * chunk,
                                 dtype=self._kv_dtype(),
                                 device=dev)
-        logits, cache = model.forward(
-            params, mc, torch.from_numpy(ids).to(dev), cache,
-            torch.from_numpy(positions).to(dev),
-            torch.from_numpy(valid).to(dev), last_only=True,
-        )
+        logits, cache = self._forward(
+            params, torch.from_numpy(ids).to(dev), cache,
+            torch.from_numpy(positions).to(dev), torch.from_numpy(valid).to(dev))
         tok = sample(logits[:, -1, :], sampler_cfg, self._generator)  # [B]
         host = _HostTokens(on_token, chunk, pace)
-        host.put(0, tok[None], decode=False, last=max_tokens <= 1)
+        host.put(0, self._all_rows(tok[None]), decode=False, last=max_tokens <= 1)
 
         def sample_fn(lg):
             nxt = sample(lg, sampler_cfg, self._generator)
@@ -494,7 +600,9 @@ class GPTEngine:
             # the chunk's first input (token `step - 1`) sits at logical
             # position len + step - 1
             pos0 = (lens_dev + (step - 1))[:, None]
-            if chunk == 1:
+            if self._pp_stages():
+                toks, cache = self._pp_decode(params, tok, cache, pos0, chunk, sample_fn)
+            elif chunk == 1:
                 logits, cache = model.decode_step(params, mc, tok, cache, pos0)
                 toks = sample_fn(logits[:, -1, :]).to(torch.int32)[None]
             else:
@@ -502,10 +610,31 @@ class GPTEngine:
                                                  sample_fn)
             tok = toks[-1]  # the next chunk starts from the device's token
             n = min(chunk, max_tokens - step)
-            host.put(step, toks[:n], decode=True, last=step + n >= max_tokens)
+            host.put(step, self._all_rows(toks[:n]), decode=True,
+                     last=step + n >= max_tokens)
             step += n
         host.advance(keep=0)
         return encoded
+
+    def _pp_stages(self) -> bool:
+        return self._mesh is not None and "pp" in self._mesh.shape
+
+    def _pp_decode(self, params, tok, cache, pos0, n_steps, sample_fn):
+        """n_steps one-token steps through the pipeline stages (each a
+        pipelined forward at S = 1, attention through K13), as the JAX
+        engine's per-step body under a mesh. Returns (toks [n_steps, B],
+        the cache)."""
+        B = tok.shape[0]
+        ones = torch.ones((B, 1), dtype=torch.bool, device=tok.device)
+        toks = torch.empty((n_steps, B), dtype=torch.int32, device=tok.device)
+        pos = pos0.to(torch.int32)
+        for i in range(n_steps):
+            logits, cache = self._forward(params, tok.to(torch.int32)[:, None], cache, pos,
+                                          ones)
+            tok = sample_fn(logits[:, -1, :]).to(torch.int32)
+            toks[i] = tok
+            pos = pos + 1
+        return toks, cache
 
     def _spec_prefill_and_loop(self, texts: Sequence[str], max_tokens: int,
                                on_token) -> List[List[int]]:

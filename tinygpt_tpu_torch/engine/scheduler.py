@@ -42,8 +42,25 @@ that the host mutates afterwards could be read after the mutation), and
 a quantum's tokens come back through a pinned buffer and an event, so
 that reading quantum k does not wait for quantum k+1, already issued.
 
-Not ported yet, raising NotImplementedError: device meshes (mesh_shape,
-ROADMAP.md queue 1 item 13).
+Sharded serving (mesh_shape = (dp, sp, tp) or (dp, tp)) runs the batcher
+as one rank of an SPMD world (parallel/), as the JAX batcher lays it out:
+
+  * every rank runs the SAME deterministic host loop on the SAME requests
+    (the multi-host contract): the host mirrors, the allocators and the
+    prefix indexes are global and identical on every rank;
+  * rows, pools and allocators are PARTITIONED over dp: shard d owns rows
+    [d * B/dp, (d + 1) * B/dp) and a pool of n_blocks/dp blocks with its
+    own allocator (local block ids, local null block 0), so prefix reuse
+    stays within a shard. A rank holds only its shard's rows and pool; a
+    quantum runs on them, and its tokens are all-gathered over dp so that
+    every host loop sees every row. An admission runs on the owning
+    shard's ranks, which broadcast its first token over dp;
+  * params are cut over tp (parallel/sharding.py), the pools' KV heads
+    with them where tp divides them; the admission prefill's sequence is
+    cut over sp (a MoE model's experts instead); decode quanta run the
+    same kernels (K8, K9, K10) on each rank's pool shard;
+  * every rank of a dp shard samples the same tokens (one generator,
+    seeded with the seed plus the shard, on the same gathered logits).
 """
 
 from __future__ import annotations
@@ -70,6 +87,14 @@ from tinygpt_tpu_torch.hf.loader import resolve_dtype
 from tinygpt_tpu_torch.models import params_device
 from tinygpt_tpu_torch.ops.attention_kernels import check_kernel_shapes
 from tinygpt_tpu_torch.ops.sampling import SamplerConfig, sample_batched
+from tinygpt_tpu_torch.parallel.distributed import all_gather, broadcast, world
+from tinygpt_tpu_torch.parallel.sharding import (
+    check_world,
+    local_config,
+    make_mesh,
+    mesh_dims,
+    shard_model,
+)
 from tinygpt_tpu_torch.utils.logging import get_logger
 
 log = get_logger("engine.scheduler")
@@ -77,12 +102,6 @@ log = get_logger("engine.scheduler")
 
 def _round_to(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tinygpt_tpu_torch yet "
-        f"(ROADMAP.md queue 1, item {item})")
 
 
 @dataclass
@@ -110,7 +129,8 @@ class SchedulerConfig:
     # quantum for live rows between chunks. Rounded up to
     # lcm(prefill_bucket, block_size).
     prefill_chunk_tokens: int = 0
-    # not ported yet: must stay None (see the module docstring)
+    # sharded serving: (dp, sp, tp) or (dp, tp), one process a rank (see
+    # the module docstring); batch_capacity and n_blocks must divide by dp
     mesh_shape: Optional[tuple] = None
     # speculative decoding in the batcher: None | "ngram". A quantum runs
     # decode_quantum // (spec_draft_len + 1) rounds of device-resident
@@ -191,8 +211,6 @@ class ContinuousBatcher:
         self.eos_ids = set(eos_ids)
         self.sc = config or SchedulerConfig()
         sc = self.sc
-        if sc.mesh_shape is not None:
-            raise _not_ported("SchedulerConfig.mesh_shape (sharded serving)", 13)
         if sc.speculative not in (None, "ngram"):
             raise ValueError(f"unknown speculative mode {sc.speculative!r}")
         # the frozen quantum where the model has one, else the stepwise one
@@ -212,13 +230,22 @@ class ContinuousBatcher:
         else:
             self.kv_dtype = resolve_dtype(sc.kv_cache_dtype)
         self.device = params_device(params)
-        check_kernel_shapes(model_config, self.device)
+        # the model config the kernels see: this rank's shard under a mesh
+        self._run_cfg = model_config
+        self._mesh = None
+        self._dp, self._dp_index, self._dp_group, self._sp = 1, 0, None, 1
+        if sc.mesh_shape is not None:
+            self._shard(sc.mesh_shape)
+        check_kernel_shapes(self._run_cfg, self.device)
+        self._rows_per_shard = sc.batch_capacity // self._dp
         self.state: PagedKVState = create_paged_state(
-            model_config, sc.n_blocks, sc.block_size, sc.batch_capacity,
+            self._run_cfg, sc.n_blocks // self._dp, sc.block_size, self._rows_per_shard,
             sc.max_blocks_per_seq, dtype=self.kv_dtype, device=self.device,
         )
-        # block bookkeeping + prefix index
-        self.allocator = create_pool_index(sc.n_blocks)
+        # block bookkeeping + prefix index, one a dp shard over its local ids
+        self.allocators = [create_pool_index(sc.n_blocks // self._dp)
+                           for _ in range(self._dp)]
+        self.allocator = self.allocators[0]
         self.waiting: List[Request] = []
         self._admitting: Optional[Request] = None  # chunked prefill
         self.running: Dict[int, Request] = {}  # row -> Request
@@ -227,7 +254,8 @@ class ContinuousBatcher:
         # resident chained input tokens for the next one
         self._inflight = None
         self._tokens_dev: Optional[torch.Tensor] = None
-        self._gen = torch.Generator(device=self.device).manual_seed(sc.seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            sc.seed + self._dp_index)
         # sampler params and pool metadata are re-uploaded only when they
         # changed
         self._meta_dirty = True
@@ -260,6 +288,67 @@ class ContinuousBatcher:
         self._topks = np.zeros(sc.batch_capacity, np.int32)
         self._topps = np.ones(sc.batch_capacity, np.float32)
         self._minps = np.zeros(sc.batch_capacity, np.float32)
+
+    def _shard(self, mesh_shape) -> None:
+        """Keep this rank's shard of the params on the mesh (module
+        docstring)."""
+        sc = self.sc
+        shape = tuple(mesh_shape)
+        if len(shape) == 2:  # (dp, tp)
+            shape = (shape[0], 1, shape[1])
+        check_world(shape)
+        dp, sp, pp, tp = mesh_dims(shape)
+        if pp != 1:
+            raise ValueError("the batcher takes a (dp, sp, tp) mesh: no pipeline stages")
+        if dp > 1:
+            if sc.batch_capacity % dp:
+                raise ValueError("batch_capacity must divide by dp")
+            if sc.n_blocks % dp:
+                raise ValueError("n_blocks must divide by dp")
+            if getattr(self.model, "decode_paged_steps", None) is None:
+                raise ValueError("dp serving needs the frozen-quantum model path "
+                                 "(decode_paged_steps)")
+        self._mesh = make_mesh(n_devices=dp * sp * tp, dp=dp, sp=sp, tp=tp)
+        if "shard" in self.params:
+            # already this rank's shard (an engine's, prepared on the same mesh)
+            self._run_cfg = local_config(self.cfg, self.params["shard"])
+        else:
+            self.params, self._run_cfg = shard_model(self.params, self.cfg, self._mesh)
+        self._dp, self._sp = dp, sp
+        self._dp_index = self._mesh.index("dp")
+        self._dp_group = self._mesh.group("dp")
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        log.info("batcher rank %d of mesh dp=%d sp=%d tp=%d", world()[0], dp, sp, tp)
+
+    def _shard_of(self, row: int) -> int:
+        return row // self._rows_per_shard
+
+    def _alloc_of(self, row: int):
+        return self.allocators[self._shard_of(row)]
+
+    def _owns(self, row: int) -> bool:
+        """Whether this rank holds `row` (its dp shard's)."""
+        return self._shard_of(row) == self._dp_index
+
+    def _rows(self, x: np.ndarray) -> np.ndarray:
+        """This rank's dp shard of a row-major host mirror."""
+        n = self._rows_per_shard
+        return x[self._dp_index * n : (self._dp_index + 1) * n]
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., B/dp] of this shard's rows -> [..., B] (the dp all-gather)."""
+        return all_gather(t, self._dp_group, dim=-1)
+
+    def _owner_token(self, row: int, tok: Optional[torch.Tensor]) -> torch.Tensor:
+        """An admission's first token [1] int32 on every rank: the owning
+        shard sampled it; the others receive it over dp."""
+        if self._dp == 1:
+            return tok
+        if tok is None:
+            tok = torch.zeros(1, dtype=torch.int32, device=self.device)
+        return broadcast(tok.to(torch.int32), self._mesh.src(dp=self._shard_of(row)),
+                         self._dp_group)
 
     # -- host <-> device ----------------------------------------------------
 
@@ -365,8 +454,9 @@ class ContinuousBatcher:
         if req.row >= 0:
             # blocks registered in the prefix cache survive as idle-cached
             # (reclaimed LRU when the pool runs dry)
-            keep = [b for b in req.blocks if self.allocator.is_registered(b)]
-            self.allocator.release(req.blocks, keep_cached=keep)
+            alloc = self._alloc_of(req.row)
+            keep = [b for b in req.blocks if alloc.is_registered(b)]
+            alloc.release(req.blocks, keep_cached=keep)
             req.blocks = []
             self._active[req.row] = False
             # an empty pool range: K8 reads nothing for the inactive row, and
@@ -388,8 +478,9 @@ class ContinuousBatcher:
             self._admitting = None
             req.finished = True
             req.finish_reason = "abort"
-            keep = [b for b in req.blocks if self.allocator.is_registered(b)]
-            self.allocator.release(req.blocks, keep_cached=keep)
+            alloc = self._alloc_of(req.row)
+            keep = [b for b in req.blocks if alloc.is_registered(b)]
+            alloc.release(req.blocks, keep_cached=keep)
             req.blocks = []
             if req.row >= 0:
                 self.free_rows.append(req.row)
@@ -445,7 +536,7 @@ class ContinuousBatcher:
         """Trailing-padded ids, positions and validity [1, S_in] of
         `tokens` starting at logical position pos0 (slot == position)."""
         n = len(tokens)
-        ids = np.zeros((1, S_in), np.int32)
+        ids = np.zeros((1, S_in), np.int32)  # S_in: a multiple of sp
         ids[0, :n] = tokens
         valid = np.zeros((1, S_in), bool)
         valid[0, :n] = True
@@ -472,47 +563,63 @@ class ContinuousBatcher:
 
         hashes = self._block_hashes(req.prompt_ids)
         n_shareable = min(len(hashes), (S - 1) // bs)
-        alloc = self.allocator
-        # longest cached block prefix, leaving >= 1 token to prefill.
-        # share() PINS the looked-up blocks at once: alloc()'s LRU reclaim
-        # could otherwise evict an idle-cached prefix block just found and
-        # hand it back as this request's private suffix block (the same
-        # physical block twice in the table).
-        shared: List[int] = []
-        if sc.enable_prefix_cache:
-            for j in range(n_shareable):
-                b = alloc.lookup_prefix(hashes[j])
-                if b is None:
-                    break
-                shared.append(b)
-        alloc.share(shared)
-        p_len = len(shared) * bs
-        suffix = req.prompt_ids[p_len:]
-        S_suf = len(suffix)
-        private = alloc.alloc(blocks_needed(S_suf, bs))
-        if private is None:
-            # no memory — unpin the prefix back to the idle-cached tier so
-            # it stays reclaimable
+        # under dp, rows and blocks live in per-shard partitions: try one
+        # free row of each shard (pop order) until a shard can hold the
+        # prompt (prefix reuse is shard-local); same-shard rows share an
+        # allocator, so retrying them would repeat the same lookups
+        seen, cands = set(), []
+        for cand in reversed(self.free_rows):
+            if self._shard_of(cand) not in seen:
+                seen.add(self._shard_of(cand))
+                cands.append(cand)
+        row = None
+        for cand in cands:
+            alloc = self._alloc_of(cand)
+            # longest cached block prefix, leaving >= 1 token to prefill.
+            # share() PINS the looked-up blocks at once: alloc()'s LRU
+            # reclaim could otherwise evict an idle-cached prefix block just
+            # found and hand it back as this request's private suffix block
+            # (the same physical block twice in the table).
+            shared: List[int] = []
+            if sc.enable_prefix_cache:
+                for j in range(n_shareable):
+                    b = alloc.lookup_prefix(hashes[j])
+                    if b is None:
+                        break
+                    shared.append(b)
+            alloc.share(shared)
+            p_len = len(shared) * bs
+            suffix = req.prompt_ids[p_len:]
+            S_suf = len(suffix)
+            private = alloc.alloc(blocks_needed(S_suf, bs))
+            if private is not None:
+                row = cand
+                break
+            # no memory in this shard: unpin the prefix back to the
+            # idle-cached tier so it stays reclaimable
             keep = [b for b in shared if alloc.is_registered(b)]
             alloc.release(shared, keep_cached=keep)
+        if row is None:
             return False
-        row = self.free_rows[-1]
         self.free_rows.remove(row)
         req.row = row
         req.blocks = shared + private
         self.running[row] = req
 
-        unit = math.lcm(sc.prefill_bucket, bs)
+        unit = math.lcm(sc.prefill_bucket, bs, self._sp)
         S_in = max(unit, _round_to(S_suf, unit))  # padded suffix input
-        ids, positions, valid = self._prompt_inputs(suffix, p_len, S_in)
-        tok_dev = _admit_program(
-            self.model.forward, self.params, self.cfg, self.state,
-            self._put(np.asarray(shared, np.int64)),
-            self._put(np.asarray(private, np.int64)),
-            ids, positions, valid, self._put(np.asarray([S_suf - 1], np.int64)),
-            self._sampler_inputs(req.sampler), self._gen,
-            attn_impl=sc.attn_impl, block_size=bs,
-        )
+        tok_dev = None
+        if self._owns(row):
+            ids, positions, valid = self._prompt_inputs(suffix, p_len, S_in)
+            tok_dev = _admit_program(
+                self.model.forward, self.params, self._run_cfg, self.state,
+                self._put(np.asarray(shared, np.int64)),
+                self._put(np.asarray(private, np.int64)),
+                ids, positions, valid, self._put(np.asarray([S_suf - 1], np.int64)),
+                self._sampler_inputs(req.sampler), self._gen,
+                attn_impl=sc.attn_impl, block_size=bs,
+            )
+        tok_dev = self._owner_token(row, tok_dev)
         # register newly completed whole blocks for future reuse
         if sc.enable_prefix_cache:
             for j in range(len(shared), len(hashes)):
@@ -530,15 +637,32 @@ class ContinuousBatcher:
         bs = sc.block_size
         S = len(req.prompt_ids)
         need = blocks_needed(S + req.max_new_tokens, bs)
-        if need > sc.max_blocks_per_seq or need > sc.n_blocks - 1:
+        # capacity is per shard under dp (n_blocks/dp local blocks with
+        # their null block): a global check would admit a request no shard
+        # can ever hold
+        if need > sc.max_blocks_per_seq or need > sc.n_blocks // self._dp - 1:
             req.finished = True
             req.finish_reason = "length"
             return False
         hashes = self._block_hashes(req.prompt_ids)
         n_shareable = min(len(hashes), (S - 1) // bs)
-        row = self.free_rows.pop()
+        # the row fixes the shard, whose allocator serves every chunk:
+        # prefer a shard that can hold the whole request, else the one with
+        # the most reclaimable space
+        def capacity(r):
+            a = self._alloc_of(r)
+            return a.n_free + a.n_idle_cached
+
+        row = self.free_rows[-1]
+        if self._dp > 1:
+            row = max(reversed(self.free_rows), key=capacity)
+            for cand in reversed(self.free_rows):
+                if capacity(cand) >= need:
+                    row = cand
+                    break
+        self.free_rows.remove(row)
         req.row = row
-        alloc = self.allocator
+        alloc = self._alloc_of(row)
         shared: List[int] = []
         if sc.enable_prefix_cache:
             for j in range(n_shareable):
@@ -562,30 +686,33 @@ class ContinuousBatcher:
         sc = self.sc
         bs = sc.block_size
         S = len(req.prompt_ids)
-        unit = math.lcm(sc.prefill_bucket, bs)
+        unit = math.lcm(sc.prefill_bucket, bs, self._sp)
         chunk_cap = max(unit, _round_to(sc.prefill_chunk_tokens, unit))
         pos0 = req._chunk_pos
         n_tok = min(chunk_cap, S - pos0)
         final = pos0 + n_tok >= S
 
-        alloc = self.allocator
+        alloc = self._alloc_of(req.row)
         private = alloc.alloc(blocks_needed(n_tok, bs))
         if private is None:
             return []  # pool pressure: stay admitting, decode continues
         req.blocks.extend(private)
 
         S_in = max(unit, _round_to(n_tok, unit))
-        ids, positions, valid = self._prompt_inputs(
-            req.prompt_ids[pos0 : pos0 + n_tok], pos0, S_in)
-        table = np.zeros(sc.max_blocks_per_seq, np.int64)
-        table[: len(req.blocks)] = req.blocks
-        tok_dev = _admit_chunk_program(
-            self.model.forward, self.params, self.cfg, self.state,
-            self._put(table), pos0, self._put(np.asarray(private, np.int64)),
-            ids, positions, valid, self._put(np.asarray([n_tok - 1], np.int64)),
-            self._sampler_inputs(req.sampler), self._gen,
-            attn_impl=sc.attn_impl, block_size=bs,
-        )
+        tok_dev = None
+        if self._owns(req.row):
+            ids, positions, valid = self._prompt_inputs(
+                req.prompt_ids[pos0 : pos0 + n_tok], pos0, S_in)
+            table = np.zeros(sc.max_blocks_per_seq, np.int64)
+            table[: len(req.blocks)] = req.blocks
+            tok_dev = _admit_chunk_program(
+                self.model.forward, self.params, self._run_cfg, self.state,
+                self._put(table), pos0, self._put(np.asarray(private, np.int64)),
+                ids, positions, valid, self._put(np.asarray([n_tok - 1], np.int64)),
+                self._sampler_inputs(req.sampler), self._gen,
+                attn_impl=sc.attn_impl, block_size=bs,
+            )
+        tok_dev = self._owner_token(req.row, tok_dev)
         req._chunk_pos = pos0 + n_tok
         if not final:
             return []
@@ -619,7 +746,7 @@ class ContinuousBatcher:
                 if blk_idx >= sc.max_blocks_per_seq:
                     break
                 if blk_idx >= len(req.blocks):
-                    got = self.allocator.alloc(1)
+                    got = self._alloc_of(row).alloc(1)
                     if got is None:
                         break
                     req.blocks.extend(got)
@@ -633,8 +760,8 @@ class ContinuousBatcher:
         """Device copies of the per-row sampler params, re-uploaded only
         when an admission changed them."""
         if self._sampler_dirty or self._sampler_dev is None:
-            self._sampler_dev = (self._put(self._temps), self._put(self._topks),
-                                 self._put(self._topps), self._put(self._minps))
+            self._sampler_dev = tuple(self._put(self._rows(a)) for a in (
+                self._temps, self._topks, self._topps, self._minps))
             self._sampler_dirty = False
         return self._sampler_dev
 
@@ -733,15 +860,20 @@ class ContinuousBatcher:
             clen[row] = len(toks)
         sampler = None if self._all_greedy() else self._sampler_params_dev()
         packed = _decode_quantum_spec(
-            self.model.decode_paged_spec_steps, self.params, self.cfg, self.state,
-            self._put(self._tokens), self._put(ctx), self._put(clen), sampler, self._gen,
+            self.model.decode_paged_spec_steps, self.params, self._run_cfg, self.state,
+            self._put(self._rows(self._tokens)), self._put(self._rows(ctx)),
+            self._put(self._rows(clen)), sampler, self._gen,
             n_rounds=n_rounds, gamma=gamma, ngram=max(1, sc.spec_ngram),
             attn_impl=sc.attn_impl)
-        flat = self._finish_fetch(self._start_fetch(packed))
-        n_tok = n_rounds * B * S
-        toks_h = flat[:n_tok].reshape(n_rounds, B, S)
-        counts_h = flat[n_tok : n_tok + n_rounds * B].reshape(n_rounds, B)
-        cur_h = flat[n_tok + n_rounds * B :]
+        # every dp shard's packed rows, shard by shard
+        flat = self._finish_fetch(self._start_fetch(
+            all_gather(packed, self._dp_group))).reshape(self._dp, -1)
+        Bl = B // self._dp
+        n_tok = n_rounds * Bl * S
+        toks_h = np.concatenate([f[:n_tok].reshape(n_rounds, Bl, S) for f in flat], axis=1)
+        counts_h = np.concatenate(
+            [f[n_tok : n_tok + n_rounds * Bl].reshape(n_rounds, Bl) for f in flat], axis=1)
+        cur_h = np.concatenate([f[n_tok + n_rounds * Bl :] for f in flat])
         for row, req in list(self.running.items()):
             budget = safe.get(row, 0)
             emitted = 0
@@ -814,18 +946,18 @@ class ContinuousBatcher:
         all_greedy = bool(np.all(self._temps[rows_live] == 0.0))
         # chained input tokens stay ON THE DEVICE between pipelined quanta
         tok_in = (self._tokens_dev if self._tokens_dev is not None
-                  else self._put(self._tokens))
+                  else self._put(self._rows(self._tokens)))
         toks_seq = self._decode_fn(
-            self.params, self.cfg, self.state, tok_in, self._sampler_params_dev(),
+            self.params, self._run_cfg, self.state, tok_in, self._sampler_params_dev(),
             self._gen, n_steps=n_steps, all_greedy=all_greedy,
             attn_impl=self.sc.attn_impl,
         )
         self._lengths[self._active] += n_steps
         snapshot = {row: (self.running[row], safe.get(row, 0))
                     for row in rows_live}
-        prev, self._inflight = self._inflight, (self._start_fetch(toks_seq),
-                                                n_steps, snapshot)
-        self._tokens_dev = toks_seq[-1]
+        prev, self._inflight = self._inflight, (
+            self._start_fetch(self._all_rows(toks_seq)), n_steps, snapshot)
+        self._tokens_dev = toks_seq[-1]  # this shard's rows
         if prev is not None:
             # read the PREVIOUS quantum while this one executes
             events.extend(self._process_quantum(prev))
@@ -889,10 +1021,10 @@ class ContinuousBatcher:
         tensor (see _put): the host mirrors are mutated right after the
         dispatch, and an upload that aliased them would let a queued
         quantum read the later values."""
-        self.state.block_tables = self._put(self._tables)
-        self.state.lengths = self._put(self._lengths)
-        self.state.starts = self._put(self._starts)
-        self.state.active = self._put(self._active)
+        self.state.block_tables = self._put(self._rows(self._tables))
+        self.state.lengths = self._put(self._rows(self._lengths))
+        self.state.starts = self._put(self._rows(self._starts))
+        self.state.active = self._put(self._rows(self._active))
         self._meta_dirty = False
 
 

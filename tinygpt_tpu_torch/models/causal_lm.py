@@ -117,6 +117,7 @@ from tinygpt_tpu_torch.ops.rope import (
     gather_rope,
 )
 from tinygpt_tpu_torch.ops.sampling import NEG_INF, masked_logits_batched
+from tinygpt_tpu_torch.parallel.distributed import all_gather, all_reduce
 
 
 def _check_weights(params: Dict) -> None:
@@ -314,6 +315,44 @@ def _impl(attn_impl: str) -> str:
     return attn_impl
 
 
+def _shard(params: Dict):
+    """The params' ShardContext (parallel/sharding.py), or None on a single
+    device."""
+    return params.get("shard")
+
+
+def _tp_sum(y: torch.Tensor, sc, cut: bool) -> torch.Tensor:
+    """The all-reduce over tp after a row-parallel matmul of a cut block."""
+    return all_reduce(y, sc.tp_group) if sc is not None and cut else y
+
+
+def embed_tokens(params: Dict, ids: torch.Tensor, table: str = "embed") -> torch.Tensor:
+    """The token embedding of `ids`. With the table cut over the vocab,
+    each rank gathers the rows it holds (zeros elsewhere) and the tp
+    all-reduce assembles them."""
+    emb, sc = params[table], _shard(params)
+    if sc is None or not sc.vocab:
+        return emb[ids.long()]
+    local = ids.long() - sc.vocab_start
+    hit = (local >= 0) & (local < emb.shape[0])
+    x = emb[local.clamp(0, emb.shape[0] - 1)] * hit[..., None].to(emb.dtype)
+    return all_reduce(x, sc.tp_group)
+
+
+def gather_vocab(logits: torch.Tensor, params: Dict) -> torch.Tensor:
+    """Logits of the whole vocab from each rank's vocab slice (the tp
+    all-gather); unchanged where the head is not cut."""
+    sc = _shard(params)
+    if sc is None or not sc.vocab:
+        return logits
+    return all_gather(logits, sc.tp_group, dim=-1)
+
+
+def _moe_experts(sc):
+    """(first local expert, local experts) under expert parallelism."""
+    return (sc.expert_start, sc.experts) if sc is not None and sc.ep else None
+
+
 def _mm(lp: Dict, key: str, h: torch.Tensor, l: int, impl: str) -> torch.Tensor:
     """h @ layer weight `key`: a quantized stack goes through K5a (int8)
     or K5b (int4) at layer l."""
@@ -367,7 +406,7 @@ def _moe_layer_params(lp: Dict, l: int) -> Dict:
 
 
 def moe_mlp(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", experts: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Mixtral block-sparse MoE MLP, HF semantics (ops/moe_kernels.moe_route:
     full softmax over the fp32 router logits, top-k, renormalized), the
     JAX moe_mlp. h [B, S, H] post-norm; lp: router_w [H, E], moe_gate_up_w
@@ -379,7 +418,10 @@ def moe_mlp(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
     * "routed": tokens sorted by expert, each expert's contiguous group
       through its own matmuls (_moe_ffn_routed);
     * "auto": routed at B * S >= 32 tokens, else dense.
-    Returns [B, S, H] in h's dtype."""
+    With `experts` = (e0, n) the stacks hold experts e0 .. e0 + n - 1 only
+    (expert parallelism): routing runs over every expert, and the result
+    is this rank's partial sum over its own. Returns [B, S, H] in h's
+    dtype."""
     k, E = cfg.num_experts_per_tok, cfg.num_local_experts
     B, S, H = h.shape
     T = B * S
@@ -389,11 +431,17 @@ def moe_mlp(h: torch.Tensor, lp: Dict, cfg: ModelConfig,
         raise ValueError(f"unknown MoE formulation {impl!r}")
     w_top, idx = moe_route(h.reshape(T, H), lp["router_w"], k)     # [T, k]
     gw, dw = (lp[n].to(h.dtype) for n in _MOE_STACKS)
+    e0, n_loc = experts if experts is not None else (0, E)
     if impl == "routed":
+        if experts is not None:
+            # another rank's (token, choice) pairs go to bucket n_loc, skipped
+            loc = idx - e0
+            hit = (loc >= 0) & (loc < n_loc)
+            w_top, idx = w_top * hit, torch.where(hit, loc, n_loc)
         return _moe_ffn_routed(h, w_top, idx, gw, dw)
     # the per-expert coefficient map [T, E], zero off the top k
     we = torch.zeros((T, E), dtype=torch.float32, device=h.device).scatter_add_(
-        1, idx, w_top)
+        1, idx, w_top)[:, e0 : e0 + n_loc]
     hf = h.reshape(T, H)
     C = min(T, 256)   # bounds the [C, E, 2I] activation
     out = torch.empty_like(hf)
@@ -412,16 +460,17 @@ def _moe_ffn_routed(h: torch.Tensor, w_top: torch.Tensor, idx: torch.Tensor,
     contiguous group by torch.matmul (in place of lax.ragged_dot), and the
     weighted outputs summed back per token in slot order, which is
     deterministic. Reads the group sizes on the host. h [B, S, H]; w_top /
-    idx [T, k]; gw [E, H, 2I]; dw [E, I, H]."""
+    idx [T, k]; gw [E, H, 2I]; dw [E, I, H]. An id of E or more names no
+    expert here: its rows stay zero."""
     B, S, H = h.shape
     T, k = idx.shape
     eid = idx.reshape(T * k)
     order = torch.sort(eid, stable=True).indices
     x_s = h.reshape(T, H)[order // k]                              # [T*k, H]
     counts = torch.bincount(eid, minlength=gw.shape[0]).tolist()
-    o = torch.empty((T * k, dw.shape[-1]), dtype=h.dtype, device=h.device)
+    o = torch.zeros((T * k, dw.shape[-1]), dtype=h.dtype, device=h.device)
     start = 0
-    for e, n in enumerate(counts):
+    for e, n in enumerate(counts[: gw.shape[0]]):
         if n:
             xe = x_s[start : start + n]
             gate, up = (xe @ gw[e]).chunk(2, dim=-1)
@@ -435,22 +484,27 @@ def _moe_ffn_routed(h: torch.Tensor, w_top: torch.Tensor, idx: torch.Tensor,
 
 def _out_and_mlp(lp: Dict, x: torch.Tensor, attn: torch.Tensor,
                  cfg: ModelConfig, l: int = 0, impl: str = "kernel",
-                 gathered: bool = False) -> torch.Tensor:
+                 gathered: bool = False, sc=None) -> torch.Tensor:
     """Output projection + residual, then the post-norm SwiGLU MLP +
     residual. attn [B, S, Nq, D]. A MoE layer runs moe_mlp on layer l's
     experts, or with `gathered` (the one-token step) moe_mlp_gathered on
-    the whole stacks at layer l (K12 / K11a / K11b)."""
+    the whole stacks at layer l (K12 / K11a / K11b). Under a ShardContext
+    `sc` the row-parallel o and down (and the MoE partial sums) are summed
+    over their group before the residual is added, once."""
     B, S = x.shape[0], x.shape[1]
-    x = x + _mm(lp, "o_w", attn.reshape(B, S, -1), l, impl)
+    x = x + _tp_sum(_mm(lp, "o_w", attn.reshape(B, S, -1), l, impl), sc,
+                    sc is not None and sc.attn)
     h = rms_norm(x, lp["post_ln"], cfg.rms_norm_eps)
     if "router_w" in lp:
         if gathered:
-            return x + moe_mlp_gathered(h, lp["router_w"], lp["moe_gate_up_w"],
-                                        lp["moe_down_w"], l, cfg, impl)
-        return x + moe_mlp(h, _moe_layer_params(lp, l), cfg)
+            y = moe_mlp_gathered(h, lp["router_w"], lp["moe_gate_up_w"],
+                                 lp["moe_down_w"], l, cfg, impl, _moe_experts(sc))
+        else:
+            y = moe_mlp(h, _moe_layer_params(lp, l), cfg, experts=_moe_experts(sc))
+        return x + (all_reduce(y, sc.moe_group) if sc is not None else y)
     gate, up = _mm(lp, "gate_up_w", h, l, impl).chunk(2, dim=-1)
     act = F.silu(gate.float()).to(up.dtype) * up
-    return x + _mm(lp, "down_w", act, l, impl)
+    return x + _tp_sum(_mm(lp, "down_w", act, l, impl), sc, sc is not None and sc.mlp)
 
 
 def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -464,7 +518,7 @@ def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         logits = matmul_dequant(x, head, impl)[..., : cfg.vocab_size]
     else:
         logits = x @ head
-    return logits.float()
+    return gather_vocab(logits.float(), params)
 
 
 def decoder_layer_step(
@@ -482,21 +536,44 @@ def decoder_layer_step(
     rope_s: torch.Tensor,
     attn_impl: str = "kernel",
     l: int = 0,               # layer index into lp's quantized stacks
+    sc=None,                  # ShardContext of sharded params
+    seq_lo: Optional[int] = None,  # x is the sp slice from token seq_lo
 ) -> torch.Tensor:
     """One pre-norm decoder layer (attention + SwiGLU MLP) over the dense
     cache. Writes this step's K/V into the cache at `slot` and returns
     the new hidden states. Quantized weights in `lp` are the whole
-    [L, ...] stacks, read at layer `l`."""
+    [L, ...] stacks, read at layer `l`. With `seq_lo` (sequence
+    parallelism) x, positions and the rope rows are this rank's slice of
+    the tokens: K/V are all-gathered over sp before they are written, and
+    the local queries attend from slot `slot + seq_lo`."""
     impl = _impl(attn_impl)
-    S = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
+    if seq_lo is not None:
+        k, v = all_gather(k, sc.sp_group, dim=1), all_gather(v, sc.sp_group, dim=1)
+    S = k.shape[1]
     k_cache[:, :, slot : slot + S] = kv_cast(k.transpose(1, 2), k_cache.dtype)
     v_cache[:, :, slot : slot + S] = kv_cast(v.transpose(1, 2), v_cache.dtype)
     attn = attention_with_cache(
         q, k_cache, v_cache, q_pos=positions, kv_pos=kv_pos, kv_valid=valid,
-        slot=slot, sliding_window=cfg.sliding_window, kernel=impl,
+        slot=slot + (seq_lo or 0), sliding_window=cfg.sliding_window, kernel=impl,
     )
-    return _out_and_mlp(lp, x, attn, cfg, l, impl)
+    return _out_and_mlp(lp, x, attn, cfg, l, impl, sc=sc)
+
+
+def seq_slice(sc, ids: torch.Tensor, positions: torch.Tensor):
+    """This rank's slice of a prefill's tokens under sequence parallelism:
+    (ids, positions, first token) of the slice, or the whole input and
+    None where the sequence is not cut (no ShardContext, sp of 1, a MoE
+    model, or fewer tokens than sp ranks). The caller pads S to a multiple
+    of sp."""
+    S = ids.shape[1]
+    if sc is None or not sc.seq or S < sc.sp:
+        return ids, positions, None
+    if S % sc.sp:
+        raise ValueError(f"{S} prefill tokens over sp={sc.sp}: pad to a multiple")
+    n = S // sc.sp
+    lo = sc.sp_rank * n
+    return ids[:, lo : lo + n], positions[:, lo : lo + n], lo
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -532,15 +609,19 @@ def forward(
                          f"{cache.max_len} slots")
     cache.kv_pos[:, slot : slot + S] = positions
     cache.valid[:, slot : slot + S] = token_valid
-    rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"],
-                                 positions)
-    x = params["embed"][input_ids.long()]
+    sc = _shard(params)
+    ids, q_pos, seq_lo = seq_slice(sc, input_ids, positions)
+    rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], q_pos)
+    x = embed_tokens(params, ids)
     for l in range(cfg.num_hidden_layers):
         x = decoder_layer_step(
             _layer(params, l), x, cache.k[l], cache.v[l], cfg=cfg,
-            positions=positions, kv_pos=cache.kv_pos, valid=cache.valid,
+            positions=q_pos, kv_pos=cache.kv_pos, valid=cache.valid,
             slot=slot, rope_c=rope_c, rope_s=rope_s, attn_impl=impl, l=l,
+            sc=sc, seq_lo=seq_lo,
         )
+    if seq_lo is not None:
+        x = all_gather(x, sc.sp_group, dim=1)
     if last_only and last_pos is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_pos.long()][:, None]
     elif last_only:  # left padding puts every row's last token at S - 1
@@ -600,22 +681,32 @@ def _out_and_mlp_fused(params: Dict, x2: torch.Tensor, attn: torch.Tensor,
                        cfg: ModelConfig, l: int, impl: str) -> torch.Tensor:
     """K6 for o with the residual, then the MLP: K7 for at most 32 rows
     when gate_up and down share a group, else K6 twice (norm prologue;
-    silu * up prologue with the residual). x2 [B, H] -> [B, H]."""
+    silu * up prologue with the residual). Under tp every rank takes the
+    same kernels, and only tp rank 0 adds the residual. x2 [B, H] -> [B, H]."""
     B = x2.shape[0]
     mm_fused, mlp_fused = _fused_fns(impl)
     lay = params["layers"]
+    sc = _shard(params)
+    # a cut block's partial sums meet in the tp all-reduce: only tp rank 0
+    # adds the residual in its epilogue, so that it is counted once
+    attn_cut = sc is not None and sc.attn
+    mlp_cut = sc is not None and sc.mlp
     qt = lay["o_w"]
-    x2 = mm_fused(attn.reshape(B, -1), qt.data, qt.scales, l, qt.group_size,
-                  res=x2)
+    x2 = _tp_sum(mm_fused(attn.reshape(B, -1), qt.data, qt.scales, l, qt.group_size,
+                          res=x2 if not attn_cut or sc.tp_rank == 0 else None),
+                 sc, attn_cut)
     gu, dn = lay["gate_up_w"], lay["down_w"]
     inv = _invrms(x2, cfg.rms_norm_eps)
+    lead = not mlp_cut or sc.tp_rank == 0
     if B <= qk.MAX_DECODE_ROWS and gu.group_size == dn.group_size:
-        return mlp_fused(x2, gu.data, gu.scales, dn.data, dn.scales,
-                         lay["post_ln"], inv, l, gu.group_size)
-    gate_up = mm_fused(x2, gu.data, gu.scales, l, gu.group_size,
-                       ln=lay["post_ln"], invrms=inv)
-    return mm_fused(gate_up, dn.data, dn.scales, l, dn.group_size, silu=True,
-                    res=x2)
+        y = mlp_fused(x2, gu.data, gu.scales, dn.data, dn.scales,
+                      lay["post_ln"], inv, l, gu.group_size, residual=lead)
+    else:
+        gate_up = mm_fused(x2, gu.data, gu.scales, l, gu.group_size,
+                           ln=lay["post_ln"], invrms=inv)
+        y = mm_fused(gate_up, dn.data, dn.scales, l, dn.group_size, silu=True,
+                     res=x2 if lead else None)
+    return _tp_sum(y, sc, mlp_cut)
 
 
 def _logits_fused(params: Dict, x2: torch.Tensor, cfg: ModelConfig,
@@ -628,7 +719,7 @@ def _logits_fused(params: Dict, x2: torch.Tensor, cfg: ModelConfig,
     logits = _fused_fns(impl)[0](
         x2, head.data[None], head.scales[None], 0, head.group_size,
         ln=params["final_ln"][None], invrms=_invrms(x2, cfg.rms_norm_eps))
-    return logits[:, None, : cfg.vocab_size].float()
+    return gather_vocab(logits[:, None, : cfg.vocab_size].float(), params)
 
 
 def _decode_token(params, cfg, tok, pos, put_kv, attend, impl: str):
@@ -639,8 +730,9 @@ def _decode_token(params, cfg, tok, pos, put_kv, attend, impl: str):
     layer runs the gathered-expert kernels (K12, K11a, K11b)."""
     B = tok.shape[0]
     fused = _int4_fused(params)
+    sc = _shard(params)
     rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], pos)
-    x = params["embed"][tok.long()][:, None]  # [B, 1, H]
+    x = embed_tokens(params, tok)[:, None]  # [B, 1, H]
     for l in range(cfg.num_hidden_layers):
         lp = _layer(params, l)
         if fused:
@@ -653,7 +745,7 @@ def _decode_token(params, cfg, tok, pos, put_kv, attend, impl: str):
         if fused:
             x = _out_and_mlp_fused(params, x[:, 0], attn, cfg, l, impl)[:, None]
         else:
-            x = _out_and_mlp(lp, x, attn, cfg, l, impl, gathered=True)
+            x = _out_and_mlp(lp, x, attn, cfg, l, impl, gathered=True, sc=sc)
     if fused:
         return _logits_fused(params, x[:, 0], cfg, impl)
     return _logits(params, x.reshape(B, 1, -1), cfg, impl)
@@ -1055,15 +1147,16 @@ def _verify_forward(params: Dict, cfg: ModelConfig, ids: torch.Tensor,
     matmuls run unfused at B * S rows (K5b / K5a for quantized stacks), as
     the JAX verify forward does."""
     S = ids.shape[1]
+    sc = _shard(params)
     rope_c, rope_s = gather_rope(params["rope_cos"], params["rope_sin"], positions)
-    x = params["embed"][ids.long()]                                    # [B, S, H]
+    x = embed_tokens(params, ids)                                      # [B, S, H]
     for l in range(cfg.num_hidden_layers):
         lp = _layer(params, l)
         q, k, v = _qkv(lp, x, cfg, rope_c, rope_s, l, impl)
         infl_k[l, :, :, base : base + S] = k.transpose(1, 2)
         infl_v[l, :, :, base : base + S] = v.transpose(1, 2)
         attn = attend(l, q.contiguous())
-        x = _out_and_mlp(lp, x, attn, cfg, l, impl)
+        x = _out_and_mlp(lp, x, attn, cfg, l, impl, sc=sc)
     return _logits(params, x, cfg, impl)
 
 

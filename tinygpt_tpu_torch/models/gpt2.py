@@ -48,14 +48,20 @@ from tinygpt_tpu_torch.models.causal_lm import (
     _impl,
     _layer,
     _mm,
+    _shard,
+    _tp_sum,
+    embed_tokens,
+    gather_vocab,
     params_from_numpy,
     run_decode_paged_steps,
     run_decode_step,
     run_decode_steps,
     run_forward_paged,
+    seq_slice,
 )
 from tinygpt_tpu_torch.ops.attention import attention_with_cache
 from tinygpt_tpu_torch.ops.norms import layer_norm
+from tinygpt_tpu_torch.parallel.distributed import all_gather
 
 __all__ = ["load_params", "init_params", "params_from_numpy", "forward", "decode_steps",
            "decode_step", "decode_paged_steps", "forward_paged"]
@@ -152,7 +158,7 @@ def _embed(params: Dict, ids: torch.Tensor, positions: torch.Tensor) -> torch.Te
     """wte[ids] + wpe[positions], a position past the table reading its
     last row (the JAX gather clamps)."""
     pos = positions.long().clamp(0, params["wpe"].shape[0] - 1)
-    return params["wte"][ids.long()] + params["wpe"][pos]
+    return embed_tokens(params, ids, "wte") + params["wpe"][pos]
 
 
 def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, l: int, impl: str):
@@ -166,20 +172,25 @@ def _qkv(lp: Dict, x: torch.Tensor, cfg: ModelConfig, l: int, impl: str):
 
 
 def _out_and_mlp(lp: Dict, x: torch.Tensor, attn: torch.Tensor, cfg: ModelConfig,
-                 l: int, impl: str) -> torch.Tensor:
+                 l: int, impl: str, sc=None) -> torch.Tensor:
     """Output projection + residual, then ln_2, the tanh-GELU MLP (in the
-    activation dtype, as the JAX package) + residual. attn [B, S, N, D]."""
+    activation dtype, as the JAX package) + residual. attn [B, S, N, D].
+    Under a ShardContext the row-parallel o and proj are summed over tp
+    before their replicated biases are added, once."""
     B, S = x.shape[0], x.shape[1]
-    x = x + _mm(lp, "o_w", attn.reshape(B, S, -1), l, impl) + lp["o_b"]
+    x = x + _tp_sum(_mm(lp, "o_w", attn.reshape(B, S, -1), l, impl), sc,
+                    sc is not None and sc.attn) + lp["o_b"]
     h = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.layer_norm_epsilon)
     h = F.gelu(_mm(lp, "fc_w", h, l, impl) + lp["fc_b"], approximate="tanh")
-    return x + _mm(lp, "proj_w", h, l, impl) + lp["proj_b"]
+    return x + _tp_sum(_mm(lp, "proj_w", h, l, impl), sc,
+                       sc is not None and sc.mlp) + lp["proj_b"]
 
 
 def _logits(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final LayerNorm and the tied head, a float matmul: fp32 logits."""
+    """Final LayerNorm and the tied head, a float matmul: fp32 logits
+    (all-gathered over tp where wte is cut over the vocab)."""
     x = layer_norm(x, params["lnf_w"], params["lnf_b"], cfg.layer_norm_epsilon)
-    return (x @ params["wte"].T).float()
+    return gather_vocab((x @ params["wte"].T).float(), params)
 
 
 def forward(
@@ -205,16 +216,23 @@ def forward(
                          f"{cache.max_len} slots")
     cache.kv_pos[:, slot : slot + S] = positions
     cache.valid[:, slot : slot + S] = token_valid
-    x = _embed(params, input_ids, positions)
+    sc = _shard(params)
+    # sequence parallelism: this rank's slice of the tokens, K/V gathered
+    ids, q_pos, seq_lo = seq_slice(sc, input_ids, positions)
+    x = _embed(params, ids, q_pos)
     for l in range(cfg.num_hidden_layers):
         lp = _layer(params, l)
         q, k, v = _qkv(lp, x, cfg, l, impl)
+        if seq_lo is not None:
+            k, v = all_gather(k, sc.sp_group, dim=1), all_gather(v, sc.sp_group, dim=1)
         cache.k[l, :, :, slot : slot + S] = kv_cast(k.transpose(1, 2), cache.k.dtype)
         cache.v[l, :, :, slot : slot + S] = kv_cast(v.transpose(1, 2), cache.v.dtype)
         attn = attention_with_cache(
-            q, cache.k[l], cache.v[l], q_pos=positions, kv_pos=cache.kv_pos,
-            kv_valid=cache.valid, slot=slot, kernel=impl)
-        x = _out_and_mlp(lp, x, attn, cfg, l, impl)
+            q, cache.k[l], cache.v[l], q_pos=q_pos, kv_pos=cache.kv_pos,
+            kv_valid=cache.valid, slot=slot + (seq_lo or 0), kernel=impl)
+        x = _out_and_mlp(lp, x, attn, cfg, l, impl, sc)
+    if seq_lo is not None:
+        x = all_gather(x, sc.sp_group, dim=1)
     if last_only and last_pos is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_pos.long()][:, None]
     elif last_only:  # left padding puts every row's last token at S - 1
@@ -227,12 +245,13 @@ def _decode_token(params, cfg, tok, pos, put_kv, attend, impl: str) -> torch.Ten
     """Logits [B, 1, V] of one decode step (the token step of causal_lm's
     shared loops): every layer hands its K/V [B, N, D] to put_kv(l, k, v),
     then attends through attend(l, q [B, 1, N, D])."""
+    sc = _shard(params)
     x = _embed(params, tok[:, None], pos)                             # [B, 1, H]
     for l in range(cfg.num_hidden_layers):
         lp = _layer(params, l)
         q, k, v = _qkv(lp, x, cfg, l, impl)
         put_kv(l, k[:, 0], v[:, 0])
-        x = _out_and_mlp(lp, x, attend(l, q), cfg, l, impl)
+        x = _out_and_mlp(lp, x, attend(l, q), cfg, l, impl, sc)
     return _logits(params, x, cfg)
 
 

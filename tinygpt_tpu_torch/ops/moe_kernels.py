@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -424,6 +424,28 @@ def _gmm(x: torch.Tensor, w, l: int, idx: torch.Tensor, impl: str) -> torch.Tens
     return fn(x, w, l, idx)
 
 
+def local_experts(idx: torch.Tensor, experts: Tuple[int, int]):
+    """Expert ids [R] of the whole model -> (ids into a rank's stack of
+    experts e0 .. e0 + n - 1, the rows routed there). A row routed to
+    another rank reads local expert 0; its output is zeroed by the
+    caller."""
+    e0, n = experts
+    loc = idx - e0
+    hit = (loc >= 0) & (loc < n)
+    return torch.where(hit, loc, torch.zeros_like(loc)), hit
+
+
+def moe_gather_local(x: torch.Tensor, w, l: int, idx: torch.Tensor,
+                     experts: Tuple[int, int], impl: str = "kernel") -> torch.Tensor:
+    """The gathered matmul of a rank that holds experts e0 .. e0 + n - 1
+    (expert parallelism): global ids [R] int32 remapped to the local stack
+    around the kernel (K12, K11a or K11b, or their plain versions), and the
+    rows routed to another rank given 0."""
+    ids, hit = local_experts(idx, experts)
+    out = _gmm(x, w, l, ids.to(torch.int32), impl)
+    return out * hit[:, None].to(out.dtype)
+
+
 def moe_mlp_gathered(
     h: torch.Tensor,    # [B, 1, H] or [B, H] post-norm activations
     router_w: torch.Tensor,  # [H, E] this layer's router
@@ -432,19 +454,27 @@ def moe_mlp_gathered(
     l: int,             # layer
     cfg,
     impl: str = "kernel",  # "kernel" | "plain"
+    experts: Optional[Tuple[int, int]] = None,  # (e0, n): the stacks' experts
 ) -> torch.Tensor:
     """The routed Mixtral MLP of a decode step: routing (moe_route), the
     B * k slot-major rows through two gathered matmuls (only the routed
     experts' bytes are read), silu(gate) * up in fp32 cast back, and the
-    routing-weighted slot sum in fp32. Returns h's shape and dtype."""
+    routing-weighted slot sum in fp32. With `experts` the stacks hold
+    those experts only (expert parallelism): routing runs over every
+    expert, the rows routed elsewhere give 0 (moe_gather_local), and the
+    result is this rank's partial sum. Returns h's shape and dtype."""
     lead, H = h.shape[:-1], h.shape[-1]
     h2 = h.reshape(-1, H)
     B, k = h2.shape[0], cfg.num_experts_per_tok
     w_top, idx = moe_route(h2, router_w, k)
     xr = h2.repeat_interleave(k, dim=0)                  # [B*k, H] slot-major
     ids = idx.reshape(-1).to(torch.int32)
-    gate, up = _gmm(xr, gate_up_w, l, ids, impl).chunk(2, dim=-1)
+    if experts is None:
+        gmm = lambda x, w: _gmm(x, w, l, ids, impl)  # noqa: E731
+    else:
+        gmm = lambda x, w: moe_gather_local(x, w, l, ids, experts, impl)  # noqa: E731
+    gate, up = gmm(xr, gate_up_w).chunk(2, dim=-1)
     act = F.silu(gate.float()).to(up.dtype) * up
-    down = _gmm(act, down_w, l, ids, impl)               # [B*k, H]
+    down = gmm(act, down_w)                              # [B*k, H]
     out = (w_top.reshape(-1, 1) * down.float()).reshape(B, k, H).sum(dim=1)
     return out.to(h.dtype).reshape(*lead, H)

@@ -48,7 +48,7 @@ MAX_DECODE_ROWS = 32        # rows of the decode-shaped kernels (K6, K7)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _MATMUL_ARGS = [_P] * 4 + [_I] * 8 + [_P]  # ..., split, tile, stream
 _FUSED_ARGS = [_P] * 12 + [_I] * 10 + [_F, _I, _I, _P]  # ..., eps, dtype, split, stream
-_MLP_ARGS = [_P] * 9 + [_I] * 10 + [_P]  # ..., dtype, split_a, split_b, stream
+_MLP_ARGS = [_P] * 9 + [_I] * 11 + [_P]  # ..., dtype, residual, split_a, split_b, stream
 
 # the int8 GEMV's split (csrc/int8_matmul.cu, M <= 32): a block owns
 # _GEMV_COLS columns of up to 4 (M <= 4) or 8 activation rows; the blocks of
@@ -198,7 +198,8 @@ def matmul_dequant_int4_stacked_fused_plain(
 
 
 def mlp_fused_int4_stacked_plain(x, gu_data, gu_scales, dn_data, dn_scales,
-                                 ln, invrms, l: int, group: int) -> torch.Tensor:
+                                 ln, invrms, l: int, group: int,
+                                 residual: bool = True) -> torch.Tensor:
     """Plain version of mlp_fused_int4_stacked: the gate_up activation
     stays fp32 between the two matmuls."""
     L = gu_data.shape[0]
@@ -208,7 +209,9 @@ def mlp_fused_int4_stacked_plain(x, gu_data, gu_scales, dn_data, dn_scales,
     i = gu.shape[1] // 2
     act = torch.nn.functional.silu(gu[:, :i]) * gu[:, i:]
     act = _pad_cols(act, 2 * dn_data.shape[1])
-    out = x.float() + act @ _weight(dn_data[l], dn_scales[l], group)
+    out = act @ _weight(dn_data[l], dn_scales[l], group)
+    if residual:
+        out = x.float() + out
     return out.to(x.dtype)
 
 
@@ -637,13 +640,15 @@ def mlp_fused_int4_stacked(
     invrms: torch.Tensor,     # [M, 1] fp32 per-row 1/rms of x
     l: int,
     group: int,                # the group of both weights
+    residual: bool = True,     # False: no "x +" (a tp rank's partial sum)
 ) -> torch.Tensor:
     """x + down(silu(g) * u) with [g || u] = gate_up(x * invrms * ln[l]),
-    the gate_up activation kept in fp32 (K7). M <= 32. On the card one
-    call makes two device launches (gate_up, then down) on the stream."""
+    the gate_up activation kept in fp32 (K7); without the "x +" where
+    residual is False. M <= 32. On the card one call makes two device
+    launches (gate_up, then down) on the stream."""
     if x.device.type == "cpu":
         return mlp_fused_int4_stacked_plain(x, gu_data, gu_scales, dn_data,
-                                            dn_scales, ln, invrms, l, group)
+                                            dn_scales, ln, invrms, l, group, residual)
     name = "mlp_fused_int4_stacked"
     L, Hp, I2 = _check_weight(name, x, gu_data, gu_scales, group)
     _, Ip, H = _check_weight(name, x, dn_data, dn_scales, group)
@@ -671,8 +676,8 @@ def mlp_fused_int4_stacked(
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(gu_data), _ptr(gu_scales), _ptr(dn_data),
                  _ptr(dn_scales), _ptr(ln), _ptr(invrms), _ptr(act), _ptr(out),
-                 M, H, Hp, I2, Ip, group, int(l), _DTYPE_CODE[x.dtype], split_a, split_b,
-                 _stream(x.device))
+                 M, H, Hp, I2, Ip, group, int(l), _DTYPE_CODE[x.dtype], int(residual),
+                 split_a, split_b, _stream(x.device))
     cuda_build.check("int4_mlp.cu", err, name)
     LAUNCHES[name] += 1
     return out

@@ -11,6 +11,13 @@ BatchedInferenceWorker (the server's default) runs the continuous batcher
 (engine/scheduler.py) over the paged KV pool, so concurrent requests
 share decode quanta. InferenceWorker (scheduler="sequential") serves one
 request at a time through the engine's streaming generate_async.
+
+Under a mesh of several ranks (one process each) rank 0 serves HTTP and
+the batcher's loop runs on every rank in lockstep: before each batcher
+step rank 0 broadcasts the step's plan (the requests it added and the
+ones it cancelled since the last step), and every other rank applies the
+same plan and steps (BatchedInferenceWorker.follow). While idle, rank 0
+broadcasts an empty plan every IDLE_PLAN_S seconds.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from tinygpt_tpu_torch.engine.engine import FinishReason, GPTEngine
+from tinygpt_tpu_torch.parallel import distributed
 from tinygpt_tpu_torch.server.utils import (
     BadRequest,
     InferenceParams,
@@ -32,6 +40,9 @@ from tinygpt_tpu_torch.server.utils import (
 from tinygpt_tpu_torch.utils.logging import get_logger
 
 log = get_logger("server.api")
+
+# seconds between two empty plans that an idle rank 0 sends its followers
+IDLE_PLAN_S = 30.0
 
 
 @dataclass
@@ -150,6 +161,10 @@ class BatchedInferenceWorker:
             eos_ids=engine._eos_ids, config=sc,
         )
         self.incoming: "queue.Queue[Optional[InferenceTask]]" = queue.Queue()
+        # under a mesh of several ranks: what the next plan hands the others
+        self._spmd = distributed.world()[1] > 1
+        self._plan_add: List = []
+        self._plan_cancel: List[int] = []
         self._by_rid: Dict[int, dict] = {}
         self._next_rid = 0
         self._stopping = False
@@ -201,6 +216,8 @@ class BatchedInferenceWorker:
             "emitted": [],
         }
         self.batcher.add_request(req)
+        if self._spmd:
+            self._plan_add.append(req)
 
     def _finish(self, rid: int, reason: str) -> None:
         st = self._by_rid.pop(rid, None)
@@ -227,7 +244,7 @@ class BatchedInferenceWorker:
             return
         task = st["task"]
         if task.abort.is_set():
-            self.batcher.cancel(ev.request_id)
+            self._cancel(ev.request_id)
             self._finish(ev.request_id, "abort")
             return
         if ev.token_id is not None:
@@ -247,25 +264,71 @@ class BatchedInferenceWorker:
                     else:
                         task.chunks.put(out)
                 if st["stopper"].stopped:
-                    self.batcher.cancel(ev.request_id)
+                    self._cancel(ev.request_id)
                     self._finish(ev.request_id, "stop")
                     return
         if ev.finished:
             self._finish(ev.request_id, ev.finish_reason or "length")
 
+    def _cancel(self, rid: int) -> None:
+        self.batcher.cancel(rid)
+        if self._spmd:
+            self._plan_cancel.append(rid)
+
+    def _send_plan(self, step: bool, stop: bool = False) -> None:
+        """Rank 0: hand the other ranks what changed since the last plan."""
+        if not self._spmd:
+            return
+        plan = {"add": self._plan_add, "cancel": self._plan_cancel, "step": step,
+                "stop": stop}
+        self._plan_add, self._plan_cancel = [], []
+        distributed.broadcast_object(plan, src=0)
+
+    def follow(self) -> None:
+        """A rank other than 0: apply rank 0's plans and step the batcher
+        with it, until rank 0 stops. Its events are rank 0's to deliver."""
+        from tinygpt_tpu_torch.engine.scheduler import Request
+
+        while True:
+            plan = distributed.broadcast_object(None, src=0)
+            for rid in plan["cancel"]:
+                self.batcher.cancel(rid)
+            for req in plan["add"]:
+                self.batcher.add_request(Request(
+                    request_id=req.request_id, prompt_ids=list(req.prompt_ids),
+                    max_new_tokens=req.max_new_tokens, sampler=req.sampler,
+                    stop_token_ids=set(req.stop_token_ids)))
+            if plan["stop"]:
+                return
+            if plan["step"]:
+                self.batcher.step()
+
     def _run(self) -> None:
+        try:
+            self._loop()
+        finally:
+            self._send_plan(step=False, stop=True)
+
+    def _loop(self) -> None:
         while not self._stopping:
             # block when idle; drain opportunistically when busy
             try:
-                task = (self.incoming.get() if not self.batcher.has_work
-                        else self.incoming.get_nowait())
+                if self.batcher.has_work:
+                    task = self.incoming.get_nowait()
+                elif self._spmd:
+                    task = self.incoming.get(timeout=IDLE_PLAN_S)
+                else:
+                    task = self.incoming.get()
                 if task is None:
                     return
                 self._admit(task)
                 continue  # favour admitting everything waiting first
             except queue.Empty:
-                pass
+                if not self.batcher.has_work:
+                    self._send_plan(step=False)  # idle: keep the others waiting
+                    continue
             try:
+                self._send_plan(step=True)
                 events = list(self.batcher.step())
                 now = time.monotonic()
                 per_rid: Dict[int, int] = {}

@@ -14,9 +14,11 @@ streaming generate_async (server/api.InferenceWorker).
 The engine runs on the card (ServerConfig.device="cuda") unless asked for
 the CPU; int4 runs AWQ by default (--awq-calib FILE, --no-awq).
 --speculative runs the batcher's n-gram speculative quanta (greedy
-requests verify exactly, sampled ones by exact rejection sampling). Not
-ported yet, raising NotImplementedError: device meshes (ROADMAP.md queue
-1, item 13).
+requests verify exactly, sampled ones by exact rejection sampling).
+--mesh DP,SP,TP shards the engine and the batcher (one process a rank,
+joined from the torch env; parallel/): rank 0 serves HTTP, and every rank
+runs the same batcher loop on the same requests, which rank 0 hands the
+others before each step (api.BatchedInferenceWorker).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Any, Optional
 
 from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
 from tinygpt_tpu_torch.ops.sampling import SamplerConfig
+from tinygpt_tpu_torch.parallel import distributed
 from tinygpt_tpu_torch.server import api
 from tinygpt_tpu_torch.server.utils import BadRequest, parse_inference_params
 from tinygpt_tpu_torch.tokenizer.chat_template import CHATML_TEMPLATE
@@ -60,7 +63,7 @@ class ServerConfig:
     quant_group_size: Optional[int] = None  # None = auto (int4 64, int8 128)
     awq: Optional[bool] = None  # None = auto: on for int4
     awq_calib_path: Optional[str] = None  # None = the built-in corpus
-    mesh_shape: Optional[tuple] = None  # (dp, sp, tp); not ported
+    mesh_shape: Optional[tuple] = None  # (dp, sp, tp), one process a rank
     speculative: bool = False  # n-gram speculative quanta (greedy rows verify
     # by argmax prefix, sampled rows by exact rejection sampling)
     # "continuous" = paged continuous batching; "sequential" = the
@@ -114,11 +117,16 @@ class TinyGPTServer:
                     attn_impl=self.engine._attn_impl,
                     prefill_chunk_tokens=cfg.prefill_chunk_tokens,
                     speculative="ngram" if cfg.speculative else None,
+                    mesh_shape=cfg.mesh_shape,
                 ),
             )
+        elif distributed.world()[1] > 1:
+            raise ValueError("a mesh of several ranks serves through the "
+                             "continuous batcher (--scheduler continuous)")
         else:
             self.worker = api.InferenceWorker(self.engine)
-        self.worker.start()
+        if distributed.world()[0] == 0:  # the other ranks follow (serve_forever)
+            self.worker.start()
 
     def _setup_chat_template(self) -> None:
         """Priority: CLI string/file > model template > ChatML fallback (if
@@ -149,6 +157,11 @@ class TinyGPTServer:
         return here if os.path.isdir(here) else None
 
     def serve_forever(self) -> None:
+        """Serve HTTP; under a mesh, only rank 0 does, and every other rank
+        follows its batcher plans (api.BatchedInferenceWorker.follow)."""
+        if distributed.world()[0] != 0:
+            self.worker.follow()
+            return
         handler = _make_handler(self)
         self._httpd = ThreadingHTTPServer(
             (self.config.host, self.config.port), handler
@@ -159,6 +172,8 @@ class TinyGPTServer:
         self._httpd.serve_forever()
 
     def shutdown(self) -> None:
+        if distributed.world()[0] != 0:
+            return  # a follower ends with rank 0's last plan
         if self._httpd:
             threading.Thread(target=self._httpd.shutdown, daemon=True).start()
         if self.worker:
@@ -351,7 +366,10 @@ def main(argv=None) -> None:
                          "for int4; --no-awq forces plain RTN)")
     ap.add_argument("--awq-calib", default=None, metavar="TEXT_FILE")
     ap.add_argument("--mesh", default=None, metavar="DP,SP,TP",
-                    help="device mesh (not ported)")
+                    help="device mesh, one process a rank (torchrun)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend under --mesh (default: nccl "
+                         "on a CUDA device, gloo on the CPU)")
     ap.add_argument("--scheduler", default="continuous",
                     choices=["continuous", "sequential"])
     ap.add_argument("--batch-capacity", type=int, default=8)
@@ -364,6 +382,9 @@ def main(argv=None) -> None:
                          "verify exactly, sampled ones via exact rejection "
                          "sampling; pays off on repetitive text)")
     args = ap.parse_args(argv)
+    if args.mesh:
+        # join the process group of the torch env (torchrun's)
+        distributed.initialize(backend=args.dist_backend, device=args.device)
 
     server = TinyGPTServer(ServerConfig(
         model_dir=args.model, host=args.host, port=args.port,
