@@ -120,12 +120,38 @@ Phases, in order:
   mixtral_serve  the continuous batcher on those params: 8 requests of 512
            tokens, 64 new each, on the frozen (K8) and the stepwise (K9)
            quantum, K11b in every step;
-  mixtral8, mixtral_bf16  the same in int8 (K11a; 32 layers, group 128) and
-           in bf16 (K12; cut to 8 layers, and fp32 at 2 layers);
+  mixtral8, mixtral_bf16  the same in int8 (K11a; cut to 16 layers, group
+           128) and in bf16 (K12; cut to 8 layers, and fp32 at 2 layers);
+  qwen3    the JAX package's other bench shapes (BENCH_SHAPES), at full
+           width and depth on the model phase's batch and chunks, each
+           weight format's kernel route held to its plain route on forced
+           tokens over SHAPE_CHECK_CHUNKS chunks (SHAPE_LOGIT_TOL), exact
+           launch counts, the profiled step (busy, wall, launches) and the
+           prefill; the int4 format first holds K6 (qkv with its bias / qk-norm
+           and RoPE epilogue, o, the tied head), K7, K4, K5b, K1 and K2 at the
+           shape against their plain versions. qwen3: Qwen3-1.7B (28 layers,
+           16/8 heads of 128, qk-norm, tied head over a vocab of 151,936),
+           fp32 at 4 layers (float and int4 weights), then bf16, int8 and
+           int4;
+  qwen3_serve  the serve phase's traffic and scheduler on its int4 params
+           (frozen quantum, K8);
+  qwen25   Qwen2.5-0.5B (24 layers, 14/2 heads of 64, qkv bias, tied head;
+           int4 rows of 896 padded to 1,024) in bf16 and int4, then the
+           batcher on the int4 params, mixtral_serve's traffic, on the
+           frozen (K8) and the stepwise (K9) quantum;
+  llama32  Llama-3.2-1B (16 layers, 32/8 heads of 64) in bf16 and int4 and
+           Llama-3.2-3B (28 layers, 24/8 heads of 128) in int4, both tied;
+  moe_8x1b the JAX bench's 8-expert MoE (16 layers, hidden 2,048, experts of
+           4,096, 32/8 heads of 64) in int4 as the mixtral phases (K11b);
   mixtral_engine, mixtral_server  GPTEngine (bf16; int4 with AWQ by
            default, group 128), the evaluator (int4, kernel against plain
            route) and the server on a 2-layer Mixtral-width dir with the
            generated tokenizer;
+  qwen3_engine, qwen3_server, qwen25_engine, qwen25_server  GPTEngine
+           (bf16; int4 with AWQ by default, on the qk norms or the qkv bias)
+           and the server on 2-layer Qwen3-1.7B- and Qwen2.5-0.5B-width dirs
+           with tied heads (no lm_head.weight) and the generated tokenizer
+           over the whole vocab;
   server_sequential  the server phase once more with scheduler="sequential"
            (one request at a time through GPTEngine.generate_async);
   k13      holds the one-layer decode kernel (K13, flash_decode) against its
@@ -154,7 +180,7 @@ Phases, in order:
            I / 2 with and without it, K2 and K1 at 16 over 4 KV heads,
            K11b on 4 of Mixtral's 8 experts with rows routed away) against
            their plain versions: the Mistral-7B shape in int4 at tp = 2 through the
-           engine's sharding (32 layers: logits against one rank's on the
+           engine's sharding (16 layers, cut from 32: logits against one rank's on the
            same params, tokens the same on both ranks, exact launch
            counts a rank, each rank's busy ms a step), the batcher at
            tp = 2 (a frozen quantum, K8, and a stepwise one, K9), the
@@ -320,8 +346,9 @@ MIXTRAL_8X7B = {
 }
 # layers of each mixtral phase: the experts are 1.41 B parameters a layer, so
 # bf16 (90 GB at 32 layers) runs cut to 8 layers (24 GB); int4 (about 25 GB)
-# and int8 (about 48 GB, after the int4 params are freed) run all 32
-MIXTRAL_LAYERS = {4: 32, 8: 32, None: 8}
+# runs all 32; int8 (about 48 GB at 32) is cut to 16 layers to keep the run
+# inside its time (it runs the same kernels as at 32, K11a in every layer)
+MIXTRAL_LAYERS = {4: 32, 8: 16, None: 8}
 MOE_GROUP = 128  # the JAX engine's group of int4 and int8 MoE models
 # kernel route vs plain route at full width (mixtral phases), max abs error of
 # the logits (std 1.28) at every sampled position on forced tokens, the plain
@@ -337,6 +364,80 @@ MOE_SWEEP_SPLITS = (1, 2, 4, 6, 8, 12, 16)  # K12's cluster sizes swept against 
 MOE_STACK_LAYERS = 2
 # the mixtral4 phase's serving leg: the serve phase's scheduler, 8 requests
 MIXTRAL_SERVE = dict(n_requests=8, prompt_len=512, max_new=64, gap_s=0.25)
+# The JAX package's five other bench shapes (benches/flagship_bench.py:37-78,
+# SHAPES), copied: that file imports JAX. Each is its published model's
+# config.json (Qwen/Qwen2.5-0.5B, meta-llama/Llama-3.2-1B, meta-llama/Llama-3.2-3B,
+# Qwen/Qwen3-1.7B) as the JAX bench writes it; moe_8x1b is the JAX bench's own
+# Mixtral-architecture MoE (8 experts of 4,096, 2 a token), no published
+# checkpoint. Weights random from a seed; widths and depths not cut
+BENCH_SHAPES = {
+    "qwen25_05b": {  # Qwen2.5-0.5B (qkv bias, tied embeddings)
+        "model_type": "qwen2", "vocab_size": 151936, "hidden_size": 896,
+        "num_hidden_layers": 24, "num_attention_heads": 14,
+        "num_key_value_heads": 2, "intermediate_size": 4864,
+        "max_position_embeddings": 32768, "rope_theta": 1000000.0,
+        "rms_norm_eps": 1e-6, "tie_word_embeddings": True,
+    },
+    "llama32_1b": {  # Llama-3.2-1B (GQA, tied)
+        "model_type": "llama", "vocab_size": 128256, "hidden_size": 2048,
+        "num_hidden_layers": 16, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "head_dim": 64,
+        "intermediate_size": 8192, "max_position_embeddings": 32768,
+        "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+        "tie_word_embeddings": True,
+    },
+    "llama32_3b": {  # Llama-3.2-3B
+        "model_type": "llama", "vocab_size": 128256, "hidden_size": 3072,
+        "num_hidden_layers": 28, "num_attention_heads": 24,
+        "num_key_value_heads": 8, "head_dim": 128,
+        "intermediate_size": 8192, "max_position_embeddings": 32768,
+        "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+        "tie_word_embeddings": True,
+    },
+    "qwen3_17b": {  # Qwen3-1.7B (qk-norm, tied)
+        "model_type": "qwen3", "vocab_size": 151936, "hidden_size": 2048,
+        "num_hidden_layers": 28, "num_attention_heads": 16,
+        "num_key_value_heads": 8, "head_dim": 128,
+        "intermediate_size": 6144, "max_position_embeddings": 32768,
+        "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+        "tie_word_embeddings": True,
+    },
+    "moe_8x1b": {  # Mixtral-architecture 8-expert MoE
+        "model_type": "mixtral", "vocab_size": 32768, "hidden_size": 2048,
+        "num_hidden_layers": 16, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "head_dim": 64,
+        "intermediate_size": 4096, "num_local_experts": 8,
+        "num_experts_per_tok": 2, "max_position_embeddings": 32768,
+        "rope_theta": 1000000.0, "rms_norm_eps": 1e-5,
+        "tie_word_embeddings": False,
+    },
+}
+# kernel route vs plain route at full width and depth (the bench-shape
+# phases), max abs error of the logits at every sampled position on forced
+# tokens, by shape and weight format (moe_8x1b with the plain route's
+# routing replayed): both routes run the same weights, attention and the
+# int4 / int8 matmuls differ in summation order and rounding only, which the
+# random stack amplifies layer after layer (logits std 0.6 for Qwen2.5-0.5B,
+# 0.91 for Qwen3-1.7B, Llama-3.2-1B and moe_8x1b, 1.12 for Llama-3.2-3B).
+# An H100 read, over two chunks of 32 steps, the value in each comment; the
+# limits leave 2.3x to 2.6x room. fp32 legs keep MODEL_LOGIT_TOL["float32"]
+SHAPE_LOGIT_TOL = {
+    ("qwen3_17b", "bf16"): 0.4,     # 0.1562
+    ("qwen3_17b", "int8"): 0.5,     # 0.2148
+    ("qwen3_17b", "int4"): 0.5,     # 0.2148
+    ("qwen25_05b", "bf16"): 0.15,   # 0.06348
+    ("qwen25_05b", "int4"): 0.2,    # 0.07812
+    ("llama32_1b", "bf16"): 0.3,    # 0.1172
+    ("llama32_1b", "int4"): 0.4,    # 0.168
+    ("llama32_3b", "int4"): 0.75,   # 0.3081
+    ("moe_8x1b", "int4"): 0.3,      # 0.1172
+}
+# decode chunks of DECODE_CHUNK steps over which the bench-shape phases hold
+# the kernel route to the plain route (the main path's run keeps N_CHUNKS):
+# the plain route's int4 / int8 steps dequantize every weight (40 to 120 ms a
+# step), and the prefill's last position alone read 82 % to 100 % of each
+# reading above
+SHAPE_CHECK_CHUNKS = 1
 # the stream phase: GPTEngine.generate_async on a full-width Mistral-7B dir
 # at batch 1 (bf16, then int4 with AWQ by default), max_tokens tokens at
 # stream_chunk 1 (the per-token route, K13) and 8 (K2)
@@ -2735,7 +2836,7 @@ def phase_model(table: dict):
         _profile_decode(params, cfg, batch, T)
     torch.cuda.empty_cache()
 
-    want = {"flash_prefill": L, "flash_decode_frozen": L * N_CHUNKS * DECODE_CHUNK}
+    want = _dense_want("bf16", L, N_CHUNKS * DECODE_CHUNK)
     log(f"[model] launches {launches} (want {want}: L per prefill, L per decode step)")
     if launches != want:
         raise PhaseError(f"kernel launches {launches} != {want}")
@@ -2787,7 +2888,7 @@ def phase_model_fp8(params) -> None:
         bf16 = _run_route(params, cfg, batch, T, "kernel", force=kern[1])
         _profile_decode(params, cfg, batch, T, label="bf16 weights, fp8 KV", kv_dtype=E4M3)
     torch.cuda.empty_cache()
-    want = {"flash_prefill": L, "flash_decode_frozen": L * N_CHUNKS * DECODE_CHUNK}
+    want = _dense_want("bf16", L, N_CHUNKS * DECODE_CHUNK)
     log(f"[model_fp8] launches {launches} (want {want}: L per prefill, L per decode step)")
     if launches != want:
         raise PhaseError(f"fp8 KV: kernel launches {launches} != {want}")
@@ -2879,17 +2980,11 @@ def phase_model_quant(table: dict, bits: int):
         _profile_decode(params, cfg, batch, T, label=f"int{bits}")
     torch.cuda.empty_cache()
 
-    n = N_CHUNKS * DECODE_CHUNK
+    want = _dense_want(f"int{bits}", L, N_CHUNKS * DECODE_CHUNK)
     if bits == 4:
-        want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
-                "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
-                "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
-                "mlp_fused_int4_stacked": L * n}
         rule = f"per prefill K5b {4 * L}, K4 1, K1 {L}; per decode step K6 {2 * L + 1}, " \
                f"K7 {L}, K2 {L}"
     else:
-        want = {"flash_prefill": L, "matmul_dequant_int8_stacked": 4 * L * (1 + n),
-                "matmul_dequant_int8": 1 + n, "flash_decode_frozen": L * n}
         rule = f"per prefill K1 {L}, K5a {4 * L}, K3 1; per decode step K5a {4 * L}, " \
                f"K3 1, K2 {L}"
     log(f"{tag} launches {launches} (want {want}: {rule})")
@@ -2998,11 +3093,7 @@ def phase_awq(params) -> None:
         launches = dict(ak.LAUNCHES)
         del q
     torch.cuda.empty_cache()
-    n = DECODE_CHUNK
-    want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
-            "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
-            "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
-            "mlp_fused_int4_stacked": L * n}
+    want = _dense_want("int4", L, DECODE_CHUNK)
     log(f"[awq] launches {launches} (want {want})")
     if launches != want:
         raise PhaseError(f"awq: launches {launches} != {want}")
@@ -3234,12 +3325,7 @@ def phase_serve(table: dict, params) -> None:
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         if n_out != [s["max_new"]] * s["n_requests"]:
             raise PhaseError(f"serve: tokens per request {n_out}, want {s['max_new']} each")
-        want = {"paged_decode_frozen": L * steps,
-                "matmul_dequant_int4_stacked_fused": (2 * L + 1) * steps,
-                "mlp_fused_int4_stacked": L * steps,
-                "flash_prefill": L * admissions,
-                "matmul_dequant_int4_stacked": 4 * L * admissions,
-                "matmul_dequant_int4": admissions}
+        want = _dense_want("int4", L, steps, prefills=admissions, attn="paged_decode_frozen")
         log(f"[serve] launches {launches} (want {want}: per decode step K8 {L}, K6 "
             f"{2 * L + 1}, K7 {L}; per admission K1 {L}, K5b {4 * L}, K4 1)")
         if admissions != s["n_requests"] or launches != want:
@@ -4246,9 +4332,12 @@ def _mixtral_want(bits, L, n, prefills=1, attn="flash_decode_frozen"):
     return want
 
 
-def phase_mixtral(table: dict, bits):
+def phase_mixtral(table: dict, bits, key=None, n_check=N_CHUNKS):
     """Mixtral-8x7B at full width on the card, in int4 (bits 4: K11b),
-    int8 (8: K11a) or bf16 (None: K12), MIXTRAL_LAYERS deep: first the same
+    int8 (8: K11a) or bf16 (None: K12), MIXTRAL_LAYERS deep (with `key`, the
+    bench shape BENCH_SHAPES[key] at its own depth, held to
+    SHAPE_LOGIT_TOL over n_check chunks, its launches added to the
+    table): first the same
     quantization in fp32 at 2 layers (int4, bf16), kernel route against
     plain route within MODEL_LOGIT_TOL["float32"] and identical
     free-running tokens; then the main path: a prefill of 4 left-padded
@@ -4263,14 +4352,20 @@ def phase_mixtral(table: dict, bits):
     from tinygpt_tpu_torch.hf.config import parse_model_config
     from tinygpt_tpu_torch.ops import attention_kernels as ak
 
-    tag = f"[mixtral{'_bf16' if bits is None else bits}]"
     label = "bf16" if bits is None else f"int{bits}"
+    if key is None:
+        tag, shape, name = f"[mixtral{'_bf16' if bits is None else bits}]", MIXTRAL_8X7B, \
+            "Mixtral-8x7B"
+        depth, tol = MIXTRAL_LAYERS[bits], MIXTRAL_LOGIT_TOL[bits]
+    else:
+        tag, shape, name = f"[{key}]", BENCH_SHAPES[key], key
+        depth, tol = shape["num_hidden_layers"], SHAPE_LOGIT_TOL[key, label]
     mp = main_path_shapes()
     S, T = mp["prefill"]["S"], mp["prefill"]["T"]
     B = len(PROMPT_LENS)
     with torch.inference_mode():
         if bits != 8:
-            cfg2 = parse_model_config(dict(MIXTRAL_8X7B, num_hidden_layers=2))
+            cfg2 = parse_model_config(dict(shape, num_hidden_layers=2))
             p2 = _mixtral_params(cfg2, bits, seed=1)
             p2 = _to_fp32(p2)
             batch = _left_padded_batch(S, PROMPT_LENS, cfg2.vocab_size, seed=1)
@@ -4287,34 +4382,38 @@ def phase_mixtral(table: dict, bits):
             del p2
             torch.cuda.empty_cache()
 
-        cfg = parse_model_config(dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS[bits]))
+        cfg = parse_model_config(dict(shape, num_hidden_layers=depth))
         L = cfg.num_hidden_layers
         t0 = time.perf_counter()
         params = _mixtral_params(cfg, bits, seed=0)
         torch.cuda.synchronize()
-        log(f"{tag} Mixtral-8x7B, {L} layers, {label}"
+        log(f"{tag} {name}, {L} layers, {label}"
             + ("" if bits is None else f" (group {MOE_GROUP})")
             + f" built on the card in {time.perf_counter() - t0:.1f} s: "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
         batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
         _run_route(params, cfg, batch, T, "kernel", n_chunks=1)      # warm-up
         with _Routing("record") as rec:
-            plain = _run_route(params, cfg, batch, T, "plain")
+            plain = _run_route(params, cfg, batch, T, "plain", n_chunks=n_check)
         with _Routing("replay", rec.seen, valid=batch[2].reshape(-1)) as rep:
-            forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1])
-        free = _run_route(params, cfg, batch, T, "kernel", force=plain[1])
+            forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1],
+                                n_chunks=n_check)
+        free = _run_route(params, cfg, batch, T, "kernel", force=plain[1], n_chunks=n_check)
         ak.reset_launches()                                           # the main path's run
         kern = _run_route(params, cfg, batch, T, "kernel")
         launches = dict(ak.LAUNCHES)
-        _profile_decode(params, cfg, batch, T, label=label, tag=tag)
+        prof = _profile_decode(params, cfg, batch, T, label=label, tag=tag)
     n = N_CHUNKS * DECODE_CHUNK
     want = _mixtral_want(bits, L, n)
     log(f"{tag} launches {launches} (want {want})")
     if launches != want:
         raise PhaseError(f"{tag} kernel launches {launches} != {want}")
-    table[MOE_NAMES[bits]]["launches"] = launches[MOE_NAMES[bits]]
+    if key is None:
+        table[MOE_NAMES[bits]]["launches"] = launches[MOE_NAMES[bits]]
+    else:
+        _add_launches(table, launches)
     _check_routes(f"{label}, bf16, {L} layers, the plain route's routing replayed", forced,
-                  plain, MIXTRAL_LOGIT_TOL[bits], tag)
+                  plain, tol, tag)
     err = (free[0] - plain[0]).abs().max().item()
     rel = ((free[0] - plain[0]).norm() / plain[0].norm()).item()
     log(f"{tag} {label}, bf16, {L} layers, each route routing by its own top-k (forced "
@@ -4322,18 +4421,24 @@ def phase_mixtral(table: dict, bits):
         f"pick other experts than the plain route did; logits max_abs_err {err:.4g}, "
         f"relative L2 {rel:.3g} (not a check: a flipped decision changes a token's "
         f"experts)")
-    same = int((kern[1] == plain[1]).all(dim=0).sum())
+    n_tok = plain[1].shape[0]
+    same = int((kern[1][:n_tok] == plain[1]).all(dim=0).sum())
     decode_ids = rep.seen[L:]                      # the prefill's L calls come first
     step_bytes, expert_bytes, distinct = _mixtral_step_bytes(params, cfg, T, decode_ids)
     pre_ms, dec_ms = kern[2:]
     log(f"{tag} {label}, {L} layers: free-running greedy tokens of the two routes identical "
-        f"over all {kern[1].shape[0]} positions in {same} of {B} rows")
+        f"over the first {n_tok} positions in {same} of {B} rows")
     log(f"{tag} kernel route: prefill {pre_ms:.2f} ms ({B}x{S} tokens), decode "
         f"{dec_ms:.3f} ms/step, {B * 1e3 / dec_ms:.1f} tok/s at batch {B} (host: "
         f"{host_launch_us():.2f} us a tiny launch); plain route: prefill {plain[2]:.2f} ms, "
         f"decode {plain[3]:.3f} ms/step; {distinct:.2f} distinct experts a layer on this "
         f"run's routing: a step reads {step_bytes / 1e9:.3f} GB (experts "
         f"{expert_bytes / 1e9:.3f}), bound {step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    if prof:
+        log(f"{tag} {label}, {L} layers, summary: prefill {pre_ms:.2f} ms, decode "
+            f"{dec_ms:.3f} wall ms/step; profiled {prof['wall_ms']:.3f} wall ms/step, "
+            f"{prof['busy_ms']:.3f} busy ms/step, {prof['launches']:.0f} launches/step; "
+            f"card {CARD}")
     return params
 
 
@@ -4904,6 +5009,484 @@ def phase_server(d: str, scheduler: str = "continuous") -> None:
                          f"{thread.is_alive()}")
 
 
+# -- the JAX package's other bench shapes -----------------------------------------
+
+
+def _dense_want(route, L, n, prefills=1, attn="flash_decode_frozen"):
+    """Launches of `prefills` prefills and n decode steps of a dense
+    llama-family model: K1 in every prefill and the decode attention
+    (`attn`: K2, or the batcher's K8 / K9) L times a step; int4 adds K5b
+    (4 L) and K4 (the head) to every prefill and K6 (qkv and o a layer, and
+    the head) and K7 to every step (the fused route); int8 adds K5a and K3
+    to every prefill and every step (the unfused route)."""
+    want = {"flash_prefill": L * prefills, attn: L * n}
+    if route == "int4":
+        want.update({"matmul_dequant_int4_stacked": 4 * L * prefills,
+                     "matmul_dequant_int4": prefills,
+                     "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
+                     "mlp_fused_int4_stacked": L * n})
+    elif route == "int8":
+        want.update({"matmul_dequant_int8_stacked": 4 * L * (prefills + n),
+                     "matmul_dequant_int8": prefills + n})
+    return want
+
+
+def _add_launches(table: dict, launches: dict) -> None:
+    """Adds a leg's main-path launches to the kernel table's counts."""
+    for name, count in launches.items():
+        table[name]["launches"] += count
+
+
+def _shape_params(cfg, route, dtype=None, seed=0):
+    """Random params of a dense bench shape on the card (init_params in
+    `dtype`, default bf16), each norm weight (input, post, final; qwen3's q
+    and k) drawn as 1 + N(0, 0.1^2) so that a weight read at another head
+    or layer shows against the plain route; then quantized on the card
+    for route "int8" (group INT8_GROUP) or "int4" (INT4_GROUP). A tied
+    head becomes a quantized transposed copy of the embedding
+    (ops/quant.quantize_params)."""
+    import torch
+
+    from tinygpt_tpu_torch.models import causal_lm
+    from tinygpt_tpu_torch.ops.quant import quantize_params
+
+    params = causal_lm.init_params(cfg, seed=seed, dtype=dtype or torch.bfloat16,
+                                   device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 100)
+    norms = [params["final_ln"]] + [params["layers"][k] for k in
+                                     ("input_ln", "post_ln", "q_norm", "k_norm")
+                                     if k in params["layers"]]
+    for t in norms:
+        t.mul_(1 + 0.1 * torch.randn(t.shape, generator=g, device=DEVICE).to(t.dtype))
+    if route in ("int8", "int4"):
+        bits = int(route[3])
+        params = quantize_params(params, bits=bits,
+                                 group_size=INT4_GROUP if bits == 4 else INT8_GROUP)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return params
+
+
+def _param_bytes(params) -> int:
+    """Bytes of every layer weight, norm and the head (quantized: data and
+    scales; tied: the quantized copy, or the embedding in float): what a
+    decode step reads besides the K/V cache."""
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor
+
+    def size(v):
+        return _nbytes(v.data, v.scales) if isinstance(v, QuantizedTensor) else _nbytes(v)
+
+    head = params["lm_head"] if params["lm_head"] is not None else params["embed"]
+    return (sum(size(v) for v in params["layers"].values()) + size(head)
+            + _nbytes(params["final_ln"]))
+
+
+def _kernel_case(tag, name, kern, plain, cost, tol, iters=20):
+    """One kernel at a path's shape against its plain version: max abs
+    error within `tol` (a number, or a function of the plain output),
+    timed beside the plain version and the bound."""
+    import torch
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = tol(want) if callable(tol) else tol
+    if not math.isfinite(err) or err > tol:
+        raise PhaseError(f"{tag}: {name} differs from its plain version by {err} > {tol}")
+    ms, plain_ms = cuda_time_ms(kern, iters), cuda_time_ms(plain, iters)
+    b_ms, by = bound_ms(*cost, "bfloat16")
+    log(f"{tag}: {name} max_abs_err {err:.4g} (tol {tol:.4g}), {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    del got, want
+    torch.cuda.synchronize()
+
+
+def _shape_kernels(tag, cfg, params) -> None:
+    """The kernels of a dense leg's int4 path at its own shapes, against
+    their plain versions on the same inputs (bf16, batch 4, the last
+    layer): K6 for qkv with the norm prologue and, in its epilogue, a bias
+    of N(0, 1) (qwen2) and q / k norm weights of 1 + N(0, 0.5^2) (qwen3)
+    before RoPE on the Nq + Nk heads; K6 for o with the residual; K7; K6 for
+    the head (tied: the quantized transposed embedding) with the final norm;
+    K4 for the prefill's head and K5b for a 4 x 512 prefill's qkv; K1 and
+    K2 at the leg's heads. Quantized outputs within QUANT_TOL of the
+    largest plain output, attention within TOL. The times are warm: one
+    layer called again and again, so a matrix under the 50 MB L2 is read
+    from it (only the heads, 132 to 157 MB, are not), by torch.profiler."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops import quant_kernels as qk
+    from tinygpt_tpu_torch.ops.quant import pad_x_to
+
+    lay, head = params["layers"], params["lm_head"]
+    H, D, L = cfg.hidden_size, cfg.head_dim, cfg.num_hidden_layers
+    Nq, Nk, M, l = cfg.num_attention_heads, cfg.num_kv_heads, len(PROMPT_LENS), L - 1
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def rel(want):
+        return QUANT_TOL["bfloat16"] * want.float().abs().max().item()
+
+    def cost(qt, at, x, out_cols):
+        data, scales = (qt.data[at], qt.scales[at]) if at is not None else (qt.data, qt.scales)
+        return (_nbytes(data, scales, x) + x.shape[0] * out_cols * 2,
+                2.0 * x.shape[0] * qt.in_dim * out_cols)
+
+    x = torch.randn(M, H, generator=g, device=DEVICE).to(bf)
+    inv = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + cfg.rms_norm_eps)
+    pos = torch.tensor(PROMPT_LENS, device=DEVICE)
+    qt = lay["qkv_w"]
+    kw = dict(ln=lay["input_ln"], invrms=inv, rope_cos=params["rope_cos"][pos],
+              rope_sin=params["rope_sin"][pos], rope_heads=Nq + Nk, rope_dim=D)
+    what = []
+    if "qkv_b" in lay:
+        kw["bias"] = torch.randn(L, qt.out_dim, generator=g, device=DEVICE).to(bf)
+        what.append("bias")
+    if cfg.qk_norm:
+        kw.update(qk_norm_w=tuple((1 + 0.5 * torch.randn(L, D, generator=g, device=DEVICE))
+                                  .to(bf) for _ in range(2)),
+                  qk_heads=Nq, eps=cfg.rms_norm_eps)
+        what.append("qk-norm")
+    _kernel_case(
+        tag, f"K6 qkv {H} -> {qt.out_dim} ({Nq} + 2 x {Nk} heads of {D}, "
+        f"{' + '.join(what + ['RoPE'])})", lambda: qk.matmul_dequant_int4_stacked_fused(
+            x, qt.data, qt.scales, l, qt.group_size, **kw),
+        lambda: qk.matmul_dequant_int4_stacked_fused_plain(
+            x, qt.data, qt.scales, l, qt.group_size, **kw), cost(qt, l, x, qt.out_dim), rel)
+    a = torch.randn(M, Nq * D, generator=g, device=DEVICE).to(bf)
+    qt = lay["o_w"]
+    _kernel_case(
+        tag, f"K6 o {Nq * D} (rows {qt.in_dim}) -> {H}, residual",
+        lambda: qk.matmul_dequant_int4_stacked_fused(a, qt.data, qt.scales, l,
+                                                     qt.group_size, res=x),
+        lambda: qk.matmul_dequant_int4_stacked_fused_plain(a, qt.data, qt.scales, l,
+                                                           qt.group_size, res=x),
+        cost(qt, l, a, H), rel)
+    gu, dn = lay["gate_up_w"], lay["down_w"]
+    mlp = (x, gu.data, gu.scales, dn.data, dn.scales, lay["post_ln"], inv, l, gu.group_size)
+    _kernel_case(
+        tag, f"K7 MLP {H} -> 2 x {gu.out_dim // 2} -> {H}",
+        lambda: qk.mlp_fused_int4_stacked(*mlp), lambda: qk.mlp_fused_int4_stacked_plain(*mlp),
+        (cost(gu, l, x, gu.out_dim)[0] + _nbytes(dn.data[l], dn.scales[l]),
+         2.0 * M * (gu.in_dim * gu.out_dim + dn.in_dim * H)), rel)
+    tied = "tied, " if cfg.tie_word_embeddings else ""
+    _kernel_case(
+        tag, f"K6 head {H} (rows {head.in_dim}) -> {head.out_dim} ({tied}vocab "
+        f"{cfg.vocab_size}), final norm",
+        lambda: qk.matmul_dequant_int4_stacked_fused(
+            x, head.data[None], head.scales[None], 0, head.group_size,
+            ln=params["final_ln"][None], invrms=inv),
+        lambda: qk.matmul_dequant_int4_stacked_fused_plain(
+            x, head.data[None], head.scales[None], 0, head.group_size,
+            ln=params["final_ln"][None], invrms=inv), cost(head, None, x, head.out_dim), rel)
+    xp = pad_x_to(x, head.in_dim).contiguous()
+    _kernel_case(
+        tag, f"K4 head of the prefill, {M} rows",
+        lambda: qk.matmul_dequant_int4(xp, head.data, head.scales, head.group_size),
+        lambda: qk.matmul_dequant_int4_plain(xp, head.data, head.scales, head.group_size),
+        cost(head, None, xp, head.out_dim), rel)
+    qt = lay["qkv_w"]
+    xs = pad_x_to(torch.randn(M * max(PROMPT_LENS), H, generator=g, device=DEVICE).to(bf),
+                  qt.in_dim).contiguous()
+    _kernel_case(
+        tag, f"K5b qkv of the prefill, {xs.shape[0]} rows",
+        lambda: qk.matmul_dequant_int4_stacked(xs, qt.data, qt.scales, l, qt.group_size),
+        lambda: qk.matmul_dequant_int4_stacked_plain(xs, qt.data, qt.scales, l, qt.group_size),
+        cost(qt, l, xs, qt.out_dim), rel, iters=5)
+    del xs
+    mp = main_path_shapes()
+    tol = lambda _: TOL["bfloat16"]  # noqa: E731
+    q, ks, vs, mask, ki, vi, step, window = _decode_case(
+        2, M, Nq, Nk, D, mp["decode"]["T"], mp["decode"]["N"], mp["decode"]["pads"],
+        mp["decode"]["length"], mp["decode"]["step"], None, bf, seed=3)
+    _kernel_case(
+        tag, f"K2 decode, {Nq} query over {Nk} KV heads of {D}",
+        lambda: ak.flash_decode_frozen(q, ks, vs, mask, ki, vi, 1, step, scale=D ** -0.5),
+        lambda: ak.flash_decode_frozen_plain(q, ks, vs, mask, ki, vi, 1, step, scale=D ** -0.5),
+        _decode_cost(q, mask, ki, step, window), tol)
+    pp = mp["prefill"]
+    args = _prefill_case(M, Nq, Nk, D, pp["S"], pp["T"], pp["pads"], 0, None, bf, seed=4)
+    _kernel_case(
+        tag, f"K1 prefill, {Nq} query over {Nk} KV heads of {D}",
+        lambda: ak.flash_prefill(*args), lambda: ak.flash_prefill_plain(*args),
+        _prefill_cost(args[0], args[1], args[3], 0, None), tol, iters=5)
+    del args
+    torch.cuda.empty_cache()
+
+
+def _dense_route(table, key, cfg, route, batch, T, n_check):
+    """One weight format ("bf16", "int8", "int4") of a dense bench shape at
+    full depth on the model phase's batch: the kernel route against the
+    plain route on forced tokens over n_check chunks (SHAPE_LOGIT_TOL),
+    then the main path's run (two greedy chunks of DECODE_CHUNK) with
+    exact launch counts added to the table, the decode step under the
+    profiler, and prefill and step times beside the step's bound.
+    Returns the params."""
+    import torch
+
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    tag = f"[{key}]"
+    L, B, S = cfg.num_hidden_layers, len(PROMPT_LENS), max(PROMPT_LENS)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = _shape_params(cfg, route)
+        w_bytes = _param_bytes(params)
+        kv_bytes = 2 * L * B * cfg.num_kv_heads * T * cfg.head_dim * 2
+        log(f"{tag} {route}, {L} layers: params built on the card in "
+            f"{time.perf_counter() - t0:.1f} s, a decode step reads {w_bytes / 1e9:.3f} GB "
+            f"of weights and {kv_bytes / 1e9:.3f} GB of K/V")
+        if route == "int4":
+            _shape_kernels(f"{tag} int4 at the shape", cfg, params)
+        _run_route(params, cfg, batch, T, "kernel", n_chunks=1)        # warm-up
+        plain = _run_route(params, cfg, batch, T, "plain", n_chunks=n_check)
+        forced = _run_route(params, cfg, batch, T, "kernel", force=plain[1],
+                            n_chunks=n_check)
+        ak.reset_launches()                                             # the main path's run
+        kern = _run_route(params, cfg, batch, T, "kernel")
+        launches = dict(ak.LAUNCHES)
+        prof = _profile_decode(params, cfg, batch, T, label=f"{route}, {L} layers", tag=tag)
+    want = _dense_want(route, L, N_CHUNKS * DECODE_CHUNK)
+    log(f"{tag} {route} launches {launches} (want {want})")
+    if launches != want:
+        raise PhaseError(f"{tag} {route}: kernel launches {launches} != {want}")
+    _add_launches(table, launches)
+    _check_routes(f"{route}, {L} layers", forced, plain, SHAPE_LOGIT_TOL[key, route], tag)
+    n_tok = min(kern[1].shape[0], plain[1].shape[0])
+    same = int((kern[1][:n_tok] == plain[1][:n_tok]).all(dim=0).sum())
+    bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"{tag} {route}, {L} layers, summary: prefill {kern[2]:.2f} ms ({B}x{S} tokens), "
+        f"decode {kern[3]:.3f} wall ms/step ({B * 1e3 / kern[3]:.1f} tok/s at batch {B}); "
+        f"profiled {prof.get('wall_ms', float('nan')):.3f} wall ms/step, "
+        f"{prof.get('busy_ms', float('nan')):.3f} busy ms/step, "
+        f"{prof.get('launches', float('nan')):.0f} launches/step; bound of a step "
+        f"{bound:.3f} ms; plain route prefill {plain[2]:.2f} ms, decode {plain[3]:.3f} "
+        f"ms/step; free-running greedy tokens equal to the plain route's over the checked "
+        f"positions in {same} of {B} rows; card {CARD}")
+    torch.cuda.empty_cache()
+    return params
+
+
+def _fp32_check(key, cfg_dict, routes) -> None:
+    """A dense bench shape at 4 layers in fp32, each of `routes` (float
+    weights, or int4 / int8 of fp32 params): kernel route against plain
+    route within MODEL_LOGIT_TOL["float32"] (summation order only), and
+    identical free-running greedy tokens."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+
+    tag = f"[{key}]"
+    mp = main_path_shapes()
+    S, T = mp["prefill"]["S"], mp["prefill"]["T"]
+    cfg = parse_model_config(dict(cfg_dict, num_hidden_layers=4))
+    batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
+    with torch.inference_mode():
+        for route in routes:
+            params = _shape_params(cfg, route, dtype=torch.float32)
+            plain = _run_route(params, cfg, batch, T, "plain")
+            kern = _run_route(params, cfg, batch, T, "kernel", force=plain[1])
+            _check_routes(f"{route} weights, fp32, 4 layers", kern, plain,
+                          MODEL_LOGIT_TOL["float32"], tag)
+            if not torch.equal(_run_route(params, cfg, batch, T, "kernel")[1], plain[1]):
+                raise PhaseError(f"{tag} {route}, fp32, 4 layers: free-running greedy tokens "
+                                 f"of the kernel route differ from the plain route's")
+            log(f"{tag} {route} weights, fp32, 4 layers: free-running greedy tokens "
+                f"identical on both routes")
+            del params
+    torch.cuda.empty_cache()
+
+
+def phase_dense_shape(table: dict, key: str, routes, fp32_routes=(),
+                      n_check=SHAPE_CHECK_CHUNKS, keep=None):
+    """A dense bench shape (BENCH_SHAPES[key]) at full width and depth: the
+    fp32 checks at 4 layers (_fp32_check, `fp32_routes`), then each weight
+    format of `routes` (_dense_route). Returns the params of route `keep`
+    (the serving legs run on them), else None."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+
+    if fp32_routes:
+        _fp32_check(key, BENCH_SHAPES[key], fp32_routes)
+    cfg = parse_model_config(BENCH_SHAPES[key])
+    mp = main_path_shapes()
+    S, T = mp["prefill"]["S"], mp["prefill"]["T"]
+    batch = _left_padded_batch(S, PROMPT_LENS, cfg.vocab_size, seed=1)
+    kept = None
+    for route in routes:
+        params = _dense_route(table, key, cfg, route, batch, T, n_check)
+        if route == keep:
+            kept = params
+        del params
+        torch.cuda.empty_cache()
+    return kept
+
+
+def phase_llama32(table: dict) -> None:
+    """Llama-3.2-1B (bf16 and int4) and Llama-3.2-3B (int4), full depth."""
+    phase_dense_shape(table, "llama32_1b", ("bf16", "int4"))
+    phase_dense_shape(table, "llama32_3b", ("int4",))
+
+
+def phase_shape_serve(table: dict, key: str, params, traffic: dict, quanta) -> None:
+    """The continuous batcher (the serve phase's scheduler: capacity 16,
+    block 64, quantum 8, prefix cache) on a dense bench shape's int4
+    params: `traffic` (n_requests of prompt_len random tokens, max_new
+    greedy new tokens each, one every gap_s seconds) on each quantum of
+    `quanta` ("frozen": K8, decode_paged_steps; "stepwise": K9,
+    forward_paged), after a warm-up request: TTFT p50 and p95, whole-run
+    and steady tok/s, exact launch counts added to the table, and one
+    quantum at 16 live rows under the profiler."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from tinygpt_tpu_torch.hf.config import parse_model_config
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+
+    s, m, tag = SERVE, traffic, f"[{key}_serve]"
+    cfg = parse_model_config(BENCH_SHAPES[key])
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return [int(x) for x in rng.integers(3, V, n)]
+
+    warm = prompt(m["prompt_len"])
+    prompts = [prompt(m["prompt_len"]) for _ in range(m["n_requests"])]
+    with torch.inference_mode():
+        for quantum in quanta:
+            kname = "paged_decode_frozen" if quantum == "frozen" else "paged_decode"
+            counts = Counter()
+            b = _serving_batcher(params, cfg, counts, stepwise=quantum == "stepwise")
+            if b.allocator.kind != "native":
+                raise PhaseError(f"{tag}: the batcher's pool index is {b.allocator.kind}")
+            _drive(b, [warm], s["warm_new"])
+            torch.cuda.synchronize()
+            counts.clear()
+            ak.reset_launches()                               # this quantum's run
+            run = _drive(b, prompts, m["max_new"], m["gap_s"])
+            torch.cuda.synchronize()
+            launches = dict(ak.LAUNCHES)
+            met = _serving_metrics(run)
+            steps, adm = counts["steps"], counts["admissions"]
+            n_out = sorted(len(v) for v in run["streams"].values())
+            log(f"{tag} int4, {quantum} quantum: {m['n_requests']} requests of "
+                f"{m['prompt_len']} random tokens, {m['max_new']} new each, one every "
+                f"{m['gap_s']} s: TTFT p50 {met['ttft_p50_s']:.4f} s p95 "
+                f"{met['ttft_p95_s']:.4f} s; {run['toks']} tokens in {met['wall_s']:.3f} s = "
+                f"{met['tok_s']:.2f} tok/s whole run, {met['steady_tok_s']:.2f} tok/s steady; "
+                f"{steps} decode steps, {adm} admissions; card {CARD}")
+            if n_out != [m["max_new"]] * m["n_requests"]:
+                raise PhaseError(f"{tag} {quantum}: tokens per request {n_out}")
+            want = _dense_want("int4", L, steps, prefills=adm, attn=kname)
+            log(f"{tag} {quantum} launches {launches} (want {want})")
+            if adm != m["n_requests"] or launches != want:
+                raise PhaseError(f"{tag} {quantum}: launches {launches} != {want}")
+            _add_launches(table, launches)
+            prof = _profile_quantum(b, params, cfg, prompt, tag, (kname, "int4_gemv_kernel"))
+            if prof:
+                wall, busy, (a_ms, gemv_ms), n_launch = prof
+                log(f"{tag} {quantum} quantum of {s['quantum']} steps at {s['capacity']} live "
+                    f"rows under the profiler: wall {wall:.3f} ms/step, device busy "
+                    f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% busy), {n_launch} device "
+                    f"launches/step; {kname} {a_ms:.4f} ms/step, the int4 GEMV (K6, K7) "
+                    f"{gemv_ms:.4f} ms/step")
+            del b
+            torch.cuda.empty_cache()
+
+
+def phase_qwen25(table: dict) -> None:
+    """Qwen2.5-0.5B in bf16 and int4, full depth, then the batcher on the
+    int4 params: MIXTRAL_SERVE's traffic on the frozen and the stepwise
+    quantum."""
+    params = phase_dense_shape(table, "qwen25_05b", ("bf16", "int4"), keep="int4")
+    phase_shape_serve(table, "qwen25_05b", params, MIXTRAL_SERVE, ("frozen", "stepwise"))
+
+
+def _write_shape_dir(d: str, key: str) -> None:
+    """A model dir of a bench shape's widths, 2 layers, random bf16 weights
+    under HF names (tied: no lm_head.weight; qwen2's q/k/v biases, qwen3's
+    q_norm and k_norm) and the generated Metaspace-BPE tokenizer over the
+    whole vocab."""
+    import torch
+
+    from tinygpt_tpu_torch.hf.safetensors_io import load_safetensors
+    from tinygpt_tpu_torch.utils.fixtures import write_random_model_dir
+
+    t0 = time.perf_counter()
+    write_random_model_dir(d, dict(BENCH_SHAPES[key], num_hidden_layers=2), seed=6,
+                           dtype=torch.bfloat16, device=DEVICE)
+    names = set(load_safetensors(os.path.join(d, "model.safetensors")))
+    need = {"qwen2": "model.layers.1.self_attn.v_proj.bias",
+            "qwen3": "model.layers.1.self_attn.k_norm.weight"}[BENCH_SHAPES[key]["model_type"]]
+    if "lm_head.weight" in names or need not in names:
+        raise PhaseError(f"[{key}_engine] the dir's weights: lm_head.weight "
+                         f"{'present' if 'lm_head.weight' in names else 'absent'}, {need} "
+                         f"{'present' if need in names else 'absent'}")
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    log(f"[{key}_engine] model dir {size / 1e9:.2f} GB ({len(names)} tensors, tied head, "
+        f"{need} among them) written in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_shape_engine(d: str, key: str) -> None:
+    """GPTEngine on a bench shape's 2-layer dir `d` (tied head) in bf16 and
+    with quantization="int4", which runs AWQ by default (awq_policy) on the
+    model's qkv bias or qk norms before quantizing at group 64: every
+    kernel of the route launched, 32 tokens a prompt."""
+    import torch
+
+    from tinygpt_tpu_torch.engine import engine as engine_mod
+    from tinygpt_tpu_torch.engine.engine import GPTConfig, GPTEngine
+    from tinygpt_tpu_torch.ops import attention_kernels as ak
+    from tinygpt_tpu_torch.ops.quant import QuantizedTensor
+
+    tag, max_tokens = f"[{key}_engine]", 32
+    prompts = ["The meaning of life is", "Once upon a time,",
+               "In a shocking finding, scientists discovered",
+               "The best way to learn programming is"]
+    real_awq, awq_calls = engine_mod.awq_quantize_params, []
+
+    def awq(*a, **kw):
+        awq_calls.append(1)
+        return real_awq(*a, **kw)
+
+    runs = {"bf16": ({}, ("flash_prefill", "flash_decode_frozen")),
+            "int4 (AWQ by default)": (dict(quantization="int4"), tuple(_dense_want(
+                "int4", 1, 1)))}
+    engine_mod.awq_quantize_params = awq
+    try:
+        for label, (kw, kernels) in runs.items():
+            t0 = time.perf_counter()
+            eng = GPTEngine(GPTConfig(model_dir=d, max_tokens=max_tokens, device=DEVICE, **kw))
+            eng.prepare()
+            t_load = time.perf_counter() - t0
+            head = eng.ctx.params["lm_head"]
+            if kw and not (isinstance(head, QuantizedTensor) and head.bits == 4
+                           and awq_calls):
+                raise PhaseError(f"{tag} {label}: head {head!r}, AWQ calls {len(awq_calls)}")
+            ak.reset_launches()
+            t0 = time.perf_counter()
+            outs = eng.generate_sync(prompts)
+            torch.cuda.synchronize()
+            t_gen = time.perf_counter() - t0
+            launches = dict(ak.LAUNCHES)
+            del eng
+            torch.cuda.empty_cache()
+            n = [len(o.token_ids) for o in outs]
+            log(f"{tag} {label}: prepare() {t_load:.1f} s; generate_sync of {len(prompts)} "
+                f"prompts: {sum(n)} tokens in {t_gen * 1e3:.0f} ms; launches {launches}; "
+                f"first output {outs[0].text[:40]!r}")
+            missing = [k for k in kernels if not launches.get(k)]
+            if n != [max_tokens] * len(prompts) or missing:
+                raise PhaseError(f"{tag} {label}: {n} tokens, {missing} never launched")
+    finally:
+        engine_mod.awq_quantize_params = real_awq
+
+
 # -- K13 and streaming ---------------------------------------------------------
 
 
@@ -5285,7 +5868,7 @@ def phase_stream(table: dict) -> None:
 
 MESH_RANKS = 2
 MESH_TIMEOUT_S = 420  # a rank that has not finished by then fails the phase
-MESH_LAYERS = 32      # the full-width tp = 2 leg's depth
+MESH_LAYERS = 16      # the full-width tp = 2 leg's depth (cut from 32 for the run's time)
 MESH_SMALL = dict(MISTRAL_7B, num_hidden_layers=2)
 MESH_TP_SHAPES = dict(qkv=3072, o_in=2048, gate_up=2 * 7168, down_in=7168, vocab=16384)
 # the 2-layer mesh legs against one rank on the same params and inputs, max
@@ -5296,23 +5879,6 @@ MESH_TP_SHAPES = dict(qkv=3072, o_in=2048, gate_up=2 * 7168, down_in=7168, vocab
 # rank's lost expert sum or a foreign row not zeroed fails
 MESH_PIPE_TOL = 0.1
 MESH_MOE_TOL = 0.15
-
-
-def _mesh_kernel_case(tag, name, kern, plain, cost, tol, iters=20):
-    """One kernel at a tp = 2 local shape against its plain version: max
-    abs error within `tol`, timed beside the plain version and the bound."""
-    import torch
-
-    got, want = kern(), plain()
-    err = (got.float() - want.float()).abs().max().item()
-    if not math.isfinite(err) or err > tol:
-        raise PhaseError(f"{tag}: {name} differs from its plain version by {err} > {tol}")
-    ms, plain_ms = cuda_time_ms(kern, iters), cuda_time_ms(plain, iters)
-    b_ms, by = bound_ms(*cost, "bfloat16")
-    log(f"[mesh] {tag}: {name} max_abs_err {err:.4g} (tol {tol}), {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
-    del got, want
-    torch.cuda.synchronize()
 
 
 def phase_mesh_kernels() -> None:
@@ -5342,23 +5908,23 @@ def phase_mesh_kernels() -> None:
     sin = torch.rand(M, D, generator=g, device=DEVICE)
     qd, qs = _int4_stack(g, L, H, sh["qkv"], INT4_GROUP)
     kw = dict(ln=ln, invrms=inv, rope_cos=cos, rope_sin=sin, rope_heads=Nq + Nk, rope_dim=D)
-    _mesh_kernel_case(
-        "qkv, 16 + 2 x 4 local heads", "matmul_dequant_int4_stacked_fused",
+    _kernel_case(
+        "[mesh] qkv, 16 + 2 x 4 local heads", "matmul_dequant_int4_stacked_fused",
         lambda: qk.matmul_dequant_int4_stacked_fused(x, qd, qs, 1, INT4_GROUP, **kw),
         lambda: qk.matmul_dequant_int4_stacked_fused_plain(x, qd, qs, 1, INT4_GROUP, **kw),
         (_nbytes(qd[1], qs[1], x) + M * sh["qkv"] * 2, 2.0 * M * H * sh["qkv"]), tol)
     a = torch.randn(M, sh["o_in"], generator=g, device=DEVICE).to(torch.bfloat16)
     od, os_ = _int4_stack(g, L, sh["o_in"], H, INT4_GROUP)
-    _mesh_kernel_case(
-        "o, 2,048 local rows, residual off", "matmul_dequant_int4_stacked_fused",
+    _kernel_case(
+        "[mesh] o, 2,048 local rows, residual off", "matmul_dequant_int4_stacked_fused",
         lambda: qk.matmul_dequant_int4_stacked_fused(a, od, os_, 1, INT4_GROUP),
         lambda: qk.matmul_dequant_int4_stacked_fused_plain(a, od, os_, 1, INT4_GROUP),
         (_nbytes(od[1], os_[1], a) + M * H * 2, 2.0 * M * sh["o_in"] * H), tol)
     gd, gs = _int4_stack(g, L, H, sh["gate_up"], INT4_GROUP)
     dd, ds = _int4_stack(g, L, sh["down_in"], H, INT4_GROUP)
     for residual in (True, False):
-        _mesh_kernel_case(
-            f"MLP at I / 2 = 7,168, residual {'on' if residual else 'off'}",
+        _kernel_case(
+            f"[mesh] MLP at I / 2 = 7,168, residual {'on' if residual else 'off'}",
             "mlp_fused_int4_stacked",
             lambda: qk.mlp_fused_int4_stacked(x, gd, gs, dd, ds, ln, inv, 1, INT4_GROUP,
                                               residual=residual),
@@ -5370,16 +5936,16 @@ def phase_mesh_kernels() -> None:
     q, ks, vs, mask, ki, vi, step, window = _decode_case(
         L, M, Nq, Nk, D, mp["T"], mp["N"], mp["pads"], mp["length"], mp["step"], None,
         torch.bfloat16, seed=3)
-    _mesh_kernel_case(
-        "decode, 16 query over 4 KV heads", "flash_decode_frozen",
+    _kernel_case(
+        "[mesh] decode, 16 query over 4 KV heads", "flash_decode_frozen",
         lambda: ak.flash_decode_frozen(q, ks, vs, mask, ki, vi, 1, step, scale=D ** -0.5),
         lambda: ak.flash_decode_frozen_plain(q, ks, vs, mask, ki, vi, 1, step, scale=D ** -0.5),
         _decode_cost(q, mask, ki, step, window), TOL["bfloat16"])
     pp = main_path_shapes()["prefill"]
     args = _prefill_case(M, Nq, Nk, D, pp["S"], pp["T"], pp["pads"], 0, None, torch.bfloat16,
                          seed=4)
-    _mesh_kernel_case(
-        "prefill, 16 query over 4 KV heads", "flash_prefill",
+    _kernel_case(
+        "[mesh] prefill, 16 query over 4 KV heads", "flash_prefill",
         lambda: ak.flash_prefill(*args), lambda: ak.flash_prefill_plain(*args),
         _prefill_cost(args[0], args[1], args[3], 0, None), TOL["bfloat16"], iters=5)
     del args
@@ -5411,8 +5977,8 @@ def _mesh_local_experts_case() -> None:
         raise PhaseError("[mesh] K11b on local experts: a row routed away is not 0")
     tol = QUANT_TOL["bfloat16"] * want.float().abs().max().item()
     local = mk.local_experts(idx, (n, n))[0]
-    _mesh_kernel_case(
-        f"experts {n}..{2 * n - 1} of 8 (sp = 2), 4 of 8 rows routed away",
+    _kernel_case(
+        f"[mesh] experts {n}..{2 * n - 1} of 8 (sp = 2), 4 of 8 rows routed away",
         "moe_gather_matmul_int4", kern, plain, _moe_cost(w, 0, local, x, OUT), tol)
 
 
@@ -5519,11 +6085,8 @@ def _mesh_tp_full_width(rank: int, res: dict) -> None:
     _mesh_reset()                                                     # the main path's run
     mesh = _run_route(lp, lcfg, batch, T, "kernel", n_chunks=1, force=fed)
     launches = _mesh_launches()
-    L, n = MESH_LAYERS, DECODE_CHUNK
-    want = {"flash_prefill": L, "matmul_dequant_int4_stacked": 4 * L,
-            "matmul_dequant_int4": 1, "flash_decode_frozen": L * n,
-            "matmul_dequant_int4_stacked_fused": (2 * L + 1) * n,
-            "mlp_fused_int4_stacked": L * n}
+    L = MESH_LAYERS
+    want = _dense_want("int4", L, DECODE_CHUNK)
     log(f"{tag} rank {rank}: launches {launches} (want {want})")
     if launches != want:
         raise PhaseError(f"{tag} rank {rank}: launches {launches} != {want}")
@@ -5980,6 +6543,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed("mixtral_bf16", phase_mixtral, table, None)
         torch.cuda.empty_cache()
+        params4 = timed("qwen3", phase_dense_shape, table, "qwen3_17b", ("bf16", "int8", "int4"),
+                        ("float", "int4"), SHAPE_CHECK_CHUNKS, "int4")
+        timed("qwen3_serve", phase_shape_serve, table, "qwen3_17b", params4, SERVE, ("frozen",))
+        del params4
+        torch.cuda.empty_cache()
+        timed("qwen25", phase_qwen25, table)
+        timed("llama32", phase_llama32, table)
+        timed("moe_8x1b", phase_mixtral, table, 4, "moe_8x1b", SHAPE_CHECK_CHUNKS)
+        torch.cuda.empty_cache()
         from tinygpt_tpu_torch.ops import cuda_build
 
         cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -6006,6 +6578,14 @@ def main() -> int:
             timed("mixtral_server", phase_server, d)
         finally:
             shutil.rmtree(d, ignore_errors=True)
+        for key, short in (("qwen3_17b", "qwen3"), ("qwen25_05b", "qwen25")):
+            d = tempfile.mkdtemp(prefix=f"smoke_{short}_", dir=cuda_build.BUILD_DIR)
+            try:
+                timed(f"{short} dir", _write_shape_dir, d, key)
+                timed(f"{short}_engine", phase_shape_engine, d, key)
+                timed(f"{short}_server", phase_server, d)
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
         torch.cuda.empty_cache()
         timed("k13", phase_k13_kernels, table)
         timed("stream", phase_stream, table)
@@ -6014,8 +6594,9 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"[time] all phases {time.perf_counter() - t_start:.1f} s; by phase (s): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    finally:  # also after a failure: the phases that ran, and their seconds
+        log(f"[time] all phases {time.perf_counter() - t_start:.1f} s; by phase (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log("[e4m3] " + json.dumps(E4M3_ROWS))
     log(env["smi"])
     log(json.dumps({"kernels": list(table.values())}))

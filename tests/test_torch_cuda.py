@@ -88,6 +88,7 @@ DECODE_CASES = [
     (128, torch.bfloat16, 8, 1, 4, 300, 16, (0, 100), 300, 15, 20),  # G = 8
     (128, torch.bfloat16, 128, 8, 2, 200, 8, (0, 77), 150, 7, None),  # G = 16: 2 blocks a head
     (64, torch.float32, 24, 2, 2, 100, 4, (5, 0), 90, 3, 30),        # G = 12: 2 blocks of 6
+    (64, torch.bfloat16, 14, 2, 2, 576, 32, (0, 112, 212, 384), 544, 31, None),  # G = 7
 ]
 
 
@@ -260,6 +261,8 @@ FUSED_CASES = [
     ("ln_rope", 2, 256, 4, 2, 32, torch.float32),
     ("ln_bias_rope_qk", 4, 256, 6, 2, 128, torch.float32),
     ("ln_rope_qk", 4, 2048, 16, 8, 128, torch.bfloat16),  # qwen3-1.7B qkv
+    ("ln_bias_rope", 4, 896, 14, 2, 64, torch.bfloat16),  # Qwen2.5-0.5B qkv: G = 7, rows padded
+    ("ln_rope", 4, 3072, 24, 8, 128, torch.bfloat16),     # Llama-3.2-3B qkv: G = 3
     ("ln_rope_qk", 3, 256, 4, 2, 64, torch.bfloat16),
 ]
 
@@ -299,6 +302,7 @@ def test_int4_fused_kernel_matches_plain(dev, case):
 
 
 @pytest.mark.parametrize("M,H,I,dtype", [(4, 1024, 3072, torch.bfloat16),
+                                         (4, 896, 4864, torch.bfloat16),  # Qwen2.5-0.5B
                                          (1, 256, 320, torch.float32),
                                          (7, 192, 512, torch.bfloat16),
                                          (32, 512, 768, torch.float32)])
@@ -598,6 +602,8 @@ PAGED_CASES = [
     (128, torch.bfloat16, 16, 8, 64, 4, 40, 4, (200, 37, 129), (0, 0, 3), (), (0, 3),
      None, True),                                         # G = 16 (Llama-3.1-405B)
     (64, torch.float16, 10, 1, 16, 6, 20, 4, (90, 17), (2, 0), (), (1,), 33, True),  # G = 10
+    (64, torch.bfloat16, 7, 2, 64, 16, 40, 8, (512, 700, 300), (0, 0, 0), (), (0, 7), None,
+     False),                                              # G = 7 (Qwen2.5-0.5B)
 ]
 
 

@@ -51,6 +51,10 @@ def metaspace_bpe_vocab(vocab_size: int) -> Tuple[Dict[str, int], List[Tuple[str
         (("▁" + a, b) for a in low for b in low),
         ((a + b, c) for a in low for b in low for c in low),
         (("▁" + a + b, c) for a in low for b in low for c in low),
+        # four-letter pieces: only a vocab past 36,858 entries (Qwen's 151,936)
+        # reaches them, so that every id a model of that vocab draws decodes
+        ((a + b + c, d) for a in low for b in low for c in low for d in low),
+        (("▁" + a + b + c, d) for a in low for b in low for c in low for d in low),
     )
     for left, right in pairs:
         if not add(left + right):
@@ -92,12 +96,14 @@ def random_hf_weights(hf_config: dict, seed: int = 0,
                       dtype: torch.dtype = torch.bfloat16,
                       device="cpu") -> Dict[str, torch.Tensor]:
     """Random weights under HF names, N(0, 0.02²) with unit norms, for a
-    config.json dict: a llama family's ([out, in] projections; mixtral's
-    MLP as block_sparse_moe.gate and block_sparse_moe.experts.{e}.w1 / w2 /
-    w3) or GPT-2's (under `transformer.`, Conv1D weights [in, out], biases
-    N(0, 0.02²) too). The head row of EOS (lm_head's, or GPT-2's tied wte row) is
-    zero, so a random model never stops early under greedy decoding (its
-    logit is 0, far below the maximum over the vocab)."""
+    config.json dict: a llama family's ([out, in] projections; qwen2's q, k
+    and v biases, N(0, 0.02²); qwen3's per-head q_norm and k_norm, unit;
+    mixtral's MLP as block_sparse_moe.gate and block_sparse_moe.experts.{e}.w1
+    / w2 / w3) or GPT-2's (under `transformer.`, Conv1D weights [in, out],
+    biases N(0, 0.02²) too). The head row of EOS (lm_head's, or the
+    embedding's where the head is tied to it) is zero, so a random model
+    never stops early under greedy decoding (its logit is 0, far below the
+    maximum over the vocab)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if hf_config.get("model_type") == "gpt2":
         return _gpt2_weights(hf_config, gen, dtype, device)
@@ -115,7 +121,9 @@ def random_hf_weights(hf_config: dict, seed: int = 0,
         return torch.ones(n, dtype=dtype, device=device)
 
     out = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": ones(H)}
-    if not hf_config.get("tie_word_embeddings", False):
+    if hf_config.get("tie_word_embeddings", False):
+        out["model.embed_tokens.weight"][EOS_ID] = 0
+    else:
         head = w(V, H)
         head[EOS_ID] = 0
         out["lm_head.weight"] = head
@@ -129,6 +137,13 @@ def random_hf_weights(hf_config: dict, seed: int = 0,
             p + "self_attn.v_proj.weight": w(Nk * D, H),
             p + "self_attn.o_proj.weight": w(H, Nq * D),
         })
+        if hf_config.get("model_type") == "qwen2":
+            out.update({p + "self_attn.q_proj.bias": w(Nq * D),
+                        p + "self_attn.k_proj.bias": w(Nk * D),
+                        p + "self_attn.v_proj.bias": w(Nk * D)})
+        if hf_config.get("model_type") == "qwen3":
+            out.update({p + "self_attn.q_norm.weight": ones(D),
+                        p + "self_attn.k_norm.weight": ones(D)})
         mixtral = hf_config.get("model_type") == "mixtral"
         E = hf_config.get("num_local_experts", 8) if mixtral else 0
         if E:
