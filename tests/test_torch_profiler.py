@@ -104,7 +104,7 @@ def test_layer_norm_is_exported_and_matches_jax():
 
 def test_trace_writes_the_spans_and_the_operators(tmp_path):
     with profiler.trace(str(tmp_path), annotate="whole") as t:
-        with profiler.annotation("inner"):
+        with profiler.span("inner"):
             y = torch.randn(16, 16) @ torch.randn(16, 16)
     assert y.shape == (16, 16)
     assert os.path.dirname(t["path"]) == str(tmp_path)

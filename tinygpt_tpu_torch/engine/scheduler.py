@@ -42,6 +42,18 @@ that the host mutates afterwards could be read after the mutation), and
 a quantum's tokens come back through a pinned buffer and an event, so
 that reading quantum k does not wait for quantum k+1, already issued.
 
+Spans and counters: with utils/profiler's spans on, each step records
+`tg.step`, and inside it `tg.drain` (a quantum read before an admission),
+`tg.admit` with `tg.admit.prefill` and `tg.admit.readback` (the host
+waiting for the first token), `tg.decode.issue` (the host enqueuing a
+quantum, attribute `q` its sequence number), `tg.decode.readback` (the
+host waiting for quantum `q`'s tokens) and, for a plain quantum,
+`tg.decode.emit` (their bookkeeping and events); none per token. `stats`
+counts, always, the prefill forwards this rank ran (one an admission or a
+chunk), the plain quanta, their decode steps, their live row-steps and the
+K/V slots their attention reads (step t of a row at pool length l reads
+l + t + 1).
+
 Sharded serving (mesh_shape = (dp, sp, tp) or (dp, tp)) runs the batcher
 as one rank of an SPMD world (parallel/), as the JAX batcher lays it out:
 
@@ -96,6 +108,7 @@ from tinygpt_tpu_torch.parallel.sharding import (
     shard_model,
 )
 from tinygpt_tpu_torch.utils.logging import get_logger
+from tinygpt_tpu_torch.utils.profiler import note, span
 
 log = get_logger("engine.scheduler")
 
@@ -268,6 +281,11 @@ class ContinuousBatcher:
         # accepted drafts per verify = emitted / verifies - 1)
         self.spec_emitted = 0
         self.spec_verifies = 0
+        # the counters of the module docstring, and the sequence number of
+        # the last quantum issued (plain or speculative), spans' `q`
+        self.stats = dict(admissions=0, quanta=0, decode_steps=0, row_steps=0,
+                          kv_slots=0)
+        self._q = 0
         # auto-off policy state (SchedulerConfig.spec_auto_off)
         self._spec_disabled = False
         self._spec_win_emitted = 0
@@ -398,6 +416,10 @@ class ContinuousBatcher:
 
     def step(self) -> List[TokenEvent]:
         """Admit (prefill — whole or one chunk) if possible, then decode."""
+        with span("tg.step"):
+            return self._step()
+
+    def _step(self) -> List[TokenEvent]:
         events: List[TokenEvent] = []
         if (self._admitting is not None or self.waiting
                 or not self.running):
@@ -440,7 +462,8 @@ class ContinuousBatcher:
             if admitted:
                 # one read-back for the whole admission burst
                 for req in admitted:
-                    tok = int(req._pending_token.cpu()[0])
+                    with span("tg.admit.readback", rid=req.request_id):
+                        tok = int(req._pending_token.cpu()[0])
                     req._pending_token = None
                     if req.row >= 0:
                         self._tokens[req.row] = tok
@@ -553,6 +576,10 @@ class ContinuousBatcher:
         Prompts are trailing-padded (slot == logical position for every
         row), which is what makes block contents pad-independent and
         therefore shareable across prompts of different lengths."""
+        with span("tg.admit", rid=req.request_id, prompt=len(req.prompt_ids)):
+            return self._admit(req)
+
+    def _admit(self, req: Request) -> bool:
         sc = self.sc
         bs = sc.block_size
         S = len(req.prompt_ids)
@@ -605,20 +632,23 @@ class ContinuousBatcher:
         req.row = row
         req.blocks = shared + private
         self.running[row] = req
+        note(prefix=p_len)
 
         unit = math.lcm(sc.prefill_bucket, bs, self._sp)
         S_in = max(unit, _round_to(S_suf, unit))  # padded suffix input
         tok_dev = None
         if self._owns(row):
             ids, positions, valid = self._prompt_inputs(suffix, p_len, S_in)
-            tok_dev = _admit_program(
-                self.model.forward, self.params, self._run_cfg, self.state,
-                self._put(np.asarray(shared, np.int64)),
-                self._put(np.asarray(private, np.int64)),
-                ids, positions, valid, self._put(np.asarray([S_suf - 1], np.int64)),
-                self._sampler_inputs(req.sampler), self._gen,
-                attn_impl=sc.attn_impl, block_size=bs,
-            )
+            self.stats["admissions"] += 1
+            with span("tg.admit.prefill", rid=req.request_id):
+                tok_dev = _admit_program(
+                    self.model.forward, self.params, self._run_cfg, self.state,
+                    self._put(np.asarray(shared, np.int64)),
+                    self._put(np.asarray(private, np.int64)),
+                    ids, positions, valid, self._put(np.asarray([S_suf - 1], np.int64)),
+                    self._sampler_inputs(req.sampler), self._gen,
+                    attn_impl=sc.attn_impl, block_size=bs,
+                )
         tok_dev = self._owner_token(row, tok_dev)
         # register newly completed whole blocks for future reuse
         if sc.enable_prefix_cache:
@@ -683,6 +713,11 @@ class ContinuousBatcher:
         the chunk program gathers the request's blocks so far into a
         fixed-size dense workspace."""
         req = self._admitting
+        with span("tg.admit", rid=req.request_id, prompt=len(req.prompt_ids),
+                  prefix=req._chunk_pos):
+            return self._admit_chunk(req)
+
+    def _admit_chunk(self, req: Request) -> List[TokenEvent]:
         sc = self.sc
         bs = sc.block_size
         S = len(req.prompt_ids)
@@ -705,13 +740,15 @@ class ContinuousBatcher:
                 req.prompt_ids[pos0 : pos0 + n_tok], pos0, S_in)
             table = np.zeros(sc.max_blocks_per_seq, np.int64)
             table[: len(req.blocks)] = req.blocks
-            tok_dev = _admit_chunk_program(
-                self.model.forward, self.params, self._run_cfg, self.state,
-                self._put(table), pos0, self._put(np.asarray(private, np.int64)),
-                ids, positions, valid, self._put(np.asarray([n_tok - 1], np.int64)),
-                self._sampler_inputs(req.sampler), self._gen,
-                attn_impl=sc.attn_impl, block_size=bs,
-            )
+            self.stats["admissions"] += 1
+            with span("tg.admit.prefill", rid=req.request_id):
+                tok_dev = _admit_chunk_program(
+                    self.model.forward, self.params, self._run_cfg, self.state,
+                    self._put(table), pos0, self._put(np.asarray(private, np.int64)),
+                    ids, positions, valid, self._put(np.asarray([n_tok - 1], np.int64)),
+                    self._sampler_inputs(req.sampler), self._gen,
+                    attn_impl=sc.attn_impl, block_size=bs,
+                )
         tok_dev = self._owner_token(req.row, tok_dev)
         req._chunk_pos = pos0 + n_tok
         if not final:
@@ -722,7 +759,8 @@ class ContinuousBatcher:
         if sc.enable_prefix_cache:
             for j in range(len(req._hashes)):
                 alloc.register_prefix(req._hashes[j], req.blocks[j])
-        tok = int(tok_dev.cpu()[0])
+        with span("tg.admit.readback", rid=req.request_id):
+            tok = int(tok_dev.cpu()[0])
         row = req.row  # reserved at _start_admission
         self.running[row] = req
         self._set_row(row, req)
@@ -859,15 +897,18 @@ class ContinuousBatcher:
             ctx[row, : len(toks)] = toks
             clen[row] = len(toks)
         sampler = None if self._all_greedy() else self._sampler_params_dev()
-        packed = _decode_quantum_spec(
-            self.model.decode_paged_spec_steps, self.params, self._run_cfg, self.state,
-            self._put(self._rows(self._tokens)), self._put(self._rows(ctx)),
-            self._put(self._rows(clen)), sampler, self._gen,
-            n_rounds=n_rounds, gamma=gamma, ngram=max(1, sc.spec_ngram),
-            attn_impl=sc.attn_impl)
+        self._q += 1
+        with span("tg.decode.issue", q=self._q, rows=len(safe), steps=n_rounds):
+            packed = _decode_quantum_spec(
+                self.model.decode_paged_spec_steps, self.params, self._run_cfg, self.state,
+                self._put(self._rows(self._tokens)), self._put(self._rows(ctx)),
+                self._put(self._rows(clen)), sampler, self._gen,
+                n_rounds=n_rounds, gamma=gamma, ngram=max(1, sc.spec_ngram),
+                attn_impl=sc.attn_impl)
         # every dp shard's packed rows, shard by shard
-        flat = self._finish_fetch(self._start_fetch(
-            all_gather(packed, self._dp_group))).reshape(self._dp, -1)
+        fetch = self._start_fetch(all_gather(packed, self._dp_group))
+        with span("tg.decode.readback", q=self._q):
+            flat = self._finish_fetch(fetch).reshape(self._dp, -1)
         Bl = B // self._dp
         n_tok = n_rounds * Bl * S
         toks_h = np.concatenate([f[:n_tok].reshape(n_rounds, Bl, S) for f in flat], axis=1)
@@ -947,16 +988,25 @@ class ContinuousBatcher:
         # chained input tokens stay ON THE DEVICE between pipelined quanta
         tok_in = (self._tokens_dev if self._tokens_dev is not None
                   else self._put(self._rows(self._tokens)))
-        toks_seq = self._decode_fn(
-            self.params, self._run_cfg, self.state, tok_in, self._sampler_params_dev(),
-            self._gen, n_steps=n_steps, all_greedy=all_greedy,
-            attn_impl=self.sc.attn_impl,
-        )
+        n_rows = len(rows_live)
+        st = self.stats
+        st["quanta"] += 1
+        st["decode_steps"] += n_steps
+        st["row_steps"] += n_rows * n_steps
+        st["kv_slots"] += (n_steps * int(np.sum(self._lengths[rows_live]))
+                           + n_rows * n_steps * (n_steps + 1) // 2)
+        self._q += 1
+        with span("tg.decode.issue", q=self._q, rows=n_rows, steps=n_steps):
+            toks_seq = self._decode_fn(
+                self.params, self._run_cfg, self.state, tok_in, self._sampler_params_dev(),
+                self._gen, n_steps=n_steps, all_greedy=all_greedy,
+                attn_impl=self.sc.attn_impl,
+            )
         self._lengths[self._active] += n_steps
         snapshot = {row: (self.running[row], safe.get(row, 0))
                     for row in rows_live}
         prev, self._inflight = self._inflight, (
-            self._start_fetch(self._all_rows(toks_seq)), n_steps, snapshot)
+            self._start_fetch(self._all_rows(toks_seq)), n_steps, snapshot, self._q)
         self._tokens_dev = toks_seq[-1]  # this shard's rows
         if prev is not None:
             # read the PREVIOUS quantum while this one executes
@@ -969,7 +1019,8 @@ class ContinuousBatcher:
         if self._inflight is None:
             return []
         prev, self._inflight = self._inflight, None
-        return self._process_quantum(prev)
+        with span("tg.drain", q=prev[3]):
+            return self._process_quantum(prev)
 
     def _process_quantum(self, inflight) -> List[TokenEvent]:
         """Read one issued quantum's tokens and emit its events. Rows
@@ -978,24 +1029,26 @@ class ContinuousBatcher:
         prefill overwrites those slots after the stale writes, and
         registered prefix blocks are never written by decode (slots past
         the prompt land in later blocks)."""
-        fetch, n_steps, snapshot = inflight
+        fetch, n_steps, snapshot, q = inflight
         events: List[TokenEvent] = []
-        toks_host = self._finish_fetch(fetch)  # [n_steps, B]
-        for row, (req, m) in snapshot.items():
-            for step in range(n_steps):
-                if req.finished:
-                    break
-                if step >= m:
-                    # ran out of owned storage mid-quantum: pool exhausted
-                    req.finished = True
-                    req.finish_reason = "length"
-                    events.append(TokenEvent(req.request_id, None, True,
-                                             "length"))
-                    self.release(req)
-                    break
-                tok = int(toks_host[step, row])
-                self._tokens[row] = tok
-                events.extend(self._emit(req, tok))
+        with span("tg.decode.readback", q=q):
+            toks_host = self._finish_fetch(fetch)  # [n_steps, B]
+        with span("tg.decode.emit", q=q):
+            for row, (req, m) in snapshot.items():
+                for step in range(n_steps):
+                    if req.finished:
+                        break
+                    if step >= m:
+                        # ran out of owned storage mid-quantum: pool exhausted
+                        req.finished = True
+                        req.finish_reason = "length"
+                        events.append(TokenEvent(req.request_id, None, True,
+                                                 "length"))
+                        self.release(req)
+                        break
+                    tok = int(toks_host[step, row])
+                    self._tokens[row] = tok
+                    events.extend(self._emit(req, tok))
         return events
 
     def _emit(self, req: Request, tok: Optional[int]) -> List[TokenEvent]:

@@ -118,6 +118,7 @@ from tinygpt_tpu_torch.ops.rope import (
 )
 from tinygpt_tpu_torch.ops.sampling import NEG_INF, masked_logits_batched
 from tinygpt_tpu_torch.parallel.distributed import all_gather, all_reduce
+from tinygpt_tpu_torch.utils.profiler import span
 
 
 def _check_weights(params: Dict) -> None:
@@ -467,7 +468,8 @@ def _moe_ffn_routed(h: torch.Tensor, w_top: torch.Tensor, idx: torch.Tensor,
     eid = idx.reshape(T * k)
     order = torch.sort(eid, stable=True).indices
     x_s = h.reshape(T, H)[order // k]                              # [T*k, H]
-    counts = torch.bincount(eid, minlength=gw.shape[0]).tolist()
+    with span("tg.moe.group"):   # the host waits for the routing here
+        counts = torch.bincount(eid, minlength=gw.shape[0]).tolist()
     o = torch.zeros((T * k, dw.shape[-1]), dtype=h.dtype, device=h.device)
     start = 0
     for e, n in enumerate(counts[: gw.shape[0]]):

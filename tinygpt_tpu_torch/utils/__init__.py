@@ -1,4 +1,3 @@
 from tinygpt_tpu_torch.utils.logging import get_logger
-from tinygpt_tpu_torch.utils.timer import Timer
 
-__all__ = ["get_logger", "Timer"]
+__all__ = ["get_logger"]

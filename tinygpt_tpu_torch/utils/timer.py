@@ -1,31 +1,10 @@
-"""Wall-clock timing helpers (reference: TinyTorch Utils/Timer.h usage in
+"""Wall-clock timing helper (reference: TinyTorch Utils/Timer.h usage in
 examples/inference/main.cpp:97-115)."""
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from dataclasses import dataclass, field
-
-
-@dataclass
-class Timer:
-    """Accumulating stopwatch with named phases."""
-
-    phases: dict = field(default_factory=dict)
-
-    @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] = self.phases.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
-
-    def elapsed_ms(self, name: str) -> float:
-        return self.phases.get(name, 0.0) * 1e3
 
 
 @contextmanager
